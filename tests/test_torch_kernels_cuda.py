@@ -1,0 +1,79 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on a card.
+
+Every test here is marked ``cuda`` and skips without a card (the kernels
+have no CPU mode). This file imports only torch and the port, so it runs on
+a machine without JAX:
+
+    python -m pytest -m cuda tests/test_torch_kernels_cuda.py
+
+chip_smoke.py holds the same kernels against the same plain versions at the
+main path's full shapes.
+"""
+
+import pytest
+import torch
+
+from triforce_tpu_torch.ops import flash_decode as tfd
+from triforce_tpu_torch.ops import retrieval_kernel as trk
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _randn(dev, seed, *shape):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("gt,tn,k_len,s,d", [(1, 1, 1000, 1100, 128),
+                                             (7, 7, 4096, 4103, 128),
+                                             (8, 8, 0, 64, 128),
+                                             (200, 200, 777, 1000, 128),
+                                             (16, 4, 333, 400, 64)])
+def test_flash_decode_matches_plain(dev, gt, tn, k_len, s, d):
+    q, kn, vn = (_randn(dev, 0, 4, gt, d), _randn(dev, 1, 4, tn, d),
+                 _randn(dev, 2, 4, tn, d))
+    k, v = _randn(dev, 3, 4, s, d), _randn(dev, 4, 4, s, d)
+    k[:, k_len:] = 50.0      # stale slots past k_len must never be read
+    mask = tfd.causal_mask(gt, tn, 1, dev) if gt == tn else \
+        torch.ones((gt, tn), dtype=torch.bool, device=dev)
+    kl = torch.tensor(k_len, dtype=torch.int32, device=dev)
+    before = tfd.flash_decode_append.launches
+    out = tfd.flash_decode_append(q, k, v, kn, vn, kl, mask)
+    ref = tfd.flash_decode_append_plain(q, k, v, kn, vn, kl, mask)
+    torch.cuda.synchronize()
+    assert tfd.flash_decode_append.launches == before + 1
+    # bf16 p rounded against split-local maxima: the error shrinks as
+    # 1/sqrt(keys); chip_smoke.py states the same bound
+    tol = 0.05 / (k_len + tn) ** 0.5
+    assert (out - ref).abs().max().item() <= tol
+
+
+def test_flash_decode_rejects_fp32_on_cuda(dev):
+    """A CUDA tensor the kernel does not take raises; it never falls back to
+    the plain version."""
+    q = torch.zeros((2, 1, 128), device=dev)
+    mask = torch.ones((1, 1), dtype=torch.bool, device=dev)
+    with pytest.raises(TypeError):
+        tfd.flash_decode_append(q, q, q, q, q, 0, mask)
+
+
+@pytest.mark.parametrize("g,chunk,prefill", [(1, 8, 2048), (2, 4, 1000),
+                                             (4, 16, 512)])
+def test_chunk_scores_matches_plain(dev, g, chunk, prefill):
+    q = _randn(dev, 5, 4, g, 128)
+    k = _randn(dev, 6, 4, 3000, 128)
+    k[:, prefill:] = 50.0    # past the live prefill: never read
+    before = trk.chunk_scores.launches
+    out = trk.chunk_scores(q, k, chunk=chunk, prefill=prefill)
+    ref = trk.chunk_scores_plain(q, k, chunk=chunk, prefill=prefill)
+    torch.cuda.synchronize()
+    assert trk.chunk_scores.launches == before + 1
+    # the same fp32 products summed in another order
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)

@@ -1,0 +1,533 @@
+"""Execution engine — the port of ``triforce_tpu/engine.py``.
+
+The JAX engine compiles each whole speculation round (and whole
+generations) into one XLA program with ``lax.while_loop``s. In eager
+PyTorch those loops are host loops that launch device work and read back
+only what the control flow needs:
+
+  * the middle (drafter <-> retrieval-cache) loop reads its accept outcome
+    once per trip (``middle_trips=0`` loops until gamma proposals);
+  * the outer verify reads its accept outcome once per step;
+  * the autoregressive loop reads nothing until the end.
+
+Random draws come from the state's ``torch.Generator``. The caches are
+updated in place (see ``cache.py``); a state is not reusable after a step
+unless it was cloned first (``TriForceState.clone``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .cache import (KVCache, RetrievalCache, StreamingCache, init_kv,
+                    init_retrieval, init_streaming, retrieval_tail_refresh,
+                    streaming_evict_for_spec, streaming_evict_prefill)
+from .config import ModelConfig, SpecConfig, resolve_device
+from .models import llama
+from .ops import sampling
+
+JUNK_TOKEN = 100  # the reference pads spec buffers with token id 100
+
+
+def _as_eos_tuple(eos_token_id) -> tuple:
+    """Normalize an EOS spec to a tuple of ids."""
+    if isinstance(eos_token_id, (tuple, list)):
+        return tuple(int(e) for e in eos_token_id)
+    return (int(eos_token_id),)
+
+
+def _is_eos(tok, eos_ids: tuple):
+    """Elementwise membership of ``tok`` in the EOS id tuple."""
+    m = tok == eos_ids[0]
+    for e in eos_ids[1:]:
+        m = m | (tok == e)
+    return m
+
+
+def _clone_generator(gen: torch.Generator) -> torch.Generator:
+    out = torch.Generator(device=gen.device)
+    out.set_state(gen.get_state())
+    return out
+
+
+@dataclasses.dataclass
+class TriForceState:
+    """All mutable decode state."""
+    kv: KVCache                        # target full cache
+    rkv: RetrievalCache                # target retrieval cache
+    dkv: Optional[StreamingCache]      # drafter cache (None without one)
+    next_token: torch.Tensor           # [1] int64, sampled, not yet in kv
+    gen: torch.Generator               # random stream of every draw
+
+    def clone(self, seed: Optional[int] = None) -> "TriForceState":
+        """Deep copy; with ``seed`` the copy draws from a fresh generator
+        seeded with it, else from a copy of this state's generator."""
+        if seed is None:
+            gen = _clone_generator(self.gen)
+        else:
+            gen = torch.Generator(device=self.gen.device).manual_seed(seed)
+        return TriForceState(
+            kv=self.kv.clone(), rkv=self.rkv.clone(),
+            dkv=None if self.dkv is None else self.dkv.clone(),
+            next_token=self.next_token.clone(), gen=gen)
+
+
+@dataclasses.dataclass
+class StepStats:
+    """Per-step outputs: ``tokens`` stays on the device; the counts are
+    host ints (the step read them back to drive its control flow)."""
+    tokens: torch.Tensor      # [gamma + 2] emitted tokens, junk-padded
+    n_emitted: int            # count_acc + resampled + bonus
+    gamma2: int               # middle tokens proposed to the target
+    accepted: int             # outer accepts
+    resampled: int            # 1 if outer rejection resampled
+    bonus: int                # 1 if all-accepted bonus sampled
+    eos: torch.Tensor         # bool: EOS emitted this step (device)
+    mid_draft: int = 0        # drafter proposals in the middle loop
+    mid_accept: int = 0       # drafter proposals the middle accepted
+    mid_verify: int = 0       # middle (retrieval-cache) verify forwards run
+    mid_live: int = 0         # middle verifies that read the retrieval cache
+
+
+class Engine:
+    """Holds params and drives batch-1 decoding for one (target, drafter)
+    pair on one device. ``device=None`` means the first CUDA card and
+    raises when there is none."""
+
+    def __init__(self, target_cfg: ModelConfig, spec: SpecConfig,
+                 target_params, *, draft_cfg: Optional[ModelConfig] = None,
+                 draft_params=None, prefill: int, max_cache_len: int,
+                 eos_token_id: int = 2, dtype=torch.bfloat16,
+                 prefill_chunk: int = 512, draft_prefill_chunk: int = 64,
+                 kv_quant: bool = False, weight_quant: bool = False,
+                 mesh=None, device=None):
+        if kv_quant:
+            raise NotImplementedError("int8 KV (kv_quant) is not ported yet")
+        if weight_quant:
+            raise NotImplementedError(
+                "int8 weights (weight_quant) are not ported yet")
+        if mesh is not None:
+            raise NotImplementedError("sharding over a mesh is not ported "
+                                      "yet")
+        if prefill % spec.chunk_size:
+            raise ValueError("prefill must be a multiple of chunk_size")
+        self.device = resolve_device(device)
+        if target_params["embed"].device != self.device:
+            raise ValueError(f"target params are on "
+                             f"{target_params['embed'].device}, engine on "
+                             f"{self.device}")
+        if draft_params is not None \
+                and draft_params["embed"].device != self.device:
+            raise ValueError("draft params are not on the engine's device")
+        self.target_cfg = target_cfg
+        self.draft_cfg = draft_cfg
+        self.spec = spec
+        self.prefill = prefill
+        self.max_cache_len = max_cache_len
+        self.eos_token_id = _as_eos_tuple(eos_token_id)
+        self.dtype = dtype
+        self.prefill_chunk = prefill_chunk
+        # eviction keeps recent - chunk tokens, so the chunk cannot exceed
+        # the recent window
+        self.draft_prefill_chunk = min(draft_prefill_chunk,
+                                       spec.draft_recent_size)
+        self.t_params = target_params
+        self.d_params = draft_params
+
+    # ------------------------------------------------------------------
+    # state construction / prefill
+    # ------------------------------------------------------------------
+
+    def init_state(self, seed: int) -> TriForceState:
+        dev = self.device
+        kv = init_kv(self.target_cfg, self.max_cache_len, 1, self.dtype,
+                     device=dev)
+        rkv = init_retrieval(self.target_cfg, self.spec, 1, self.dtype,
+                             device=dev)
+        dkv = None
+        if self.draft_cfg is not None:
+            dkv = init_streaming(self.draft_cfg, self.spec, 1, self.dtype,
+                                 device=dev)
+        return TriForceState(
+            kv=kv, rkv=rkv, dkv=dkv,
+            next_token=torch.zeros((1,), dtype=torch.int64, device=dev),
+            gen=torch.Generator(device=dev).manual_seed(seed))
+
+    def prefill_body(self, kv: KVCache, body: torch.Tensor) -> KVCache:
+        """Chunked prefill of ``body`` [1, P] into ``kv``: full
+        ``prefill_chunk`` chunks, then the ragged remainder."""
+        cfg, c = self.target_cfg, self.prefill_chunk
+        n_full = body.shape[1] // c
+        for i in range(n_full):
+            _, kv, _ = llama.forward_append(cfg, self.t_params,
+                                            body[:, i * c:(i + 1) * c], kv,
+                                            need_logits=False)
+        rem = body.shape[1] - n_full * c
+        if rem:
+            _, kv, _ = llama.forward_append(cfg, self.t_params,
+                                            body[:, -rem:], kv,
+                                            need_logits=False)
+        return kv
+
+    def _sample_next(self, logits, gen):
+        sp = self.spec
+        probs = sampling.norm_logits(logits[:, -1], sp.temperature,
+                                     sp.top_k, sp.top_p)
+        return sampling.sample(probs, gen)
+
+    def prefill_target(self, state: TriForceState,
+                       input_ids: torch.Tensor) -> TriForceState:
+        """Chunked prefill of all but the last token, then a 1-token
+        forward that also builds the retrieval cache."""
+        if input_ids.shape[1] != self.prefill:
+            raise ValueError(f"prompt has {input_ids.shape[1]} tokens, the "
+                             f"engine was built for {self.prefill}")
+        kv = self.prefill_body(state.kv, input_ids[:, :-1])
+        logits, kv, rkv = llama.forward_append(
+            self.target_cfg, self.t_params, input_ids[:, -1:], kv,
+            build_rkv=state.rkv, prefill=self.prefill,
+            chunk_size=self.spec.chunk_size, budget=self.spec.budget)
+        return dataclasses.replace(
+            state, kv=kv, rkv=rkv,
+            next_token=self._sample_next(logits, state.gen))
+
+    def prefill_draft(self, state: TriForceState, input_ids: torch.Tensor,
+                      mode: str = "full") -> TriForceState:
+        """Drafter prefill with StreamingLLM eviction. ``mode='full'``
+        replays the whole prompt in chunks; ``mode='fast'`` only the sink
+        chunk and the tokens that can survive eviction."""
+        c = self.draft_prefill_chunk
+        sp = self.spec
+        if mode == "fast":
+            cap = sp.draft_start_size + sp.draft_recent_size
+            keep = (cap // c) * c
+            if input_ids.shape[1] > keep:
+                input_ids = torch.cat([input_ids[:, :c],
+                                       input_ids[:, -(keep - c):]], dim=1)
+        dkv = state.dkv
+        n = input_ids.shape[1]
+        n_full = n // c
+        for i in range(n_full):
+            dkv = streaming_evict_prefill(dkv, sp, c)
+            _, dkv = llama.draft_forward(self.draft_cfg, self.d_params,
+                                         input_ids[:, i * c:(i + 1) * c], dkv)
+        if n % c:
+            rem = n % c
+            dkv = streaming_evict_prefill(dkv, sp, c)
+            _, dkv = llama.draft_forward(self.draft_cfg, self.d_params,
+                                         input_ids[:, -rem:], dkv)
+        return dataclasses.replace(state, dkv=dkv)
+
+    # ------------------------------------------------------------------
+    # decode
+    # ------------------------------------------------------------------
+
+    def ar_step(self, kv: KVCache, token: torch.Tensor,
+                gen: torch.Generator):
+        """One autoregressive token: (next token [1], kv)."""
+        logits, kv, _ = llama.forward_append(self.target_cfg, self.t_params,
+                                             token[:, None], kv)
+        return self._sample_next(logits, gen), kv
+
+    def generate_ar(self, kv: KVCache, token: torch.Tensor,
+                    gen: torch.Generator, max_len: int):
+        """Autoregressive generation of ``max_len`` tokens with no host
+        read-back. Returns (kv, last token, gen, token buffer [max_len])."""
+        buf = torch.full((max_len,), JUNK_TOKEN, dtype=torch.int64,
+                         device=self.device)
+        for i in range(max_len):
+            token, kv = self.ar_step(kv, token, gen)
+            buf[i] = token[0]
+        return kv, token, gen, buf
+
+    def _gen(self, step_fn, max_len: int, stop_on_eos: bool,
+             state: TriForceState):
+        slack = self.spec.gamma + 2
+        buf = torch.full((max_len + slack,), JUNK_TOKEN, dtype=torch.int64,
+                         device=self.device)
+        buf[0] = state.next_token[0]
+        n = 1
+        counters = np.zeros(9, np.int64)
+        while n < max_len + 1:
+            state, st = step_fn(state)
+            buf[n:n + slack] = st.tokens
+            n += st.n_emitted
+            counters += [1, st.accepted, st.gamma2, st.resampled, st.bonus,
+                         st.mid_draft, st.mid_accept, st.mid_verify,
+                         st.mid_live]
+            if stop_on_eos and bool(st.eos):
+                break
+        return state, buf, n, counters
+
+    def generate(self, state: TriForceState, max_len: int,
+                 mode: str = "triforce", stop_on_eos: bool = False):
+        """Speculative generation until ``max_len`` tokens past the first.
+        Returns (state, token_buf, n, counters) with counters = [steps,
+        accepted, proposed, resampled, bonus, mid_draft, mid_accept,
+        mid_verify, mid_live]."""
+        return self._gen(self._step_fn(mode, None), max_len, stop_on_eos,
+                         state)
+
+    def generate_forced(self, state: TriForceState, max_len: int,
+                        alpha: float, mode: str = "retrieval",
+                        stop_on_eos: bool = False):
+        """Controlled-acceptance generation: every accept test becomes a
+        coin flip at rate ``alpha`` while all real compute runs (drafter
+        forwards, middle verifies, full-cache verify, rollback, tail
+        refresh). The output is NOT target-distributed."""
+        return self._gen(self._step_fn(mode, alpha), max_len, stop_on_eos,
+                         state)
+
+    def _step_fn(self, mode: str, force_accept):
+        if mode == "triforce":
+            if self.draft_cfg is None:
+                raise ValueError("triforce mode needs a drafter")
+            return lambda s: _triforce_step(self, s, force_accept)
+        if mode == "retrieval":
+            return lambda s: _retrieval_spec_step(self, s, force_accept)
+        raise ValueError(mode)
+
+
+# ---------------------------------------------------------------------------
+# The TriForce step
+# ---------------------------------------------------------------------------
+
+def _middle_spec(eng: Engine, state: TriForceState, force_accept=None):
+    """Drafter <-> middle speculation loop, generalized to drafter CHAINS
+    of ``middle_chain`` tokens per middle verify: k drafter forwards propose
+    a chain, ONE middle verify (target weights over the retrieval cache)
+    scores every position, and the accept walk applies the per-proposal
+    test in order; the first reject samples from that position's middle
+    distribution and stops; a fully accepted chain earns a bonus token.
+
+    ``middle_trips=0`` loops until gamma proposals; ``middle_trips>0`` runs
+    that many trips, dead ones (n >= gamma) with a zero-column retrieval
+    read. Each trip reads its outcome back once."""
+    t_cfg, d_cfg, sp = eng.target_cfg, eng.draft_cfg, eng.spec
+    gamma = sp.gamma
+    k = max(1, min(sp.middle_chain if sp.middle_chain > 0 else gamma, gamma))
+    vocab = t_cfg.vocab_size
+    dev = state.next_token.device
+    gen = state.gen
+    kv_seq_len = state.kv.seq_len
+    gen_tokens = torch.full((gamma + 1,), JUNK_TOKEN, dtype=torch.int64,
+                            device=dev)
+    gen_probs = torch.zeros((gamma + 1, vocab), dtype=torch.float32,
+                            device=dev)
+    js = torch.arange(k, device=dev)
+    n = mid_draft = mid_accept = trips = live_trips = 0
+
+    while (trips < sp.middle_trips) if sp.middle_trips > 0 else (n < gamma):
+        n0 = n
+        live = n0 < gamma
+        # --- chain drafting: up to k drafter forwards, stopping at the
+        # gamma-1 proposal cap
+        vt = torch.cat([state.next_token[:1], gen_tokens[:gamma]])[None]
+        chain_toks = torch.full((k,), JUNK_TOKEN, dtype=torch.int64,
+                                device=dev)
+        chain_q = torch.zeros((k,), dtype=torch.float32, device=dev)
+        i_fin = 0
+        while i_fin < k and n0 + i_fin <= gamma - 1:
+            i = i_fin
+            d_logits, _ = llama.draft_forward_spec(
+                d_cfg, eng.d_params, vt, state.dkv, sp, commit=False)
+            q = sampling.norm_logits(d_logits[0, n0 + i][None],
+                                     sp.temperature, -1, sp.top_p)[0]
+            tok = sampling.sample(q, gen)
+            chain_toks[i] = tok
+            chain_q[i] = q[tok]
+            vt[0, n0 + i + 1] = tok
+            i_fin += 1
+
+        # --- ONE middle verify over the whole chain (read-only rkv)
+        m_logits, _ = llama.forward_spec(
+            t_cfg, eng.t_params, vt, state.rkv,
+            kv_seq_len if live else torch.zeros_like(kv_seq_len),
+            sp.budget, commit=False)
+        rows_idx = [min(max(n0 + j, 0), gamma) for j in range(k + 1)]
+        p_rows = sampling.norm_logits(m_logits[0, rows_idx], sp.temperature,
+                                      -1, sp.top_p)          # [k+1, V]
+
+        # --- accept walk over the chain, all per-proposal coins at once
+        rs = torch.rand((k,), generator=gen, device=dev)
+        if force_accept is None:
+            ratios = p_rows[js, chain_toks.clamp(0, vocab - 1)] \
+                / chain_q.clamp_min(1e-37)
+            ok_v = rs < ratios.clamp(max=1.0)
+        else:
+            ok_v = rs < force_accept
+        rej_v = (js < i_fin) & ~ok_v
+        any_rej_t = rej_v.any()
+        j_rej_t = torch.argmax(rej_v.to(torch.int32))   # first rejection
+        any_rej, j_rej = (int(x) for x in
+                          torch.stack([any_rej_t.long(), j_rej_t]).tolist())
+        used = j_rej + 1 if any_rej else i_fin          # proposals consumed
+
+        final_toks = chain_toks
+        if any_rej:
+            # reject: sample from that position's middle distribution
+            res = sampling.sample(p_rows[j_rej], gen)
+            final_toks = chain_toks.clone()
+            final_toks[j_rej] = res
+        # commit consumed positions: tokens and their middle rows (the q
+        # the OUTER test consumes, accepted and rejected positions alike)
+        gen_tokens[n0:n0 + used] = final_toks[:used]
+        gen_probs[n0:n0 + used] = p_rows[:used]
+        n = n0 + used
+        mid_accept += used - any_rej
+        mid_draft += used
+
+        # --- bonus on a fully accepted chain: sample from the middle row
+        # after the last accepted token
+        if not any_rej and n <= gamma and n0 < gamma:
+            b_row = p_rows[min(max(n - n0, 0), k)]
+            gen_tokens[n] = sampling.sample(b_row, gen)
+            gen_probs[n] = b_row
+            n += 1
+        trips += 1
+        live_trips += int(live)
+
+    return {"n": n, "gen_tokens": gen_tokens, "gen_probs": gen_probs,
+            "mid_draft": mid_draft, "mid_accept": mid_accept,
+            "trips": trips, "live_trips": live_trips}
+
+
+def _outer_verify_and_commit(eng: Engine, state: TriForceState, gamma2: int,
+                             gen_tokens, gen_probs, has_draft: bool,
+                             force_accept=None):
+    """Target full-cache verify + exact rejection sampling + cache commit:
+    one gamma+2-token forward, all accept tests at once, one read-back of
+    the outcome, then rollback, retrieval tail refresh and (with a
+    drafter) the drafter replay and window compaction."""
+    t_cfg, sp = eng.target_cfg, eng.spec
+    gamma = sp.gamma
+    dev = gen_tokens.device
+    gen = state.gen
+    old_seq_len = state.kv.seq_len
+
+    verify_in = torch.cat([state.next_token[:1],
+                           gen_tokens[:gamma + 1]])[None]     # [1, gamma+2]
+    logits, kv, _ = llama.forward_append(t_cfg, eng.t_params, verify_in,
+                                         state.kv)
+    p_all = sampling.norm_logits(logits[0], sp.temperature, sp.top_k,
+                                 sp.top_p)                    # [gamma+2, V]
+
+    pos = torch.arange(gamma + 1, device=dev)
+    toks = gen_tokens[:gamma + 1]
+    tok_c = toks.clamp(0, t_cfg.vocab_size - 1)
+    q_sel = gen_probs[pos, tok_c]
+    p_sel = p_all[pos, tok_c]
+    rs = torch.rand((gamma + 1,), generator=gen, device=dev)
+    if force_accept is None:
+        accept_v = rs < (p_sel / q_sel.clamp_min(1e-37)).clamp(max=1.0)
+    else:
+        accept_v = rs < force_accept
+    live = pos < gamma2
+    # the walk stops at the first rejection OR the first ACCEPTED EOS
+    stop_v = live & (~accept_v | (accept_v & _is_eos(toks, eng.eos_token_id)))
+    j_stop_t = torch.argmax(stop_v.to(torch.int32))
+    any_stop, j_stop, stop_acc = (int(x) for x in torch.stack(
+        [stop_v.any().long(), j_stop_t, accept_v[j_stop_t].long()]).tolist())
+    count = j_stop + stop_acc if any_stop else gamma2
+    rejected = bool(any_stop and not stop_acc)
+    bonus = count == gamma2
+
+    if bonus:
+        pred = sampling.sample(p_all[gamma2], gen)
+    elif rejected:
+        pred = sampling.sample(sampling.max_fn(p_all[j_stop]
+                                               - gen_probs[j_stop]), gen)
+    else:
+        pred = toks[j_stop]
+    has_final = rejected or bonus
+    # EOS on any emitting path: accepted proposal, residual, bonus
+    eos_acc = bool(any_stop and stop_acc)
+    eos_hit = torch.tensor(eos_acc, device=dev)
+    if has_final:
+        eos_hit = eos_hit | _is_eos(pred, eng.eos_token_id)
+
+    # --- rollback + retrieval tail refresh: keep old + count + 1 slots.
+    # An accepted EOS with no resample/bonus stays the next token, so it
+    # rolls back one more slot (next_token is never in kv).
+    eos_is_pred = int(eos_acc and not has_final)
+    kv = kv.rollback(gamma + 1 - count + eos_is_pred)
+    rkv = retrieval_tail_refresh(state.rkv, kv, sp, eng.prefill,
+                                 old_seq_len)
+
+    emitted = torch.full((gamma + 2,), JUNK_TOKEN, dtype=torch.int64,
+                         device=dev)
+    emitted[:count] = gen_tokens[:count]
+    if has_final:
+        emitted[count] = pred
+
+    dkv = state.dkv
+    if has_draft:
+        pass_tokens = torch.full((gamma + 3,), JUNK_TOKEN, dtype=torch.int64,
+                                 device=dev)
+        pass_tokens[0] = state.next_token[0]
+        pass_tokens[1:count + 1] = gen_tokens[:count]
+        if has_final:
+            pass_tokens[count + 1] = pred
+        _, dkv = llama.draft_forward_spec(eng.draft_cfg, eng.d_params,
+                                          pass_tokens[None], dkv, sp)
+        # the reference's count includes the bonus but NOT a resample — it
+        # drops the last accepted token from the window on rejection
+        dkv = streaming_evict_for_spec(dkv, sp, count + int(bonus))
+
+    new_state = dataclasses.replace(state, kv=kv, rkv=rkv, dkv=dkv,
+                                    next_token=pred.reshape(1))
+    stats = StepStats(tokens=emitted, n_emitted=count + int(has_final),
+                      gamma2=gamma2, accepted=count,
+                      resampled=int(rejected), bonus=int(bonus), eos=eos_hit)
+    return new_state, stats
+
+
+def _triforce_step(eng: Engine, state: TriForceState, force_accept=None):
+    """One full TriForce outer iteration: middle loop, then the outer
+    verify and commit."""
+    mid = _middle_spec(eng, state, force_accept=force_accept)
+    new_state, stats = _outer_verify_and_commit(
+        eng, state, mid["n"], mid["gen_tokens"], mid["gen_probs"], True,
+        force_accept=force_accept)
+    stats.mid_draft = mid["mid_draft"]
+    stats.mid_accept = mid["mid_accept"]
+    stats.mid_verify = mid["trips"]
+    stats.mid_live = mid["live_trips"]
+    return new_state, stats
+
+
+def _retrieval_spec_step(eng: Engine, state: TriForceState,
+                         force_accept=None):
+    """Self-speculation step: the middle model (target weights over the
+    retrieval cache) drafts gamma tokens autoregressively with no host
+    read-back, then the full-cache target verifies them."""
+    t_cfg, sp = eng.target_cfg, eng.spec
+    gamma = sp.gamma
+    dev = state.next_token.device
+    verify_tokens = torch.full((1, gamma + 1), JUNK_TOKEN, dtype=torch.int64,
+                               device=dev)
+    verify_tokens[0, 0] = state.next_token[0]
+    gen_tokens = torch.full((gamma + 1,), JUNK_TOKEN, dtype=torch.int64,
+                            device=dev)
+    gen_probs = torch.zeros((gamma + 1, t_cfg.vocab_size),
+                            dtype=torch.float32, device=dev)
+    for n in range(gamma):
+        m_logits, _ = llama.forward_spec(t_cfg, eng.t_params, verify_tokens,
+                                         state.rkv, state.kv.seq_len,
+                                         sp.budget, commit=False)
+        p_n = sampling.norm_logits(m_logits[0, n][None], sp.temperature, -1,
+                                   sp.top_p)[0]
+        tok = sampling.sample(p_n, state.gen)
+        gen_tokens[n] = tok
+        gen_probs[n] = p_n
+        verify_tokens[0, n + 1] = tok
+    new_state, stats = _outer_verify_and_commit(
+        eng, state, gamma, gen_tokens, gen_probs, False,
+        force_accept=force_accept)
+    stats.mid_verify = gamma
+    stats.mid_live = gamma
+    return new_state, stats

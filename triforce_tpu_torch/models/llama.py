@@ -1,0 +1,333 @@
+"""Llama forward passes over explicit caches — the port of
+``triforce_tpu/models/llama.py``.
+
+Parameters are a plain dict of tensors with the JAX package's layout
+(stacked ``[L, ...]`` per-layer weights, ``x @ w`` orientation), and the
+forwards are plain functions on tensors. Where JAX scans the layers and
+commits the new K/V with one donated ``dynamic_update_slice``, these
+forwards loop over layers in Python and write each layer's new K/V into the
+cache IN PLACE right after that layer's attention (which reads only slots
+``< k_len``, so the write cannot change what it sees). The returned cache
+objects share their buffers with the ones passed in.
+
+Forward modes:
+  forward_append      — prefill chunks / AR decode / full-cache target
+                        verify, optionally building the retrieval cache on
+                        a 1-token forward
+  forward_spec        — middle-model verify over the retrieval cache
+  draft_forward       — drafter prefill into the StreamingLLM cache
+  draft_forward_spec  — drafter speculation at the fixed spec slots with
+                        un-rotated key storage + whole-window re-rotation
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..cache import KVCache, RetrievalCache, StreamingCache, window
+from ..config import ModelConfig, SpecConfig
+from ..ops import retrieval as retrieval_ops
+from ..ops.attention import append_attention, append_attention_auto
+from . import rope
+
+_LAYER_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
+               "ln_attn", "ln_mlp")
+
+
+# ---------------------------------------------------------------------------
+# Parameters
+# ---------------------------------------------------------------------------
+
+def init_params(cfg: ModelConfig, *, device, dtype=torch.bfloat16,
+                seed: int = 0):
+    """Random-init params (normal * 0.02, norms 1) made on ``device`` from
+    ``seed``, one layer at a time so no full-size fp32 copy exists."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    h, i, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
+    hq = cfg.num_heads * cfg.head_dim
+    hkv = cfg.num_kv_heads * cfg.head_dim
+
+    def rnd(shape):
+        return (torch.randn(shape, generator=gen, device=device)
+                * 0.02).to(dtype)
+
+    def stacked(shape):
+        out = torch.empty((L,) + shape, dtype=dtype, device=device)
+        for li in range(L):
+            out[li] = rnd(shape)
+        return out
+
+    params = {
+        "embed": rnd((cfg.vocab_size, h)),
+        "layers": {
+            "wq": stacked((h, hq)),
+            "wk": stacked((h, hkv)),
+            "wv": stacked((h, hkv)),
+            "wo": stacked((hq, h)),
+            "w_gate": stacked((h, i)),
+            "w_up": stacked((h, i)),
+            "w_down": stacked((i, h)),
+            "ln_attn": torch.ones((L, h), dtype=dtype, device=device),
+            "ln_mlp": torch.ones((L, h), dtype=dtype, device=device),
+        },
+        "final_norm": torch.ones((h,), dtype=dtype, device=device),
+        "lm_head": rnd((h, cfg.vocab_size)),
+    }
+    if cfg.tie_word_embeddings:
+        params["lm_head"] = params["embed"].T
+    return params
+
+
+def _to_torch(a, device, dtype) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":     # ml_dtypes bf16: widen exactly
+        a = a.astype(np.float32)
+    return torch.tensor(a).to(device=device, dtype=dtype)   # copies
+
+
+def params_from_numpy(tree, cfg: ModelConfig, device, dtype=torch.float32):
+    """The JAX params pytree as numpy arrays (``jax.tree.map(np.asarray,
+    params)``) -> this package's params. Both packages keep the same layout
+    (stacked [L, in, out] weights used as ``x @ w``), so this only converts
+    arrays; any layout change would happen here and nowhere else."""
+    layers = tree["layers"]
+    missing = [k for k in _LAYER_KEYS if k not in layers]
+    if missing or any(k.endswith("_scale") for k in layers):
+        raise ValueError(f"expected bf16/fp32 layer weights {_LAYER_KEYS}, "
+                         f"missing {missing} (int8 weights are not ported)")
+    if np.asarray(layers["wq"]).shape[0] != cfg.num_layers:
+        raise ValueError("params do not match the config's layer count")
+    return {
+        "embed": _to_torch(tree["embed"], device, dtype),
+        "layers": {k: _to_torch(layers[k], device, dtype)
+                   for k in _LAYER_KEYS},
+        "final_norm": _to_torch(tree["final_norm"], device, dtype),
+        "lm_head": _to_torch(tree["lm_head"], device, dtype),
+    }
+
+
+def _layer(params, li: int):
+    return {k: v[li] for k, v in params["layers"].items()}
+
+
+# ---------------------------------------------------------------------------
+# Blocks
+# ---------------------------------------------------------------------------
+
+def _rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    xf = x.float()
+    var = (xf * xf).mean(-1, keepdim=True)
+    return w * (xf * torch.rsqrt(var + eps)).to(x.dtype)
+
+
+def _wmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Weight matmul in the model dtype (bf16 or fp32); the GEMM
+    accumulates in fp32. The weights stay ``torch.matmul``, as the JAX
+    package leaves them to XLA."""
+    return torch.matmul(x, w)
+
+
+def _mlp(x, lp):
+    gate = _wmm(x, lp["w_gate"])
+    up = _wmm(x, lp["w_up"])
+    return _wmm(F.silu(gate) * up, lp["w_down"])
+
+
+def _qkv(x, lp, cfg: ModelConfig):
+    b, t, _ = x.shape
+    q = _wmm(x, lp["wq"]).reshape(b, t, cfg.num_heads,
+                                  cfg.head_dim).transpose(1, 2)
+    k = _wmm(x, lp["wk"]).reshape(b, t, cfg.num_kv_heads,
+                                  cfg.head_dim).transpose(1, 2)
+    v = _wmm(x, lp["wv"]).reshape(b, t, cfg.num_kv_heads,
+                                  cfg.head_dim).transpose(1, 2)
+    return q, k, v  # [B, H, T, D]
+
+
+def _attn_out(ctx, lp):
+    b, hq, t, d = ctx.shape
+    return _wmm(ctx.transpose(1, 2).reshape(b, t, hq * d), lp["wo"])
+
+
+def _logits(cfg: ModelConfig, params, x) -> torch.Tensor:
+    """fp32 logits. In bf16 the GEMM output is rounded to bf16 before the
+    cast (the reference's ``lm_head(h).float()``); the JAX package keeps the
+    fp32 accumulator instead."""
+    x = _rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+    return _wmm(x, params["lm_head"]).float()
+
+
+def _embed(params, input_ids):
+    return F.embedding(input_ids, params["embed"])
+
+
+def _positions(start, t: int, device) -> torch.Tensor:
+    return torch.as_tensor(start, device=device).to(torch.int64) \
+        + torch.arange(t, device=device)
+
+
+# ---------------------------------------------------------------------------
+# Target-model forwards
+# ---------------------------------------------------------------------------
+
+def forward_append(cfg: ModelConfig, params, input_ids: torch.Tensor,
+                   kv: KVCache, *, build_rkv: Optional[RetrievalCache] = None,
+                   prefill: int = 0, chunk_size: int = 8, budget: int = 0,
+                   need_logits: bool = True,
+                   ) -> Tuple[Optional[torch.Tensor], KVCache,
+                              Optional[RetrievalCache]]:
+    """Append ``T`` tokens to the full cache (in place) and attend causally
+    over it. Returns (logits [B, T, V] fp32 or None, kv with ``seq_len``
+    advanced by T, retrieval cache or None).
+
+    With ``build_rkv`` (T must be 1) every layer's retrieval budget region
+    is also built, in place, from this token's query (the chunk scoring
+    runs through ``ops/retrieval_kernel.py``). ``need_logits=False`` skips
+    the lm_head projection (prefill chunks)."""
+    b, t = input_ids.shape
+    building = build_rkv is not None
+    if building and t != 1:
+        raise ValueError("retrieval build requires a 1-token forward")
+    if cfg.rope_on_slots:
+        raise ValueError("a rope_on_slots drafter runs draft_forward")
+    dev = input_ids.device
+    cos, sin = rope.cos_sin_tables(cfg, device=dev)
+    seq_len0 = kv.seq_len
+    positions = _positions(seq_len0, t, dev)
+    commit_idx = window(seq_len0, t, kv.max_len, dev)   # clamped, like JAX
+
+    x = _embed(params, input_ids)
+    qs = []
+    for li in range(cfg.num_layers):
+        lp = _layer(params, li)
+        h = _rms_norm(x, lp["ln_attn"], cfg.rms_norm_eps)
+        q, k_new, v_new = _qkv(h, lp, cfg)
+        q = rope.apply_rope(q, cos, sin, positions)
+        k_new = rope.apply_rope(k_new, cos, sin, positions)  # stored rotated
+        ctx = append_attention_auto(q, kv.k[li], kv.v[li], k_new, v_new,
+                                    k_len=seq_len0)
+        kv.k[li].index_copy_(2, commit_idx, k_new)
+        kv.v[li].index_copy_(2, commit_idx, v_new)
+        x = x + _attn_out(ctx, lp)
+        h = _rms_norm(x, lp["ln_mlp"], cfg.rms_norm_eps)
+        x = x + _mlp(h, lp)
+        if building:
+            qs.append(q)
+
+    kv_out = dataclasses.replace(kv, seq_len=seq_len0 + t)
+    logits = _logits(cfg, params, x) if need_logits else None
+
+    if building:
+        for li in range(cfg.num_layers):
+            k_sel, v_sel = retrieval_ops.build_layer(
+                qs[li], kv_out.k[li], kv_out.v[li], prefill, chunk_size,
+                budget)
+            build_rkv.k[li, :, :, :budget] = k_sel
+            build_rkv.v[li, :, :, :budget] = v_sel
+    return logits, kv_out, build_rkv
+
+
+def forward_spec(cfg: ModelConfig, params, input_ids: torch.Tensor,
+                 rkv: RetrievalCache, kv_seq_len, budget: int,
+                 commit: bool = True,
+                 ) -> Tuple[torch.Tensor, RetrievalCache]:
+    """Middle-model verify: the gamma+1 tokens attend the budget region
+    plus themselves (causally) at absolute positions ``kv_seq_len +
+    arange(T)``; with ``commit`` their KV lands in the scratch slots from
+    ``budget`` (in place). ``kv_seq_len == 0`` gates the retrieval read to
+    zero columns (a dead trip)."""
+    b, t = input_ids.shape
+    dev = input_ids.device
+    cos, sin = rope.cos_sin_tables(cfg, device=dev)
+    kv_seq_len = torch.as_tensor(kv_seq_len, device=dev)
+    positions = _positions(kv_seq_len, t, dev)
+    k_len = torch.where(kv_seq_len > 0, budget, 0).to(torch.int32)
+    commit_idx = window(budget, t, rkv.real_budget, dev)
+
+    x = _embed(params, input_ids)
+    for li in range(cfg.num_layers):
+        lp = _layer(params, li)
+        h = _rms_norm(x, lp["ln_attn"], cfg.rms_norm_eps)
+        q, k_new, v_new = _qkv(h, lp, cfg)
+        q = rope.apply_rope(q, cos, sin, positions)
+        k_new = rope.apply_rope(k_new, cos, sin, positions)
+        ctx = append_attention_auto(q, rkv.k[li], rkv.v[li], k_new, v_new,
+                                    k_len=k_len)
+        if commit:
+            rkv.k[li].index_copy_(2, commit_idx, k_new)
+            rkv.v[li].index_copy_(2, commit_idx, v_new)
+        x = x + _attn_out(ctx, lp)
+        h = _rms_norm(x, lp["ln_mlp"], cfg.rms_norm_eps)
+        x = x + _mlp(h, lp)
+    return _logits(cfg, params, x), rkv
+
+
+# ---------------------------------------------------------------------------
+# Drafter forwards (StreamingLLM semantics)
+# ---------------------------------------------------------------------------
+
+def _draft_layers(cfg, params, x, dkv, positions, k_len, commit_at):
+    """Shared drafter layer loop: keys are stored un-rotated, the whole
+    window is re-rotated with slot positions, and attention is the plain
+    ``append_attention`` (no kernel, as in the JAX package)."""
+    dev = x.device
+    cos, sin = rope.cos_sin_tables(cfg, max_len=dkv.real_budget, device=dev)
+    slot_pos = torch.arange(dkv.real_budget, device=dev)
+    if commit_at is not None:
+        commit_idx = window(commit_at, x.shape[1], dkv.real_budget, dev)
+    for li in range(cfg.num_layers):
+        lp = _layer(params, li)
+        h = _rms_norm(x, lp["ln_attn"], cfg.rms_norm_eps)
+        q, k_new, v_new = _qkv(h, lp, cfg)
+        q = rope.apply_rope(q, cos, sin, positions)
+        k_cache = rope.apply_rope(dkv.k[li], cos, sin, slot_pos)
+        k_att = rope.apply_rope(k_new, cos, sin, positions)
+        ctx = append_attention(q, k_cache, dkv.v[li], k_att, v_new,
+                               k_len=k_len)
+        if commit_at is not None:
+            dkv.k[li].index_copy_(2, commit_idx, k_new)
+            dkv.v[li].index_copy_(2, commit_idx, v_new)
+        x = x + _attn_out(ctx, lp)
+        h = _rms_norm(x, lp["ln_mlp"], cfg.rms_norm_eps)
+        x = x + _mlp(h, lp)
+    return x
+
+
+def draft_forward(cfg: ModelConfig, params, input_ids: torch.Tensor,
+                  dkv: StreamingCache
+                  ) -> Tuple[torch.Tensor, StreamingCache]:
+    """Drafter prefill chunk: append at ``seq_len`` with slot positions (in
+    place). The caller runs ``streaming_evict_prefill`` first."""
+    if not cfg.rope_on_slots:
+        raise ValueError("draft_forward needs a rope_on_slots drafter")
+    b, t = input_ids.shape
+    seq_len0 = dkv.seq_len
+    positions = _positions(seq_len0, t, input_ids.device)
+    x = _draft_layers(cfg, params, _embed(params, input_ids), dkv,
+                      positions, seq_len0, seq_len0)
+    return _logits(cfg, params, x), dataclasses.replace(
+        dkv, seq_len=seq_len0 + t)
+
+
+def draft_forward_spec(cfg: ModelConfig, params, input_ids: torch.Tensor,
+                       dkv: StreamingCache, spec: SpecConfig,
+                       commit: bool = True,
+                       ) -> Tuple[torch.Tensor, StreamingCache]:
+    """Drafter speculation step: T tokens at the FIXED spec slots
+    ``start + recent + i`` (query positions = those slot indices), keys
+    re-rotated over the whole window; with ``commit`` their KV is written
+    there in place. Causal masking makes a junk suffix inert, so one fixed
+    T serves every offset."""
+    if not cfg.rope_on_slots:
+        raise ValueError("draft_forward_spec needs a rope_on_slots drafter")
+    b, t = input_ids.shape
+    spec0 = spec.draft_start_size + spec.draft_recent_size
+    positions = _positions(spec0, t, input_ids.device)
+    x = _draft_layers(cfg, params, _embed(params, input_ids), dkv,
+                      positions, spec0, spec0 if commit else None)
+    return _logits(cfg, params, x), dkv

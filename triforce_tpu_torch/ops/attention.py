@@ -1,0 +1,146 @@
+"""Attention over a cache plus the tokens being appended — the port of
+``triforce_tpu/ops/attention.py``.
+
+Plain PyTorch online-softmax attention split into PARTIALS (m, l, acc) that
+merge associatively:
+
+  cache part — blockwise over the read-only cache, bounded by ``k_len`` (a
+               0-d device tensor or an int);
+  new part   — the T tokens appended by this forward.
+
+``append_attention_auto`` is the dispatcher the models call: a CUDA tensor
+with no extra cache mask goes to the hand-written flash-decode kernel
+(``ops/flash_decode.py``), a CPU tensor to ``append_attention``.
+
+Convention: q is [B, Hq, T, D]; cached K/V are [B, Hkv, S, D]; GQA groups
+q heads (no materialised repeat of K/V).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import torch
+
+from .flash_decode import append_attention_kernel, causal_mask
+
+_NEG_INF = -1e30
+
+Partials = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]  # m, l, acc
+
+
+def _update(qg, m, l, acc, k_blk, v_blk, valid):
+    """One online-softmax step over a key block. qg [B,Hkv,G,T,D]
+    pre-scaled in the model dtype; k/v [B,Hkv,S_blk,D]; valid [T,S_blk].
+    Operands are in the model dtype with fp32 accumulation (products of
+    bf16 values are exact in fp32); the softmax state is fp32."""
+    sc = torch.einsum("bhgtd,bhsd->bhgts", qg.float(),
+                      k_blk.to(qg.dtype).float())
+    sc = torch.where(valid, sc, _NEG_INF)
+    m_new = torch.maximum(m, sc.amax(-1))
+    alpha = torch.exp(m - m_new)
+    p = torch.exp(sc - m_new[..., None])
+    l = l * alpha + p.sum(-1)
+    acc = acc * alpha[..., None] + torch.einsum(
+        "bhgts,bhsd->bhgtd", p.to(qg.dtype).float(),
+        v_blk.to(qg.dtype).float())
+    return m_new, l, acc
+
+
+def _prescaled(q, hkv):
+    b, hq, t, d = q.shape
+    g = hq // hkv
+    scale = 1.0 / math.sqrt(d)
+    return (q.reshape(b, hkv, g, t, d).float() * scale).to(q.dtype)
+
+
+def _init_partials(q, hkv):
+    b, hq, t, d = q.shape
+    g = hq // hkv
+    f32 = dict(dtype=torch.float32, device=q.device)
+    return (torch.full((b, hkv, g, t), _NEG_INF, **f32),
+            torch.zeros((b, hkv, g, t), **f32),
+            torch.zeros((b, hkv, g, t, d), **f32))
+
+
+def attention_partials(q, k, v, *, k_len=None, mask_fn=None,
+                       block: int = 2048) -> Partials:
+    """Online-softmax partials of q against a read-only key/value buffer.
+    ``k_len`` masks columns >= k_len; ``mask_fn(rows, cols) -> bool`` adds
+    extra masking. Blocks past a host-known ``k_len`` are skipped; with a
+    device ``k_len`` every block runs masked (no host sync)."""
+    t = q.shape[2]
+    hkv, s = k.shape[1], k.shape[2]
+    qg = _prescaled(q, hkv)
+    m, l, acc = _init_partials(q, hkv)
+    n_run = s if (k_len is None or torch.is_tensor(k_len)) \
+        else min(s, max(int(k_len), 0))
+    rows = torch.arange(t, device=q.device)[:, None]
+    for start in range(0, n_run, block):
+        stop = min(start + block, s)
+        cols = torch.arange(start, stop, device=q.device)[None, :]
+        valid = torch.ones((t, stop - start), dtype=torch.bool,
+                           device=q.device)
+        if k_len is not None:
+            valid = valid & (cols < k_len)
+        if mask_fn is not None:
+            valid = valid & mask_fn(rows, cols)
+        m, l, acc = _update(qg, m, l, acc, k[:, :, start:stop],
+                            v[:, :, start:stop], valid)
+    return m, l, acc
+
+
+def new_block_partials(q, k_new, v_new, new_mask) -> Partials:
+    """Partials of q against the new-token block; new_mask [T, Tn] bool
+    (True = attend), typically lower-triangular."""
+    hkv = k_new.shape[1]
+    qg = _prescaled(q, hkv)
+    m, l, acc = _init_partials(q, hkv)
+    return _update(qg, m, l, acc, k_new, v_new, new_mask)
+
+
+def merge_partials(a: Partials, b: Partials) -> Partials:
+    """Associative combine of online-softmax partials."""
+    m1, l1, acc1 = a
+    m2, l2, acc2 = b
+    m = torch.maximum(m1, m2)
+    a1 = torch.exp(m1 - m)
+    a2 = torch.exp(m2 - m)
+    return m, l1 * a1 + l2 * a2, acc1 * a1[..., None] + acc2 * a2[..., None]
+
+
+def finalize(p: Partials, out_dtype) -> torch.Tensor:
+    m, l, acc = p
+    b, hkv, g, t, d = acc.shape
+    out = acc / l.clamp_min(1e-37)[..., None]
+    return out.reshape(b, hkv * g, t, d).to(out_dtype)
+
+
+def append_attention(q, k_cache, v_cache, k_new, v_new, *, k_len,
+                     cache_mask_fn=None, new_mask=None,
+                     block: int = 2048) -> torch.Tensor:
+    """Attention of T new tokens against [valid cache prefix] +
+    [themselves]. The cache is read-only here; the caller commits
+    (k_new, v_new) afterwards."""
+    t, tn = q.shape[2], k_new.shape[2]
+    if new_mask is None:
+        new_mask = causal_mask(t, tn, 1, q.device)
+    pc = attention_partials(q, k_cache, v_cache, k_len=k_len,
+                            mask_fn=cache_mask_fn, block=block)
+    pn = new_block_partials(q, k_new, v_new, new_mask)
+    return finalize(merge_partials(pc, pn), q.dtype)
+
+
+def append_attention_auto(q, k_cache, v_cache, k_new, v_new, *, k_len,
+                          cache_mask_fn=None, new_mask=None,
+                          block: int = 2048) -> torch.Tensor:
+    """Dispatch: a CUDA tensor with no extra cache mask goes to the
+    flash-decode kernel (which raises on what it does not take); anything
+    else runs ``append_attention``. k/v cache are one layer [B,Hkv,S,D]."""
+    if q.device.type == "cuda" and cache_mask_fn is None:
+        return append_attention_kernel(q, k_cache, v_cache, k_new, v_new,
+                                       k_len=k_len, new_mask=new_mask)
+    return append_attention(q, k_cache, v_cache, k_new, v_new, k_len=k_len,
+                            cache_mask_fn=cache_mask_fn, new_mask=new_mask,
+                            block=block)

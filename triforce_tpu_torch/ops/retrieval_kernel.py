@@ -1,0 +1,71 @@
+"""Fused chunk scoring for the retrieval-cache build — the port of
+``triforce_tpu/ops/retrieval_kernel.py``.
+
+``chunk_scores`` computes, per KV head, q . chunk_mean(k) averaged over the
+GQA group, as mean over each chunk of the group-mean q . k — the identity
+that lets the keys stream once with no chunk-mean tensor. q is cast to the
+cache dtype first (as the TPU kernel does); every product accumulates in
+fp32. Only the live prefill is read.
+
+On a CUDA tensor it launches the hand-written kernel in
+``csrc/chunk_scores.cu`` (bf16 only — anything else raises); on a CPU
+tensor it takes ``chunk_scores_plain``. Top-k and the gather stay torch ops
+(``ops/retrieval.py``), as the JAX package leaves them to XLA.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import _build
+
+_SOURCE = "chunk_scores.cu"
+
+
+def chunk_scores_plain(q, k, *, chunk: int, prefill: int) -> torch.Tensor:
+    """Plain PyTorch version of the kernel: q [Hkv, G, D], k [Hkv, S, D]
+    -> [Hkv, prefill // chunk] fp32."""
+    hkv = k.shape[0]
+    qb = q.to(k.dtype).float()
+    sc = torch.einsum("hgd,hsd->hgs", qb, k[:, :prefill].float()).mean(1)
+    return sc.reshape(hkv, prefill // chunk, chunk).mean(-1)
+
+
+def chunk_scores(q, k, *, chunk: int, prefill: int) -> torch.Tensor:
+    """Fused chunk-score pass: q [Hkv, G, D] (one layer's last-prefill-token
+    queries, grouped per KV head), k [Hkv, S, D] with ``prefill`` live
+    tokens -> [Hkv, prefill // chunk] fp32. CUDA tensors launch the kernel
+    (or raise); CPU tensors take the plain version.
+    ``chunk_scores.launches`` counts kernel launches."""
+    if prefill % chunk or prefill > k.shape[1]:
+        raise ValueError(f"prefill {prefill} must be a multiple of chunk "
+                         f"{chunk} within the cache ({k.shape[1]})")
+    if k.device.type == "cpu":
+        return chunk_scores_plain(q, k, chunk=chunk, prefill=prefill)
+    if k.device.type != "cuda":
+        raise ValueError(f"no chunk_scores for device {k.device}")
+    hkv, g, d = q.shape
+    if k.dtype != torch.bfloat16:
+        raise TypeError(f"chunk_scores kernel takes a bf16 cache, got "
+                        f"{k.dtype}")
+    if (k.dim() != 3 or k.shape[0] != hkv or k.shape[2] != d
+            or k.stride(2) != 1 or k.data_ptr() % 16 or k.stride(0) % 8
+            or k.stride(1) % 8):
+        raise ValueError(f"k {tuple(k.shape)} {k.stride()} is not a 16-byte "
+                         "aligned [Hkv, S, D] cache layer")
+    if d not in (64, 128) or not 1 <= g <= 8 or chunk > 256:
+        raise ValueError(f"chunk_scores kernel: unsupported head_dim {d}, "
+                         f"group {g} or chunk {chunk}")
+    qb = q.to(k.dtype).contiguous()
+    out = torch.empty((hkv, prefill // chunk), dtype=torch.float32,
+                      device=k.device)
+    err = _build.lib(_SOURCE).tf_chunk_scores_bf16(
+        qb.data_ptr(), k.data_ptr(), k.stride(0), k.stride(1),
+        out.data_ptr(), hkv, g, d, prefill, chunk,
+        torch.cuda.current_stream(k.device).cuda_stream)
+    _build.check(err, "chunk_scores kernel launch")
+    chunk_scores.launches += 1
+    return out
+
+
+chunk_scores.launches = 0
