@@ -7,16 +7,19 @@
 Phases, in order (any failure exits non-zero before the last line):
   1. device line: the card's name and power limit (nvidia-smi);
   2. build: nvcc builds every kernel of ``triforce_tpu_torch/csrc``;
-  3. kernels: each kernel at the main path's shapes against its plain
-     PyTorch version (stated tolerance), with its time, its bound, the
-     plain version's time and a library yardstick's time;
+  3. kernels: each kernel (B1 and B2 in bf16, B1-int8 and B2-int8 over an
+     int8 cache) at the main path's shapes against its plain PyTorch
+     version (stated tolerance), with its time, its bound, the plain
+     version's time and a library yardstick's time;
   4. reference: the full-width model at cut depth on a short prompt, the
-     card's bf16 path (through the kernels) against an fp32 CPU run of the
-     same weights;
-  5. end to end: Llama2-7B-128K + Llama-68M at full width with random bf16
+     card's path (through the kernels) against an fp32 CPU run of the same
+     weights: bf16 weights and cache, then int8 weights and cache;
+  5. end to end: Llama2-7B-128K + Llama-68M at full width with random
      weights: AR, retrieval-spec, TriForce and forced-acceptance TriForce
-     through the decoding drivers, each with its kernel launch counts set
-     to 0 before and checked against the count the path implies after;
+     through the decoding drivers, first in bf16, then with int8 weights
+     and KV (``kv_quant``, ``weight_quant``); each run sets every kernel
+     launch count to 0 before and checks it against the count the path
+     implies after (the other precision's kernels at 0);
   6. the ``kernels`` JSON line, then the ``ok`` JSON line.
 
 Exits non-zero (and prints no result) without a CUDA card or outside the
@@ -36,9 +39,19 @@ import torch
 
 H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 H100_BF16_FLOPS = 989e12        # dense bf16 tensor cores
+H100_INT8_OPS = 1979e12         # dense int8 tensor cores
 H100_FP32_FLOPS = 67e12         # fp32 outside the tensor cores
 GEN = 128                       # generated tokens per end-to-end mode
 GAMMA = 6
+# int8 kernel tolerances against their plain versions; see kernel_b1 and
+# kernel_b2 (B1-int8: over sqrt(k_len + Tn); B2-int8: of the score scale)
+INT8_B1_TOL = 0.005
+INT8_B2_TOL = 1e-6
+# gates of the int8 reference phase over every logit row (PERF.md section 2)
+INT8_REF_COSINE = 0.995
+INT8_REF_TOP1 = 0.8
+INT8_REF_MAX_REL = 0.08         # tests/test_kv_quant.py's own limit
+INT8_REF_SCORES_COSINE = 0.99
 
 
 def _fail(msg: str) -> None:
@@ -73,8 +86,11 @@ def _bound(nbytes: float, flops: float, peak_flops: float):
 # Kernel phase
 # ---------------------------------------------------------------------------
 
-def kernel_b1(fd, dev, gt, tn, k_len, s, hkv=32, d=128, seed=0):
-    """B1 at one shape: kernel vs plain, times and bound."""
+def kernel_b1(fd, cache_mod, dev, gt, tn, k_len, s, quant=False, hkv=32,
+              d=128, seed=0):
+    """B1 (or, with ``quant``, B1-int8 over the int8 codes and scales of
+    the same cache) at one shape: kernel vs plain, times and bound."""
+    name = "B1-int8" if quant else "B1"
     g = torch.Generator(device=dev).manual_seed(seed)
     bf = torch.bfloat16
 
@@ -87,29 +103,56 @@ def kernel_b1(fd, dev, gt, tn, k_len, s, hkv=32, d=128, seed=0):
     v_st = rn(2, 1, hkv, s, d)
     k_st[1, 0, :, k_len:] = 50.0     # stale tail: must never be read
     v_st[1, 0, :, k_len:] = 50.0
-    k, v = k_st[1, 0], v_st[1, 0]
     rows = torch.arange(gt, device=dev)[:, None] % tn
     mask = (torch.arange(tn, device=dev)[None, :] <= rows).contiguous()
     klen_t = torch.tensor(k_len, dtype=torch.int32, device=dev)
+    if quant:
+        # the int8 cache the model would commit: codes + per-token scales
+        (k8, ks), (v8, vs) = (cache_mod.quantize_tokens(x)
+                              for x in (k_st, v_st))
+        k, v, ks, vs = k8[1, 0], v8[1, 0], ks[1, 0], vs[1, 0]
+        del k_st, v_st
 
-    # The kernel rounds p to bf16 against split-local maxima, the plain
-    # version against the row maximum, so each p.v term differs by up to
-    # 2^-9 relative and the output error shrinks as 1/sqrt(keys). Sound
+        def kernel(kn):
+            return fd.flash_decode_append_int8(q, k, v, kn, vn, klen_t,
+                                               mask, ks, vs)
+
+        def plain(kn, m):
+            return fd.flash_decode_append_int8_plain(
+                q, k, v, kn, vn, klen_t, m, ks, vs, group=fd.KERNEL_GROUP)
+    else:
+        k, v = k_st[1, 0], v_st[1, 0]
+
+        def kernel(kn):
+            return fd.flash_decode_append(q, k, v, kn, vn, klen_t, mask)
+
+        def plain(kn, m):
+            return fd.flash_decode_append_plain(q, k, v, kn, vn, klen_t, m)
+
+    # bf16: the kernel rounds p to bf16 against split-local maxima, the
+    # plain version against the row maximum, so each p.v term differs by up
+    # to 2^-9 relative and the output error shrinks as 1/sqrt(keys). Sound
     # readings at every shape gave err * sqrt(k_len + Tn) = 0.012-0.018
     # (my chip run, PR 1); the tolerance is ~3x that.
-    tol = 0.05 / (k_len + tn) ** 0.5
+    # int8: both sides make the same integer codes of q, k, v and p (the
+    # same IEEE divisions and exp), so only fp32 summation order differs,
+    # plus a rare bf16 rounding flip of the new block's p. Readings were
+    # err * sqrt(k_len + Tn) = 3e-5 .. 1.1e-3 on an H100 (PERF.md); the
+    # tolerance is ~4.5x the largest and 10x tighter than bf16's.
+    tol = (INT8_B1_TOL if quant else 0.05) / (k_len + tn) ** 0.5
 
     def check(kn, what):
-        out = fd.flash_decode_append(q, k, v, kn, vn, klen_t, mask)
-        ref = fd.flash_decode_append_plain(q, k, v, kn, vn, klen_t, mask)
+        out = kernel(kn)
+        ref = plain(kn, mask)
         torch.cuda.synchronize()
         if not torch.isfinite(out).all():
-            _fail(f"B1 gt={gt} k_len={k_len} {what}: non-finite output")
+            _fail(f"{name} gt={gt} k_len={k_len} {what}: non-finite output")
         return (out - ref).abs().max().item(), ref
 
     err, _ = check(kn, "random")
     if not err <= tol:
-        _fail(f"B1 gt={gt} k_len={k_len}: kernel disagrees with plain")
+        _fail(f"{name} gt={gt} k_len={k_len}: kernel disagrees with plain "
+              f"(err {err:.3e}, tol {tol:.3e})")
     err_new = None
     if gt <= 16:
         # With random keys the new tokens hold ~Tn/k_len of the softmax
@@ -126,54 +169,86 @@ def kernel_b1(fd, dev, gt, tn, k_len, s, hkv=32, d=128, seed=0):
         if gt > 1:
             faults.append(("mask ignored", torch.ones_like(mask)))
         for what, m in faults:
-            alt = fd.flash_decode_append_plain(q, k, v, kn_dom, vn, klen_t, m)
+            alt = plain(kn_dom, m)
             gap = (alt - ref).abs().max().item()
             if not gap > 100 * tol:
-                _fail(f"B1 gt={gt}: '{what}' moves the output only "
+                _fail(f"{name} gt={gt}: '{what}' moves the output only "
                       f"{gap:.3e}")
         if not err_new <= tol:
-            _fail(f"B1 gt={gt} k_len={k_len}: kernel disagrees with plain "
-                  f"when the new block dominates")
+            _fail(f"{name} gt={gt} k_len={k_len}: kernel disagrees with "
+                  f"plain when the new block dominates (err {err_new:.3e}, "
+                  f"tol {tol:.3e})")
         err = max(err, err_new)
-    ms = _time_ms(lambda: fd.flash_decode_append(q, k, v, kn, vn, klen_t,
-                                                 mask))
-    plain_ms = _time_ms(lambda: fd.flash_decode_append_plain(
-        q, k, v, kn, vn, klen_t, mask), reps=5, warm=1)
-    # yardstick: SDPA over [live cache prefix ++ new block] (prepared once)
-    k_all = torch.cat([k[:, :k_len], kn], 1)[None]
-    v_all = torch.cat([v[:, :k_len], vn], 1)[None]
+    ms = _time_ms(lambda: kernel(kn))
+    plain_ms = _time_ms(lambda: plain(kn, mask), reps=5, warm=1)
+    # yardstick: SDPA over [live cache prefix ++ new block] (prepared once;
+    # an int8 prefix is dequantized to bf16 first, untimed)
+    kp, vp = k[:, :k_len], v[:, :k_len]
+    if quant:
+        kp = cache_mod.dequantize(kp, ks[:, :k_len], bf)
+        vp = cache_mod.dequantize(vp, vs[:, :k_len], bf)
+    k_all = torch.cat([kp, kn], 1)[None]
+    v_all = torch.cat([vp, vn], 1)[None]
     am = torch.cat([torch.ones(gt, k_len, dtype=torch.bool, device=dev),
                     mask], 1)
     lib_ms = _time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         q[None], k_all, v_all, attn_mask=am))
-    nbytes = 2 * (q.numel() + 2 * hkv * k_len * d + 2 * kn.numel()) \
+    # each input read once, the output written once: an int8 prefix is
+    # 1 byte a value plus a 4-byte scale a token for K and for V
+    cache_bytes = hkv * k_len * (2 * d + 8) if quant \
+        else 2 * 2 * hkv * k_len * d
+    nbytes = 2 * (q.numel() + 2 * kn.numel()) + cache_bytes \
         + mask.numel() + 4 * hkv * gt * d
     flops = 4.0 * hkv * gt * (k_len + tn) * d
-    bound_ms, bound_by = _bound(nbytes, flops, H100_BF16_FLOPS)
+    bound_ms, bound_by = _bound(nbytes, flops,
+                                H100_INT8_OPS if quant else H100_BF16_FLOPS)
     row = dict(gt=gt, tn=tn, k_len=k_len, s=s, max_abs_err=err, tol=tol,
                err_dominant_new=err_new, ms=ms, plain_ms=plain_ms,
                library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by)
-    print(f"B1 gt={gt} tn={tn} k_len={k_len}: err {err:.3e} (tol "
+    print(f"{name} gt={gt} tn={tn} k_len={k_len}: err {err:.3e} (tol "
           f"{tol:.3e}; dominant new block {err_new}) kernel {ms:.4f} ms, "
           f"bound {bound_ms:.4f} ms ({bound_by}), sdpa {lib_ms:.4f} ms, "
           f"plain {plain_ms:.4f} ms", flush=True)
     return row
 
 
-def kernel_b2(rk, rt, dev, prefill, chunk, budget, s, hkv=32, d=128, g=1):
-    """B2 at the build shape: kernel vs plain scores and selected chunks."""
+def kernel_b2(rk, rt, cache_mod, dev, prefill, chunk, budget, s,
+              quant=False, hkv=32, d=128, g=1):
+    """B2 (or, with ``quant``, B2-int8 over the int8 codes and scales of
+    the same keys) at the build shape: kernel vs plain scores and selected
+    chunks."""
+    name = "B2-int8" if quant else "B2"
     gen = torch.Generator(device=dev).manual_seed(1)
     bf = torch.bfloat16
     q = torch.randn((hkv, g, d), generator=gen, device=dev).to(bf)
     k = torch.randn((hkv, s, d), generator=gen, device=dev).to(bf)
     k[:, prefill:] = 50.0           # past the live prefill: never read
-    out = rk.chunk_scores(q, k, chunk=chunk, prefill=prefill)
-    ref = rk.chunk_scores_plain(q, k, chunk=chunk, prefill=prefill)
+    if quant:
+        k, ks = cache_mod.quantize_tokens(k)
+
+        def kernel():
+            return rk.chunk_scores_int8(q, k, ks, chunk=chunk,
+                                        prefill=prefill)
+
+        def plain():
+            return rk.chunk_scores_int8_plain(q, k, ks, chunk=chunk,
+                                              prefill=prefill)
+        kp = cache_mod.dequantize(k[:, :prefill], ks[:, :prefill], bf)
+    else:
+        def kernel():
+            return rk.chunk_scores(q, k, chunk=chunk, prefill=prefill)
+
+        def plain():
+            return rk.chunk_scores_plain(q, k, chunk=chunk, prefill=prefill)
+        kp = k[:, :prefill]
+    out, ref = kernel(), plain()
     torch.cuda.synchronize()
     err = (out - ref).abs().max().item()
-    # fp32 sums of identical bf16 products in another order: ~1e-7 of the
-    # scale; the reading was 1.5e-7 of it (my chip run, PR 1)
-    tol = 1e-5 * ref.abs().max().item()
+    # bf16: fp32 sums of identical bf16 products in another order, ~1e-7 of
+    # the scale; the reading was 1.5e-7 of it on an H100 (PERF.md). int8:
+    # exact integer dots, only the scale products and the means round; the
+    # reading was 1.5e-7 of the scale too.
+    tol = (INT8_B2_TOL if quant else 1e-5) * ref.abs().max().item()
     sel_k = rt.select_chunks(out[None], budget // chunk)[0]
     sel_p = rt.select_chunks(ref[None], budget // chunk)[0]
     n_diff = 0
@@ -184,44 +259,72 @@ def kernel_b2(rk, rt, dev, prefill, chunk, budget, s, hkv=32, d=128, g=1):
             # a differing pick must be a near-tie at the top-k boundary
             kth = ref[h, 1:].topk(budget // chunk - 1).values[-1]
             if abs(ref[h, c].item() - kth.item()) > 2 * tol:
-                _fail(f"B2 head {h}: chunk {c} selected differently and is "
-                      f"not a near-tie")
+                _fail(f"{name} head {h}: chunk {c} selected differently "
+                      f"and is not a near-tie")
             n_diff += 1
-    ms = _time_ms(lambda: rk.chunk_scores(q, k, chunk=chunk,
-                                          prefill=prefill))
-    plain_ms = _time_ms(lambda: rk.chunk_scores_plain(
-        q, k, chunk=chunk, prefill=prefill), reps=5, warm=1)
-    kp = k[:, :prefill]
+    ms = _time_ms(kernel)
+    plain_ms = _time_ms(plain, reps=5, warm=1)
+    # yardstick: einsum + means over the (dequantized, untimed) keys
     lib_ms = _time_ms(lambda: torch.einsum("hgd,hsd->hgs", q, kp).float()
                       .mean(1).reshape(hkv, -1, chunk).mean(-1))
-    nbytes = 2 * (q.numel() + hkv * prefill * d) + 4 * out.numel()
+    key_bytes = hkv * prefill * (d + 4) if quant else 2 * hkv * prefill * d
+    nbytes = 2 * q.numel() + key_bytes + 4 * out.numel()
     flops = 2.0 * hkv * g * prefill * d
-    bound_ms, bound_by = _bound(nbytes, flops, H100_FP32_FLOPS)
-    print(f"B2 prefill={prefill} chunk={chunk}: err {err:.3e} (tol "
+    bound_ms, bound_by = _bound(nbytes, flops,
+                                H100_INT8_OPS if quant else H100_FP32_FLOPS)
+    print(f"{name} prefill={prefill} chunk={chunk}: err {err:.3e} (tol "
           f"{tol:.3e}), {n_diff} near-tie selection differences; kernel "
           f"{ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), einsum+mean "
           f"{lib_ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
     if not err <= tol:
-        _fail("B2: kernel disagrees with plain")
+        _fail(f"{name}: kernel disagrees with plain")
     return dict(prefill=prefill, chunk=chunk, max_abs_err=err, tol=tol,
                 select_near_ties=n_diff, ms=ms, plain_ms=plain_ms,
                 library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by)
 
 
+def unported_bounds() -> dict:
+    """The least time for B3 and B4, the TPU kernels still to port, at the
+    shapes the JAX package runs them, int8 KV (its bench's default): each
+    cache byte (1 a value + 4 a token for its scale) read once over the
+    HBM rate; their operations bound them far lower."""
+    def kv_ms(rows, hkv, keys, d=128):
+        return rows * hkv * keys * (2 * d + 8) / H100_BYTES_PER_S * 1e3
+    return {
+        # flash_decode_append_batched: 4 rows of BENCH_7B_PROXY (16 heads)
+        # at the batched mode's 15872-token context (benchlib/modes.py:515)
+        "B3 batched verify, 4 rows x 16 heads x 15872 keys": kv_ms(4, 16,
+                                                                  15872),
+        # flash_decode_partials: Llama2-7B (32 heads) AR decode with its
+        # 124928-token context split over 4 cards, one card's share
+        "B4 partials, 32 heads x 31232 keys (1 of 4 cards)": kv_ms(1, 32,
+                                                                  31232),
+    }
+
+
 # ---------------------------------------------------------------------------
-# Reference phase: the card's bf16 kernel path vs an fp32 CPU run
+# Reference phase: the card's kernel path vs an fp32 CPU run
 # ---------------------------------------------------------------------------
 
-def reference_check(tc, llama, cache_mod, rt, dev, layers=2, prompt=512):
+def reference_check(tc, llama, cache_mod, rt, dev, quant=False, layers=2,
+                    prompt=512):
+    """bf16: the card's bf16 weights, activations and cache against fp32
+    on the CPU. ``quant``: int8 weights and an int8 cache on both sides
+    (the card's activations bf16, through B1-int8 and B2-int8; the CPU's
+    fp32, through the dequantizing partials path and chunk_scores_xla)."""
+    name = "int8" if quant else "bf16"
     cfg = tc.LLAMA2_7B_128K.with_(num_layers=layers)
     spec = tc.SpecConfig(budget=128, chunk_size=8)
     sets = spec.budget // spec.chunk_size
     p_gpu = llama.init_params(cfg, device=dev, dtype=torch.bfloat16, seed=7)
-    p_cpu = {"embed": p_gpu["embed"].float().cpu(),
-             "final_norm": p_gpu["final_norm"].float().cpu(),
-             "lm_head": p_gpu["lm_head"].float().cpu(),
-             "layers": {k: v.float().cpu()
-                        for k, v in p_gpu["layers"].items()}}
+    if quant:
+        p_gpu = llama.quantize_weights(p_gpu)
+
+    def to_cpu(x):   # int8 codes stay int8; everything else fp32
+        return x.cpu() if x.dtype == torch.int8 else x.float().cpu()
+
+    p_cpu = {k: ({n: to_cpu(w) for n, w in v.items()} if k == "layers"
+                 else to_cpu(v)) for k, v in p_gpu.items()}
     ids = torch.randint(0, cfg.vocab_size, (1, prompt),
                         generator=torch.Generator().manual_seed(3))
     # record the chunk scores each build computes, layer by layer
@@ -234,46 +337,64 @@ def reference_check(tc, llama, cache_mod, rt, dev, layers=2, prompt=512):
         return sc
 
     outs = {}
+    planes = ("k", "v", "k_scale", "v_scale") if quant else ("k", "v")
     rt.chunk_scores = recording
     try:
-        for name, params, device, dtype in (
+        for side, params, device, dtype in (
                 ("gpu", p_gpu, dev, torch.bfloat16),
                 ("cpu", p_cpu, torch.device("cpu"), torch.float32)):
             recorded.clear()
             kv = cache_mod.init_kv(cfg, prompt + 16, dtype=dtype,
-                                   device=device)
+                                   device=device, quant=quant)
             rkv = cache_mod.init_retrieval(cfg, spec, dtype=dtype,
-                                           device=device)
+                                           device=device, quant=quant)
             x = ids.to(device)
-            _, kv, _ = llama.forward_append(cfg, params, x[:, :-1], kv,
-                                            need_logits=False)
+            first, kv, _ = llama.forward_append(cfg, params, x[:, :-1], kv)
             logits, kv, rkv = llama.forward_append(
                 cfg, params, x[:, -1:], kv, build_rkv=rkv, prefill=prompt,
                 chunk_size=spec.chunk_size, budget=spec.budget)
             scores = torch.stack(recorded)                  # [L, Hkv, C]
             sel = rt.select_chunks(scores, sets)            # [L, Hkv, sets]
-            # the build wrote exactly the chunks its own scores select
+            # the build wrote exactly the chunks its own scores select:
+            # codes and scales alike for an int8 cache
             for li in range(layers):
-                want = rt.gather_chunks(kv.k[li], sel[li][None].to(device),
-                                        spec.chunk_size)
-                if not torch.equal(rkv.k[li, :, :, :spec.budget], want):
-                    _fail(f"reference [{name}]: layer {li}'s retrieval "
-                          f"cache is not the gather of its selected chunks")
+                idx = sel[li][None].to(device)
+                for plane in planes:
+                    want = rt.gather_chunks(getattr(kv, plane)[li], idx,
+                                            spec.chunk_size)
+                    got = getattr(rkv, plane)[li, :, :, :spec.budget]
+                    if not torch.equal(got, want):
+                        _fail(f"reference {name} [{side}]: layer {li}'s "
+                              f"retrieval {plane} is not the gather of its "
+                              f"selected chunks")
             # a 3-token verify-shaped forward on top
             more, kv, _ = llama.forward_append(cfg, params, x[:, 5:8], kv)
-            outs[name] = (torch.cat([logits, more], 1).float().cpu(),
-                          scores, sel)
+            outs[side] = (torch.cat([first, logits, more], 1)[0].double()
+                          .cpu(), scores, sel)
     finally:
         rt.chunk_scores = chunk_scores
     (lg, sg, selg), (lc, sc, selc) = outs["gpu"], outs["cpu"]
-    cos = torch.nn.functional.cosine_similarity(lg.flatten(), lc.flatten(),
-                                                dim=0).item()
-    top1 = (lg.argmax(-1) == lc.argmax(-1)).float().mean().item()
-    sc_cos = torch.nn.functional.cosine_similarity(sg.flatten(),
-                                                   sc.flatten(), dim=0).item()
-    # bf16 activations move the scores, so the two runs may pick different
-    # chunks. A pick can flip only between chunks whose fp32 scores lie
-    # within 2e of the k-th best, where e bounds |bf16 - fp32| for the head.
+
+    def cosine(a, b):
+        return torch.nn.functional.cosine_similarity(
+            a.flatten().double(), b.flatten().double(), dim=0).item()
+
+    # "last": the build token's and the 3-token verify's rows; "all": every
+    # row of the prompt too (random-weight logits are nearly flat, so top-1
+    # over 4 rows is a coarse statistic)
+    stats = {}
+    for rows, a, b in (("last", lg[-4:], lc[-4:]), ("all", lg, lc)):
+        stats[rows] = dict(
+            logits_cosine=cosine(a, b),
+            top1_agreement=(a.argmax(-1) == b.argmax(-1)).double().mean()
+            .item(),
+            max_rel_logit_err=((a - b).abs().max() / b.abs().max()).item())
+    cos, top1 = (stats["last"][k] for k in ("logits_cosine",
+                                            "top1_agreement"))
+    sc_cos = cosine(sg, sc)
+    # the two runs' scores differ, so they may pick different chunks. A
+    # pick can flip only between chunks whose CPU scores lie within 2e of
+    # the k-th best, where e bounds |card - CPU| for the head.
     n_diff = 0
     for li in range(layers):
         for h in range(cfg.num_kv_heads):
@@ -281,59 +402,85 @@ def reference_check(tc, llama, cache_mod, rt, dev, layers=2, prompt=512):
             kth = sc[li, h, 1:].topk(sets - 1).values[-1].item()
             for c in set(selg[li, h].tolist()) ^ set(selc[li, h].tolist()):
                 if abs(sc[li, h, c].item() - kth) > 2 * e:
-                    _fail(f"reference: layer {li} head {h} chunk {c} "
+                    _fail(f"reference {name}: layer {li} head {h} chunk {c} "
                           f"selected differently and is not a near-tie")
                 n_diff += 1
     agree = 1 - n_diff / (2 * selg.numel())
-    print(f"reference: {layers}-layer full-width model, {prompt}-token "
-          f"prompt: bf16 card vs fp32 CPU logits cosine {cos:.6f}, top-1 "
-          f"agreement {top1:.3f}; chunk scores cosine {sc_cos:.6f}, "
-          f"selected chunks agree {agree:.4f} ({n_diff} near-tie "
-          f"differences); each retrieval cache is the gather of its own "
-          f"selection", flush=True)
-    # bf16 weights and activations vs fp32 agree to well under 1%
-    if not (cos > 0.999 and top1 >= 0.9 and sc_cos > 0.999):
-        _fail("card forward disagrees with the fp32 CPU reference")
-    return dict(logits_cosine=cos, top1_agreement=top1,
-                chunk_scores_cosine=sc_cos, selection_agreement=agree,
-                selection_near_ties=n_diff)
+    print(f"reference {name}: {layers}-layer full-width model, {prompt}-token "
+          f"prompt, card vs fp32 CPU: logits (cosine, top-1 agreement, max "
+          f"|dlogit| / max |logit|) over the last 4 rows "
+          f"{tuple(round(v, 6) for v in stats['last'].values())}, over all "
+          f"{lg.shape[0]} rows {tuple(round(v, 6) for v in stats['all'].values())}; "
+          f"chunk scores cosine {sc_cos:.6f}, selected chunks agree "
+          f"{agree:.4f} ({n_diff} near-tie differences); each retrieval "
+          f"cache is the gather of its own selection", flush=True)
+    if quant:
+        a = stats["all"]
+        ok = (a["logits_cosine"] > INT8_REF_COSINE
+              and a["top1_agreement"] >= INT8_REF_TOP1
+              and a["max_rel_logit_err"] < INT8_REF_MAX_REL
+              and sc_cos > INT8_REF_SCORES_COSINE)
+    else:
+        # bf16 weights and activations vs fp32 agree to well under 1%
+        ok = cos > 0.999 and top1 >= 0.9 and sc_cos > 0.999
+    if not ok:
+        _fail(f"card {name} forward disagrees with the fp32 CPU reference")
+    return dict(logits=stats, chunk_scores_cosine=sc_cos,
+                selection_agreement=agree, selection_near_ties=n_diff)
 
 
 # ---------------------------------------------------------------------------
 # End-to-end phase
 # ---------------------------------------------------------------------------
 
+# kernel wrappers by short name; each counts its own launches
+COUNTERS = ("b1", "b1_int8", "b2", "b2_int8")
+
+
+def _wrappers(fd, rk):
+    return dict(b1=fd.flash_decode_append, b1_int8=fd.flash_decode_append_int8,
+                b2=rk.chunk_scores, b2_int8=rk.chunk_scores_int8)
+
+
 def _reset(fd, rk):
-    fd.flash_decode_append.launches = 0
-    rk.chunk_scores.launches = 0
+    for fn in _wrappers(fd, rk).values():
+        fn.launches = 0
 
 
-def _check_counts(fd, rk, what, want_b1, want_b2):
-    got = (fd.flash_decode_append.launches, rk.chunk_scores.launches)
-    print(f"  launches [{what}]: flash_decode {got[0]} (path implies "
-          f"{want_b1}), chunk_scores {got[1]} (path implies {want_b2})",
-          flush=True)
-    if got != (want_b1, want_b2):
-        _fail(f"{what}: kernel launch counts {got} != {(want_b1, want_b2)}")
-    if not all(got) and what in ("retrieval", "triforce"):
+def _check_counts(fd, rk, what, quant, want_b1, want_b2):
+    """The path's kernels (the int8 pair when ``quant``) must have launched
+    exactly as often as the path implies, the other pair never."""
+    want = dict.fromkeys(COUNTERS, 0)
+    want["b1_int8" if quant else "b1"] = want_b1
+    want["b2_int8" if quant else "b2"] = want_b2
+    got = {k: fn.launches for k, fn in _wrappers(fd, rk).items()}
+    print(f"  launches [{what}]: {got} (path implies {want})", flush=True)
+    if got != want:
+        _fail(f"{what}: kernel launch counts {got} != {want}")
+    if what.endswith(("retrieval", "triforce")) and not (want_b1 and want_b2):
         _fail(f"{what}: a kernel of the path was never launched")
     return got
 
 
-def end_to_end(tc, llama, decoding, Engine, fd, rk, dev, prefill):
+def end_to_end(tc, llama, decoding, Engine, fd, rk, dev, prefill, quant):
+    """All four modes at full width; ``quant``: int8 weights and KV."""
+    tag = "int8 " if quant else ""
     tcfg, dcfg = tc.LLAMA2_7B_128K, tc.LLAMA_68M
     spec = tc.SpecConfig(gamma=GAMMA, budget=4096, chunk_size=8)
     L = tcfg.num_layers
     t0 = time.perf_counter()
     tp = llama.init_params(tcfg, device=dev, dtype=torch.bfloat16, seed=0)
     dp = llama.init_params(dcfg, device=dev, dtype=torch.bfloat16, seed=1)
-    torch.cuda.synchronize()
-    print(f"weights: {time.perf_counter() - t0:.1f} s to make random "
-          f"weights on the card", flush=True)
     slack = 4 * (spec.gamma + 2)
     eng = Engine(tcfg, spec, tp, draft_cfg=dcfg, draft_params=dp,
                  prefill=prefill, max_cache_len=prefill + GEN + slack,
-                 dtype=torch.bfloat16, device=dev)
+                 dtype=torch.bfloat16, device=dev, kv_quant=quant,
+                 weight_quant=quant)
+    del tp, dp                   # the engine holds what it runs (int8 copies)
+    torch.cuda.synchronize()
+    print(f"{tag}weights: {time.perf_counter() - t0:.1f} s to make random "
+          f"weights on the card{' and quantize them' if quant else ''}",
+          flush=True)
     ids = torch.randint(0, tcfg.vocab_size, (1, prefill),
                         generator=torch.Generator().manual_seed(5)).to(dev)
     # target forwards of one prefill: full chunks + remainder + last token
@@ -344,7 +491,11 @@ def end_to_end(tc, llama, decoding, Engine, fd, rk, dev, prefill):
 
     def check_tokens(name, toks):
         if not all(0 <= t < tcfg.vocab_size for t in toks):
-            _fail(f"{name}: token out of range")
+            _fail(f"{tag}{name}: token out of range")
+
+    def counts(what, want_b1, want_b2):
+        res["launches"][what] = _check_counts(fd, rk, tag + what, quant,
+                                              want_b1, want_b2)
 
     # --- AR
     _reset(fd, rk)
@@ -354,12 +505,11 @@ def end_to_end(tc, llama, decoding, Engine, fd, rk, dev, prefill):
     total = time.perf_counter() - t0
     check_tokens("ar", r.tokens)
     if len(r.tokens) != GEN + 1:
-        _fail("ar: wrong token count")
-    res["launches"]["ar"] = _check_counts(fd, rk, "ar",
-                                          L * (pre_fwd + GEN), 0)
+        _fail(f"{tag}ar: wrong token count")
+    counts("ar", L * (pre_fwd + GEN), 0)
     res["ar"] = dict(ms_per_token=1e3 / r.tokens_per_sec,
                      prefill_s=total - r.wall_s, tokens=len(r.tokens))
-    print(f"AR: prefill {total - r.wall_s:.2f} s, "
+    print(f"{tag}AR: prefill {total - r.wall_s:.2f} s, "
           f"{1e3 / r.tokens_per_sec:.3f} ms/token", flush=True)
     torch.cuda.empty_cache()
 
@@ -372,16 +522,15 @@ def end_to_end(tc, llama, decoding, Engine, fd, rk, dev, prefill):
         total = time.perf_counter() - t0
         check_tokens(mode, r.tokens)
         if len(r.tokens) < GEN + 1:
-            _fail(f"{mode}: generated too few tokens")
+            _fail(f"{tag}{mode}: generated too few tokens")
         # every step: its middle verifies + one full-cache verify
-        res["launches"][mode] = _check_counts(
-            fd, rk, mode, L * (pre_fwd + r.middle_verifies + r.steps), L)
+        counts(mode, L * (pre_fwd + r.middle_verifies + r.steps), L)
         res[mode] = dict(ms_per_token=1e3 / r.tokens_per_sec,
                          prefill_s=total - r.wall_s, steps=r.steps,
                          acceptance_rate=r.acceptance_rate,
                          avg_tokens_per_step=r.avg_tokens_per_step,
                          middle_verifies=r.middle_verifies)
-        print(f"{mode}: prefill {total - r.wall_s:.2f} s, "
+        print(f"{tag}{mode}: prefill {total - r.wall_s:.2f} s, "
               f"{1e3 / r.tokens_per_sec:.3f} ms/token, {r.steps} steps, "
               f"acceptance {r.acceptance_rate:.3f}, "
               f"{r.avg_tokens_per_step:.2f} tokens/step", flush=True)
@@ -399,8 +548,7 @@ def end_to_end(tc, llama, decoding, Engine, fd, rk, dev, prefill):
     state = eng.prefill_draft(state, ids)
     torch.cuda.synchronize()
     t_pd = time.perf_counter() - t0
-    res["launches"]["prefill_target"] = _check_counts(
-        fd, rk, "prefill_target", L * pre_fwd, L)
+    counts("prefill_target", L * pre_fwd, L)
     _reset(fd, rk)
     t0 = time.perf_counter()
     state, buf, n, counters = eng.generate_forced(state, GEN, 0.9,
@@ -410,20 +558,21 @@ def end_to_end(tc, llama, decoding, Engine, fd, rk, dev, prefill):
     check_tokens("forced", toks)
     steps, accepted, proposed = (int(x) for x in counters[:3])
     mid_verify = int(counters[7])
-    res["launches"]["forced"] = _check_counts(
-        fd, rk, "forced", L * (steps + mid_verify), 0)
+    counts("forced", L * (steps + mid_verify), 0)
     want_len = prefill + (n - 1)      # every emitted token but the last
     if int(state.kv.seq_len) != want_len:
-        _fail(f"forced: kv.seq_len {int(state.kv.seq_len)} != {want_len}")
+        _fail(f"{tag}forced: kv.seq_len {int(state.kv.seq_len)} != "
+              f"{want_len}")
     res["forced"] = dict(alpha=0.9, ms_per_token=dt * 1e3 / (n - 1),
                          prefill_target_s=t_pt, prefill_draft_s=t_pd,
                          counters=[int(x) for x in counters],
                          tokens=n - 1)
-    print(f"forced triforce a=0.9: prefill_target {t_pt:.2f} s, "
+    print(f"{tag}forced triforce a=0.9: prefill_target {t_pt:.2f} s, "
           f"prefill_draft {t_pd:.2f} s, {dt * 1e3 / (n - 1):.3f} ms/token, "
           f"counters [steps, accepted, proposed, resampled, bonus, "
           f"mid_draft, mid_accept, mid_verify, mid_live] = "
           f"{[int(x) for x in counters]}", flush=True)
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     return res
 
 
@@ -471,46 +620,74 @@ def main() -> int:
 
     prefill = args.prefill
     s_kv = prefill + GEN + 4 * (GAMMA + 2)
-    b1 = [kernel_b1(fd, dev, 1, 1, prefill, s_kv),
-          kernel_b1(fd, dev, GAMMA + 2, GAMMA + 2, prefill, s_kv),
-          kernel_b1(fd, dev, GAMMA + 1, GAMMA + 1, 4096, 4096 + GAMMA + 1),
-          kernel_b1(fd, dev, 512, 512, min(16384, prefill), s_kv)]
-    b2 = kernel_b2(rk, rt, dev, prefill, 8, 4096, s_kv)
-    ref = reference_check(tc, llama, cache, rt, dev)
+    shapes = [(1, 1, prefill, s_kv),                     # AR decode
+              (GAMMA + 2, GAMMA + 2, prefill, s_kv),     # full-cache verify
+              (GAMMA + 1, GAMMA + 1, 4096, 4096 + GAMMA + 1),  # middle
+              (512, 512, min(16384, prefill), s_kv)]     # prefill tile
+    b1 = {quant: [kernel_b1(fd, cache, dev, *sh, quant=quant)
+                  for sh in shapes] for quant in (False, True)}
+    b2 = {quant: kernel_b2(rk, rt, cache, dev, prefill, 8, 4096, s_kv,
+                           quant=quant) for quant in (False, True)}
+    ref = {name: reference_check(tc, llama, cache, rt, dev, quant=quant)
+           for name, quant in (("bf16", False), ("int8", True))}
 
-    e2e = None
-    main_path = (None, None)      # launches in the decoding.triforce run
-    by_phase = None
+    # launches of each kernel in its own path's decoding.triforce run
+    main_path = dict.fromkeys(COUNTERS)
+    by_phase = {}
     if not args.skip_e2e:
-        e2e = end_to_end(tc, llama, decoding, Engine, fd, rk, dev, prefill)
-        by_phase = e2e["launches"]
-        main_path = by_phase["triforce"]
-        print("end to end: " + json.dumps(e2e), flush=True)
+        e2e = {}
+        for name, quant in (("bf16", False), ("int8", True)):
+            e2e[name] = end_to_end(tc, llama, decoding, Engine, fd, rk, dev,
+                                   prefill, quant)
+            for k in (("b1_int8", "b2_int8") if quant else ("b1", "b2")):
+                main_path[k] = e2e[name]["launches"]["triforce"][k]
+                by_phase[k] = {ph: v[k] for ph, v in
+                               e2e[name]["launches"].items()}
+            print(f"end to end [{name}]: " + json.dumps(e2e[name]),
+                  flush=True)
+            torch.cuda.empty_cache()
 
-    main_b1 = b1[0]   # AR decode shape: the path's most frequent launch
+    def b1_entry(name, source_fn, quant, replaces):
+        main = b1[quant][0]   # AR decode shape: the path's most frequent
+        key = "b1_int8" if quant else "b1"
+        return dict(name=name, route="cuda",
+                    source="triforce_tpu_torch/csrc/flash_decode.cu",
+                    entry_point=source_fn, replaces=replaces,
+                    launches=main_path[key],
+                    launches_by_phase=by_phase.get(key),
+                    max_abs_err=max(r["max_abs_err"] for r in b1[quant]),
+                    ms=main["ms"], plain_ms=main["plain_ms"],
+                    bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+                    library_ms=main["library_ms"], shapes=b1[quant])
+
+    def b2_entry(name, source_fn, quant, replaces):
+        r = b2[quant]
+        key = "b2_int8" if quant else "b2"
+        return dict(name=name, route="cuda",
+                    source="triforce_tpu_torch/csrc/chunk_scores.cu",
+                    entry_point=source_fn, replaces=replaces,
+                    launches=main_path[key],
+                    launches_by_phase=by_phase.get(key),
+                    max_abs_err=r["max_abs_err"], ms=r["ms"],
+                    plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                    bound_by=r["bound_by"], library_ms=r["library_ms"],
+                    shapes=[r])
+
     kernels = [
-        dict(name="flash_decode_append", route="cuda",
-             source="triforce_tpu_torch/csrc/flash_decode.cu",
-             replaces="triforce_tpu/ops/flash_decode.py:332",
-             launches=main_path[0],
-             launches_by_phase=by_phase and {k: v[0] for k, v in
-                                             by_phase.items()},
-             max_abs_err=max(r["max_abs_err"] for r in b1),
-             ms=main_b1["ms"], plain_ms=main_b1["plain_ms"],
-             bound_ms=main_b1["bound_ms"], bound_by=main_b1["bound_by"],
-             library_ms=main_b1["library_ms"], shapes=b1),
-        dict(name="chunk_scores", route="cuda",
-             source="triforce_tpu_torch/csrc/chunk_scores.cu",
-             replaces="triforce_tpu/ops/retrieval_kernel.py:101",
-             launches=main_path[1],
-             launches_by_phase=by_phase and {k: v[1] for k, v in
-                                             by_phase.items()},
-             max_abs_err=b2["max_abs_err"], ms=b2["ms"],
-             plain_ms=b2["plain_ms"], bound_ms=b2["bound_ms"],
-             bound_by=b2["bound_by"], library_ms=b2["library_ms"],
-             shapes=[b2]),
+        b1_entry("flash_decode_append", "tf_flash_decode_bf16", False,
+                 "triforce_tpu/ops/flash_decode.py:332"),
+        b1_entry("flash_decode_append_int8", "tf_flash_decode_int8", True,
+                 "triforce_tpu/ops/flash_decode.py:332 (quant branch: "
+                 ":41-92, :436-448)"),
+        b2_entry("chunk_scores", "tf_chunk_scores_bf16", False,
+                 "triforce_tpu/ops/retrieval_kernel.py:101"),
+        b2_entry("chunk_scores_int8", "tf_chunk_scores_int8", True,
+                 "triforce_tpu/ops/retrieval_kernel.py:101 (quant branch: "
+                 ":52-57, :133-145)"),
     ]
     print(json.dumps({"reference": ref}), flush=True)
+    print(json.dumps({"bound_ms_of_kernels_to_port": unported_bounds()}),
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

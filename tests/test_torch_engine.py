@@ -202,15 +202,18 @@ def test_constructors_without_device_raise(build, monkeypatch):
         build(tcfg.SpecConfig(**SPEC_KW))
 
 
-@pytest.mark.parametrize("option", [dict(kv_quant=True),
-                                    dict(weight_quant=True),
-                                    dict(mesh=object())])
-def test_unported_options_raise(pair, option):
+@pytest.mark.parametrize("option,spec_kw", [
+    (dict(mesh=object()), {}),
+    (dict(weight_quant=True), dict(mid_act_quant=True)),
+], ids=["mesh", "mid_act_quant"])
+def test_unported_options_raise(pair, option, spec_kw):
+    """The mesh and int8 activations in the middle verify are not ported:
+    the Engine raises rather than quietly running something else."""
     _, te, _, _, _ = pair
     with pytest.raises(NotImplementedError):
-        TEngine(tcfg.TINY_TARGET, tcfg.SpecConfig(**SPEC_KW), te.t_params,
-                prefill=PREFILL, max_cache_len=PREFILL + 64, device="cpu",
-                **option)
+        TEngine(tcfg.TINY_TARGET, tcfg.SpecConfig(**SPEC_KW, **spec_kw),
+                te.t_params, prefill=PREFILL, max_cache_len=PREFILL + 64,
+                device="cpu", **option)
 
 
 def test_state_clone_is_independent(pair):

@@ -13,6 +13,7 @@ main path's full shapes.
 import pytest
 import torch
 
+from triforce_tpu_torch import cache as tcache
 from triforce_tpu_torch.ops import flash_decode as tfd
 from triforce_tpu_torch.ops import retrieval_kernel as trk
 
@@ -77,3 +78,79 @@ def test_chunk_scores_matches_plain(dev, g, chunk, prefill):
     assert trk.chunk_scores.launches == before + 1
     # the same fp32 products summed in another order
     torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# int8 KV: B1-int8 and B2-int8
+# ---------------------------------------------------------------------------
+
+def _int8_cache(dev, seed, *shape):
+    """int8 codes and fp32 scales of a random bf16 cache, as the model
+    commits them."""
+    return tcache.quantize_tokens(_randn(dev, seed, *shape))
+
+
+@pytest.mark.parametrize("gt,tn,k_len,s,d", [(1, 1, 1000, 1100, 128),
+                                             (7, 7, 4096, 4103, 128),
+                                             (8, 8, 0, 64, 128),
+                                             (200, 200, 777, 1000, 128),
+                                             (16, 4, 333, 400, 64)])
+def test_flash_decode_int8_matches_plain(dev, gt, tn, k_len, s, d):
+    """The int8 kernel against its plain version at the kernel's group,
+    with codes and scales past k_len poisoned (never read) and k_len = 0
+    (the new block alone)."""
+    q, kn, vn = (_randn(dev, 0, 4, gt, d), _randn(dev, 1, 4, tn, d),
+                 _randn(dev, 2, 4, tn, d))
+    k, ks = _int8_cache(dev, 3, 4, s, d)
+    v, vs = _int8_cache(dev, 4, 4, s, d)
+    k[:, k_len:], v[:, k_len:] = 127, -127
+    ks[:, k_len:], vs[:, k_len:] = 1e3, 1e3
+    mask = tfd.causal_mask(gt, tn, 1, dev) if gt == tn else \
+        torch.ones((gt, tn), dtype=torch.bool, device=dev)
+    kl = torch.tensor(k_len, dtype=torch.int32, device=dev)
+    before = tfd.flash_decode_append_int8.launches
+    out = tfd.flash_decode_append_int8(q, k, v, kn, vn, kl, mask, ks, vs)
+    ref = tfd.flash_decode_append_int8_plain(q, k, v, kn, vn, kl, mask, ks,
+                                             vs, group=tfd.KERNEL_GROUP)
+    torch.cuda.synchronize()
+    assert tfd.flash_decode_append_int8.launches == before + 1
+    assert torch.isfinite(out).all()
+    # the same integer codes up to rare one-step flips of p; chip_smoke.py
+    # states the same bound
+    assert (out - ref).abs().max().item() <= 0.005 / (k_len + tn) ** 0.5
+
+
+def test_flash_decode_rejects_a_bf16_int8_mix(dev):
+    """Each kernel raises on the other's cache type, and the int8 kernel
+    on scales that are not fp32 [Hkv, S]; none falls back."""
+    q = _randn(dev, 0, 2, 1, 128)
+    kb = _randn(dev, 1, 2, 64, 128)
+    k8, ks = _int8_cache(dev, 2, 2, 64, 128)
+    mask = torch.ones((1, 1), dtype=torch.bool, device=dev)
+    with pytest.raises(TypeError):
+        tfd.flash_decode_append(q, k8, k8, q, q, 8, mask)
+    with pytest.raises(TypeError):
+        tfd.flash_decode_append_int8(q, kb, kb, q, q, 8, mask, ks, ks)
+    with pytest.raises(ValueError):
+        tfd.flash_decode_append_int8(q, k8, k8, q, q, 8, mask, ks.half(),
+                                     ks.half())
+    with pytest.raises(TypeError):
+        trk.chunk_scores(q, k8, chunk=8, prefill=64)
+    with pytest.raises(TypeError):
+        trk.chunk_scores_int8(q, kb, ks, chunk=8, prefill=64)
+
+
+@pytest.mark.parametrize("g,chunk,prefill", [(1, 8, 2048), (2, 4, 1000),
+                                             (4, 16, 512)])
+def test_chunk_scores_int8_matches_plain(dev, g, chunk, prefill):
+    q = _randn(dev, 5, 4, g, 128)
+    k, ks = _int8_cache(dev, 6, 4, 3000, 128)
+    k[:, prefill:], ks[:, prefill:] = 127, 1e3    # never read
+    before = trk.chunk_scores_int8.launches
+    out = trk.chunk_scores_int8(q, k, ks, chunk=chunk, prefill=prefill)
+    ref = trk.chunk_scores_int8_plain(q, k, ks, chunk=chunk,
+                                      prefill=prefill)
+    torch.cuda.synchronize()
+    assert trk.chunk_scores_int8.launches == before + 1
+    # exact integer dots: only the scale products and the means round
+    assert (out - ref).abs().max().item() <= 1e-6 * ref.abs().max().item()

@@ -43,10 +43,17 @@ _SIGNATURES = {
                                  _P, _L, _L, _P, _L, _L, _P, _P,
                                  _P, _P, _P, _P,
                                  _I, _I, _I, _I, _I, _I, _F, _P],
+        "tf_flash_decode_int8": [_P, _L, _L, _P, _L, _L, _P, _L, _L,
+                                 _P, _L, _P, _L,
+                                 _P, _L, _L, _P, _L, _L, _P, _P,
+                                 _P, _P, _P, _P,
+                                 _I, _I, _I, _I, _I, _I, _F, _P],
     },
     "chunk_scores.cu": {
         "tf_chunk_scores_bf16": [_P, _P, _L, _L, _P, _I, _I, _I, _I, _I,
                                  _P],
+        "tf_chunk_scores_int8": [_P, _P, _L, _L, _P, _L, _P, _I, _I, _I,
+                                 _I, _I, _P],
     },
 }
 

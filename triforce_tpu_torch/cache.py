@@ -9,6 +9,11 @@ the tail refresh), which keeps one copy of each multi-GB cache on the card.
 ``seq_len`` is a 0-d int32 tensor on the cache's device, replaced (never
 mutated) on every change, so a caller may keep an old length around.
 
+The target's caches may be INT8-quantized (``quant=True``): ``k``/``v``
+then hold int8 codes and ``k_scale``/``v_scale`` the fp32 scale of each
+(layer, batch, head, token), ``quantize_tokens`` / ``dequantize`` being
+the codec. The drafter's streaming cache is never quantized.
+
 JAX clamps the start of ``dynamic_slice`` / ``dynamic_update_slice`` into
 range; torch raises instead. ``slice_at`` and ``write_at`` reproduce the
 clamp with device-side indices (no host sync).
@@ -17,10 +22,15 @@ clamp with device-side indices (no host sync).
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
 from .config import ModelConfig, SpecConfig, resolve_device
+
+
+def _clone(x: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    return None if x is None else x.clone()
 
 
 @dataclasses.dataclass
@@ -28,19 +38,26 @@ class KVCache:
     """Full (target) KV cache; keys stored rotated. ``rollback`` subtracts
     from ``seq_len`` (attention is masked by length, never re-sliced)."""
 
-    k: torch.Tensor        # [L, B, H_kv, S_max, D]
+    k: torch.Tensor        # [L, B, H_kv, S_max, D] (model dtype, or int8)
     v: torch.Tensor
     seq_len: torch.Tensor  # 0-d int32
+    k_scale: Optional[torch.Tensor] = None   # [L, B, H_kv, S_max] fp32
+    v_scale: Optional[torch.Tensor] = None
 
     @property
     def max_len(self) -> int:
         return self.k.shape[3]
 
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
+
     def rollback(self, n) -> "KVCache":
         return dataclasses.replace(self, seq_len=self.seq_len - n)
 
     def clone(self) -> "KVCache":
-        return KVCache(self.k.clone(), self.v.clone(), self.seq_len.clone())
+        return KVCache(self.k.clone(), self.v.clone(), self.seq_len.clone(),
+                       _clone(self.k_scale), _clone(self.v_scale))
 
 
 @dataclasses.dataclass
@@ -49,15 +66,22 @@ class RetrievalCache:
     speculation scratch slots. The tail refresh writes generated tokens at
     descending slots from ``budget - 1`` as a rolling window."""
 
-    k: torch.Tensor  # [L, B, H_kv, budget + gamma + 1, D]
+    k: torch.Tensor  # [L, B, H_kv, budget + gamma + 1, D] (or int8)
     v: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None   # [L, B, H_kv, real_budget]
+    v_scale: Optional[torch.Tensor] = None
 
     @property
     def real_budget(self) -> int:
         return self.k.shape[3]
 
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
+
     def clone(self) -> "RetrievalCache":
-        return RetrievalCache(self.k.clone(), self.v.clone())
+        return RetrievalCache(self.k.clone(), self.v.clone(),
+                              _clone(self.k_scale), _clone(self.v_scale))
 
 
 @dataclasses.dataclass
@@ -90,22 +114,38 @@ def _zero_len(device) -> torch.Tensor:
     return torch.zeros((), dtype=torch.int32, device=device)
 
 
+def _planes(shape, dtype, quant: bool, device) -> dict:
+    """k/v buffers of ``shape`` (int8 codes when ``quant``) and, when
+    ``quant``, their fp32 per-token scale planes."""
+    if quant:
+        return dict(k=torch.zeros(shape, dtype=torch.int8, device=device),
+                    v=torch.zeros(shape, dtype=torch.int8, device=device),
+                    k_scale=torch.zeros(shape[:4], dtype=torch.float32,
+                                        device=device),
+                    v_scale=torch.zeros(shape[:4], dtype=torch.float32,
+                                        device=device))
+    return dict(k=torch.zeros(shape, dtype=dtype, device=device),
+                v=torch.zeros(shape, dtype=dtype, device=device))
+
+
 def init_kv(cfg: ModelConfig, max_len: int, batch: int = 1,
-            dtype=torch.bfloat16, device=None) -> KVCache:
+            dtype=torch.bfloat16, device=None, quant: bool = False
+            ) -> KVCache:
     device = resolve_device(device)
     shape = (cfg.num_layers, batch, cfg.num_kv_heads, max_len, cfg.head_dim)
-    return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
-                   v=torch.zeros(shape, dtype=dtype, device=device),
-                   seq_len=_zero_len(device))
+    return KVCache(seq_len=_zero_len(device),
+                   **_planes(shape, dtype, quant, device))
 
 
 def init_retrieval(cfg: ModelConfig, spec: SpecConfig, batch: int = 1,
-                   dtype=torch.bfloat16, device=None) -> RetrievalCache:
+                   dtype=torch.bfloat16, device=None, quant: bool = False
+                   ) -> RetrievalCache:
+    """No ``pad_to``: the JAX package pads the slots only for TPU DMA
+    blocks, and off the TPU it pads to 1."""
     device = resolve_device(device)
     real = spec.budget + spec.gamma + 1
     shape = (cfg.num_layers, batch, cfg.num_kv_heads, real, cfg.head_dim)
-    return RetrievalCache(k=torch.zeros(shape, dtype=dtype, device=device),
-                          v=torch.zeros(shape, dtype=dtype, device=device))
+    return RetrievalCache(**_planes(shape, dtype, quant, device))
 
 
 def init_streaming(cfg: ModelConfig, spec: SpecConfig, batch: int = 1,
@@ -116,6 +156,33 @@ def init_streaming(cfg: ModelConfig, spec: SpecConfig, batch: int = 1,
     return StreamingCache(k=torch.zeros(shape, dtype=dtype, device=device),
                           v=torch.zeros(shape, dtype=dtype, device=device),
                           seq_len=_zero_len(device))
+
+
+# ---------------------------------------------------------------------------
+# INT8 codec (triforce_tpu/cache.py:125-137)
+# ---------------------------------------------------------------------------
+
+def int8_scale(amax: torch.Tensor, floor: float) -> torch.Tensor:
+    """max(amax / 127, floor), the scale of symmetric int8 codes, with an
+    IEEE division: PyTorch multiplies a CUDA tensor divided by a Python
+    number by the number's reciprocal instead, which can land one ulp off
+    the division the JAX package and the CUDA kernels make."""
+    return (amax / torch.full_like(amax, 127.0)).clamp_min(floor)
+
+
+def quantize_tokens(x: torch.Tensor):
+    """Symmetric int8 per-token-per-head quantization of [..., T, D]
+    values: scale = max|x| / 127 over D (at least 1e-8), codes rounded half
+    to even like ``jnp.round``. Returns (codes int8, scales fp32 [..., T])."""
+    xf = x.float()
+    scale = int8_scale(xf.abs().amax(-1), 1e-8)
+    codes = torch.round(xf / scale[..., None]).clamp(-127, 127)
+    return codes.to(torch.int8), scale
+
+
+def dequantize(codes: torch.Tensor, scale: torch.Tensor,
+               dtype=torch.float32) -> torch.Tensor:
+    return (codes.float() * scale[..., None].float()).to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -211,7 +278,8 @@ def retrieval_tail_refresh(rkv: RetrievalCache, kv: KVCache,
     retrieval budget region at descending slots from
     ``budget - 1 - (new_from - prefill)`` (mod budget), in place. Mirrors
     the JAX function down to its clamped slices: the source window starts
-    at ``clamp(new_from, 0, S - max_new)``."""
+    at ``clamp(new_from, 0, S - max_new)``. An int8 cache moves its codes
+    and their scales alike (``triforce_tpu/cache.py:394-398``)."""
     if max_new is None:
         max_new = spec.gamma + 2
     budget = spec.budget
@@ -226,9 +294,12 @@ def retrieval_tail_refresh(rkv: RetrievalCache, kv: KVCache,
         for lo_c, valid, qc in blocks:
             toks_c = toks.index_select(3, qc)
             old = slice_at(rc, lo_c, max_new, 3)
-            sel = valid.reshape(1, 1, 1, max_new, 1)
+            sel = valid.reshape((1, 1, 1, max_new) + (1,) * (rc.dim() - 4))
             write_at(rc, torch.where(sel, toks_c.to(rc.dtype), old), lo_c, 3)
 
     one(rkv.k, kv.k)
     one(rkv.v, kv.v)
+    if rkv.quantized:
+        one(rkv.k_scale, kv.k_scale)
+        one(rkv.v_scale, kv.v_scale)
     return rkv

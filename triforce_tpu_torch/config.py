@@ -72,7 +72,7 @@ class SpecConfig:
     # number of trips (dead trips run with a zero-column retrieval read)
     middle_trips: int = 0
     # int8 activations in the middle verify (needs int8 weights; not in
-    # the port yet)
+    # the port yet: the Engine raises NotImplementedError for it)
     mid_act_quant: bool = False
     draft_start_size: int = 16    # StreamingLLM sink
     draft_recent_size: int = 250  # StreamingLLM window

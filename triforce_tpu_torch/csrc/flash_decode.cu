@@ -1,24 +1,52 @@
 // Fused decode attention for Hopper (sm_90a): a few query rows per KV head
-// against the live prefix of a long bf16 KV cache, fused with the block of
-// new tokens being appended by this forward.
+// against the live prefix of a long KV cache (bf16, or int8 codes with fp32
+// per-token scales), fused with the block of new tokens being appended by
+// this forward.
 //
 // Replaces the TPU kernel triforce_tpu/ops/flash_decode.py::flash_decode_append
 // (its Pallas `_kernel`, with `_block_scores`, `_block_pv` and
-// `_fold_new_and_finalize`), bf16 variant.
+// `_fold_new_and_finalize`), in both variants: bf16 (entry point
+// tf_flash_decode_bf16) and int8 KV (tf_flash_decode_int8, the `quant`
+// branch).
 //
 // What it computes (per KV head h, query row r of GT = G*T rows):
 //   q'      = bf16(fp32(q) / sqrt(D))                      (pre-scale, rounded)
-//   s_j     = q' . k_j          fp32 accumulation, j in [0, k_len)
+//   bf16 cache:
+//     s_j   = q' . k_j          fp32 accumulation, j in [0, k_len)
+//     acc   = bf16(p) . v
+//   int8 cache (codes k8/v8, scales ks/vs):
+//     qs    = max(max_d |q'| / 127, 1e-20);  q8 = clip(rint(q' / qs))
+//     s_j   = ((q8 . k8_j) * qs) * ks_j     (the integer dot is exact)
+//     per GROUP = 16 keys of a row, with gm the group's max score:
+//     p = exp(s - gm), pf = p * vs, ps = max(max |pf| / 127, 1e-20),
+//     p8 = clip(rint(pf / ps)), acc += (p8 . v8) * ps * exp(gm - m)
+//     the new-token fold uses q'' = bf16(q8 * qs) in place of q'
 //   n_j     = q' . k_new_j + (mask[r, j] ? 0 : -1e30)      j in [0, Tn)
 //   m       = max(s, n);  p = exp(s - m), pn = exp(n - m)
-//   out     = (bf16(p) . v + bf16(pn) . v_new) / max(sum p + sum pn, 1e-37)
-// The output is fp32 [Hkv, GT, D]; the caller casts it to q's dtype.
+//   out     = (acc + bf16(pn) . v_new) / max(sum p + sum pn, 1e-37)
+// (l sums the unquantized p.) The output is fp32 [Hkv, GT, D]; the caller
+// casts it to q's dtype. The new tokens are always bf16.
+//
+// The p re-quantization depends on how keys are grouped: the TPU kernel
+// takes max |p.vs| per row over its whole DMA block (hundreds to thousands
+// of keys, chosen by VMEM). Here the group is 16 keys: the depth of one
+// m16n8k16 p.v product, and the slice of a tile one warp owns at decode
+// shapes, so its row maximum is four in-quad values and two shuffles, with
+// no exchange between warps. ops/flash_decode.py's plain version takes the
+// group as a parameter and is held against this kernel at 16.
+//
+// sm_90 has no 8-bit transposing ldmatrix for the p.v B operand, so int8
+// codes are converted to bf16 as a tile is staged into shared memory (every
+// int8 value is exact in bf16) and both products run the bf16 mma.sync
+// path: fp32 accumulation gives the exact integer sums, since |q8 . k8| <=
+// 127^2 * 128 and |p8 . v8| <= 127^2 * 16 both stay below 2^24. Only codes
+// cross HBM; the cache is never dequantized.
 //
 // What bounds it on an H100: at decode shapes (GT <= 8) every cache byte is
 // read once and used for a handful of FLOPs, so it is bound by HBM bytes
-// (K and V of the live prefix over 3.35 TB/s). At the 512-row prefill tile
-// the score and PV products are ~1 KFLOP per cache byte, so it is bound by
-// tensor-core operations there.
+// (K and V of the live prefix, plus int8 scales, over 3.35 TB/s). At the
+// 512-row prefill tile the score and PV products are ~1 KFLOP per cache
+// byte, so it is bound by tensor-core operations there.
 //
 // Design. The TPU kernel walks sequence blocks in order on one core,
 // carrying (m, l, acc) in VMEM. Here:
@@ -26,17 +54,19 @@
 //     contiguous share of [0, k_len) and walks it in 64-key tiles staged
 //     through shared memory. A warp runs mma.sync m16n8k16 (bf16 in, fp32
 //     accumulate) for q.k^T and for p.v on 16 query rows, with an fp32
-//     online softmax in registers; p is rounded to bf16 before p.v, as on
-//     the TPU. With more than 16 rows each warp owns 16 rows and all keys
-//     of a tile; with at most 16 rows (decode) the four warps share the
-//     rows and each takes 16 keys of every tile, so a tile costs a quarter
-//     of the latency. Every warp-or-CTA writes its partials (m, l, acc) to
-//     scratch. Splitting the sequence fills the 132 SMs even at GT = 1.
+//     online softmax in registers; p is rounded to bf16 (or re-quantized
+//     to int8) before p.v, as on the TPU. With more than 16 rows each warp
+//     owns 16 rows and all keys of a tile; with at most 16 rows (decode)
+//     the four warps share the rows and each takes 16 keys of every tile,
+//     so a tile costs a quarter of the latency. Every warp-or-CTA writes its
+//     partials (m, l, acc) to scratch. Splitting the sequence fills the 132
+//     SMs even at GT = 1.
 //   phase 2 (fd_combine_kernel): one CTA per (row, head) merges the splits,
 //     folds in the new-token block under the mask bias, and normalises.
 // k_len is read from device memory by both phases (no host sync); rows past
-// k_len are masked in-kernel, so no cache length needs padding. A layer of
-// the stacked [L, B, Hkv, S, D] cache is passed as a pointer plus strides.
+// k_len are masked in-kernel and never read, so no cache length needs
+// padding. A layer of the stacked [L, B, Hkv, S, D] cache (and of its
+// [L, B, Hkv, S] scale planes) is passed as a pointer plus strides.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -52,8 +82,10 @@ constexpr int PAD = 8;           // bf16 row padding: conflict-free fragments
 
 struct SplitArgs {
   const __nv_bfloat16* q;  long long q_sh, q_sr;
-  const __nv_bfloat16* k;  long long k_sh, k_sr;
-  const __nv_bfloat16* v;  long long v_sh, v_sr;
+  const void* k;           long long k_sh, k_sr;   // bf16, or int8 codes
+  const void* v;           long long v_sh, v_sr;
+  const float* ks;         long long ks_sh;        // int8: [Hkv, S] scales
+  const float* vs;         long long vs_sh;
   const int* k_len;
   float* m_part;           // [Hkv, GT, nparts]
   float* l_part;           // [Hkv, GT, nparts]
@@ -73,6 +105,22 @@ __device__ __forceinline__ float prescale(__nv_bfloat16 x, float scale) {
   return __bfloat162float(__float2bfloat16_rn(__bfloat162float(x) * scale));
 }
 
+// int8 code of x at scale s: clip(rint(x / s), -127, 127), as a float
+__device__ __forceinline__ float code(float x, float s) {
+  return fminf(fmaxf(rintf(x / s), -127.f), 127.f);
+}
+
+// the row scale of int8 quantization from a row's max |x|
+__device__ __forceinline__ float row_scale(float amax) {
+  return fmaxf(amax / 127.f, 1e-20f);
+}
+
+// max over the 4 threads of an mma quad (the threads sharing a row)
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
   asm volatile(
@@ -82,13 +130,26 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// KSPLIT: at most 16 query rows; the warps split each tile's keys
-template <int D, bool KSPLIT>
+// 16 int8 codes -> 16 bf16 values (exact) at a 16-byte aligned dst
+__device__ __forceinline__ void store_codes(__nv_bfloat16* dst, uint4 raw) {
+  const int8_t* c = reinterpret_cast<const int8_t*>(&raw);
+  uint32_t w[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) w[e] = pack_bf16((float)c[2 * e], (float)c[2 * e + 1]);
+  reinterpret_cast<uint4*>(dst)[0] = make_uint4(w[0], w[1], w[2], w[3]);
+  reinterpret_cast<uint4*>(dst)[1] = make_uint4(w[4], w[5], w[6], w[7]);
+}
+
+// KSPLIT: at most 16 query rows; the warps split each tile's keys.
+// QUANT: int8 codes + fp32 per-token scales (else a bf16 cache).
+template <int D, bool KSPLIT, bool QUANT>
 __global__ void __launch_bounds__(WARPS * 32)
 fd_split_kernel(SplitArgs P) {
   constexpr int KW = KSPLIT ? KT / WARPS : KT;   // keys per warp per tile
   __shared__ __align__(16) __nv_bfloat16 sK[KT][D + PAD];
   __shared__ __align__(16) __nv_bfloat16 sV[KT][D + PAD];
+  __shared__ float sKs[QUANT ? KT : 1];
+  __shared__ float sVs[QUANT ? KT : 1];
 
   const int split = blockIdx.x, qtile = blockIdx.y, h = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -108,30 +169,49 @@ fd_split_kernel(SplitArgs P) {
   const int part = KSPLIT ? split * WARPS + warp : split;
   const int ra = row0 + g, rb = row0 + g + 8;   // this thread's two rows
 
-  // q fragments (A operand, row-major 16 x D) for rows ra / rb
+  // q fragments (A operand, row-major 16 x D) for rows ra / rb: the
+  // pre-scaled q, or its int8 codes at the row scales qs_a / qs_b
   uint32_t qa[D / 16][4];
+  float qs_a = 1.f, qs_b = 1.f;
   {
     const __nv_bfloat16* qh = P.q + (long long)h * P.q_sh;
+    float x[D / 16][8];
+    float amax_a = 0.f, amax_b = 0.f;
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
-      float x[8];
 #pragma unroll
-      for (int e = 0; e < 8; ++e) x[e] = 0.f;
+      for (int e = 0; e < 8; ++e) x[kk][e] = 0.f;
       const int c0 = kk * 16 + 2 * t, c1 = c0 + 8;
       if (ra < P.gt) {
         const __nv_bfloat16* r = qh + (long long)ra * P.q_sr;
-        x[0] = prescale(r[c0], P.scale); x[1] = prescale(r[c0 + 1], P.scale);
-        x[4] = prescale(r[c1], P.scale); x[5] = prescale(r[c1 + 1], P.scale);
+        x[kk][0] = prescale(r[c0], P.scale); x[kk][1] = prescale(r[c0 + 1], P.scale);
+        x[kk][4] = prescale(r[c1], P.scale); x[kk][5] = prescale(r[c1 + 1], P.scale);
       }
       if (rb < P.gt) {
         const __nv_bfloat16* r = qh + (long long)rb * P.q_sr;
-        x[2] = prescale(r[c0], P.scale); x[3] = prescale(r[c0 + 1], P.scale);
-        x[6] = prescale(r[c1], P.scale); x[7] = prescale(r[c1 + 1], P.scale);
+        x[kk][2] = prescale(r[c0], P.scale); x[kk][3] = prescale(r[c0 + 1], P.scale);
+        x[kk][6] = prescale(r[c1], P.scale); x[kk][7] = prescale(r[c1 + 1], P.scale);
       }
-      qa[kk][0] = pack_bf16(x[0], x[1]);   // (row g,   cols 2t..2t+1)
-      qa[kk][1] = pack_bf16(x[2], x[3]);   // (row g+8, cols 2t..2t+1)
-      qa[kk][2] = pack_bf16(x[4], x[5]);   // (row g,   cols 2t+8..)
-      qa[kk][3] = pack_bf16(x[6], x[7]);   // (row g+8, cols 2t+8..)
+      amax_a = fmaxf(amax_a, fmaxf(fmaxf(fabsf(x[kk][0]), fabsf(x[kk][1])),
+                                   fmaxf(fabsf(x[kk][4]), fabsf(x[kk][5]))));
+      amax_b = fmaxf(amax_b, fmaxf(fmaxf(fabsf(x[kk][2]), fabsf(x[kk][3])),
+                                   fmaxf(fabsf(x[kk][6]), fabsf(x[kk][7]))));
+    }
+    if constexpr (QUANT) {
+      qs_a = row_scale(quad_max(amax_a));
+      qs_b = row_scale(quad_max(amax_b));
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      if constexpr (QUANT) {
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          x[kk][e] = code(x[kk][e], (e & 2) ? qs_b : qs_a);
+      }
+      qa[kk][0] = pack_bf16(x[kk][0], x[kk][1]);   // (row g,   cols 2t..2t+1)
+      qa[kk][1] = pack_bf16(x[kk][2], x[kk][3]);   // (row g+8, cols 2t..2t+1)
+      qa[kk][2] = pack_bf16(x[kk][4], x[kk][5]);   // (row g,   cols 2t+8..)
+      qa[kk][3] = pack_bf16(x[kk][6], x[kk][7]);   // (row g+8, cols 2t+8..)
     }
   }
 
@@ -142,21 +222,41 @@ fd_split_kernel(SplitArgs P) {
   for (int n = 0; n < D / 8; ++n)
     acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
 
-  const __nv_bfloat16* kh = P.k + (long long)h * P.k_sh;
-  const __nv_bfloat16* vh = P.v + (long long)h * P.v_sh;
-  constexpr int VEC = D / 8;   // 16-byte vectors per row
-
   for (int kb = beg; kb < end; kb += KT) {
     __syncthreads();   // the previous tile is consumed
-    for (int c = tid; c < KT * VEC; c += WARPS * 32) {
-      const int r = c / VEC, col = (c % VEC) * 8;
-      uint4 kx = make_uint4(0, 0, 0, 0), vx = make_uint4(0, 0, 0, 0);
-      if (kb + r < end) {
-        kx = *reinterpret_cast<const uint4*>(kh + (long long)(kb + r) * P.k_sr + col);
-        vx = *reinterpret_cast<const uint4*>(vh + (long long)(kb + r) * P.v_sr + col);
+    if constexpr (QUANT) {
+      constexpr int VEC = D / 16;   // 16-byte vectors per int8 row
+      const int8_t* kh = (const int8_t*)P.k + (long long)h * P.k_sh;
+      const int8_t* vh = (const int8_t*)P.v + (long long)h * P.v_sh;
+      for (int c = tid; c < KT * VEC; c += WARPS * 32) {
+        const int r = c / VEC, col = (c % VEC) * 16;
+        uint4 kx = make_uint4(0, 0, 0, 0), vx = make_uint4(0, 0, 0, 0);
+        if (kb + r < end) {
+          kx = *reinterpret_cast<const uint4*>(kh + (long long)(kb + r) * P.k_sr + col);
+          vx = *reinterpret_cast<const uint4*>(vh + (long long)(kb + r) * P.v_sr + col);
+        }
+        store_codes(&sK[r][col], kx);
+        store_codes(&sV[r][col], vx);
       }
-      *reinterpret_cast<uint4*>(&sK[r][col]) = kx;
-      *reinterpret_cast<uint4*>(&sV[r][col]) = vx;
+      if (tid < KT) {
+        const bool live = kb + tid < end;
+        sKs[tid] = live ? P.ks[(long long)h * P.ks_sh + kb + tid] : 0.f;
+        sVs[tid] = live ? P.vs[(long long)h * P.vs_sh + kb + tid] : 0.f;
+      }
+    } else {
+      constexpr int VEC = D / 8;    // 16-byte vectors per bf16 row
+      const __nv_bfloat16* kh = (const __nv_bfloat16*)P.k + (long long)h * P.k_sh;
+      const __nv_bfloat16* vh = (const __nv_bfloat16*)P.v + (long long)h * P.v_sh;
+      for (int c = tid; c < KT * VEC; c += WARPS * 32) {
+        const int r = c / VEC, col = (c % VEC) * 8;
+        uint4 kx = make_uint4(0, 0, 0, 0), vx = make_uint4(0, 0, 0, 0);
+        if (kb + r < end) {
+          kx = *reinterpret_cast<const uint4*>(kh + (long long)(kb + r) * P.k_sr + col);
+          vx = *reinterpret_cast<const uint4*>(vh + (long long)(kb + r) * P.v_sr + col);
+        }
+        *reinterpret_cast<uint4*>(&sK[r][col]) = kx;
+        *reinterpret_cast<uint4*>(&sV[r][col]) = vx;
+      }
     }
     __syncthreads();
     if (!active) continue;
@@ -173,53 +273,100 @@ fd_split_kernel(SplitArgs P) {
         const uint32_t b1 = *reinterpret_cast<const uint32_t*>(&sK[kr][kk * 16 + 2 * t + 8]);
         mma_bf16(sc[n], qa[kk], b0, b1);
       }
+      if constexpr (QUANT) {   // exact integer dots -> ((dot * qs) * ks), as on the TPU
+        const int kt = kw0 + n * 8 + 2 * t;
+        sc[n][0] = sc[n][0] * qs_a * sKs[kt];
+        sc[n][1] = sc[n][1] * qs_a * sKs[kt + 1];
+        sc[n][2] = sc[n][2] * qs_b * sKs[kt];
+        sc[n][3] = sc[n][3] * qs_b * sKs[kt + 1];
+      }
     }
-    // mask keys past the share's end; row maxima over the tile
-    float mx0 = -INFINITY, mx1 = -INFINITY;
+    // mask keys past the share's end
 #pragma unroll
     for (int n = 0; n < KW / 8; ++n) {
       const int key = kb + kw0 + n * 8 + 2 * t;
       if (key >= end)     { sc[n][0] = -INFINITY; sc[n][2] = -INFINITY; }
       if (key + 1 >= end) { sc[n][1] = -INFINITY; sc[n][3] = -INFINITY; }
-      mx0 = fmaxf(mx0, fmaxf(sc[n][0], sc[n][1]));
-      mx1 = fmaxf(mx1, fmaxf(sc[n][2], sc[n][3]));
     }
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    // row maxima over the tile; int8 also keeps each 16-key group's
+    // (gm: rows g / g+8 of group j)
+    float gm0[KW / 16], gm1[KW / 16];
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < KW / 16; ++j) {
+      gm0[j] = fmaxf(fmaxf(sc[2 * j][0], sc[2 * j][1]),
+                     fmaxf(sc[2 * j + 1][0], sc[2 * j + 1][1]));
+      gm1[j] = fmaxf(fmaxf(sc[2 * j][2], sc[2 * j][3]),
+                     fmaxf(sc[2 * j + 1][2], sc[2 * j + 1][3]));
+      if constexpr (QUANT) {
+        gm0[j] = quad_max(gm0[j]);
+        gm1[j] = quad_max(gm1[j]);
+      }
+      mx0 = fmaxf(mx0, gm0[j]);
+      mx1 = fmaxf(mx1, gm1[j]);
+    }
+    if constexpr (!QUANT) {
+      mx0 = quad_max(mx0);
+      mx1 = quad_max(mx1);
+    }
     const float mn0 = fmaxf(m_r[0], mx0), mn1 = fmaxf(m_r[1], mx1);
     // a row with nothing valid yet keeps alpha 1 and p 0
     const float base0 = mn0 == -INFINITY ? 0.f : mn0;
     const float base1 = mn1 == -INFINITY ? 0.f : mn1;
     const float al0 = expf(m_r[0] - base0), al1 = expf(m_r[1] - base1);
     m_r[0] = mn0; m_r[1] = mn1;
-
-    float ls0 = 0.f, ls1 = 0.f;
-#pragma unroll
-    for (int n = 0; n < KW / 8; ++n) {
-      sc[n][0] = expf(sc[n][0] - base0); sc[n][1] = expf(sc[n][1] - base0);
-      sc[n][2] = expf(sc[n][2] - base1); sc[n][3] = expf(sc[n][3] - base1);
-      ls0 += sc[n][0] + sc[n][1];
-      ls1 += sc[n][2] + sc[n][3];
-    }
-    l_r[0] = l_r[0] * al0 + ls0;
-    l_r[1] = l_r[1] * al1 + ls1;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n) {
       acc[n][0] *= al0; acc[n][1] *= al0;
       acc[n][2] *= al1; acc[n][3] *= al1;
     }
 
-    // acc[16 x D] += bf16(p)[16 x KW] . V[KW x D]
+    // bf16: p = exp(s - m), acc += bf16(p) . V over each 16-key slice.
+    // int8: per 16-key group, p = exp(s - gm) against the group's own max
+    // and the group weighted by w = exp(gm - m): the same softmax, with
+    // integer codes that do not depend on where a running max stands (the
+    // splits keep their own); acc += (p8 . v8) * ps * w, p8 the codes of
+    // p * vs at the row's scale ps
+    float ls0 = 0.f, ls1 = 0.f;
 #pragma unroll
     for (int j = 0; j < KW / 16; ++j) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(sc[2 * j][0], sc[2 * j][1]);
-      pa[1] = pack_bf16(sc[2 * j][2], sc[2 * j][3]);
-      pa[2] = pack_bf16(sc[2 * j + 1][0], sc[2 * j + 1][1]);
-      pa[3] = pack_bf16(sc[2 * j + 1][2], sc[2 * j + 1][3]);
+      float gb0 = base0, gb1 = base1, w0 = 1.f, w1 = 1.f;
+      if constexpr (QUANT) {   // an all-masked group has p 0 and weight 0
+        gb0 = gm0[j] == -INFINITY ? 0.f : gm0[j];
+        gb1 = gm1[j] == -INFINITY ? 0.f : gm1[j];
+        w0 = gm0[j] == -INFINITY ? 0.f : expf(gm0[j] - base0);
+        w1 = gm1[j] == -INFINITY ? 0.f : expf(gm1[j] - base1);
+      }
+      float pr[4][2];   // (row, key pair) of this thread's 2 x 4 values
+      pr[0][0] = expf(sc[2 * j][0] - gb0);     pr[0][1] = expf(sc[2 * j][1] - gb0);
+      pr[1][0] = expf(sc[2 * j][2] - gb1);     pr[1][1] = expf(sc[2 * j][3] - gb1);
+      pr[2][0] = expf(sc[2 * j + 1][0] - gb0); pr[2][1] = expf(sc[2 * j + 1][1] - gb0);
+      pr[3][0] = expf(sc[2 * j + 1][2] - gb1); pr[3][1] = expf(sc[2 * j + 1][3] - gb1);
+      ls0 += w0 * (pr[0][0] + pr[0][1] + pr[2][0] + pr[2][1]);   // row g
+      ls1 += w1 * (pr[1][0] + pr[1][1] + pr[3][0] + pr[3][1]);   // row g+8
       const int r0 = kw0 + j * 16 + 2 * t;
+      float ps0 = 1.f, ps1 = 1.f;
+      if constexpr (QUANT) {
+        const float v0 = sVs[r0], v1 = sVs[r0 + 1];
+        const float v8 = sVs[r0 + 8], v9 = sVs[r0 + 9];
+        pr[0][0] *= v0; pr[0][1] *= v1; pr[1][0] *= v0; pr[1][1] *= v1;
+        pr[2][0] *= v8; pr[2][1] *= v9; pr[3][0] *= v8; pr[3][1] *= v9;
+        ps0 = row_scale(quad_max(fmaxf(fmaxf(fabsf(pr[0][0]), fabsf(pr[0][1])),
+                                       fmaxf(fabsf(pr[2][0]), fabsf(pr[2][1])))));
+        ps1 = row_scale(quad_max(fmaxf(fmaxf(fabsf(pr[1][0]), fabsf(pr[1][1])),
+                                       fmaxf(fabsf(pr[3][0]), fabsf(pr[3][1])))));
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float s = (e & 1) ? ps1 : ps0;
+          pr[e][0] = code(pr[e][0], s);
+          pr[e][1] = code(pr[e][1], s);
+        }
+        ps0 *= w0;
+        ps1 *= w1;
+      }
+      uint32_t pa[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) pa[e] = pack_bf16(pr[e][0], pr[e][1]);
 #pragma unroll
       for (int n = 0; n < D / 8; ++n) {
         const int col = n * 8 + g;
@@ -229,9 +376,18 @@ fd_split_kernel(SplitArgs P) {
         const uint32_t b1 =
             (uint32_t)__bfloat16_as_ushort(sV[r0 + 8][col]) |
             ((uint32_t)__bfloat16_as_ushort(sV[r0 + 9][col]) << 16);
-        mma_bf16(acc[n], pa, b0, b1);
+        if constexpr (QUANT) {
+          float c[4] = {0.f, 0.f, 0.f, 0.f};
+          mma_bf16(c, pa, b0, b1);
+          acc[n][0] += c[0] * ps0; acc[n][1] += c[1] * ps0;
+          acc[n][2] += c[2] * ps1; acc[n][3] += c[3] * ps1;
+        } else {
+          mma_bf16(acc[n], pa, b0, b1);
+        }
       }
     }
+    l_r[0] = l_r[0] * al0 + ls0;
+    l_r[1] = l_r[1] * al1 + ls1;
   }
 
   if (!active) return;
@@ -277,8 +433,8 @@ struct CombineArgs {
   float scale;
 };
 
-// one CTA per (row, head); thread d owns output column d
-template <int D>
+// one CTA per (row, head); thread d owns output column d (D <= 128)
+template <int D, bool QUANT>
 __global__ void __launch_bounds__(128)
 fd_combine_kernel(CombineArgs P) {
   extern __shared__ float sn[];           // [Tn] new-token scores
@@ -288,7 +444,19 @@ fd_combine_kernel(CombineArgs P) {
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
 
   const __nv_bfloat16* qr = P.q + (long long)h * P.q_sh + (long long)row * P.q_sr;
-  for (int d = tid; d < D; d += 128) sq[d] = prescale(qr[d], P.scale);
+  float x = tid < D ? prescale(qr[tid], P.scale) : 0.f;
+  if constexpr (QUANT) {
+    // the new block sees bf16(q8 * qs), q8 the codes phase 1 used
+    float amax = fabsf(x);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+    if (lane == 0) red[warp] = amax;
+    __syncthreads();
+    const float qs = row_scale(fmaxf(fmaxf(red[0], red[1]), fmaxf(red[2], red[3])));
+    x = __bfloat162float(__float2bfloat16_rn(code(x, qs) * qs));
+  }
+  if (tid < D) sq[tid] = x;
 
   // merge the split partials
   const long long o = ((long long)h * P.gt + row) * P.nparts;
@@ -343,23 +511,23 @@ fd_combine_kernel(CombineArgs P) {
     P.out[((long long)h * P.gt + row) * D + tid] = acc / fmaxf(L, 1e-37f);
 }
 
-template <int D>
+template <int D, bool QUANT>
 int launch(const SplitArgs& sa, const CombineArgs& ca, int hkv, cudaStream_t st) {
   const int nq = (sa.gt + QT - 1) / QT;
   if (sa.gt <= 16)
-    fd_split_kernel<D, true><<<dim3(sa.nsplit, 1, hkv), WARPS * 32, 0, st>>>(sa);
+    fd_split_kernel<D, true, QUANT><<<dim3(sa.nsplit, 1, hkv), WARPS * 32, 0, st>>>(sa);
   else
-    fd_split_kernel<D, false><<<dim3(sa.nsplit, nq, hkv), WARPS * 32, 0, st>>>(sa);
+    fd_split_kernel<D, false, QUANT><<<dim3(sa.nsplit, nq, hkv), WARPS * 32, 0, st>>>(sa);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const size_t smem = (size_t)ca.tn * sizeof(float);
   if (smem > 48 * 1024) {
-    e = cudaFuncSetAttribute(fd_combine_kernel<D>,
+    e = cudaFuncSetAttribute(fd_combine_kernel<D, QUANT>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  fd_combine_kernel<D><<<dim3(ca.gt, hkv), 128, smem, st>>>(ca);
+  fd_combine_kernel<D, QUANT><<<dim3(ca.gt, hkv), 128, smem, st>>>(ca);
   return (int)cudaGetLastError();
 }
 
@@ -367,6 +535,36 @@ int launch(const SplitArgs& sa, const CombineArgs& ca, int hkv, cudaStream_t st)
 // each split when the warps split the keys (GT <= 16). The wrapper sizes its
 // scratch by tf_flash_decode_parts, so this is the only place it is decided.
 int n_parts(int gt, int nsplit) { return gt <= 16 ? nsplit * WARPS : nsplit; }
+
+template <bool QUANT>
+int run(const void* q, long long q_sh, long long q_sr,
+        const void* k, long long k_sh, long long k_sr,
+        const void* v, long long v_sh, long long v_sr,
+        const void* ks, long long ks_sh, const void* vs, long long vs_sh,
+        const void* kn, long long kn_sh, long long kn_sr,
+        const void* vn, long long vn_sh, long long vn_sr,
+        const void* mask, const void* k_len,
+        void* m_part, void* l_part, void* acc_part, void* out,
+        int hkv, int gt, int tn, int s, int d, int nsplit, float scale,
+        void* stream) {
+  if (hkv <= 0 || gt <= 0 || tn <= 0 || nsplit <= 0)
+    return (int)cudaErrorInvalidValue;
+  const int nparts = n_parts(gt, nsplit);
+  SplitArgs sa{(const __nv_bfloat16*)q, q_sh, q_sr, k, k_sh, k_sr,
+               v, v_sh, v_sr, (const float*)ks, ks_sh, (const float*)vs, vs_sh,
+               (const int*)k_len, (float*)m_part, (float*)l_part,
+               (float*)acc_part, gt, s, nsplit, nparts, scale};
+  CombineArgs ca{(const __nv_bfloat16*)q, q_sh, q_sr,
+                 (const __nv_bfloat16*)kn, kn_sh, kn_sr,
+                 (const __nv_bfloat16*)vn, vn_sh, vn_sr,
+                 (const uint8_t*)mask, (const float*)m_part,
+                 (const float*)l_part, (const float*)acc_part, (float*)out,
+                 gt, tn, nparts, scale};
+  cudaStream_t st = (cudaStream_t)stream;
+  if (d == 128) return launch<128, QUANT>(sa, ca, hkv, st);
+  if (d == 64) return launch<64, QUANT>(sa, ca, hkv, st);
+  return (int)cudaErrorInvalidValue;
+}
 
 }  // namespace
 
@@ -384,22 +582,27 @@ extern "C" int tf_flash_decode_bf16(
     void* m_part, void* l_part, void* acc_part, void* out,
     int hkv, int gt, int tn, int s, int d, int nsplit, float scale,
     void* stream) {
-  if (hkv <= 0 || gt <= 0 || tn <= 0 || nsplit <= 0)
-    return (int)cudaErrorInvalidValue;
-  const int nparts = n_parts(gt, nsplit);
-  SplitArgs sa{(const __nv_bfloat16*)q, q_sh, q_sr,
-               (const __nv_bfloat16*)k, k_sh, k_sr,
-               (const __nv_bfloat16*)v, v_sh, v_sr,
-               (const int*)k_len, (float*)m_part, (float*)l_part,
-               (float*)acc_part, gt, s, nsplit, nparts, scale};
-  CombineArgs ca{(const __nv_bfloat16*)q, q_sh, q_sr,
-                 (const __nv_bfloat16*)kn, kn_sh, kn_sr,
-                 (const __nv_bfloat16*)vn, vn_sh, vn_sr,
-                 (const uint8_t*)mask, (const float*)m_part,
-                 (const float*)l_part, (const float*)acc_part, (float*)out,
-                 gt, tn, nparts, scale};
-  cudaStream_t st = (cudaStream_t)stream;
-  if (d == 128) return launch<128>(sa, ca, hkv, st);
-  if (d == 64) return launch<64>(sa, ca, hkv, st);
-  return (int)cudaErrorInvalidValue;
+  return run<false>(q, q_sh, q_sr, k, k_sh, k_sr, v, v_sh, v_sr,
+                    nullptr, 0, nullptr, 0, kn, kn_sh, kn_sr, vn, vn_sh, vn_sr,
+                    mask, k_len, m_part, l_part, acc_part, out,
+                    hkv, gt, tn, s, d, nsplit, scale, stream);
+}
+
+// int8 cache: k/v int8 codes [Hkv, S, D] (strides in elements = bytes),
+// ks/vs fp32 scales [Hkv, S] (token stride 1, head strides ks_sh / vs_sh)
+extern "C" int tf_flash_decode_int8(
+    const void* q, long long q_sh, long long q_sr,
+    const void* k, long long k_sh, long long k_sr,
+    const void* v, long long v_sh, long long v_sr,
+    const void* ks, long long ks_sh, const void* vs, long long vs_sh,
+    const void* kn, long long kn_sh, long long kn_sr,
+    const void* vn, long long vn_sh, long long vn_sr,
+    const void* mask, const void* k_len,
+    void* m_part, void* l_part, void* acc_part, void* out,
+    int hkv, int gt, int tn, int s, int d, int nsplit, float scale,
+    void* stream) {
+  return run<true>(q, q_sh, q_sr, k, k_sh, k_sr, v, v_sh, v_sr,
+                   ks, ks_sh, vs, vs_sh, kn, kn_sh, kn_sr, vn, vn_sh, vn_sr,
+                   mask, k_len, m_part, l_part, acc_part, out,
+                   hkv, gt, tn, s, d, nsplit, scale, stream);
 }

@@ -96,7 +96,14 @@ class StepStats:
 class Engine:
     """Holds params and drives batch-1 decoding for one (target, drafter)
     pair on one device. ``device=None`` means the first CUDA card and
-    raises when there is none."""
+    raises when there is none.
+
+    ``kv_quant``: the target's full and retrieval caches hold int8 codes
+    with per-token scales (the drafter's cache never does).
+    ``weight_quant``: the target's and the drafter's matmul weights are
+    quantized to int8 per output channel here (``engine.py:141-150``); the
+    prefill converts them back exactly once per call, since its wide
+    chunks would convert every weight per chunk (``engine.py:226-231``)."""
 
     def __init__(self, target_cfg: ModelConfig, spec: SpecConfig,
                  target_params, *, draft_cfg: Optional[ModelConfig] = None,
@@ -105,11 +112,10 @@ class Engine:
                  prefill_chunk: int = 512, draft_prefill_chunk: int = 64,
                  kv_quant: bool = False, weight_quant: bool = False,
                  mesh=None, device=None):
-        if kv_quant:
-            raise NotImplementedError("int8 KV (kv_quant) is not ported yet")
-        if weight_quant:
-            raise NotImplementedError(
-                "int8 weights (weight_quant) are not ported yet")
+        if spec.mid_act_quant:
+            raise NotImplementedError("int8 activations in the middle "
+                                      "verify (mid_act_quant) are not "
+                                      "ported yet")
         if mesh is not None:
             raise NotImplementedError("sharding over a mesh is not ported "
                                       "yet")
@@ -135,6 +141,11 @@ class Engine:
         # the recent window
         self.draft_prefill_chunk = min(draft_prefill_chunk,
                                        spec.draft_recent_size)
+        self.kv_quant = kv_quant
+        if weight_quant:
+            target_params = llama.quantize_weights(target_params)
+            if draft_params is not None:
+                draft_params = llama.quantize_weights(draft_params)
         self.t_params = target_params
         self.d_params = draft_params
 
@@ -145,9 +156,9 @@ class Engine:
     def init_state(self, seed: int) -> TriForceState:
         dev = self.device
         kv = init_kv(self.target_cfg, self.max_cache_len, 1, self.dtype,
-                     device=dev)
+                     device=dev, quant=self.kv_quant)
         rkv = init_retrieval(self.target_cfg, self.spec, 1, self.dtype,
-                             device=dev)
+                             device=dev, quant=self.kv_quant)
         dkv = None
         if self.draft_cfg is not None:
             dkv = init_streaming(self.draft_cfg, self.spec, 1, self.dtype,
@@ -159,17 +170,18 @@ class Engine:
 
     def prefill_body(self, kv: KVCache, body: torch.Tensor) -> KVCache:
         """Chunked prefill of ``body`` [1, P] into ``kv``: full
-        ``prefill_chunk`` chunks, then the ragged remainder."""
+        ``prefill_chunk`` chunks, then the ragged remainder, over weights
+        converted out of int8 once for the call (bit-identical)."""
         cfg, c = self.target_cfg, self.prefill_chunk
+        params = llama.dequant_weights(self.t_params, self.dtype)
         n_full = body.shape[1] // c
         for i in range(n_full):
-            _, kv, _ = llama.forward_append(cfg, self.t_params,
+            _, kv, _ = llama.forward_append(cfg, params,
                                             body[:, i * c:(i + 1) * c], kv,
                                             need_logits=False)
         rem = body.shape[1] - n_full * c
         if rem:
-            _, kv, _ = llama.forward_append(cfg, self.t_params,
-                                            body[:, -rem:], kv,
+            _, kv, _ = llama.forward_append(cfg, params, body[:, -rem:], kv,
                                             need_logits=False)
         return kv
 

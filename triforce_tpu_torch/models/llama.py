@@ -10,6 +10,13 @@ cache IN PLACE right after that layer's attention (which reads only slots
 ``< k_len``, so the write cannot change what it sees). The returned cache
 objects share their buffers with the ones passed in.
 
+Weights may be INT8 (``quantize_weights``): each matmul weight is then int8
+codes ``[.., in, out]`` beside an fp32 per-output-channel ``<name>_scale``;
+``_wmm`` converts the codes to the activation dtype and scales the output.
+Caches may be INT8 (``cache.init_kv(quant=True)``): the forwards quantize
+the new K/V per token as they commit them and hand the scales to the
+attention.
+
 Forward modes:
   forward_append      — prefill chunks / AR decode / full-cache target
                         verify, optionally building the retrieval cache on
@@ -29,14 +36,15 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..cache import KVCache, RetrievalCache, StreamingCache, window
+from ..cache import (KVCache, RetrievalCache, StreamingCache, int8_scale,
+                     quantize_tokens, window)
 from ..config import ModelConfig, SpecConfig
 from ..ops import retrieval as retrieval_ops
 from ..ops.attention import append_attention, append_attention_auto
 from . import rope
 
-_LAYER_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
-               "ln_attn", "ln_mlp")
+_MATMUL_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+_LAYER_KEYS = _MATMUL_KEYS + ("ln_attn", "ln_mlp")
 
 
 # ---------------------------------------------------------------------------
@@ -84,8 +92,12 @@ def init_params(cfg: ModelConfig, *, device, dtype=torch.bfloat16,
 
 
 def _to_torch(a, device, dtype) -> torch.Tensor:
+    """A numpy array -> a tensor of ``dtype``; int8 codes stay int8 and
+    ``_scale`` planes (float32) stay float32."""
     a = np.asarray(a)
-    if a.dtype.name == "bfloat16":     # ml_dtypes bf16: widen exactly
+    if a.dtype == np.int8:
+        dtype = torch.int8
+    elif a.dtype.name == "bfloat16":   # ml_dtypes bf16: widen exactly
         a = a.astype(np.float32)
     return torch.tensor(a).to(device=device, dtype=dtype)   # copies
 
@@ -94,21 +106,70 @@ def params_from_numpy(tree, cfg: ModelConfig, device, dtype=torch.float32):
     """The JAX params pytree as numpy arrays (``jax.tree.map(np.asarray,
     params)``) -> this package's params. Both packages keep the same layout
     (stacked [L, in, out] weights used as ``x @ w``), so this only converts
-    arrays; any layout change would happen here and nowhere else."""
+    arrays; any layout change would happen here and nowhere else. int8
+    weights (``quantize_weights``) keep their codes and their fp32
+    ``_scale`` planes."""
     layers = tree["layers"]
+    scales = [k + "_scale" for k in _MATMUL_KEYS]
     missing = [k for k in _LAYER_KEYS if k not in layers]
-    if missing or any(k.endswith("_scale") for k in layers):
-        raise ValueError(f"expected bf16/fp32 layer weights {_LAYER_KEYS}, "
-                         f"missing {missing} (int8 weights are not ported)")
+    unknown = [k for k in layers if k not in _LAYER_KEYS + tuple(scales)]
+    if missing or unknown:
+        raise ValueError(f"expected layer weights {_LAYER_KEYS} (+ int8 "
+                         f"scales); missing {missing}, unknown {unknown}")
     if np.asarray(layers["wq"]).shape[0] != cfg.num_layers:
         raise ValueError("params do not match the config's layer count")
-    return {
-        "embed": _to_torch(tree["embed"], device, dtype),
-        "layers": {k: _to_torch(layers[k], device, dtype)
-                   for k in _LAYER_KEYS},
-        "final_norm": _to_torch(tree["final_norm"], device, dtype),
-        "lm_head": _to_torch(tree["lm_head"], device, dtype),
-    }
+
+    def conv(name, a):
+        return _to_torch(a, device, torch.float32 if name.endswith("_scale")
+                         else dtype)
+
+    out = {k: conv(k, tree[k]) for k in ("embed", "final_norm", "lm_head")}
+    out["layers"] = {k: conv(k, v) for k, v in layers.items()}
+    if "lm_head_scale" in tree:
+        out["lm_head_scale"] = conv("lm_head_scale", tree["lm_head_scale"])
+    return out
+
+
+def quantize_weights(params):
+    """Symmetric per-output-channel INT8 quantization of every matmul
+    weight, layers and lm_head (``llama.py:167-188``): scale = max|w| / 127
+    over the input axis (at least 1e-8), codes rounded half to even. The
+    embedding and the norms stay as they are. One layer at a time, so no
+    fp32 copy of a whole stacked weight exists."""
+    def q(w):
+        wf = w.float()
+        s = int8_scale(wf.abs().amax(-2), 1e-8)
+        codes = torch.round(wf / s[..., None, :]).clamp(-127, 127)
+        return codes.to(torch.int8), s
+
+    def q_stacked(w):
+        codes = torch.empty(w.shape, dtype=torch.int8, device=w.device)
+        s = torch.empty((w.shape[0], w.shape[-1]), dtype=torch.float32,
+                        device=w.device)
+        for li in range(w.shape[0]):
+            codes[li], s[li] = q(w[li])
+        return codes, s
+
+    layers = dict(params["layers"])
+    for name in _MATMUL_KEYS:
+        layers[name], layers[name + "_scale"] = q_stacked(layers[name])
+    new = dict(params, layers=layers)
+    new["lm_head"], new["lm_head_scale"] = q(params["lm_head"])
+    return new
+
+
+def dequant_weights(params, dtype=torch.bfloat16):
+    """Exact pre-conversion of int8 matmul weights to ``dtype``
+    (``llama.py:191-211``): the codes convert losslessly and the ``_scale``
+    planes stay, still applied on the outputs by ``_wmm``, so forwards over
+    the result are bit-identical to the int8 path. Other weights pass
+    through unchanged."""
+    def conv(w):
+        return w.to(dtype) if w.dtype == torch.int8 else w
+    new = dict(params)
+    new["layers"] = {k: conv(v) for k, v in params["layers"].items()}
+    new["lm_head"] = conv(params["lm_head"])
+    return new
 
 
 def _layer(params, li: int):
@@ -125,41 +186,54 @@ def _rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     return w * (xf * torch.rsqrt(var + eps)).to(x.dtype)
 
 
-def _wmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Weight matmul in the model dtype (bf16 or fp32); the GEMM
-    accumulates in fp32. The weights stay ``torch.matmul``, as the JAX
-    package leaves them to XLA."""
-    return torch.matmul(x, w)
+def _wmm(x: torch.Tensor, p, name: str, out_dtype=None) -> torch.Tensor:
+    """Weight matmul ``x @ p[name]`` in the model dtype (bf16 or fp32); the
+    GEMM accumulates in fp32. The weights stay ``torch.matmul``, as the JAX
+    package leaves them to XLA. int8 weights (``llama.py:127-132``) are
+    converted to x's dtype first (exactly) and, when ``p`` holds
+    ``<name>_scale`` (also after ``dequant_weights``), the per-channel scale
+    multiplies the output in the output dtype: x's, or ``out_dtype``."""
+    w = p[name]
+    if w.dtype == torch.int8:
+        w = w.to(x.dtype)
+    out = torch.matmul(x, w)
+    if out_dtype is not None:
+        out = out.to(out_dtype)
+    scale = p.get(name + "_scale")
+    if scale is not None:
+        out = out * scale.to(out.dtype)
+    return out
 
 
 def _mlp(x, lp):
-    gate = _wmm(x, lp["w_gate"])
-    up = _wmm(x, lp["w_up"])
-    return _wmm(F.silu(gate) * up, lp["w_down"])
+    gate = _wmm(x, lp, "w_gate")
+    up = _wmm(x, lp, "w_up")
+    return _wmm(F.silu(gate) * up, lp, "w_down")
 
 
 def _qkv(x, lp, cfg: ModelConfig):
     b, t, _ = x.shape
-    q = _wmm(x, lp["wq"]).reshape(b, t, cfg.num_heads,
+    q = _wmm(x, lp, "wq").reshape(b, t, cfg.num_heads,
                                   cfg.head_dim).transpose(1, 2)
-    k = _wmm(x, lp["wk"]).reshape(b, t, cfg.num_kv_heads,
+    k = _wmm(x, lp, "wk").reshape(b, t, cfg.num_kv_heads,
                                   cfg.head_dim).transpose(1, 2)
-    v = _wmm(x, lp["wv"]).reshape(b, t, cfg.num_kv_heads,
+    v = _wmm(x, lp, "wv").reshape(b, t, cfg.num_kv_heads,
                                   cfg.head_dim).transpose(1, 2)
     return q, k, v  # [B, H, T, D]
 
 
 def _attn_out(ctx, lp):
     b, hq, t, d = ctx.shape
-    return _wmm(ctx.transpose(1, 2).reshape(b, t, hq * d), lp["wo"])
+    return _wmm(ctx.transpose(1, 2).reshape(b, t, hq * d), lp, "wo")
 
 
 def _logits(cfg: ModelConfig, params, x) -> torch.Tensor:
     """fp32 logits. In bf16 the GEMM output is rounded to bf16 before the
     cast (the reference's ``lm_head(h).float()``); the JAX package keeps the
-    fp32 accumulator instead."""
+    fp32 accumulator instead. An int8 lm_head's scale multiplies the fp32
+    logits, as in the JAX package."""
     x = _rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
-    return _wmm(x, params["lm_head"]).float()
+    return _wmm(x, params, "lm_head", out_dtype=torch.float32)
 
 
 def _embed(params, input_ids):
@@ -169,6 +243,28 @@ def _embed(params, input_ids):
 def _positions(start, t: int, device) -> torch.Tensor:
     return torch.as_tensor(start, device=device).to(torch.int64) \
         + torch.arange(t, device=device)
+
+
+def _commit_layer(cache, li: int, idx, k_new, v_new) -> None:
+    """Write one layer's new K/V [B, H, T, D] at slots ``idx`` of a target
+    cache, in place; an int8 cache stores their per-token codes and scales
+    (``llama.py:223-235``)."""
+    if cache.quantized:
+        k_new, ks = quantize_tokens(k_new)
+        v_new, vs = quantize_tokens(v_new)
+        cache.k_scale[li].index_copy_(2, idx, ks)
+        cache.v_scale[li].index_copy_(2, idx, vs)
+    cache.k[li].index_copy_(2, idx, k_new)
+    cache.v[li].index_copy_(2, idx, v_new)
+
+
+def _layer_attention(q, cache, li: int, k_new, v_new, k_len):
+    """``append_attention_auto`` over layer ``li`` of a target cache."""
+    quant = cache.quantized
+    return append_attention_auto(
+        q, cache.k[li], cache.v[li], k_new, v_new, k_len=k_len,
+        k_scale=cache.k_scale[li] if quant else None,
+        v_scale=cache.v_scale[li] if quant else None)
 
 
 # ---------------------------------------------------------------------------
@@ -209,10 +305,8 @@ def forward_append(cfg: ModelConfig, params, input_ids: torch.Tensor,
         q, k_new, v_new = _qkv(h, lp, cfg)
         q = rope.apply_rope(q, cos, sin, positions)
         k_new = rope.apply_rope(k_new, cos, sin, positions)  # stored rotated
-        ctx = append_attention_auto(q, kv.k[li], kv.v[li], k_new, v_new,
-                                    k_len=seq_len0)
-        kv.k[li].index_copy_(2, commit_idx, k_new)
-        kv.v[li].index_copy_(2, commit_idx, v_new)
+        ctx = _layer_attention(q, kv, li, k_new, v_new, seq_len0)
+        _commit_layer(kv, li, commit_idx, k_new, v_new)
         x = x + _attn_out(ctx, lp)
         h = _rms_norm(x, lp["ln_mlp"], cfg.rms_norm_eps)
         x = x + _mlp(h, lp)
@@ -223,12 +317,18 @@ def forward_append(cfg: ModelConfig, params, input_ids: torch.Tensor,
     logits = _logits(cfg, params, x) if need_logits else None
 
     if building:
+        quant = kv.quantized
+        if build_rkv.quantized != quant:
+            raise ValueError("the retrieval cache and the full cache must "
+                             "both be int8 or neither")
+        planes = ("k", "v", "k_scale", "v_scale") if quant else ("k", "v")
         for li in range(cfg.num_layers):
-            k_sel, v_sel = retrieval_ops.build_layer(
+            sel = retrieval_ops.build_layer(
                 qs[li], kv_out.k[li], kv_out.v[li], prefill, chunk_size,
-                budget)
-            build_rkv.k[li, :, :, :budget] = k_sel
-            build_rkv.v[li, :, :, :budget] = v_sel
+                budget, k_scale=kv_out.k_scale[li] if quant else None,
+                v_scale=kv_out.v_scale[li] if quant else None)
+            for name, x in zip(planes, sel):
+                getattr(build_rkv, name)[li, :, :, :budget] = x
     return logits, kv_out, build_rkv
 
 
@@ -256,11 +356,9 @@ def forward_spec(cfg: ModelConfig, params, input_ids: torch.Tensor,
         q, k_new, v_new = _qkv(h, lp, cfg)
         q = rope.apply_rope(q, cos, sin, positions)
         k_new = rope.apply_rope(k_new, cos, sin, positions)
-        ctx = append_attention_auto(q, rkv.k[li], rkv.v[li], k_new, v_new,
-                                    k_len=k_len)
+        ctx = _layer_attention(q, rkv, li, k_new, v_new, k_len)
         if commit:
-            rkv.k[li].index_copy_(2, commit_idx, k_new)
-            rkv.v[li].index_copy_(2, commit_idx, v_new)
+            _commit_layer(rkv, li, commit_idx, k_new, v_new)
         x = x + _attn_out(ctx, lp)
         h = _rms_norm(x, lp["ln_mlp"], cfg.rms_norm_eps)
         x = x + _mlp(h, lp)

@@ -10,7 +10,13 @@ merge associatively:
 
 ``append_attention_auto`` is the dispatcher the models call: a CUDA tensor
 with no extra cache mask goes to the hand-written flash-decode kernel
-(``ops/flash_decode.py``), a CPU tensor to ``append_attention``.
+(``ops/flash_decode.py``; its int8 kernel for an int8 cache), a CPU tensor
+to ``append_attention``.
+
+An int8 cache comes with fp32 per-token scales (``k_scale``/``v_scale``
+[B, Hkv, S]); the plain path dequantizes each block to fp32 and then runs
+the model-dtype step, as the JAX package does off the TPU
+(``triforce_tpu/ops/attention.py:106-151``).
 
 Convention: q is [B, Hq, T, D]; cached K/V are [B, Hkv, S, D]; GQA groups
 q heads (no materialised repeat of K/V).
@@ -23,7 +29,8 @@ from typing import Tuple
 
 import torch
 
-from .flash_decode import append_attention_kernel, causal_mask
+from .flash_decode import (append_attention_kernel,
+                           append_attention_kernel_int8, causal_mask)
 
 _NEG_INF = -1e30
 
@@ -64,12 +71,21 @@ def _init_partials(q, hkv):
             torch.zeros((b, hkv, g, t, d), **f32))
 
 
+def _deq(blk, scale):
+    """fp32 values of an int8 block (``blk`` as it is without scales)."""
+    if scale is None:
+        return blk
+    return blk.float() * scale[..., None].float()
+
+
 def attention_partials(q, k, v, *, k_len=None, mask_fn=None,
-                       block: int = 2048) -> Partials:
+                       block: int = 2048, k_scale=None,
+                       v_scale=None) -> Partials:
     """Online-softmax partials of q against a read-only key/value buffer.
     ``k_len`` masks columns >= k_len; ``mask_fn(rows, cols) -> bool`` adds
     extra masking. Blocks past a host-known ``k_len`` are skipped; with a
-    device ``k_len`` every block runs masked (no host sync)."""
+    device ``k_len`` every block runs masked (no host sync). An int8
+    buffer passes its scales and is dequantized block by block."""
     t = q.shape[2]
     hkv, s = k.shape[1], k.shape[2]
     qg = _prescaled(q, hkv)
@@ -86,8 +102,10 @@ def attention_partials(q, k, v, *, k_len=None, mask_fn=None,
             valid = valid & (cols < k_len)
         if mask_fn is not None:
             valid = valid & mask_fn(rows, cols)
-        m, l, acc = _update(qg, m, l, acc, k[:, :, start:stop],
-                            v[:, :, start:stop], valid)
+        ks = None if k_scale is None else k_scale[:, :, start:stop]
+        vs = None if v_scale is None else v_scale[:, :, start:stop]
+        m, l, acc = _update(qg, m, l, acc, _deq(k[:, :, start:stop], ks),
+                            _deq(v[:, :, start:stop], vs), valid)
     return m, l, acc
 
 
@@ -118,29 +136,37 @@ def finalize(p: Partials, out_dtype) -> torch.Tensor:
 
 
 def append_attention(q, k_cache, v_cache, k_new, v_new, *, k_len,
-                     cache_mask_fn=None, new_mask=None,
-                     block: int = 2048) -> torch.Tensor:
+                     cache_mask_fn=None, new_mask=None, block: int = 2048,
+                     k_scale=None, v_scale=None) -> torch.Tensor:
     """Attention of T new tokens against [valid cache prefix] +
     [themselves]. The cache is read-only here; the caller commits
-    (k_new, v_new) afterwards."""
+    (k_new, v_new) afterwards. The new tokens are never quantized."""
     t, tn = q.shape[2], k_new.shape[2]
     if new_mask is None:
         new_mask = causal_mask(t, tn, 1, q.device)
     pc = attention_partials(q, k_cache, v_cache, k_len=k_len,
-                            mask_fn=cache_mask_fn, block=block)
+                            mask_fn=cache_mask_fn, block=block,
+                            k_scale=k_scale, v_scale=v_scale)
     pn = new_block_partials(q, k_new, v_new, new_mask)
     return finalize(merge_partials(pc, pn), q.dtype)
 
 
 def append_attention_auto(q, k_cache, v_cache, k_new, v_new, *, k_len,
                           cache_mask_fn=None, new_mask=None,
-                          block: int = 2048) -> torch.Tensor:
+                          block: int = 2048, k_scale=None,
+                          v_scale=None) -> torch.Tensor:
     """Dispatch: a CUDA tensor with no extra cache mask goes to the
-    flash-decode kernel (which raises on what it does not take); anything
-    else runs ``append_attention``. k/v cache are one layer [B,Hkv,S,D]."""
+    flash-decode kernel, the int8 one when the cache has scales (each
+    raises on what it does not take); anything else runs
+    ``append_attention``. k/v cache are one layer [B,Hkv,S,D], scales
+    [B,Hkv,S]."""
     if q.device.type == "cuda" and cache_mask_fn is None:
+        if k_scale is not None:
+            return append_attention_kernel_int8(
+                q, k_cache, v_cache, k_new, v_new, k_len=k_len,
+                new_mask=new_mask, k_scale=k_scale, v_scale=v_scale)
         return append_attention_kernel(q, k_cache, v_cache, k_new, v_new,
                                        k_len=k_len, new_mask=new_mask)
     return append_attention(q, k_cache, v_cache, k_new, v_new, k_len=k_len,
                             cache_mask_fn=cache_mask_fn, new_mask=new_mask,
-                            block=block)
+                            block=block, k_scale=k_scale, v_scale=v_scale)

@@ -10,6 +10,14 @@ arithmetic in plain PyTorch, rounding where the TPU kernel rounds: q
 pre-scaled by 1/sqrt(D) in fp32 and cast back to q's dtype, scores in fp32,
 p cast to v's dtype before p.v.
 
+``flash_decode_append_int8`` is the same attention over an int8 cache
+(codes plus fp32 per-token scales): the TPU kernel's ``quant`` branch, with
+its own CUDA kernel in the same source and its own plain version,
+``flash_decode_append_int8_plain``. That branch re-quantizes p per row over
+each group of keys, so its result depends on the grouping; the plain
+version takes the group as a parameter (the TPU kernel's block in the CPU
+tests, ``KERNEL_GROUP`` against the CUDA kernel).
+
 The Pallas kernel's TPU-only machinery does not carry over: its 128-lane
 pad of the new block, the VMEM-driven block choice and the 512/2048 cache
 alignment gate. ``k_len`` stays on the device and is read by the kernel.
@@ -22,13 +30,16 @@ import math
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from .. import _build
+from ..cache import int8_scale
 
 _NEG_INF = -1e30
 _SOURCE = "flash_decode.cu"
 _SMS = 132          # H100 SXM streaming multiprocessors
 _CTA_ROWS = 64      # query rows per CTA of the split phase
+KERNEL_GROUP = 16   # keys per p re-quantization group of the int8 kernel
 
 
 def _scale(d: int) -> float:
@@ -58,6 +69,79 @@ def flash_decode_append_plain(q, k, v, k_new, v_new, k_len, new_mask):
     return acc / l.clamp_min(1e-37)
 
 
+def _quantize_rows(x):
+    """Per-row int8 codes of fp32 ``x`` [..., D] as the TPU kernel makes
+    them: (codes as fp32, scale = max(max|x| / 127, 1e-20) [..., 1])."""
+    xs = int8_scale(x.abs().amax(-1, keepdim=True), 1e-20)
+    return torch.round(x / xs).clamp(-127, 127), xs
+
+
+def _first(x, n: int):
+    """fp32 copy of the first ``n`` slots of ``x`` [H, S, ...], zero-padded
+    past S."""
+    x = x[:, :n].float()
+    pad = n - x.shape[1]
+    return F.pad(x, (0, 0) * (x.dim() - 2) + (0, pad)) if pad else x
+
+
+def flash_decode_append_int8_plain(q, k, v, k_new, v_new, k_len, new_mask,
+                                   k_scale, v_scale, *, group: int):
+    """Plain PyTorch version of the int8 kernel, following the TPU
+    kernel's ``quant`` branch (``flash_decode.py:41-92, 436-448``) with
+    ``group`` as its block: q pre-scaled, rounded to q's dtype and
+    quantized per (head, row); scores (q8 . k8) * qs * ks; per group of
+    keys, p * vs is re-quantized per row for an integer p.v; the new block
+    sees q8 * qs in k_new's dtype. q [Hkv, GT, D]; k/v int8 [Hkv, S, D];
+    k_scale/v_scale [Hkv, S]; the rest as ``flash_decode_append_plain``.
+    -> [Hkv, GT, D] fp32.
+
+    Within each group p is taken against the group's own max score gm and
+    the group is weighted by exp(gm - m): the TPU kernel's softmax, whose p
+    is relative to the running max instead, so that the integer codes do
+    not depend on where a running max stands. The CUDA kernel's splits
+    each keep their own, and with this form it makes the very codes this
+    version makes; against the TPU kernel a code can differ by one step
+    where its rounding was a near tie. The integer q8 . k8 dots are summed
+    in fp32, exact below 2^24.
+    """
+    hkv, gt, d = q.shape
+    qf = (q.float() * _scale(d)).to(q.dtype).float()
+    q8, qs = _quantize_rows(qf)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    m = torch.full((hkv, gt, 1), _NEG_INF, **f32)
+    l = torch.zeros((hkv, gt, 1), **f32)
+    acc = torch.zeros((hkv, gt, d), **f32)
+    kl = min(max(int(k_len), 0), k.shape[1])
+    nb = -(-kl // group)          # every group holds a live key
+    if nb:
+        n = nb * group
+        kf, vf = _first(k, n), _first(v, n)
+        ks, vs = _first(k_scale, n), _first(v_scale, n)
+        sc = torch.einsum("hgd,hsd->hgs", q8, kf) * qs * ks[:, None, :]
+        cols = torch.arange(n, device=q.device)
+        sc = torch.where(cols < kl, sc, _NEG_INF).reshape(hkv, gt, nb, group)
+        gm = sc.amax(-1, keepdim=True)                       # [H,GT,nb,1]
+        p = torch.exp(sc - gm)
+        p8, ps = _quantize_rows(p * vs.reshape(hkv, 1, nb, group))
+        m = gm.amax(-2)
+        w = torch.exp(gm - m[..., None])
+        l = (p.sum(-1, keepdim=True) * w).sum(-2)
+        acc = torch.einsum("hgbs,hbsd->hgd", p8 * (ps * w),
+                           vf.reshape(hkv, nb, group, d))
+    # fold in the new block with q dequantized to k_new's dtype
+    qn = (q8 * qs).to(k_new.dtype).float()
+    sn = torch.einsum("hgd,hnd->hgn", qn, k_new.float())
+    sn = sn + torch.where(new_mask, 0.0, _NEG_INF)
+    m_new = torch.maximum(m, sn.amax(-1, keepdim=True))
+    alpha = torch.exp(m - m_new)
+    pn = torch.exp(sn - m_new)
+    l = l * alpha + pn.sum(-1, keepdim=True)
+    acc = acc * alpha + torch.einsum("hgn,hnd->hgd",
+                                     pn.to(v_new.dtype).float(),
+                                     v_new.float())
+    return acc / l.clamp_min(1e-37)
+
+
 def pick_nsplit(hkv: int, gt: int, s: int) -> int:
     """Sequence splits of the kernel's first phase: enough CTAs for about
     four per SM, each split at least 256 keys long."""
@@ -73,14 +157,15 @@ def _n_parts(gt: int, nsplit: int) -> int:
     return _build.lib(_SOURCE).tf_flash_decode_parts(gt, nsplit)
 
 
-def _check_cuda_args(q, k, v, k_new, v_new, k_len, new_mask):
-    tensors = {"q": q, "k": k, "v": v, "k_new": k_new, "v_new": v_new}
-    for name, x in tensors.items():
+def _check_cuda_args(q, k, v, k_new, v_new, k_len, new_mask, cache_dtype):
+    for name, x in {"q": q, "k_new": k_new, "v_new": v_new, "k": k,
+                    "v": v}.items():
+        want = cache_dtype if name in ("k", "v") else torch.bfloat16
         if x.device != q.device:
             raise ValueError(f"{name} is on {x.device}, q on {q.device}")
-        if x.dtype != torch.bfloat16:
-            raise TypeError(f"flash_decode kernel takes bf16; {name} is "
-                            f"{x.dtype}")
+        if x.dtype != want:
+            raise TypeError(f"this flash_decode kernel takes {name} as "
+                            f"{want}; got {x.dtype}")
         if x.dim() != 3 or x.stride(2) != 1:
             raise ValueError(f"{name} must be [H, rows, D] with unit "
                              f"stride in D, got {tuple(x.shape)} "
@@ -88,9 +173,10 @@ def _check_cuda_args(q, k, v, k_new, v_new, k_len, new_mask):
     hkv, gt, d = q.shape
     if d not in (64, 128):
         raise ValueError(f"head_dim {d} not supported by the kernel")
+    per16 = 16 // k.element_size()     # elements in 16 bytes
     for name, x in (("k", k), ("v", v)):
         if (x.shape[0] != hkv or x.shape[2] != d or x.data_ptr() % 16
-                or x.stride(0) % 8 or x.stride(1) % 8):
+                or x.stride(0) % per16 or x.stride(1) % per16):
             raise ValueError(f"{name} {tuple(x.shape)} {x.stride()} is not "
                              "a 16-byte aligned [Hkv, S, D] cache layer")
     if k_new.shape != v_new.shape or k_new.shape[0] != hkv \
@@ -105,18 +191,19 @@ def _check_cuda_args(q, k, v, k_new, v_new, k_len, new_mask):
         raise ValueError("k_len must be one int32 on q's device")
 
 
-def flash_decode_append(q, k, v, k_new, v_new, k_len, new_mask):
-    """Fused decode attention; see the module docstring. CUDA tensors
-    launch the kernel (or raise); CPU tensors take the plain version.
-    ``flash_decode_append.launches`` counts kernel launches."""
-    if q.device.type == "cpu":
-        return flash_decode_append_plain(q, k, v, k_new, v_new, k_len,
-                                         new_mask)
-    if q.device.type != "cuda":
-        raise ValueError(f"no flash_decode for device {q.device}")
-    if not torch.is_tensor(k_len):
-        k_len = torch.tensor(k_len, dtype=torch.int32, device=q.device)
-    _check_cuda_args(q, k, v, k_new, v_new, k_len, new_mask)
+def _check_scales(k, k_scale, v_scale):
+    for name, x in (("k_scale", k_scale), ("v_scale", v_scale)):
+        if (x.device != k.device or x.dtype != torch.float32
+                or x.shape != k.shape[:2] or x.stride(1) != 1):
+            raise ValueError(f"{name} must be fp32 [Hkv, S] with unit "
+                             f"token stride on k's device, got {x.dtype} "
+                             f"{tuple(x.shape)} {x.stride()}")
+
+
+def _launch(fn, q, k, v, k_new, v_new, k_len, new_mask, scales=()):
+    """Allocate the outputs and scratch and launch one entry point of
+    ``csrc/flash_decode.cu``; ``scales`` are the int8 entry's extra
+    (pointer, head stride) arguments."""
     hkv, gt, d = q.shape
     s, tn = k.shape[1], k_new.shape[1]
     nsplit = pick_nsplit(hkv, gt, s)
@@ -126,22 +213,68 @@ def flash_decode_append(q, k, v, k_new, v_new, k_len, new_mask):
     l_part = torch.empty((hkv, gt, parts), **f32)
     acc_part = torch.empty((hkv, gt, parts, d), **f32)
     out = torch.empty((hkv, gt, d), **f32)
-    err = _build.lib(_SOURCE).tf_flash_decode_bf16(
-        q.data_ptr(), q.stride(0), q.stride(1),
-        k.data_ptr(), k.stride(0), k.stride(1),
-        v.data_ptr(), v.stride(0), v.stride(1),
-        k_new.data_ptr(), k_new.stride(0), k_new.stride(1),
-        v_new.data_ptr(), v_new.stride(0), v_new.stride(1),
-        new_mask.data_ptr(), k_len.data_ptr(),
-        m_part.data_ptr(), l_part.data_ptr(), acc_part.data_ptr(),
-        out.data_ptr(), hkv, gt, tn, s, d, nsplit, _scale(d),
-        torch.cuda.current_stream(q.device).cuda_stream)
+    err = fn(q.data_ptr(), q.stride(0), q.stride(1),
+             k.data_ptr(), k.stride(0), k.stride(1),
+             v.data_ptr(), v.stride(0), v.stride(1), *scales,
+             k_new.data_ptr(), k_new.stride(0), k_new.stride(1),
+             v_new.data_ptr(), v_new.stride(0), v_new.stride(1),
+             new_mask.data_ptr(), k_len.data_ptr(),
+             m_part.data_ptr(), l_part.data_ptr(), acc_part.data_ptr(),
+             out.data_ptr(), hkv, gt, tn, s, d, nsplit, _scale(d),
+             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_decode kernel launch")
+    return out
+
+
+def _device_k_len(k_len, q):
+    if q.device.type != "cuda":
+        raise ValueError(f"no flash_decode for device {q.device}")
+    if not torch.is_tensor(k_len):
+        k_len = torch.tensor(k_len, dtype=torch.int32, device=q.device)
+    return k_len
+
+
+def flash_decode_append(q, k, v, k_new, v_new, k_len, new_mask):
+    """Fused decode attention; see the module docstring. CUDA tensors
+    launch the kernel (or raise); CPU tensors take the plain version.
+    ``flash_decode_append.launches`` counts kernel launches."""
+    if q.device.type == "cpu":
+        return flash_decode_append_plain(q, k, v, k_new, v_new, k_len,
+                                         new_mask)
+    k_len = _device_k_len(k_len, q)
+    _check_cuda_args(q, k, v, k_new, v_new, k_len, new_mask, torch.bfloat16)
+    out = _launch(_build.lib(_SOURCE).tf_flash_decode_bf16, q, k, v, k_new,
+                  v_new, k_len, new_mask)
     flash_decode_append.launches += 1
     return out
 
 
 flash_decode_append.launches = 0
+
+
+def flash_decode_append_int8(q, k, v, k_new, v_new, k_len, new_mask,
+                             k_scale, v_scale):
+    """Fused decode attention over an int8 cache: k/v int8 codes
+    [Hkv, S, D] with fp32 scales [Hkv, S]; q, k_new and v_new bf16 on the
+    card. CUDA tensors launch the int8 kernel (or raise); CPU tensors take
+    the plain version at the kernel's group.
+    ``flash_decode_append_int8.launches`` counts kernel launches."""
+    if q.device.type == "cpu":
+        return flash_decode_append_int8_plain(
+            q, k, v, k_new, v_new, k_len, new_mask, k_scale, v_scale,
+            group=KERNEL_GROUP)
+    k_len = _device_k_len(k_len, q)
+    _check_cuda_args(q, k, v, k_new, v_new, k_len, new_mask, torch.int8)
+    _check_scales(k, k_scale, v_scale)
+    out = _launch(_build.lib(_SOURCE).tf_flash_decode_int8, q, k, v, k_new,
+                  v_new, k_len, new_mask,
+                  scales=(k_scale.data_ptr(), k_scale.stride(0),
+                          v_scale.data_ptr(), v_scale.stride(0)))
+    flash_decode_append_int8.launches += 1
+    return out
+
+
+flash_decode_append_int8.launches = 0
 
 
 @functools.lru_cache(maxsize=64)
@@ -153,14 +286,11 @@ def causal_mask(t: int, tn: int, groups: int, device) -> torch.Tensor:
     return (cols <= rows).repeat(groups, 1).contiguous()
 
 
-def append_attention_kernel(q, k_cache, v_cache, k_new, v_new, *, k_len,
-                            new_mask=None):
-    """Counterpart of ``append_attention_pallas`` (B = 1, no cache mask):
-    q [1, Hq, T, D]; k/v cache [1, Hkv, S, D] (one layer, a view is fine);
-    k_new/v_new [1, Hkv, Tn, D]; new_mask [T, Tn] bool or None (causal).
-    -> [1, Hq, T, D] in q's dtype."""
+def _kernel_layout(q, k_new, new_mask):
+    """[1, Hq, T, D] queries -> [Hkv, G*T, D] rows and their [G*T, Tn]
+    mask (``new_mask`` [T, Tn] bool, or None for causal)."""
     b, hq, t, d = q.shape
-    hkv = k_cache.shape[1]
+    hkv = k_new.shape[1]
     g = hq // hkv
     if b != 1:
         raise ValueError("the flash-decode kernel takes batch 1")
@@ -169,7 +299,27 @@ def append_attention_kernel(q, k_cache, v_cache, k_new, v_new, *, k_len,
         nmask = causal_mask(t, tn, g, q.device)
     else:
         nmask = new_mask.to(torch.bool).repeat(g, 1).contiguous()
-    qh = q[0].reshape(hkv, g * t, d)
+    return q[0].reshape(hkv, g * t, d), nmask
+
+
+def append_attention_kernel(q, k_cache, v_cache, k_new, v_new, *, k_len,
+                            new_mask=None):
+    """Counterpart of ``append_attention_pallas`` (B = 1, no cache mask):
+    q [1, Hq, T, D]; k/v cache [1, Hkv, S, D] (one layer, a view is fine);
+    k_new/v_new [1, Hkv, Tn, D]; new_mask [T, Tn] bool or None (causal).
+    -> [1, Hq, T, D] in q's dtype."""
+    qh, nmask = _kernel_layout(q, k_new, new_mask)
     out = flash_decode_append(qh, k_cache[0], v_cache[0], k_new[0],
                               v_new[0], k_len, nmask)
-    return out.reshape(1, hq, t, d).to(q.dtype)
+    return out.reshape(q.shape).to(q.dtype)
+
+
+def append_attention_kernel_int8(q, k_cache, v_cache, k_new, v_new, *,
+                                 k_len, k_scale, v_scale, new_mask=None):
+    """``append_attention_kernel`` over an int8 cache layer: k/v cache
+    int8 [1, Hkv, S, D] with scales [1, Hkv, S]."""
+    qh, nmask = _kernel_layout(q, k_new, new_mask)
+    out = flash_decode_append_int8(qh, k_cache[0], v_cache[0], k_new[0],
+                                   v_new[0], k_len, nmask, k_scale[0],
+                                   v_scale[0])
+    return out.reshape(q.shape).to(q.dtype)

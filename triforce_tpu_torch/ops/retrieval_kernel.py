@@ -11,6 +11,13 @@ On a CUDA tensor it launches the hand-written kernel in
 ``csrc/chunk_scores.cu`` (bf16 only — anything else raises); on a CPU
 tensor it takes ``chunk_scores_plain``. Top-k and the gather stay torch ops
 (``ops/retrieval.py``), as the JAX package leaves them to XLA.
+
+``chunk_scores_int8`` scores an int8 cache (codes plus fp32 per-token
+scales), the TPU kernel's ``quant`` branch: q is quantized per (head, row)
+without a cast to bf16 first, and each integer dot is scaled by qs * ks
+before the group mean. Its own CUDA kernel is in the same source; its plain
+version, ``chunk_scores_int8_plain``, mirrors that kernel (not the JAX XLA
+path, which dequantizes the keys and keeps q in fp32).
 """
 
 from __future__ import annotations
@@ -18,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from .. import _build
+from ..cache import int8_scale
 
 _SOURCE = "chunk_scores.cu"
 
@@ -31,31 +39,57 @@ def chunk_scores_plain(q, k, *, chunk: int, prefill: int) -> torch.Tensor:
     return sc.reshape(hkv, prefill // chunk, chunk).mean(-1)
 
 
+def chunk_scores_int8_plain(q, k, k_scale, *, chunk: int,
+                            prefill: int) -> torch.Tensor:
+    """Plain PyTorch version of the int8 kernel
+    (``retrieval_kernel.py:52-62, 133-145``): q [Hkv, G, D] (any float
+    dtype), k int8 codes [Hkv, S, D], k_scale fp32 [Hkv, S] ->
+    [Hkv, prefill // chunk] fp32. The integer dots are summed in fp32,
+    exact below 2^24."""
+    hkv = k.shape[0]
+    qf = q.float()
+    qs = int8_scale(qf.abs().amax(-1, keepdim=True), 1e-20)
+    q8 = torch.round(qf / qs).clamp(-127, 127)
+    sc = torch.einsum("hgd,hsd->hgs", q8, k[:, :prefill].float())
+    sc = (sc * qs * k_scale[:, None, :prefill].float()).mean(1)
+    return sc.reshape(hkv, prefill // chunk, chunk).mean(-1)
+
+
+def _check_prefill(k, chunk, prefill):
+    if prefill % chunk or prefill > k.shape[1]:
+        raise ValueError(f"prefill {prefill} must be a multiple of chunk "
+                         f"{chunk} within the cache ({k.shape[1]})")
+
+
+def _check_cache(q, k, chunk, dtype):
+    if k.device.type != "cuda":
+        raise ValueError(f"no chunk_scores for device {k.device}")
+    hkv, g, d = q.shape
+    if k.dtype != dtype:
+        raise TypeError(f"this chunk_scores kernel takes a {dtype} cache, "
+                        f"got {k.dtype}")
+    per16 = 16 // k.element_size()     # elements in 16 bytes
+    if (k.dim() != 3 or k.shape[0] != hkv or k.shape[2] != d
+            or k.stride(2) != 1 or k.data_ptr() % 16 or k.stride(0) % per16
+            or k.stride(1) % per16):
+        raise ValueError(f"k {tuple(k.shape)} {k.stride()} is not a 16-byte "
+                         "aligned [Hkv, S, D] cache layer")
+    if d not in (64, 128) or not 1 <= g <= 8 or chunk > 256:
+        raise ValueError(f"chunk_scores kernel: unsupported head_dim {d}, "
+                         f"group {g} or chunk {chunk}")
+
+
 def chunk_scores(q, k, *, chunk: int, prefill: int) -> torch.Tensor:
     """Fused chunk-score pass: q [Hkv, G, D] (one layer's last-prefill-token
     queries, grouped per KV head), k [Hkv, S, D] with ``prefill`` live
     tokens -> [Hkv, prefill // chunk] fp32. CUDA tensors launch the kernel
     (or raise); CPU tensors take the plain version.
     ``chunk_scores.launches`` counts kernel launches."""
-    if prefill % chunk or prefill > k.shape[1]:
-        raise ValueError(f"prefill {prefill} must be a multiple of chunk "
-                         f"{chunk} within the cache ({k.shape[1]})")
+    _check_prefill(k, chunk, prefill)
     if k.device.type == "cpu":
         return chunk_scores_plain(q, k, chunk=chunk, prefill=prefill)
-    if k.device.type != "cuda":
-        raise ValueError(f"no chunk_scores for device {k.device}")
+    _check_cache(q, k, chunk, torch.bfloat16)
     hkv, g, d = q.shape
-    if k.dtype != torch.bfloat16:
-        raise TypeError(f"chunk_scores kernel takes a bf16 cache, got "
-                        f"{k.dtype}")
-    if (k.dim() != 3 or k.shape[0] != hkv or k.shape[2] != d
-            or k.stride(2) != 1 or k.data_ptr() % 16 or k.stride(0) % 8
-            or k.stride(1) % 8):
-        raise ValueError(f"k {tuple(k.shape)} {k.stride()} is not a 16-byte "
-                         "aligned [Hkv, S, D] cache layer")
-    if d not in (64, 128) or not 1 <= g <= 8 or chunk > 256:
-        raise ValueError(f"chunk_scores kernel: unsupported head_dim {d}, "
-                         f"group {g} or chunk {chunk}")
     qb = q.to(k.dtype).contiguous()
     out = torch.empty((hkv, prefill // chunk), dtype=torch.float32,
                       device=k.device)
@@ -69,3 +103,34 @@ def chunk_scores(q, k, *, chunk: int, prefill: int) -> torch.Tensor:
 
 
 chunk_scores.launches = 0
+
+
+def chunk_scores_int8(q, k, k_scale, *, chunk: int,
+                      prefill: int) -> torch.Tensor:
+    """Fused chunk-score pass over an int8 cache: q [Hkv, G, D], k int8
+    codes [Hkv, S, D], k_scale fp32 [Hkv, S] -> [Hkv, prefill // chunk]
+    fp32. CUDA tensors launch the int8 kernel (or raise); CPU tensors take
+    the plain version. ``chunk_scores_int8.launches`` counts launches."""
+    _check_prefill(k, chunk, prefill)
+    if k.device.type == "cpu":
+        return chunk_scores_int8_plain(q, k, k_scale, chunk=chunk,
+                                       prefill=prefill)
+    _check_cache(q, k, chunk, torch.int8)
+    if (k_scale.device != k.device or k_scale.dtype != torch.float32
+            or k_scale.shape != k.shape[:2] or k_scale.stride(1) != 1):
+        raise ValueError("k_scale must be fp32 [Hkv, S] with unit token "
+                         "stride on k's device")
+    hkv, g, d = q.shape
+    qf = q.float().contiguous()
+    out = torch.empty((hkv, prefill // chunk), dtype=torch.float32,
+                      device=k.device)
+    err = _build.lib(_SOURCE).tf_chunk_scores_int8(
+        qf.data_ptr(), k.data_ptr(), k.stride(0), k.stride(1),
+        k_scale.data_ptr(), k_scale.stride(0), out.data_ptr(), hkv, g, d,
+        prefill, chunk, torch.cuda.current_stream(k.device).cuda_stream)
+    _build.check(err, "chunk_scores int8 kernel launch")
+    chunk_scores_int8.launches += 1
+    return out
+
+
+chunk_scores_int8.launches = 0
