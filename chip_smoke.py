@@ -7,10 +7,12 @@
 Phases, in order (any failure exits non-zero before the last line):
   1. device line: the card's name and power limit (nvidia-smi);
   2. build: nvcc builds every kernel of ``triforce_tpu_torch/csrc``;
-  3. kernels: each kernel (B1 and B2 in bf16, B1-int8 and B2-int8 over an
-     int8 cache) at the main path's shapes against its plain PyTorch
-     version (stated tolerance), with its time, its bound, the plain
-     version's time and a library yardstick's time;
+  3. kernels: each kernel (B1, B2 and the row-batched B3 in bf16; B1-int8,
+     B2-int8 and B3-int8 over an int8 cache) at the main path's shapes
+     against its plain PyTorch version (stated tolerance), with its time,
+     its bound, the plain version's time and a library yardstick's time;
+     B3 also against B1 row by row (bit equality) and, in device time,
+     with dead rows;
   4. reference: the full-width model at cut depth on a short prompt, the
      card's path (through the kernels) against an fp32 CPU run of the same
      weights: bf16 weights and cache, then int8 weights and cache;
@@ -20,7 +22,14 @@ Phases, in order (any failure exits non-zero before the last line):
      and KV (``kv_quant``, ``weight_quant``); each run sets every kernel
      launch count to 0 before and checks it against the count the path
      implies after (the other precision's kernels at 0);
-  6. the ``kernels`` JSON line, then the ``ok`` JSON line.
+  6. rows: on a 2-layer full-width model, a batched row emits what its
+     batch-1 run with the same seed emits;
+  7. batched end to end, in each precision after its batch-1 runs: 4 rows
+     speculate together (``BatchedSpecEngine``), then 6 requests are
+     served through 4 slots by ``SpecScheduler`` (chunked admission
+     between decode segments) and by the AR ``Scheduler``; launch counts
+     are checked as in 5;
+  8. the ``kernels`` JSON line, then the ``ok`` JSON line.
 
 Exits non-zero (and prints no result) without a CUDA card or outside the
 repository.
@@ -43,6 +52,9 @@ H100_INT8_OPS = 1979e12         # dense int8 tensor cores
 H100_FP32_FLOPS = 67e12         # fp32 outside the tensor cores
 GEN = 128                       # generated tokens per end-to-end mode
 GAMMA = 6
+ROWS = 4                        # rows (slots) of the batched phases
+SERVE_PREFILL = 8192            # prompt tokens of a served request
+SERVE_REQUESTS, SERVE_NEW, SERVE_SEGMENT = 6, 32, 4
 # int8 kernel tolerances against their plain versions; see kernel_b1 and
 # kernel_b2 (B1-int8: over sqrt(k_len + Tn); B2-int8: of the score scale)
 INT8_B1_TOL = 0.005
@@ -74,6 +86,24 @@ def _time_ms(fn, reps: int = 20, warm: int = 3) -> float:
         pairs.append((e0, e1))
     torch.cuda.synchronize()
     return statistics.median(a.elapsed_time(b) for a, b in pairs)
+
+
+def _device_ms(fn, calls: int = 20, reps: int = 10) -> float:
+    """Device time of one ``fn()``: ``calls`` of them captured into a CUDA
+    graph (a measuring device only; the port captures none), the graph
+    replayed ``reps`` times, the median replay over ``calls``. Unlike
+    ``_time_ms`` it holds no host time, which on a busy host outweighs a
+    kernel of ~0.1 ms."""
+    fn()
+    torch.cuda.synchronize()
+    graph, side = torch.cuda.CUDAGraph(), torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        fn()            # the stream's first use happens outside the capture
+        with torch.cuda.graph(graph, stream=side):
+            for _ in range(calls):
+                fn()
+    torch.cuda.synchronize()
+    return _time_ms(graph.replay, reps=reps) / calls
 
 
 def _bound(nbytes: float, flops: float, peak_flops: float):
@@ -283,18 +313,161 @@ def kernel_b2(rk, rt, cache_mod, dev, prefill, chunk, budget, s,
                 library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by)
 
 
+def kernel_b3(fd, cache_mod, dev, gt, tn, k_full, s, quant=False, hkv=32,
+              d=128, seed=0):
+    """B3 (or, with ``quant``, B3-int8) at one shape, ROWS rows: the kernel
+    against its plain version at ragged lengths (one row dead, one row
+    whose new block outweighs its cache), against B1 row by row, and timed
+    with every row live and with one row live."""
+    name = "B3-int8" if quant else "B3"
+    g = torch.Generator(device=dev).manual_seed(seed)
+    bf = torch.bfloat16
+
+    def rn(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(bf)
+
+    q = rn(ROWS, hkv, gt, d)
+    kn, vn = rn(ROWS, hkv, tn, d), rn(ROWS, hkv, tn, d)
+    # layer 1 of a row-stacked [B, L, Hkv, S, D] pool, as the model passes it
+    k_st, v_st = rn(ROWS, 2, hkv, s, d), rn(ROWS, 2, hkv, s, d)
+    ragged = [k_full, 0, max(tn // 2, 1), (k_full * 5) // 8 + 3]
+    for b, n in enumerate(ragged):
+        k_st[b, 1, :, n:] = 50.0     # stale tail: must never be read
+        v_st[b, 1, :, n:] = 50.0
+    mask = fd.causal_mask(tn, tn, gt // tn, dev)       # one for all rows
+    if quant:
+        (k8, ks), (v8, vs) = (cache_mod.quantize_tokens(x)
+                              for x in (k_st, v_st))
+        k, v, ks, vs = k8[:, 1], v8[:, 1], ks[:, 1], vs[:, 1]
+        del k_st, v_st
+
+        def kernel(kl, rows=slice(None)):
+            return fd.flash_decode_append_batched_int8(
+                q[rows], k[rows], v[rows], kn[rows], vn[rows], kl, mask,
+                ks[rows], vs[rows])
+
+        def plain(kl):
+            return fd.flash_decode_append_batched_int8_plain(
+                q, k, v, kn, vn, kl, mask, ks, vs, group=fd.KERNEL_GROUP)
+
+        def single(b, kl):
+            return fd.flash_decode_append_int8(q[b], k[b], v[b], kn[b],
+                                               vn[b], kl[b], mask, ks[b],
+                                               vs[b])
+    else:
+        k, v = k_st[:, 1], v_st[:, 1]
+
+        def kernel(kl, rows=slice(None)):
+            return fd.flash_decode_append_batched(
+                q[rows], k[rows], v[rows], kn[rows], vn[rows], kl, mask)
+
+        def plain(kl):
+            return fd.flash_decode_append_batched_plain(q, k, v, kn, vn, kl,
+                                                        mask)
+
+        def single(b, kl):
+            return fd.flash_decode_append(q[b], k[b], v[b], kn[b], vn[b],
+                                          kl[b], mask)
+
+    def lens(xs):
+        return torch.tensor(xs, dtype=torch.int32, device=dev)
+
+    # --- ragged rows against the plain version, per row at B1's tolerance
+    # (bf16 0.05, int8 0.005, over sqrt(k_len + Tn); see kernel_b1)
+    kl = lens(ragged)
+    out, ref = kernel(kl), plain(kl)
+    torch.cuda.synchronize()
+    if not torch.isfinite(out).all():
+        _fail(f"{name} gt={gt}: non-finite output")
+    errs, tols = [], []
+    for b, n in enumerate(ragged):
+        errs.append((out[b] - ref[b]).abs().max().item())
+        tols.append((INT8_B1_TOL if quant else 0.05) / (n + tn) ** 0.5)
+        if not errs[b] <= tols[b]:
+            _fail(f"{name} gt={gt} row {b} k_len={n}: kernel disagrees with "
+                  f"plain (err {errs[b]:.3e}, tol {tols[b]:.3e})")
+    # the dead row is the attention over its new block alone: poisoning
+    # its whole cache moves nothing, and dropping the fold would
+    alone = kernel(lens([0]), rows=slice(1, 2))
+    if not torch.equal(alone[0], out[1]):
+        _fail(f"{name} gt={gt}: the dead row depends on its companions")
+    # --- the same device code as B1: every row equals B1 on that row, bit
+    # for bit, alone (B = 1) and among its companions
+    for b in range(ROWS):
+        one = single(b, kl)
+        if not torch.equal(kernel(kl[b:b + 1], rows=slice(b, b + 1))[0], one):
+            _fail(f"{name} gt={gt}: B = 1 differs from B1 (row {b})")
+        if not torch.equal(out[b], one):
+            _fail(f"{name} gt={gt}: row {b} of the batch differs from B1")
+    # --- device times: every row live, one live row with three dead (the
+    # gate saves the dead rows' cache traffic), every row dead, ragged
+    live4, live1 = lens([k_full] * ROWS), lens([k_full, 0, 0, 0])
+    dead4 = lens([0] * ROWS)
+    ms = _device_ms(lambda: kernel(live4))
+    ms_gated = _device_ms(lambda: kernel(live1))
+    ms_dead = _device_ms(lambda: kernel(dead4))
+    ms_ragged = _device_ms(lambda: kernel(kl))
+    if not ms_dead < ms_gated < ms:
+        _fail(f"{name} gt={gt}: dead rows are not free ({ms:.4f} ms with "
+              f"{ROWS} live rows, {ms_gated:.4f} with one, {ms_dead:.4f} "
+              f"with none)")
+    plain_ms = _time_ms(lambda: plain(live4), reps=3, warm=1)
+    # yardstick: SDPA per row over [live prefix ++ new block], summed
+    lib = []
+    for b in range(ROWS):
+        kp, vp = k[b, :, :k_full], v[b, :, :k_full]
+        if quant:
+            kp = cache_mod.dequantize(kp, ks[b, :, :k_full], bf)
+            vp = cache_mod.dequantize(vp, vs[b, :, :k_full], bf)
+        k_all = torch.cat([kp, kn[b]], 1)[None]
+        v_all = torch.cat([vp, vn[b]], 1)[None]
+        am = torch.cat([torch.ones(gt, k_full, dtype=torch.bool, device=dev),
+                        mask], 1)
+        lib.append(_time_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                q[b][None], k_all, v_all, attn_mask=am)))
+        del k_all, v_all
+    lib_ms = sum(lib)
+
+    def bound(row_lens):
+        keys = sum(row_lens)
+        cache_bytes = hkv * keys * (2 * d + 8) if quant \
+            else 2 * 2 * hkv * keys * d
+        nbytes = 2 * (q.numel() + 2 * kn.numel()) + cache_bytes \
+            + mask.numel() + 4 * ROWS + 4 * q.numel()
+        flops = 4.0 * hkv * gt * (keys + ROWS * tn) * d
+        return _bound(nbytes, flops,
+                      H100_INT8_OPS if quant else H100_BF16_FLOPS)
+
+    bound_ms, bound_by = bound([k_full] * ROWS)
+    row = dict(rows=ROWS, gt=gt, tn=tn, k_len=k_full, s=s, ragged=ragged,
+               max_abs_err=max(errs), err_by_row=errs, tol_by_row=tols,
+               equals_b1_bitwise=True, ms=ms, ms_one_live_three_dead=ms_gated,
+               ms_all_dead=ms_dead, ms_ragged=ms_ragged, bound_ms=bound_ms,
+               bound_by=bound_by,
+               bound_ms_one_live=bound([k_full])[0],
+               bound_ms_ragged=bound(ragged)[0], plain_ms=plain_ms,
+               library_ms=lib_ms)
+    print(f"{name} rows={ROWS} gt={gt} tn={tn} k_len={k_full}: ragged "
+          f"{ragged} errs {[f'{e:.2e}' for e in errs]} (tols "
+          f"{[f'{t:.2e}' for t in tols]}), every row == B1 bitwise; kernel "
+          f"{ms:.4f} ms with 4 live rows (bound {bound_ms:.4f} ms, "
+          f"{bound_by}), {ms_gated:.4f} ms with 1 live + 3 dead (bound "
+          f"{row['bound_ms_one_live']:.4f}), {ms_dead:.4f} ms all dead, "
+          f"{ms_ragged:.4f} ms ragged (device times, CUDA-graph replay); "
+          f"sdpa per row summed {lib_ms:.4f} ms, plain {plain_ms:.4f} ms",
+          flush=True)
+    return row
+
+
 def unported_bounds() -> dict:
-    """The least time for B3 and B4, the TPU kernels still to port, at the
-    shapes the JAX package runs them, int8 KV (its bench's default): each
-    cache byte (1 a value + 4 a token for its scale) read once over the
-    HBM rate; their operations bound them far lower."""
+    """The least time for B4, the TPU kernel still to port, at the shape
+    the JAX package runs it, int8 KV (its bench's default): each cache
+    byte (1 a value + 4 a token for its scale) read once over the HBM
+    rate; its operations bound it far lower."""
     def kv_ms(rows, hkv, keys, d=128):
         return rows * hkv * keys * (2 * d + 8) / H100_BYTES_PER_S * 1e3
     return {
-        # flash_decode_append_batched: 4 rows of BENCH_7B_PROXY (16 heads)
-        # at the batched mode's 15872-token context (benchlib/modes.py:515)
-        "B3 batched verify, 4 rows x 16 heads x 15872 keys": kv_ms(4, 16,
-                                                                  15872),
         # flash_decode_partials: Llama2-7B (32 heads) AR decode with its
         # 124928-token context split over 4 cards, one card's share
         "B4 partials, 32 heads x 31232 keys (1 of 4 cards)": kv_ms(1, 32,
@@ -434,12 +607,14 @@ def reference_check(tc, llama, cache_mod, rt, dev, quant=False, layers=2,
 # ---------------------------------------------------------------------------
 
 # kernel wrappers by short name; each counts its own launches
-COUNTERS = ("b1", "b1_int8", "b2", "b2_int8")
+COUNTERS = ("b1", "b1_int8", "b2", "b2_int8", "b3", "b3_int8")
 
 
 def _wrappers(fd, rk):
     return dict(b1=fd.flash_decode_append, b1_int8=fd.flash_decode_append_int8,
-                b2=rk.chunk_scores, b2_int8=rk.chunk_scores_int8)
+                b2=rk.chunk_scores, b2_int8=rk.chunk_scores_int8,
+                b3=fd.flash_decode_append_batched,
+                b3_int8=fd.flash_decode_append_batched_int8)
 
 
 def _reset(fd, rk):
@@ -447,40 +622,26 @@ def _reset(fd, rk):
         fn.launches = 0
 
 
-def _check_counts(fd, rk, what, quant, want_b1, want_b2):
-    """The path's kernels (the int8 pair when ``quant``) must have launched
-    exactly as often as the path implies, the other pair never."""
+def _check_counts(fd, rk, what, quant, want_b1, want_b2, want_b3=0):
+    """The path's kernels (the int8 ones when ``quant``) must have launched
+    exactly as often as the path implies, the others never."""
     want = dict.fromkeys(COUNTERS, 0)
     want["b1_int8" if quant else "b1"] = want_b1
     want["b2_int8" if quant else "b2"] = want_b2
+    want["b3_int8" if quant else "b3"] = want_b3
     got = {k: fn.launches for k, fn in _wrappers(fd, rk).items()}
     print(f"  launches [{what}]: {got} (path implies {want})", flush=True)
     if got != want:
         _fail(f"{what}: kernel launch counts {got} != {want}")
-    if what.endswith(("retrieval", "triforce")) and not (want_b1 and want_b2):
-        _fail(f"{what}: a kernel of the path was never launched")
     return got
 
 
-def end_to_end(tc, llama, decoding, Engine, fd, rk, dev, prefill, quant):
-    """All four modes at full width; ``quant``: int8 weights and KV."""
+def end_to_end(tc, decoding, eng, fd, rk, dev, prefill, quant):
+    """All four batch-1 modes at full width on ``eng``; ``quant``: it holds
+    int8 weights and int8 KV."""
     tag = "int8 " if quant else ""
-    tcfg, dcfg = tc.LLAMA2_7B_128K, tc.LLAMA_68M
-    spec = tc.SpecConfig(gamma=GAMMA, budget=4096, chunk_size=8)
+    tcfg = eng.target_cfg
     L = tcfg.num_layers
-    t0 = time.perf_counter()
-    tp = llama.init_params(tcfg, device=dev, dtype=torch.bfloat16, seed=0)
-    dp = llama.init_params(dcfg, device=dev, dtype=torch.bfloat16, seed=1)
-    slack = 4 * (spec.gamma + 2)
-    eng = Engine(tcfg, spec, tp, draft_cfg=dcfg, draft_params=dp,
-                 prefill=prefill, max_cache_len=prefill + GEN + slack,
-                 dtype=torch.bfloat16, device=dev, kv_quant=quant,
-                 weight_quant=quant)
-    del tp, dp                   # the engine holds what it runs (int8 copies)
-    torch.cuda.synchronize()
-    print(f"{tag}weights: {time.perf_counter() - t0:.1f} s to make random "
-          f"weights on the card{' and quantize them' if quant else ''}",
-          flush=True)
     ids = torch.randint(0, tcfg.vocab_size, (1, prefill),
                         generator=torch.Generator().manual_seed(5)).to(dev)
     # target forwards of one prefill: full chunks + remainder + last token
@@ -496,6 +657,8 @@ def end_to_end(tc, llama, decoding, Engine, fd, rk, dev, prefill, quant):
     def counts(what, want_b1, want_b2):
         res["launches"][what] = _check_counts(fd, rk, tag + what, quant,
                                               want_b1, want_b2)
+        if what in ("retrieval", "triforce") and not (want_b1 and want_b2):
+            _fail(f"{tag}{what}: a kernel of the path was never launched")
 
     # --- AR
     _reset(fd, rk)
@@ -576,6 +739,193 @@ def end_to_end(tc, llama, decoding, Engine, fd, rk, dev, prefill, quant):
     return res
 
 
+def rows_equal_batch1(tc, llama, Engine, bs, dev, quant, layers=2,
+                      prefill=1024, steps=3):
+    """On the card, a batched row emits what its batch-1 run with the same
+    seed emits: a ``layers``-layer full-width target + Llama-68M, 2 rows,
+    ``steps`` TriForce steps. Each row's attention is bit-identical in the
+    two runs (B3 splits a row as B1 does); the matmuls see 2 rows instead
+    of 1, so this holds as long as the library's GEMM sums each output the
+    same way at both heights."""
+    tag = "int8" if quant else "bf16"
+    tcfg, dcfg = tc.LLAMA2_7B_128K.with_(num_layers=layers), tc.LLAMA_68M
+    spec = tc.SpecConfig(gamma=GAMMA, budget=256, chunk_size=8)
+    eng = Engine(tcfg, spec,
+                 llama.init_params(tcfg, device=dev, dtype=torch.bfloat16,
+                                   seed=7),
+                 draft_cfg=dcfg,
+                 draft_params=llama.init_params(dcfg, device=dev,
+                                                dtype=torch.bfloat16, seed=8),
+                 prefill=prefill, max_cache_len=prefill + 64,
+                 dtype=torch.bfloat16, device=dev, kv_quant=quant,
+                 weight_quant=quant)
+    gen = torch.Generator().manual_seed(9)
+    prompts = [torch.randint(0, tcfg.vocab_size, (1, prefill),
+                             generator=gen).to(dev) for _ in range(2)]
+    seeds = [31, 32]
+    want = []
+    for ids, seed in zip(prompts, seeds):
+        st = eng.prefill_draft(eng.prefill_target(eng.init_state(seed), ids),
+                               ids)
+        rec = []
+        for _ in range(steps):
+            st, stats = eng._step_fn("triforce", None)(st)
+            rec.append((stats.tokens.tolist(), stats.n_emitted))
+        want.append(rec)
+    bat = bs.BatchedSpecEngine(eng, mode="triforce")
+    state = bat.prefill_rows(prompts, seeds)
+    for i in range(steps):
+        state, stats = bat.step(state)
+        for r in range(2):
+            got = (stats.tokens[r].tolist(), int(stats.n_emitted[r]))
+            if got != want[r][i]:
+                _fail(f"rows [{tag}]: row {r} step {i} emitted {got}, its "
+                      f"batch-1 run {want[r][i]}")
+    emitted = [[n for _, n in rec] for rec in want]
+    print(f"rows [{tag}]: {layers}-layer full-width model, 2 rows x {steps} "
+          f"TriForce steps: every batched row emitted its batch-1 run's "
+          f"tokens (n_emitted per step {emitted})", flush=True)
+    return dict(steps=steps, n_emitted=emitted)
+
+
+def batched_end_to_end(tc, llama, Engine, bs, batching, fd, rk, dev, tp, dp,
+                       quant):
+    """Batched speculation and serving at full width, ROWS slots, prompts
+    of SERVE_PREFILL tokens. ``tp``/``dp`` are the weights as the batch-1
+    engine runs them: with ``quant`` already int8 codes and scales, over
+    int8 KV. No token id is an EOS here (random weights would emit one now
+    and then), so every request runs to its length."""
+    tag = "int8 " if quant else ""
+    tcfg, dcfg = tc.LLAMA2_7B_128K, tc.LLAMA_68M
+    spec = tc.SpecConfig(gamma=GAMMA, budget=4096, chunk_size=8)
+    L, P = tcfg.num_layers, SERVE_PREFILL
+    headroom = bs.SpecScheduler.required_headroom(SERVE_NEW, SERVE_SEGMENT,
+                                                  GAMMA)
+    eng = Engine(tcfg, spec, tp, draft_cfg=dcfg, draft_params=dp, prefill=P,
+                 max_cache_len=P + headroom, dtype=torch.bfloat16, device=dev,
+                 kv_quant=quant, eos_token_id=-1)
+    body = P - 1
+    pre_fwd = body // eng.prefill_chunk + bool(body % eng.prefill_chunk) + 1
+    gen = torch.Generator().manual_seed(6)
+    prompts = [torch.randint(0, tcfg.vocab_size, (1, P), generator=gen)
+               for _ in range(SERVE_REQUESTS)]
+    res = {"launches": {}}
+    torch.cuda.reset_peak_memory_stats()
+
+    def counts(what, b1, b2, b3):
+        res["launches"][what] = _check_counts(fd, rk, tag + what, quant, b1,
+                                              b2, b3)
+        if not b3:
+            _fail(f"{tag}{what}: the row-batched kernel was never launched")
+
+    def check_requests(what, done):
+        if len(done) != SERVE_REQUESTS:
+            _fail(f"{tag}{what}: {len(done)} of {SERVE_REQUESTS} requests "
+                  f"completed")
+        for r in done:
+            if not r.done or len(r.out) != SERVE_NEW or not all(
+                    0 <= t < tcfg.vocab_size for t in r.out):
+                _fail(f"{tag}{what}: request {r.rid} ended with "
+                      f"{len(r.out)} tokens")
+
+    def serve_line(what, sched, done):
+        st = sched.stats
+        decoded = sum(len(r.out) - 1 for r in done)   # all but the prefill's
+        out = dict(admit_s=st["admit_s"], decode_s=st["decode_s"],
+                   steps=st["steps"], target_forwards=st["target_forwards"],
+                   decode_tokens=decoded,
+                   tokens_per_s=decoded / st["decode_s"])
+        print(f"{tag}{what}: {SERVE_REQUESTS} requests x {SERVE_NEW} tokens "
+              f"through {ROWS} slots: {out['tokens_per_s']:.1f} tokens/s "
+              f"over decode segments, admit {st['admit_s']:.2f} s, decode "
+              f"{st['decode_s']:.2f} s, {st['steps']} steps, "
+              f"{st['target_forwards']} batched target forwards", flush=True)
+        return out
+
+    # --- (a) ROWS rows speculate together, TriForce at forced acceptance
+    bat = bs.BatchedSpecEngine(eng, mode="triforce", force_accept=0.9)
+    _reset(fd, rk)
+    t0 = time.perf_counter()
+    state = bat.prefill_rows([p.to(dev) for p in prompts[:ROWS]],
+                             list(range(ROWS)))
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    counts_pre = _check_counts(fd, rk, tag + "batched prefill_rows", quant,
+                               L * pre_fwd * ROWS, L * ROWS)
+    res["launches"]["prefill_rows"] = counts_pre
+    _reset(fd, rk)
+    steps = 8
+    t0 = time.perf_counter()
+    state, toks, ns, counters, _eos = bat.decode(state, steps)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts("batched triforce", 0, 0, L * bat.target_forwards)
+    if toks.shape != (ROWS, steps, GAMMA + 2) or not (ns >= 1).all():
+        _fail(f"{tag}batched triforce: wrong outputs")
+    for r in range(ROWS):
+        for i in range(steps):
+            if not all(0 <= t < tcfg.vocab_size
+                       for t in toks[r, i, :ns[r, i]]):
+                _fail(f"{tag}batched triforce: token out of range")
+    # every emitted token but the last of each row is committed
+    want_len = P + ns.sum(1)
+    if state.kv.seq_len.tolist() != want_len.tolist():
+        _fail(f"{tag}batched triforce: kv.seq_len "
+              f"{state.kv.seq_len.tolist()} != {want_len.tolist()}")
+    emitted = int(ns.sum())
+    res["batched_triforce"] = dict(
+        alpha=0.9, rows=ROWS, steps=steps, prefill_rows_s=t_prefill,
+        decode_s=dt, tokens=emitted, tokens_per_s=emitted / dt,
+        accepted=int(counters[:, 0].sum()), proposed=int(counters[:, 1].sum()),
+        target_forwards=bat.target_forwards)
+    print(f"{tag}batched triforce a=0.9: {ROWS} rows, prefill_rows "
+          f"{t_prefill:.2f} s, {steps} steps in {dt:.2f} s = "
+          f"{emitted / dt:.1f} tokens/s ({emitted} tokens, accepted "
+          f"{res['batched_triforce']['accepted']} of "
+          f"{res['batched_triforce']['proposed']}), "
+          f"{bat.target_forwards} batched target forwards", flush=True)
+    del state
+
+    # --- (b) speculative serving: chunked admission between segments
+    sched = bs.SpecScheduler(eng, mode="triforce", slots=ROWS,
+                             segment=SERVE_SEGMENT, bat=bat, admit_chunks=4)
+    for i, p in enumerate(prompts):
+        sched.submit(batching.Request(rid=i, prompt=p[0].numpy(),
+                                      max_new_tokens=SERVE_NEW))
+    _reset(fd, rk)
+    before = bat.target_forwards
+    done = sched.run(max_wall_s=600)
+    check_requests("spec serving", done)
+    counts("spec serving", L * pre_fwd * SERVE_REQUESTS, L * SERVE_REQUESTS,
+           L * (bat.target_forwards - before))
+    if sched.state.kv.seq_len.tolist() != [0] * ROWS:
+        _fail(f"{tag}spec serving: a drained slot is not gated")
+    res["spec_serving"] = serve_line("spec serving (triforce a=0.9)", sched,
+                                     done)
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del sched, bat
+    torch.cuda.empty_cache()
+
+    # --- (c) AR serving over a bf16 pool (the AR scheduler's pool is never
+    # int8; with ``quant`` it runs the int8 weights over bf16 KV)
+    chunk = 512
+    ar = batching.Scheduler(tcfg, spec, eng.t_params, batch=ROWS,
+                            max_len=P + SERVE_NEW + 16, prefill_chunk=chunk,
+                            dtype=torch.bfloat16, segment=16, device=dev,
+                            eos_token_id=-1)
+    for i, p in enumerate(prompts):
+        ar.submit(batching.Request(rid=i, prompt=p[0].numpy(),
+                                   max_new_tokens=SERVE_NEW))
+    _reset(fd, rk)
+    done = ar.run(max_wall_s=600)
+    check_requests("AR serving", done)
+    res["launches"]["ar_serving"] = _check_counts(
+        fd, rk, tag + "AR serving (bf16 KV)", False,
+        L * -(-P // chunk) * SERVE_REQUESTS, 0, L * ar.stats["steps"])
+    res["ar_serving"] = serve_line("AR serving", ar, done)
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--prefill", type=int, default=32768)
@@ -588,7 +938,7 @@ def main() -> int:
         return 1
     try:
         from triforce_tpu_torch import _build, config as tc, cache
-        from triforce_tpu_torch import decoding
+        from triforce_tpu_torch import batched_spec, batching, decoding
         from triforce_tpu_torch.engine import Engine
         from triforce_tpu_torch.models import llama
         from triforce_tpu_torch.ops import flash_decode as fd
@@ -628,6 +978,16 @@ def main() -> int:
                   for sh in shapes] for quant in (False, True)}
     b2 = {quant: kernel_b2(rk, rt, cache, dev, prefill, 8, 4096, s_kv,
                            quant=quant) for quant in (False, True)}
+    # B3 at the batched phases' shapes: ROWS rows of a SERVE_PREFILL-token
+    # context in a pool sized as the serving phase sizes it
+    s_pool = SERVE_PREFILL + batched_spec.SpecScheduler.required_headroom(
+        SERVE_NEW, SERVE_SEGMENT, GAMMA)
+    shapes3 = [(1, 1, SERVE_PREFILL, s_pool),                  # batched AR
+               (GAMMA + 2, GAMMA + 2, SERVE_PREFILL, s_pool),  # outer verify
+               (GAMMA + 1, GAMMA + 1, 4096, 4096 + GAMMA + 1)]  # middle
+    b3 = {quant: [kernel_b3(fd, cache, dev, *sh, quant=quant)
+                  for sh in shapes3] for quant in (False, True)}
+    torch.cuda.empty_cache()
     ref = {name: reference_check(tc, llama, cache, rt, dev, quant=quant)
            for name, quant in (("bf16", False), ("int8", True))}
 
@@ -635,17 +995,59 @@ def main() -> int:
     main_path = dict.fromkeys(COUNTERS)
     by_phase = {}
     if not args.skip_e2e:
-        e2e = {}
+        rows_eq = {name: rows_equal_batch1(tc, llama, Engine, batched_spec,
+                                           dev, quant)
+                   for name, quant in (("bf16", False), ("int8", True))}
+        print(json.dumps({"rows_equal_batch1": rows_eq}), flush=True)
+        torch.cuda.empty_cache()
+        e2e, bat_e2e = {}, {}
+        tcfg, dcfg = tc.LLAMA2_7B_128K, tc.LLAMA_68M
+        spec = tc.SpecConfig(gamma=GAMMA, budget=4096, chunk_size=8)
         for name, quant in (("bf16", False), ("int8", True)):
-            e2e[name] = end_to_end(tc, llama, decoding, Engine, fd, rk, dev,
-                                   prefill, quant)
-            for k in (("b1_int8", "b2_int8") if quant else ("b1", "b2")):
+            t0 = time.perf_counter()
+            tp = llama.init_params(tcfg, device=dev, dtype=torch.bfloat16,
+                                   seed=0)
+            dp = llama.init_params(dcfg, device=dev, dtype=torch.bfloat16,
+                                   seed=1)
+            eng = Engine(tcfg, spec, tp, draft_cfg=dcfg, draft_params=dp,
+                         prefill=prefill,
+                         max_cache_len=prefill + GEN + 4 * (GAMMA + 2),
+                         dtype=torch.bfloat16, device=dev, kv_quant=quant,
+                         weight_quant=quant)
+            if quant:    # the batched phase runs the same int8 weights
+                tp, dp = eng.t_params, eng.d_params
+            torch.cuda.synchronize()
+            print(f"{'int8 ' if quant else ''}weights: "
+                  f"{time.perf_counter() - t0:.1f} s to make random weights "
+                  f"on the card{' and quantize them' if quant else ''}",
+                  flush=True)
+            e2e[name] = end_to_end(tc, decoding, eng, fd, rk, dev, prefill,
+                                   quant)
+            del eng
+            torch.cuda.empty_cache()
+            # the batch-1 TriForce run counts B1 and B2, the batched phases
+            # (rows speculating, then both schedulers) B3
+            b12 = ("b1_int8", "b2_int8") if quant else ("b1", "b2")
+            for k in b12:
                 main_path[k] = e2e[name]["launches"]["triforce"][k]
-                by_phase[k] = {ph: v[k] for ph, v in
-                               e2e[name]["launches"].items()}
             print(f"end to end [{name}]: " + json.dumps(e2e[name]),
                   flush=True)
+            bat_e2e[name] = batched_end_to_end(
+                tc, llama, Engine, batched_spec, batching, fd, rk, dev, tp,
+                dp, quant)
+            del tp, dp
             torch.cuda.empty_cache()
+            k3 = "b3_int8" if quant else "b3"
+            lb = bat_e2e[name]["launches"]
+            main_path[k3] = lb["batched triforce"][k3] \
+                + lb["spec serving"][k3]
+            for k in b12 + (k3,):
+                by_phase[k] = {ph: v[k] for ph, v in
+                               {**e2e[name]["launches"], **lb}.items()}
+            print(f"batched end to end [{name}]: " + json.dumps(bat_e2e[name]),
+                  flush=True)
+        by_phase["b3"]["ar_serving_int8_weights"] = \
+            bat_e2e["int8"]["launches"]["ar_serving"]["b3"]
 
     def b1_entry(name, source_fn, quant, replaces):
         main = b1[quant][0]   # AR decode shape: the path's most frequent
@@ -673,6 +1075,21 @@ def main() -> int:
                     bound_by=r["bound_by"], library_ms=r["library_ms"],
                     shapes=[r])
 
+    def b3_entry(name, source_fn, quant):
+        main = b3[quant][1]   # the outer verify: one per speculation step
+        key = "b3_int8" if quant else "b3"
+        return dict(name=name, route="cuda",
+                    source="triforce_tpu_torch/csrc/flash_decode.cu",
+                    entry_point=source_fn,
+                    replaces="triforce_tpu/ops/flash_decode.py:516"
+                    + (" (quant branch)" if quant else ""),
+                    launches=main_path[key],
+                    launches_by_phase=by_phase.get(key),
+                    max_abs_err=max(r["max_abs_err"] for r in b3[quant]),
+                    ms=main["ms"], plain_ms=main["plain_ms"],
+                    bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+                    library_ms=main["library_ms"], shapes=b3[quant])
+
     kernels = [
         b1_entry("flash_decode_append", "tf_flash_decode_bf16", False,
                  "triforce_tpu/ops/flash_decode.py:332"),
@@ -684,6 +1101,10 @@ def main() -> int:
         b2_entry("chunk_scores_int8", "tf_chunk_scores_int8", True,
                  "triforce_tpu/ops/retrieval_kernel.py:101 (quant branch: "
                  ":52-57, :133-145)"),
+        b3_entry("flash_decode_append_batched",
+                 "tf_flash_decode_batched_bf16", False),
+        b3_entry("flash_decode_append_batched_int8",
+                 "tf_flash_decode_batched_int8", True),
     ]
     print(json.dumps({"reference": ref}), flush=True)
     print(json.dumps({"bound_ms_of_kernels_to_port": unported_bounds()}),

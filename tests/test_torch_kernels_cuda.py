@@ -7,7 +7,8 @@ a machine without JAX:
     python -m pytest -m cuda tests/test_torch_kernels_cuda.py
 
 chip_smoke.py holds the same kernels against the same plain versions at the
-main path's full shapes.
+main path's full shapes. The row-batched kernels (B3, B3-int8) are also held
+against the single-row ones row by row, bit for bit.
 """
 
 import pytest
@@ -154,3 +155,109 @@ def test_chunk_scores_int8_matches_plain(dev, g, chunk, prefill):
     assert trk.chunk_scores_int8.launches == before + 1
     # exact integer dots: only the scale products and the means round
     assert (out - ref).abs().max().item() <= 1e-6 * ref.abs().max().item()
+
+
+# ---------------------------------------------------------------------------
+# row-batched: B3 and B3-int8
+# ---------------------------------------------------------------------------
+
+B3_CASES = [
+    # gt, tn, k_lens (ragged: a dead row, a row lighter than its new
+    # block, a full row), s, d, per-row masks
+    (1, 1, [1000, 0, 1, 1100], 1100, 128, False),
+    (7, 7, [4096, 0, 3, 2500], 4103, 128, False),
+    (8, 8, [0, 0, 0, 0], 64, 128, True),
+    (40, 8, [777, 0, 5, 1000], 1000, 128, True),
+    (16, 4, [333, 0, 2, 400], 400, 64, True),
+]
+
+
+def _b3_inputs(dev, gt, tn, k_lens, s, d, per_row_mask, hkv=4):
+    rows = len(k_lens)
+    q, kn, vn = (_randn(dev, 0, rows, hkv, gt, d),
+                 _randn(dev, 1, rows, hkv, tn, d),
+                 _randn(dev, 2, rows, hkv, tn, d))
+    # layer 1 of a row-stacked [B, L, Hkv, S, D] pool: a strided view
+    k = _randn(dev, 3, rows, 2, hkv, s, d)
+    v = _randn(dev, 4, rows, 2, hkv, s, d)
+    if per_row_mask:
+        g = torch.Generator(device=dev).manual_seed(5)
+        mask = torch.rand((rows, gt, tn), generator=g, device=dev) < 0.7
+        mask[:, :, 0] = True
+    else:
+        mask = tfd.causal_mask(gt, tn, 1, dev)
+    kl = torch.tensor(k_lens, dtype=torch.int32, device=dev)
+    return q, kn, vn, k, v, mask, kl
+
+
+@pytest.mark.parametrize("gt,tn,k_lens,s,d,per_row_mask", B3_CASES)
+def test_flash_decode_batched_matches_plain_and_b1(dev, gt, tn, k_lens, s, d,
+                                                   per_row_mask):
+    q, kn, vn, k, v, mask, kl = _b3_inputs(dev, gt, tn, k_lens, s, d,
+                                           per_row_mask)
+    for b, n in enumerate(k_lens):
+        k[b, 1, :, n:] = 50.0     # stale slots past k_len must never be read
+        v[b, 1, :, n:] = 50.0
+    k, v = k[:, 1], v[:, 1]
+    before = tfd.flash_decode_append_batched.launches
+    out = tfd.flash_decode_append_batched(q, k, v, kn, vn, kl, mask)
+    ref = tfd.flash_decode_append_batched_plain(q, k, v, kn, vn, kl, mask)
+    torch.cuda.synchronize()
+    assert tfd.flash_decode_append_batched.launches == before + 1
+    assert torch.isfinite(out).all()
+    for b, n in enumerate(k_lens):
+        # B1's bound per row; chip_smoke.py states the same one
+        assert (out[b] - ref[b]).abs().max().item() <= 0.05 / (n + tn) ** 0.5
+        # the same device code as B1, split the same way: bit equality
+        m = mask[b] if per_row_mask else mask
+        one = tfd.flash_decode_append(q[b], k[b], v[b], kn[b], vn[b], kl[b],
+                                      m.contiguous())
+        assert torch.equal(out[b], one)
+
+
+@pytest.mark.parametrize("gt,tn,k_lens,s,d,per_row_mask", B3_CASES)
+def test_flash_decode_batched_int8_matches_plain_and_b1(dev, gt, tn, k_lens,
+                                                        s, d, per_row_mask):
+    q, kn, vn, k, v, mask, kl = _b3_inputs(dev, gt, tn, k_lens, s, d,
+                                           per_row_mask)
+    (k, ks), (v, vs) = tcache.quantize_tokens(k), tcache.quantize_tokens(v)
+    for b, n in enumerate(k_lens):    # poisoned codes and scales: never read
+        k[b, 1, :, n:], v[b, 1, :, n:] = 127, -127
+        ks[b, 1, :, n:], vs[b, 1, :, n:] = 1e3, 1e3
+    k, v, ks, vs = k[:, 1], v[:, 1], ks[:, 1], vs[:, 1]
+    before = tfd.flash_decode_append_batched_int8.launches
+    out = tfd.flash_decode_append_batched_int8(q, k, v, kn, vn, kl, mask, ks,
+                                               vs)
+    ref = tfd.flash_decode_append_batched_int8_plain(
+        q, k, v, kn, vn, kl, mask, ks, vs, group=tfd.KERNEL_GROUP)
+    torch.cuda.synchronize()
+    assert tfd.flash_decode_append_batched_int8.launches == before + 1
+    assert torch.isfinite(out).all()
+    for b, n in enumerate(k_lens):
+        assert (out[b] - ref[b]).abs().max().item() <= 0.005 / (n + tn) ** 0.5
+        m = mask[b] if per_row_mask else mask
+        one = tfd.flash_decode_append_int8(q[b], k[b], v[b], kn[b], vn[b],
+                                           kl[b], m.contiguous(), ks[b],
+                                           vs[b])
+        assert torch.equal(out[b], one)
+
+
+def test_flash_decode_batched_rejects_what_it_does_not_take(dev):
+    """fp32 tensors, a k_len of the wrong length and the other kernel's
+    cache type raise; nothing falls back to the plain version."""
+    q = _randn(dev, 0, 2, 2, 1, 128)
+    kb = _randn(dev, 1, 2, 2, 64, 128)
+    k8, ks = _int8_cache(dev, 2, 2, 2, 64, 128)
+    mask = torch.ones((1, 1), dtype=torch.bool, device=dev)
+    with pytest.raises(TypeError):
+        tfd.flash_decode_append_batched(q.float(), kb, kb, q, q, [8, 8], mask)
+    with pytest.raises(ValueError):
+        tfd.flash_decode_append_batched(q, kb, kb, q, q, [8], mask)
+    with pytest.raises(TypeError):
+        tfd.flash_decode_append_batched(q, k8, k8, q, q, [8, 8], mask)
+    with pytest.raises(TypeError):
+        tfd.flash_decode_append_batched_int8(q, kb, kb, q, q, [8, 8], mask,
+                                             ks, ks)
+    with pytest.raises(ValueError):
+        tfd.flash_decode_append_batched_int8(q, k8, k8, q, q, [8, 8], mask,
+                                             ks.half(), ks.half())

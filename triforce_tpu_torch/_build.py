@@ -48,6 +48,19 @@ _SIGNATURES = {
                                  _P, _L, _L, _P, _L, _L, _P, _P,
                                  _P, _P, _P, _P,
                                  _I, _I, _I, _I, _I, _I, _F, _P],
+        # row-batched: B first, a row stride before each head stride, and
+        # the mask's row stride
+        "tf_flash_decode_batched_bf16": [_I, _P, _L, _L, _L, _P, _L, _L, _L,
+                                         _P, _L, _L, _L,
+                                         _P, _L, _L, _L, _P, _L, _L, _L,
+                                         _L, _P, _P, _P, _P, _P, _P,
+                                         _I, _I, _I, _I, _I, _I, _F, _P],
+        "tf_flash_decode_batched_int8": [_I, _P, _L, _L, _L, _P, _L, _L, _L,
+                                         _P, _L, _L, _L,
+                                         _P, _L, _L, _P, _L, _L,
+                                         _P, _L, _L, _L, _P, _L, _L, _L,
+                                         _L, _P, _P, _P, _P, _P, _P,
+                                         _I, _I, _I, _I, _I, _I, _F, _P],
     },
     "chunk_scores.cu": {
         "tf_chunk_scores_bf16": [_P, _P, _L, _L, _P, _I, _I, _I, _I, _I,

@@ -1,0 +1,310 @@
+"""Batched speculative decoding: B sequences speculate together, each with
+its own acceptance count, rollback and retrieval tail refresh — the port
+of ``triforce_tpu/batched_spec.py``.
+
+The JAX package vmaps its batch-1 step over a stacked state. Here the step
+has a real batch dimension (``engine.triforce_step_rows`` /
+``retrieval_spec_step_rows``): every forward of a step runs ONCE for all
+rows, so the weights are read once per forward whatever B is, and every
+target layer attends through one launch of the row-batched flash-decode
+kernel. Each row keeps its own cache row, its own generator and its own
+control flow, and emits exactly what its batch-1 run with the same seed
+emits.
+
+``SpecScheduler`` serves requests through a fixed pool of such rows: chunked
+admission interleaved with decode segments, retirement on EOS or length,
+dead slots gated by ``kv.seq_len == 0`` (their attention reads no cache).
+The control loop is ``batching.SchedulerBase``, shared with the AR
+scheduler.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import numpy as np
+import torch
+
+from . import batching
+from .cache import (KVCache, RetrievalCache, StreamingCache, init_kv_rows,
+                    init_retrieval_rows, init_streaming_rows, row_view,
+                    set_entry, stack_rows, write_row)
+from .engine import (Engine, StackedState, TriForceState,
+                     retrieval_spec_step_rows, triforce_step_rows)
+
+
+def stack_states(states) -> StackedState:
+    """Stack B batch-1 ``TriForceState``s into one row-stacked state (a
+    copy; the generators are shared with the inputs). Holds the inputs and
+    the copy at once: pools are built with ``blank_stacked_state`` and
+    filled row by row instead."""
+    return StackedState(
+        kv=stack_rows([s.kv for s in states]),
+        rkv=stack_rows([s.rkv for s in states]),
+        dkv=None if states[0].dkv is None
+        else stack_rows([s.dkv for s in states]),
+        next_token=torch.cat([s.next_token for s in states]),
+        gens=[s.gen for s in states])
+
+
+def blank_stacked_state(engine: Engine, b: int, seeds) -> StackedState:
+    """A row-stacked BLANK pool built directly at stacked shapes, with one
+    seeded generator per row: peak memory is the pool alone. Blank rows
+    have ``seq_len`` 0, i.e. they are gated until ``write_state_row`` fills
+    them."""
+    dev = engine.device
+    dkv = None
+    if engine.draft_cfg is not None:
+        dkv = init_streaming_rows(engine.draft_cfg, engine.spec, b,
+                                  engine.dtype, device=dev)
+    return StackedState(
+        kv=init_kv_rows(engine.target_cfg, engine.max_cache_len, b,
+                        engine.dtype, device=dev, quant=engine.kv_quant),
+        rkv=init_retrieval_rows(engine.target_cfg, engine.spec, b,
+                                engine.dtype, device=dev,
+                                quant=engine.kv_quant),
+        dkv=dkv,
+        next_token=torch.zeros((b,), dtype=torch.int64, device=dev),
+        gens=[torch.Generator(device=dev).manual_seed(s) for s in seeds])
+
+
+def write_state_row(full: StackedState, row: TriForceState,
+                    slot: int) -> StackedState:
+    """Overwrite row ``slot`` of the pool with a batch-1 state, in place on
+    the pool's buffers (one row's bytes; the pool is never copied). The
+    slot takes the row's generator."""
+    next_token = set_entry(full.next_token, slot, row.next_token[0])
+    gens = list(full.gens)
+    gens[slot] = row.gen
+    return StackedState(
+        kv=write_row(full.kv, slot, row.kv),
+        rkv=write_row(full.rkv, slot, row.rkv),
+        dkv=None if full.dkv is None else write_row(full.dkv, slot, row.dkv),
+        next_token=next_token, gens=gens)
+
+
+def unstack_state(batched: StackedState):
+    """The pool's rows as batch-1 states that share its buffers."""
+    return [TriForceState(
+        kv=row_view(batched.kv, i), rkv=row_view(batched.rkv, i),
+        dkv=None if batched.dkv is None else row_view(batched.dkv, i),
+        next_token=batched.next_token[i:i + 1].clone(),
+        gen=batched.gens[i])
+        for i in range(batched.rows)]
+
+
+def stacked_state_from_numpy(state, seeds, device,
+                             dtype=torch.float32) -> StackedState:
+    """The JAX package's row-stacked ``TriForceState`` as numpy arrays
+    (``jax.tree.map(np.asarray, state)``: caches ``[B, L, 1, Hkv, S, D]``,
+    scales ``[B, L, 1, Hkv, S]``, ``seq_len`` [B], ``next_token`` [B, 1])
+    -> this package's row-stacked state on ``device``, one generator per
+    row from ``seeds``. A state without a drafter cache (the JAX
+    placeholder of size 0) gets ``dkv=None``."""
+    def buf(a):
+        a = np.asarray(a)
+        if a.dtype == np.int8:
+            return torch.tensor(a[:, :, 0]).to(device)
+        if a.dtype.name == "bfloat16":
+            a = a.astype(np.float32)
+        return torch.tensor(a[:, :, 0]).to(device=device, dtype=dtype)
+
+    def scale(a):
+        return None if a is None else torch.tensor(
+            np.asarray(a)[:, :, 0]).to(device=device, dtype=torch.float32)
+
+    def length(a):
+        return torch.tensor(np.asarray(a)).to(device=device,
+                                              dtype=torch.int32)
+
+    kv, rkv, dkv = state.kv, state.rkv, state.dkv
+    return StackedState(
+        kv=KVCache(buf(kv.k), buf(kv.v), length(kv.seq_len),
+                   scale(kv.k_scale), scale(kv.v_scale)),
+        rkv=RetrievalCache(buf(rkv.k), buf(rkv.v), scale(rkv.k_scale),
+                           scale(rkv.v_scale)),
+        dkv=None if np.asarray(dkv.k).ndim < 6
+        else StreamingCache(buf(dkv.k), buf(dkv.v), length(dkv.seq_len)),
+        next_token=torch.tensor(np.asarray(state.next_token)[:, 0]).to(
+            device=device, dtype=torch.int64),
+        gens=[torch.Generator(device=device).manual_seed(s) for s in seeds])
+
+
+class BatchedSpecEngine:
+    """Batched speculation steps over a row-stacked state.
+
+    Built ON an existing batch-1 ``Engine`` (same configs, same params).
+    ``mode`` is 'retrieval' (self-speculation) or 'triforce' (3-level with
+    drafter). ``force_accept``: the controlled-acceptance coin of
+    ``Engine.generate_forced``, applied per row. Rows over a device mesh
+    (``mesh``) are not ported."""
+
+    def __init__(self, engine: Engine, mode: str = "retrieval",
+                 force_accept=None, mesh=None):
+        if mesh is not None:
+            raise NotImplementedError("data-parallel rows over a mesh are "
+                                      "not ported yet")
+        if mode == "triforce":
+            if engine.draft_cfg is None:
+                raise ValueError("triforce mode needs a drafter")
+            self._step_rows = triforce_step_rows
+        elif mode == "retrieval":
+            self._step_rows = retrieval_spec_step_rows
+        else:
+            raise ValueError(mode)
+        self.engine = engine
+        self.mode = mode
+        self.force_accept = force_accept
+        self.steps = 0             # batched steps run so far
+        self.target_forwards = 0   # batched target forwards they ran
+
+    def prefill_rows(self, prompts, seeds) -> StackedState:
+        """Prefill each row through the batch-1 engine and write it into a
+        blank stacked pool (prefill is compute-bound: batching it buys
+        little; decode is where rows share the weights). Writing row by
+        row keeps the peak at the pool plus ONE row."""
+        eng = self.engine
+        state = blank_stacked_state(eng, len(prompts), seeds)
+        for i, (ids, seed) in enumerate(zip(prompts, seeds)):
+            st = eng.init_state(seed)
+            st = eng.prefill_target(st, ids)
+            if self.mode == "triforce":
+                st = eng.prefill_draft(st, ids)
+            state = write_state_row(state, st, i)
+            del st
+        return state
+
+    def step(self, state: StackedState):
+        """One speculation step for EVERY row. Returns (state, stats) with
+        a leading row axis on every stats field. The caches of ``state``
+        are updated in place."""
+        state, stats = self._step_rows(self.engine, state,
+                                       force_accept=self.force_accept)
+        self.steps += 1
+        self.target_forwards += stats.target_forwards
+        return state, stats
+
+    def decode(self, state: StackedState, steps: int):
+        """Run ``steps`` steps; returns (state, tokens [B, steps, gamma+2],
+        n_emitted [B, steps], counters [B, 4] = per-row (accepted,
+        proposed, mid_verify, mid_live), eos [B, steps]). The JAX package
+        compiles this into one program; here it is a host loop over
+        ``step`` (each step reads its outcomes back), and the results are
+        collected on the host at the end."""
+        toks, ns, eos = [], [], []
+        counters = np.zeros((state.rows, 4), np.int64)
+        for _ in range(steps):
+            state, st = self.step(state)
+            toks.append(st.tokens)
+            ns.append(st.n_emitted)
+            eos.append(st.eos)
+            counters += np.stack([st.accepted, st.gamma2, st.mid_verify,
+                                  st.mid_live], -1)
+        return (state, torch.stack(toks, 1).cpu().numpy(), np.stack(ns, 1),
+                counters, torch.stack(eos, 1).cpu().numpy())
+
+
+class SpecScheduler(batching.SchedulerBase):
+    """Speculative continuous batching: requests flow through a fixed pool
+    of B speculative slots — admit (CHUNKED batch-1 prefill interleaved
+    with decode segments, then a row write into the stacked state) ->
+    decode segments of batched speculation steps -> retire on EOS /
+    length.
+
+    Per-row trajectories are the batch-1 runs with the same seeds (a
+    request's seed is its ``rid``): admission replays the engine's own
+    prefill, and rows never interact.
+
+    Dead slots are GATED: a retired or never-filled slot has
+    ``kv.seq_len == 0``, which the forwards use as the live flag — the
+    flash-decode kernel reads no cache for it and ``forward_spec_rows``
+    collapses its retrieval read to zero columns. Dead rows still run the
+    small matmul compute, sharing the batch's weight stream. Admission
+    overwrites the slot wholesale.
+
+    Admission is CHUNKED: each scheduler cycle advances the pending prefill
+    by ``admit_chunks`` prefill chunks, then a decode segment runs, so live
+    slots keep decoding while a long prompt streams in."""
+
+    @staticmethod
+    def required_headroom(gen_len: int, segment: int, gamma: int) -> int:
+        """Cache capacity (beyond prefill) a LIVE slot can consume: it
+        emits >= 1 token per step (<= gen_len + segment-overshoot steps to
+        retirement), each step appending <= gamma+2 entries; retirement
+        clears the row (seq_len -> 0)."""
+        return (gen_len + 2 * segment + 2) * (gamma + 2)
+
+    def __init__(self, engine: Engine, mode: str = "retrieval", *,
+                 slots: int = 4, segment: int = 4, seed: int = 0,
+                 force_accept=None, mesh=None, bat=None,
+                 admit_chunks: int = 8):
+        super().__init__(slots, engine.eos_token_id, engine.device)
+        self.engine = engine
+        self.mode = mode
+        self.segment = segment
+        self.admit_chunks = admit_chunks
+        if bat is not None:
+            if bat.engine is not engine or bat.mode != mode:
+                raise ValueError("a shared BatchedSpecEngine must wrap the "
+                                 "same engine and mode")
+            self.bat = bat
+        else:
+            self.bat = BatchedSpecEngine(engine, mode=mode,
+                                         force_accept=force_accept,
+                                         mesh=mesh)
+        # B blank rows (seq_len 0 -> gated until admission)
+        self.state = blank_stacked_state(
+            engine, slots, [seed * 1000 + i for i in range(slots)])
+        self._pending = None   # in-flight chunked admission
+
+    def _admitting(self) -> bool:
+        return self._pending is not None
+
+    def _admit_one(self, slot: int, req) -> bool:
+        eng = self.engine
+        if self._pending is None or self._pending["req"] is not req:
+            ids = torch.as_tensor(np.asarray(req.prompt), dtype=torch.int64,
+                                  device=eng.device)
+            if ids.dim() == 1:
+                ids = ids[None]
+            self._pending = {"req": req, "ids": ids, "pos": 0,
+                             "row": eng.init_state(req.rid)}
+        p = self._pending
+        row, pos, done = eng.prefill_target_partial(
+            p["row"], p["ids"], p["pos"], self.admit_chunks)
+        p["row"], p["pos"] = row, pos
+        if not done:
+            return False
+        if self.mode == "triforce":
+            row = eng.prefill_draft(row, p["ids"])
+        self.stats["prefill_tokens"] += int(p["ids"].shape[-1])
+        req.out = [int(row.next_token[0])]   # the prefill sample
+        self.state = write_state_row(self.state, row, slot)
+        self._pending = None
+        return True
+
+    def _decode_segment(self):
+        before = self.bat.target_forwards
+        self.state, toks, ns, _c, _eos = self.bat.decode(self.state,
+                                                         self.segment)
+        self.stats["steps"] += self.segment
+        self.stats["target_forwards"] += self.bat.target_forwards - before
+        new_tokens = []
+        for slot, req in enumerate(self.slot_req):
+            if req is None:
+                new_tokens.append([])
+                continue
+            new_tokens.append([int(t) for s in range(self.segment)
+                               for t in toks[slot, s, :ns[slot, s]]])
+        return new_tokens, [False] * self.slots
+
+    def _release_slot(self, slot: int) -> None:
+        """Gate a retired slot: zero its kv/dkv lengths; the stale cache
+        contents are unreachable behind the zero length."""
+        st = self.state
+        kv = dataclasses.replace(st.kv,
+                                 seq_len=set_entry(st.kv.seq_len, slot, 0))
+        dkv = st.dkv
+        if dkv is not None:
+            dkv = dataclasses.replace(
+                dkv, seq_len=set_entry(dkv.seq_len, slot, 0))
+        self.state = dataclasses.replace(st, kv=kv, dkv=dkv)

@@ -1,0 +1,296 @@
+"""Continuous batching: slot-based batched autoregressive decode with
+per-row sequence lengths and rolling admission — the port of
+``triforce_tpu/batching.py``.
+
+  * a fixed pool of B slots shares one ``[B, L, H, S, D]`` cache (no
+    reallocation on admission);
+  * ``seq_lens`` is a [B] vector; attention bounds each row by its own
+    length, so rows at different positions decode together, each layer
+    through ONE launch of the row-batched flash-decode kernel
+    (``ops/attention.py::append_attention_rows``);
+  * prefill fills ONE slot at a time, in chunks, straight into that row of
+    the pool; decode steps advance ALL live rows in one pass over the
+    weights;
+  * the ``Scheduler`` admits queued requests into free slots between
+    decode segments and retires rows on EOS / length.
+
+``SchedulerBase`` is the control loop shared with the speculative
+scheduler (``batched_spec.SpecScheduler``). Where the JAX package runs a
+decode segment as one compiled program, the port runs it as a host loop
+over ``batched_ar_step`` with one read-back of the output buffer per
+segment.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from .cache import KVCache, init_kv_rows, row_view, set_entry
+from .config import ModelConfig, SpecConfig, resolve_device
+from .engine import _as_eos_tuple
+from .models import llama
+from .ops import sampling
+
+
+@dataclasses.dataclass
+class BatchState:
+    """Slot pool state: one shared cache, per-row lengths and tokens. The
+    cache buffers are updated in place; the small vectors are replaced."""
+    kv: KVCache               # row-stacked: k/v [B, L, H, S, D], seq_len [B]
+    tokens: torch.Tensor      # [B] int64 — last sampled token per row
+    live: torch.Tensor        # [B] bool — row actively decoding
+    out_buf: torch.Tensor     # [B, cap] int64 — generated tokens per row
+    n_out: torch.Tensor       # [B] int64 — fill level of out_buf
+    gen: torch.Generator      # one random stream for the pool
+
+    @property
+    def seq_lens(self) -> torch.Tensor:
+        return self.kv.seq_len
+
+
+def init_batch(cfg: ModelConfig, batch: int, max_len: int, seed: int = 0,
+               dtype=torch.bfloat16, out_cap: int = 1024,
+               device=None) -> BatchState:
+    """A blank pool of ``batch`` slots. ``device=None`` means the first
+    CUDA card and raises without one."""
+    device = resolve_device(device)
+    return BatchState(
+        kv=init_kv_rows(cfg, max_len, batch, dtype, device=device),
+        tokens=torch.zeros((batch,), dtype=torch.int64, device=device),
+        live=torch.zeros((batch,), dtype=torch.bool, device=device),
+        out_buf=torch.zeros((batch, out_cap), dtype=torch.int64,
+                            device=device),
+        n_out=torch.zeros((batch,), dtype=torch.int64, device=device),
+        gen=torch.Generator(device=device).manual_seed(seed))
+
+
+def batched_ar_step(cfg: ModelConfig, spec: SpecConfig, params,
+                    state: BatchState) -> BatchState:
+    """One decode token for every live row, in one pass over the weights.
+
+    Each row attends its own live prefix and writes its new KV at its own
+    ``seq_lens[b]``; dead rows are masked out of the length advance, so
+    their caches stay frozen (the slot they overwrite is past their
+    length)."""
+    kv = state.kv
+    positions = kv.seq_len
+    logits, nk, nv = llama.forward_append_rows(cfg, params,
+                                               state.tokens[:, None], kv)
+    # per-row commit of the one new token at each row's own position
+    rows = torch.arange(positions.shape[0], device=positions.device)
+    at = positions.to(torch.int64).clamp(0, kv.max_len - 1)
+    kv.k[rows, :, :, at] = nk[:, :, :, 0].to(kv.k.dtype)
+    kv.v[rows, :, :, at] = nv[:, :, :, 0].to(kv.v.dtype)
+
+    probs = sampling.norm_logits(logits[:, -1], spec.temperature, spec.top_k,
+                                 spec.top_p)
+    toks = torch.where(state.live, sampling.sample(probs, state.gen),
+                       state.tokens)
+    # append to each live row's output buffer; a row at buffer capacity
+    # stops recording AND stops counting (the scheduler retires it)
+    cap = state.out_buf.shape[1]
+    can_write = state.live & (state.n_out < cap)
+    idx = state.n_out.clamp(0, cap - 1)
+    out_buf = state.out_buf.clone()
+    out_buf[rows, idx] = torch.where(can_write, toks, out_buf[rows, idx])
+    return dataclasses.replace(
+        state,
+        kv=dataclasses.replace(
+            kv, seq_len=positions + state.live.to(positions.dtype)),
+        tokens=toks, out_buf=out_buf,
+        n_out=state.n_out + can_write.to(state.n_out.dtype))
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray            # [T] int
+    max_new_tokens: int = 128
+    out: List[int] = dataclasses.field(default_factory=list)
+    done: bool = False
+
+
+class SchedulerBase:
+    """ONE continuous-batching control loop for both step kinds.
+    Subclasses provide three hooks:
+
+      _admit_one(slot, req) -> bool
+          admit (or CONTINUE admitting — chunked admission may span calls)
+          ``req`` into ``slot``; return True once the slot is live. A False
+          return stops this cycle's admission sweep so a decode segment
+          can interleave with a long prefill.
+      _decode_segment() -> (new_tokens, force_retire)
+          one decode segment for every slot; per-slot lists of the NEW
+          tokens it produced, plus a per-slot bool forcing retirement
+          (e.g. output-buffer capacity).
+      _release_slot(slot)
+          gate a retired slot (stop paying for its decode work).
+
+    Retirement is shared: trim at the first EOS (inclusive; EOS is a
+    static id tuple like the engines'), trim to ``max_new_tokens``, retire
+    on EOS / length / force."""
+
+    def __init__(self, slots: int, eos_token_id, device: torch.device):
+        self.slots = slots
+        self.device = device
+        self.slot_req: List[Optional[Request]] = [None] * slots
+        self.queue: List[Request] = []
+        self._eos_ids = _as_eos_tuple(eos_token_id)
+        self.stats = self._blank_stats()
+
+    @staticmethod
+    def _blank_stats() -> dict:
+        """Wall seconds in admission and in decode segments, prompt tokens
+        prefilled, batched decode steps and the target forwards they ran."""
+        return {"admit_s": 0.0, "decode_s": 0.0, "prefill_tokens": 0,
+                "steps": 0, "target_forwards": 0}
+
+    def submit(self, req: Request) -> None:
+        self.queue.append(req)
+
+    def _admit(self) -> None:
+        for slot in range(self.slots):
+            if self.slot_req[slot] is not None or not self.queue:
+                continue
+            req = self.queue[0]
+            if self._admit_one(slot, req):
+                self.queue.pop(0)
+                self.slot_req[slot] = req
+            else:
+                return   # admission slice spent; decode a segment first
+
+    def _admitting(self) -> bool:
+        """True while a chunked admission is mid-flight."""
+        return False
+
+    def _sync(self) -> None:
+        """Wait for the device, so that the clock brackets the work."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def run(self, max_wall_s: float = 600.0) -> List[Request]:
+        """Drive until queue + slots drain (or the wall clock expires);
+        returns finished requests in completion order. ``self.stats``
+        afterwards splits the wall into admission (prefill work) and decode
+        segments: at long prompts the wall is prefill-dominated, and the
+        decode-segment throughput is the number to hold against a
+        fixed-batch run."""
+        done: List[Request] = []
+        self.stats = self._blank_stats()
+        t0 = time.perf_counter()
+        while (self.queue or self._admitting()
+               or any(r is not None for r in self.slot_req)) \
+                and time.perf_counter() - t0 < max_wall_s:
+            ta = time.perf_counter()
+            self._admit()
+            self._sync()
+            self.stats["admit_s"] += time.perf_counter() - ta
+            if not any(r is not None for r in self.slot_req):
+                continue   # nothing live yet (admission still chunking)
+            td = time.perf_counter()
+            new_tokens, force = self._decode_segment()
+            self.stats["decode_s"] += time.perf_counter() - td
+            for slot, req in enumerate(self.slot_req):
+                if req is None:
+                    continue
+                req.out.extend(new_tokens[slot])
+                eos_pos = [i for i, t in enumerate(req.out)
+                           if t in self._eos_ids]
+                if eos_pos:
+                    req.out = req.out[: eos_pos[0] + 1]
+                if len(req.out) >= req.max_new_tokens:
+                    # trim the segment overshoot to the requested limit
+                    # (the EOS path above already trims)
+                    req.out = req.out[: req.max_new_tokens]
+                if eos_pos or len(req.out) >= req.max_new_tokens \
+                        or force[slot]:
+                    req.done = True
+                    done.append(req)
+                    self.slot_req[slot] = None
+                    self._release_slot(slot)
+        return done
+
+
+class Scheduler(SchedulerBase):
+    """AR continuous batching: admit -> prefill into a free slot ->
+    batched decode segments -> retire. Host-side control, device-side
+    compute. ``device=None`` means the first CUDA card and raises without
+    one. The prompt is prefilled in ``prefill_chunk``-token forwards
+    straight into the slot's row of the pool (the JAX class takes
+    ``prefill_chunk`` too but runs the prompt as one forward; in chunks a
+    long prompt needs no [T, vocab] logits and no T x T new-token block)."""
+
+    def __init__(self, cfg: ModelConfig, spec: SpecConfig, params, *,
+                 batch: int = 4, max_len: int = 4096,
+                 prefill_chunk: int = 256, eos_token_id: int = 2,
+                 dtype=torch.bfloat16, segment: int = 16, seed: int = 0,
+                 out_cap: int = 1024, device=None):
+        super().__init__(batch, eos_token_id, resolve_device(device))
+        if params["embed"].device != self.device:
+            raise ValueError(f"params are on {params['embed'].device}, "
+                             f"scheduler on {self.device}")
+        self.cfg, self.spec, self.params = cfg, spec, params
+        self.batch, self.max_len = batch, max_len
+        self.prefill_chunk = prefill_chunk
+        self.segment = segment
+        self.state = init_batch(cfg, batch, max_len, seed, dtype,
+                                out_cap=out_cap, device=self.device)
+
+    def _admit_one(self, slot: int, req: Request) -> bool:
+        ids = torch.as_tensor(np.asarray(req.prompt), dtype=torch.int64,
+                              device=self.device)[None]
+        self.stats["prefill_tokens"] += int(ids.shape[-1])
+        st = self.state
+        # slot-local prefill: the row's buffers are views of the pool, so
+        # admission writes O(row) bytes in place and copies nothing
+        row = dataclasses.replace(
+            row_view(st.kv, slot),
+            seq_len=torch.zeros((), dtype=torch.int32, device=self.device))
+        c = self.prefill_chunk
+        for start in range(0, ids.shape[1], c):
+            last = start + c >= ids.shape[1]
+            logits, row, _ = llama.forward_append(
+                self.cfg, self.params, ids[:, start:start + c], row,
+                need_logits=last)
+        probs = sampling.norm_logits(logits[:, -1], self.spec.temperature,
+                                     self.spec.top_k, self.spec.top_p)
+        tok = sampling.sample(probs, st.gen)[0]
+        self.state = dataclasses.replace(
+            st, kv=dataclasses.replace(
+                st.kv, seq_len=set_entry(st.kv.seq_len, slot, row.seq_len)),
+            tokens=set_entry(st.tokens, slot, tok),
+            live=set_entry(st.live, slot, True),
+            n_out=set_entry(st.n_out, slot, 0))
+        req.out.append(int(tok))
+        return True
+
+    def _decode_segment(self):
+        for _ in range(self.segment):
+            self.state = batched_ar_step(self.cfg, self.spec, self.params,
+                                         self.state)
+        self.stats["steps"] += self.segment
+        self.stats["target_forwards"] += self.segment
+        out = self.state.out_buf.cpu().numpy()     # the segment's read-back
+        n_out = self.state.n_out.cpu().numpy()
+        cap = self.state.out_buf.shape[1]
+        new_tokens, force = [], []
+        for slot, req in enumerate(self.slot_req):
+            if req is None:
+                new_tokens.append([])
+                force.append(False)
+                continue
+            # drain newly generated tokens (req.out[0] is the prefill
+            # sample, the buffer holds only decode-step tokens)
+            new_tokens.append(out[slot, len(req.out) - 1:
+                                  n_out[slot]].tolist())
+            force.append(bool(n_out[slot] >= cap))
+        return new_tokens, force
+
+    def _release_slot(self, slot: int) -> None:
+        self.state = dataclasses.replace(
+            self.state, live=set_entry(self.state.live, slot, False))

@@ -14,6 +14,16 @@ then hold int8 codes and ``k_scale``/``v_scale`` the fp32 scale of each
 (layer, batch, head, token), ``quantize_tokens`` / ``dequantize`` being
 the codec. The drafter's streaming cache is never quantized.
 
+Row-stacked caches (batched speculation and serving) are the same three
+classes with a leading row axis: buffers ``[rows, num_layers, num_kv_heads,
+slots, head_dim]`` (scales without the last axis) and ``seq_len`` [rows].
+They are built by ``init_kv_rows`` / ``init_retrieval_rows`` /
+``init_streaming_rows``; ``write_row`` overwrites one row in place from a
+batch-1 cache, ``row_view`` hands one row out as a batch-1 cache that
+shares the pool's buffers, and ``batched_commit_and_refresh`` /
+``streaming_evict_for_spec_rows`` are the per-row choreography of a batched
+speculation step.
+
 JAX clamps the start of ``dynamic_slice`` / ``dynamic_update_slice`` into
 range; torch raises instead. ``slice_at`` and ``write_at`` reproduce the
 clamp with device-side indices (no host sync).
@@ -156,6 +166,85 @@ def init_streaming(cfg: ModelConfig, spec: SpecConfig, batch: int = 1,
     return StreamingCache(k=torch.zeros(shape, dtype=dtype, device=device),
                           v=torch.zeros(shape, dtype=dtype, device=device),
                           seq_len=_zero_len(device))
+
+
+def init_kv_rows(cfg: ModelConfig, max_len: int, rows: int,
+                 dtype=torch.bfloat16, device=None, quant: bool = False
+                 ) -> KVCache:
+    """A pool of ``rows`` full caches [rows, L, Hkv, max_len, D], every
+    row empty (``seq_len`` [rows] of zeros)."""
+    device = resolve_device(device)
+    shape = (rows, cfg.num_layers, cfg.num_kv_heads, max_len, cfg.head_dim)
+    return KVCache(seq_len=torch.zeros((rows,), dtype=torch.int32,
+                                       device=device),
+                   **_planes(shape, dtype, quant, device))
+
+
+def init_retrieval_rows(cfg: ModelConfig, spec: SpecConfig, rows: int,
+                        dtype=torch.bfloat16, device=None,
+                        quant: bool = False) -> RetrievalCache:
+    device = resolve_device(device)
+    real = spec.budget + spec.gamma + 1
+    shape = (rows, cfg.num_layers, cfg.num_kv_heads, real, cfg.head_dim)
+    return RetrievalCache(**_planes(shape, dtype, quant, device))
+
+
+def init_streaming_rows(cfg: ModelConfig, spec: SpecConfig, rows: int,
+                        dtype=torch.bfloat16, device=None) -> StreamingCache:
+    device = resolve_device(device)
+    real = spec.draft_start_size + spec.draft_recent_size + spec.gamma + 3
+    shape = (rows, cfg.num_layers, cfg.num_kv_heads, real, cfg.head_dim)
+    return StreamingCache(k=torch.zeros(shape, dtype=dtype, device=device),
+                          v=torch.zeros(shape, dtype=dtype, device=device),
+                          seq_len=torch.zeros((rows,), dtype=torch.int32,
+                                              device=device))
+
+
+_PLANES = ("k", "v", "k_scale", "v_scale")
+
+
+def set_entry(vec: torch.Tensor, slot: int, value) -> torch.Tensor:
+    """A copy of a per-row vector with entry ``slot`` set (lengths and the
+    other small per-row vectors are replaced, never mutated)."""
+    out = vec.clone()
+    out[slot] = value
+    return out
+
+
+def write_row(pool, slot: int, row):
+    """Overwrite row ``slot`` of a row-stacked cache with a batch-1 cache
+    of the same kind ([L, 1, Hkv, S, D] buffers), in place on the pool's
+    buffers: admission touches one row's bytes and never copies the pool.
+    Returns the pool with that row's length set."""
+    for name in _PLANES:
+        src = getattr(row, name, None)
+        if src is not None:
+            getattr(pool, name)[slot].copy_(src[:, 0])
+    if hasattr(pool, "seq_len"):
+        return dataclasses.replace(
+            pool, seq_len=set_entry(pool.seq_len, slot, row.seq_len))
+    return pool
+
+
+def row_view(pool, slot: int):
+    """Row ``slot`` of a row-stacked cache as a batch-1 cache
+    ([L, 1, Hkv, S, D]) that shares the pool's buffers."""
+    kw = {name: getattr(pool, name)[slot].unsqueeze(1) for name in _PLANES
+          if getattr(pool, name, None) is not None}
+    if hasattr(pool, "seq_len"):
+        kw["seq_len"] = pool.seq_len[slot].clone()
+    return type(pool)(**kw)
+
+
+def stack_rows(rows):
+    """Row-stack batch-1 caches of one kind into a new row-stacked cache
+    (holds the inputs and the copy at once: pools are built blank and
+    filled with ``write_row`` instead)."""
+    kw = {name: torch.stack([getattr(r, name)[:, 0] for r in rows])
+          for name in _PLANES if getattr(rows[0], name, None) is not None}
+    if hasattr(rows[0], "seq_len"):
+        kw["seq_len"] = torch.stack([r.seq_len for r in rows])
+    return type(rows[0])(**kw)
 
 
 # ---------------------------------------------------------------------------
@@ -303,3 +392,73 @@ def retrieval_tail_refresh(rkv: RetrievalCache, kv: KVCache,
         one(rkv.k_scale, kv.k_scale)
         one(rkv.v_scale, kv.v_scale)
     return rkv
+
+
+# ---------------------------------------------------------------------------
+# Row-stacked choreography of a batched speculation step
+# ---------------------------------------------------------------------------
+
+def streaming_evict_for_spec_rows(cache: StreamingCache, spec: SpecConfig,
+                                  count: torch.Tensor) -> StreamingCache:
+    """``streaming_evict_for_spec`` for every row of a row-stacked drafter
+    cache, each with its own ``count`` [rows]: row b's window becomes the
+    ``recent`` slots ending at ``start + recent + count[b]``. In place."""
+    start, recent = spec.draft_start_size, spec.draft_recent_size
+    dev = cache.k.device
+    src0 = (start + count.to(torch.int64)).clamp(
+        0, cache.real_budget - recent)
+    idx = src0[:, None] + torch.arange(recent, device=dev)     # [rows, recent]
+    rows = torch.arange(cache.k.shape[0], device=dev)[:, None]
+    for buf in (cache.k, cache.v):
+        moved = buf[rows, :, :, idx]                  # [rows, recent, L, H, D]
+        buf[:, :, :, start:start + recent] = moved.permute(0, 2, 3, 1, 4)
+    return cache
+
+
+def batched_commit_and_refresh(kv: KVCache, rkv: RetrievalCache,
+                               nk: torch.Tensor, nv: torch.Tensor,
+                               old_lens: torch.Tensor, spec: SpecConfig,
+                               prefill: int):
+    """The write-back of a batched speculation step, in place on the
+    row-stacked caches: every row's new K/V ``nk``/``nv`` [rows, L, Hkv, T,
+    D] is committed at its own pre-step length ``old_lens`` [rows] (the
+    whole T-token window; slots past the row's new length are dead and
+    overwritten later), and the rolling-window retrieval tail refresh
+    writes row b's tokens ``[old_lens[b], kv.seq_len[b])`` at descending
+    slots from ``budget - 1 - (old_lens[b] - prefill) mod budget``.
+    ``kv.seq_len`` [rows] is already the post-step length. int8 caches
+    quantize the new K/V once and store the same codes and scales in both
+    caches. The result is bit-identical to the batch-1 in-forward commit
+    followed by ``retrieval_tail_refresh``: generated token g of a row
+    lives at slot ``budget - 1 - (g mod budget)``, which is what that
+    function's two clamped blocks write (``_rolling_window_blocks``).
+    Returns (kv, rkv), the caches passed in."""
+    rows, _, _, t_new, _ = nk.shape
+    budget = spec.budget
+    dev = nk.device
+    if kv.quantized:
+        k8, ks = quantize_tokens(nk)
+        v8, vs = quantize_tokens(nv)
+        planes = ((kv.k, rkv.k, k8), (kv.v, rkv.v, v8),
+                  (kv.k_scale, rkv.k_scale, ks), (kv.v_scale, rkv.v_scale, vs))
+    else:
+        planes = ((kv.k, rkv.k, nk.to(kv.k.dtype)),
+                  (kv.v, rkv.v, nv.to(kv.v.dtype)))
+    old = old_lens.to(torch.int64)
+    js = torch.arange(t_new, device=dev)
+    ri = torch.arange(rows, device=dev)[:, None]               # [rows, 1]
+    # commit: row b's window starts at old[b], clamped into the cache
+    c_idx = old.clamp(0, kv.max_len - t_new)[:, None] + js     # [rows, T]
+    # refresh: token j of row b goes to slot budget-1-((base[b]+j) % budget)
+    # when j < n_new[b]; other positions rewrite what the slot holds (the
+    # T slots of a row are distinct, since T <= budget)
+    n_new = kv.seq_len.to(torch.int64) - old
+    base = torch.remainder(old - prefill, budget)
+    r_idx = budget - 1 - torch.remainder(base[:, None] + js, budget)
+    valid = js[None, :] < n_new[:, None]                       # [rows, T]
+    for full, retr, new in planes:
+        new = new.transpose(1, 3).transpose(2, 3)   # [rows, T, L, Hkv(, D)]
+        full[ri, :, :, c_idx] = new
+        sel = valid.reshape(valid.shape + (1,) * (new.dim() - 2))
+        retr[ri, :, :, r_idx] = torch.where(sel, new, retr[ri, :, :, r_idx])
+    return kv, rkv

@@ -7,7 +7,11 @@
 // (its Pallas `_kernel`, with `_block_scores`, `_block_pv` and
 // `_fold_new_and_finalize`), in both variants: bf16 (entry point
 // tf_flash_decode_bf16) and int8 KV (tf_flash_decode_int8, the `quant`
-// branch).
+// branch), and its row-batched sibling flash_decode_append_batched (Pallas
+// `_kernel_batched`): B rows at once, each with its own live length and its
+// own mask (tf_flash_decode_batched_bf16 / _int8). The batched entry points
+// run the same device code with the row as one more grid index; the
+// single-row ones are the case B = 1.
 //
 // What it computes (per KV head h, query row r of GT = G*T rows):
 //   q'      = bf16(fp32(q) / sqrt(D))                      (pre-scale, rounded)
@@ -67,6 +71,20 @@
 // k_len are masked in-kernel and never read, so no cache length needs
 // padding. A layer of the stacked [L, B, Hkv, S, D] cache (and of its
 // [L, B, Hkv, S] scale planes) is passed as a pointer plus strides.
+//
+// Rows (the batched entry points). The TPU kernel's grid is (B, nb), walked
+// in order with the scratch re-initialised at the first block of every row.
+// Here the row is folded into the grid's z index (z = b * Hkv + h) of both
+// phases, so one launch pair serves all rows. k_len is a [B] device vector
+// and each row splits ITS OWN live prefix over the launch's nsplit CTAs; a
+// split that holds no key of its row (a short row, or k_len[b] = 0: the
+// dead-slot gate) exits before it reads anything and writes no partial, and
+// phase 2 merges only the splits that phase 1 ran, which it finds from
+// k_len[b] by the same arithmetic (`split_share`). A row with k_len = 0
+// therefore costs no cache traffic and its output is the attention over its
+// new block alone. The layer of a row-stacked [B, L, Hkv, S, D] cache is a
+// strided view: the kernel takes a row stride beside the head and token
+// strides and needs no layer index.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -80,20 +98,33 @@ constexpr int WARPS = 4;         // warps per CTA; each owns 16 query rows
 constexpr int QT = 16 * WARPS;   // query rows per CTA
 constexpr int PAD = 8;           // bf16 row padding: conflict-free fragments
 
+// Strides are in elements: _sb per batch row, _sh per KV head, _sr per
+// query row or token. The single-row entry points pass B = 1.
 struct SplitArgs {
-  const __nv_bfloat16* q;  long long q_sh, q_sr;
-  const void* k;           long long k_sh, k_sr;   // bf16, or int8 codes
-  const void* v;           long long v_sh, v_sr;
-  const float* ks;         long long ks_sh;        // int8: [Hkv, S] scales
-  const float* vs;         long long vs_sh;
-  const int* k_len;
-  float* m_part;           // [Hkv, GT, nparts]
-  float* l_part;           // [Hkv, GT, nparts]
-  float* acc_part;         // [Hkv, GT, nparts, D]
-  int gt, s, nsplit;       // nsplit CTAs share [0, k_len)
+  const __nv_bfloat16* q;  long long q_sb, q_sh, q_sr;
+  const void* k;           long long k_sb, k_sh, k_sr;   // bf16, or int8 codes
+  const void* v;           long long v_sb, v_sh, v_sr;
+  const float* ks;         long long ks_sb, ks_sh;  // int8: [B, Hkv, S] scales
+  const float* vs;         long long vs_sb, vs_sh;
+  const int* k_len;        // [B]
+  float* m_part;           // [B, Hkv, GT, nparts]
+  float* l_part;           // [B, Hkv, GT, nparts]
+  float* acc_part;         // [B, Hkv, GT, nparts, D]
+  int hkv, gt, s, nsplit;  // nsplit CTAs share each row's [0, k_len[b])
   int nparts;              // partials per row: nsplit (x WARPS if KSPLIT)
   float scale;
 };
+
+// One row's live length clamped into [0, s], and the keys each split takes
+// of it (a multiple of KT): split i owns [i * per, min(klen, (i + 1) * per)),
+// which is empty from split ceil(klen / per) on. Both phases call this, so
+// phase 2 knows which partials phase 1 wrote.
+__device__ __forceinline__ int split_share(int klen, int s, int nsplit, int* per) {
+  klen = klen < 0 ? 0 : (klen > s ? s : klen);
+  int p = (klen + nsplit - 1) / nsplit;
+  *per = (p + KT - 1) / KT * KT;
+  return klen;
+}
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
@@ -151,17 +182,18 @@ fd_split_kernel(SplitArgs P) {
   __shared__ float sKs[QUANT ? KT : 1];
   __shared__ float sVs[QUANT ? KT : 1];
 
-  const int split = blockIdx.x, qtile = blockIdx.y, h = blockIdx.z;
+  const int split = blockIdx.x, qtile = blockIdx.y;
+  const int bh = blockIdx.z, b = bh / P.hkv, h = bh % P.hkv;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
 
-  int klen = *P.k_len;
-  klen = klen < 0 ? 0 : (klen > P.s ? P.s : klen);
-  // this CTA's share of [0, klen), a multiple of KT
-  int per = (klen + P.nsplit - 1) / P.nsplit;
-  per = (per + KT - 1) / KT * KT;
+  // this CTA's share of its row's [0, klen); an empty share (a short or
+  // dead row) reads nothing and writes no partial
+  int per;
+  const int klen = split_share(P.k_len[b], P.s, P.nsplit, &per);
   const int beg = split * per;
   const int end = min(klen, beg + per);
+  if (beg >= end) return;
 
   const int row0 = KSPLIT ? 0 : qtile * QT + warp * 16;
   const bool active = row0 < P.gt;
@@ -174,7 +206,7 @@ fd_split_kernel(SplitArgs P) {
   uint32_t qa[D / 16][4];
   float qs_a = 1.f, qs_b = 1.f;
   {
-    const __nv_bfloat16* qh = P.q + (long long)h * P.q_sh;
+    const __nv_bfloat16* qh = P.q + (long long)b * P.q_sb + (long long)h * P.q_sh;
     float x[D / 16][8];
     float amax_a = 0.f, amax_b = 0.f;
 #pragma unroll
@@ -226,8 +258,8 @@ fd_split_kernel(SplitArgs P) {
     __syncthreads();   // the previous tile is consumed
     if constexpr (QUANT) {
       constexpr int VEC = D / 16;   // 16-byte vectors per int8 row
-      const int8_t* kh = (const int8_t*)P.k + (long long)h * P.k_sh;
-      const int8_t* vh = (const int8_t*)P.v + (long long)h * P.v_sh;
+      const int8_t* kh = (const int8_t*)P.k + (long long)b * P.k_sb + (long long)h * P.k_sh;
+      const int8_t* vh = (const int8_t*)P.v + (long long)b * P.v_sb + (long long)h * P.v_sh;
       for (int c = tid; c < KT * VEC; c += WARPS * 32) {
         const int r = c / VEC, col = (c % VEC) * 16;
         uint4 kx = make_uint4(0, 0, 0, 0), vx = make_uint4(0, 0, 0, 0);
@@ -240,13 +272,13 @@ fd_split_kernel(SplitArgs P) {
       }
       if (tid < KT) {
         const bool live = kb + tid < end;
-        sKs[tid] = live ? P.ks[(long long)h * P.ks_sh + kb + tid] : 0.f;
-        sVs[tid] = live ? P.vs[(long long)h * P.vs_sh + kb + tid] : 0.f;
+        sKs[tid] = live ? P.ks[(long long)b * P.ks_sb + (long long)h * P.ks_sh + kb + tid] : 0.f;
+        sVs[tid] = live ? P.vs[(long long)b * P.vs_sb + (long long)h * P.vs_sh + kb + tid] : 0.f;
       }
     } else {
       constexpr int VEC = D / 8;    // 16-byte vectors per bf16 row
-      const __nv_bfloat16* kh = (const __nv_bfloat16*)P.k + (long long)h * P.k_sh;
-      const __nv_bfloat16* vh = (const __nv_bfloat16*)P.v + (long long)h * P.v_sh;
+      const __nv_bfloat16* kh = (const __nv_bfloat16*)P.k + (long long)b * P.k_sb + (long long)h * P.k_sh;
+      const __nv_bfloat16* vh = (const __nv_bfloat16*)P.v + (long long)b * P.v_sb + (long long)h * P.v_sh;
       for (int c = tid; c < KT * VEC; c += WARPS * 32) {
         const int r = c / VEC, col = (c % VEC) * 8;
         uint4 kx = make_uint4(0, 0, 0, 0), vx = make_uint4(0, 0, 0, 0);
@@ -397,7 +429,7 @@ fd_split_kernel(SplitArgs P) {
   l_r[1] += __shfl_xor_sync(0xffffffffu, l_r[1], 1);
   l_r[1] += __shfl_xor_sync(0xffffffffu, l_r[1], 2);
 
-  const long long hrow = (long long)h * P.gt;
+  const long long hrow = (long long)bh * P.gt;
   if (ra < P.gt) {
     const long long o = (hrow + ra) * P.nparts + part;
     if (t == 0) { P.m_part[o] = m_r[0]; P.l_part[o] = l_r[0]; }
@@ -421,29 +453,33 @@ fd_split_kernel(SplitArgs P) {
 }
 
 struct CombineArgs {
-  const __nv_bfloat16* q;   long long q_sh, q_sr;
-  const __nv_bfloat16* kn;  long long kn_sh, kn_sr;
-  const __nv_bfloat16* vn;  long long vn_sh, vn_sr;
-  const uint8_t* mask;      // [GT, Tn], 1 = attend
+  const __nv_bfloat16* q;   long long q_sb, q_sh, q_sr;
+  const __nv_bfloat16* kn;  long long kn_sb, kn_sh, kn_sr;
+  const __nv_bfloat16* vn;  long long vn_sb, vn_sh, vn_sr;
+  const uint8_t* mask;      long long mask_sb;   // [B, GT, Tn], 1 = attend
+  const int* k_len;         // [B]
   const float* m_part;
   const float* l_part;
   const float* acc_part;
-  float* out;               // [Hkv, GT, D]
-  int gt, tn, nparts;
+  float* out;               // [B, Hkv, GT, D]
+  int hkv, gt, tn, s, nsplit, nparts;
   float scale;
 };
 
-// one CTA per (row, head); thread d owns output column d (D <= 128)
+// one CTA per (query row, batch row x head); thread d owns output column d
+// (D <= 128)
 template <int D, bool QUANT>
 __global__ void __launch_bounds__(128)
 fd_combine_kernel(CombineArgs P) {
   extern __shared__ float sn[];           // [Tn] new-token scores
   __shared__ float sq[D];
   __shared__ float red[4];
-  const int row = blockIdx.x, h = blockIdx.y;
+  const int row = blockIdx.x;
+  const int bh = blockIdx.y, b = bh / P.hkv, h = bh % P.hkv;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
 
-  const __nv_bfloat16* qr = P.q + (long long)h * P.q_sh + (long long)row * P.q_sr;
+  const __nv_bfloat16* qr = P.q + (long long)b * P.q_sb + (long long)h * P.q_sh +
+                            (long long)row * P.q_sr;
   float x = tid < D ? prescale(qr[tid], P.scale) : 0.f;
   if constexpr (QUANT) {
     // the new block sees bf16(q8 * qs), q8 the codes phase 1 used
@@ -458,12 +494,16 @@ fd_combine_kernel(CombineArgs P) {
   }
   if (tid < D) sq[tid] = x;
 
-  // merge the split partials
-  const long long o = ((long long)h * P.gt + row) * P.nparts;
+  // merge the partials of the splits that held a key of this row (the
+  // others wrote nothing): none for a dead row, whose M stays -inf
+  int per;
+  const int klen = split_share(P.k_len[b], P.s, P.nsplit, &per);
+  const int live = klen == 0 ? 0 : (klen + per - 1) / per * (P.nparts / P.nsplit);
+  const long long o = ((long long)bh * P.gt + row) * P.nparts;
   float M = -INFINITY;
-  for (int s = 0; s < P.nparts; ++s) M = fmaxf(M, P.m_part[o + s]);
+  for (int s = 0; s < live; ++s) M = fmaxf(M, P.m_part[o + s]);
   float L = 0.f, acc = 0.f;
-  for (int s = 0; s < P.nparts; ++s) {
+  for (int s = 0; s < live; ++s) {
     const float ms = P.m_part[o + s];
     const float w = ms == -INFINITY ? 0.f : expf(ms - M);
     L += P.l_part[o + s] * w;
@@ -472,7 +512,8 @@ fd_combine_kernel(CombineArgs P) {
   __syncthreads();
 
   // new-token scores, one warp per new token
-  const __nv_bfloat16* knh = P.kn + (long long)h * P.kn_sh;
+  const __nv_bfloat16* knh = P.kn + (long long)b * P.kn_sb + (long long)h * P.kn_sh;
+  const uint8_t* mrow = P.mask + (long long)b * P.mask_sb + (long long)row * P.tn;
   for (int j = warp; j < P.tn; j += 4) {
     const __nv_bfloat16* kr = knh + (long long)j * P.kn_sr;
     float part = 0.f;
@@ -481,7 +522,7 @@ fd_combine_kernel(CombineArgs P) {
     for (int off = 16; off > 0; off >>= 1)
       part += __shfl_xor_sync(0xffffffffu, part, off);
     if (lane == 0)
-      sn[j] = part + (P.mask[(long long)row * P.tn + j] ? 0.f : -1e30f);
+      sn[j] = part + (mrow[j] ? 0.f : -1e30f);
   }
   __syncthreads();
 
@@ -497,7 +538,7 @@ fd_combine_kernel(CombineArgs P) {
   const float alpha = expf(M - mn);   // M = -inf (empty cache) -> 0
 
   float ln = 0.f, an = 0.f;
-  const __nv_bfloat16* vnh = P.vn + (long long)h * P.vn_sh;
+  const __nv_bfloat16* vnh = P.vn + (long long)b * P.vn_sb + (long long)h * P.vn_sh;
   for (int j = 0; j < P.tn; ++j) {
     const float p = expf(sn[j] - mn);
     ln += p;
@@ -508,16 +549,16 @@ fd_combine_kernel(CombineArgs P) {
   L = L * alpha + ln;
   acc = acc * alpha + an;
   if (tid < D)
-    P.out[((long long)h * P.gt + row) * D + tid] = acc / fmaxf(L, 1e-37f);
+    P.out[((long long)bh * P.gt + row) * D + tid] = acc / fmaxf(L, 1e-37f);
 }
 
 template <int D, bool QUANT>
-int launch(const SplitArgs& sa, const CombineArgs& ca, int hkv, cudaStream_t st) {
+int launch(const SplitArgs& sa, const CombineArgs& ca, int bh, cudaStream_t st) {
   const int nq = (sa.gt + QT - 1) / QT;
   if (sa.gt <= 16)
-    fd_split_kernel<D, true, QUANT><<<dim3(sa.nsplit, 1, hkv), WARPS * 32, 0, st>>>(sa);
+    fd_split_kernel<D, true, QUANT><<<dim3(sa.nsplit, 1, bh), WARPS * 32, 0, st>>>(sa);
   else
-    fd_split_kernel<D, false, QUANT><<<dim3(sa.nsplit, nq, hkv), WARPS * 32, 0, st>>>(sa);
+    fd_split_kernel<D, false, QUANT><<<dim3(sa.nsplit, nq, bh), WARPS * 32, 0, st>>>(sa);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const size_t smem = (size_t)ca.tn * sizeof(float);
@@ -527,7 +568,7 @@ int launch(const SplitArgs& sa, const CombineArgs& ca, int hkv, cudaStream_t st)
                              (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  fd_combine_kernel<D, QUANT><<<dim3(ca.gt, hkv), 128, smem, st>>>(ca);
+  fd_combine_kernel<D, QUANT><<<dim3(ca.gt, bh), 128, smem, st>>>(ca);
   return (int)cudaGetLastError();
 }
 
@@ -536,33 +577,46 @@ int launch(const SplitArgs& sa, const CombineArgs& ca, int hkv, cudaStream_t st)
 // scratch by tf_flash_decode_parts, so this is the only place it is decided.
 int n_parts(int gt, int nsplit) { return gt <= 16 ? nsplit * WARPS : nsplit; }
 
+// The arguments every entry point shares after the cache: new block, mask,
+// lengths, scratch, output, sizes, stream.
+#define TF_FD_TAIL_PARAMS                                                     \
+    const void* mask, const void* k_len,                                      \
+    void* m_part, void* l_part, void* acc_part, void* out,                    \
+    int hkv, int gt, int tn, int s, int d, int nsplit, float scale,           \
+    void* stream
+#define TF_FD_TAIL_ARGS                                                       \
+    mask, k_len, m_part, l_part, acc_part, out, hkv, gt, tn, s, d, nsplit,    \
+    scale, stream
+
+// _sb strides are per batch row (0 and bsz = 1 from the single-row entries)
 template <bool QUANT>
-int run(const void* q, long long q_sh, long long q_sr,
-        const void* k, long long k_sh, long long k_sr,
-        const void* v, long long v_sh, long long v_sr,
-        const void* ks, long long ks_sh, const void* vs, long long vs_sh,
-        const void* kn, long long kn_sh, long long kn_sr,
-        const void* vn, long long vn_sh, long long vn_sr,
-        const void* mask, const void* k_len,
-        void* m_part, void* l_part, void* acc_part, void* out,
-        int hkv, int gt, int tn, int s, int d, int nsplit, float scale,
-        void* stream) {
-  if (hkv <= 0 || gt <= 0 || tn <= 0 || nsplit <= 0)
+int run(int bsz, const void* q, long long q_sb, long long q_sh, long long q_sr,
+        const void* k, long long k_sb, long long k_sh, long long k_sr,
+        const void* v, long long v_sb, long long v_sh, long long v_sr,
+        const void* ks, long long ks_sb, long long ks_sh,
+        const void* vs, long long vs_sb, long long vs_sh,
+        const void* kn, long long kn_sb, long long kn_sh, long long kn_sr,
+        const void* vn, long long vn_sb, long long vn_sh, long long vn_sr,
+        long long mask_sb, TF_FD_TAIL_PARAMS) {
+  if (bsz <= 0 || hkv <= 0 || gt <= 0 || tn <= 0 || nsplit <= 0 ||
+      (long long)bsz * hkv > 65535)
     return (int)cudaErrorInvalidValue;
   const int nparts = n_parts(gt, nsplit);
-  SplitArgs sa{(const __nv_bfloat16*)q, q_sh, q_sr, k, k_sh, k_sr,
-               v, v_sh, v_sr, (const float*)ks, ks_sh, (const float*)vs, vs_sh,
+  SplitArgs sa{(const __nv_bfloat16*)q, q_sb, q_sh, q_sr, k, k_sb, k_sh, k_sr,
+               v, v_sb, v_sh, v_sr, (const float*)ks, ks_sb, ks_sh,
+               (const float*)vs, vs_sb, vs_sh,
                (const int*)k_len, (float*)m_part, (float*)l_part,
-               (float*)acc_part, gt, s, nsplit, nparts, scale};
-  CombineArgs ca{(const __nv_bfloat16*)q, q_sh, q_sr,
-                 (const __nv_bfloat16*)kn, kn_sh, kn_sr,
-                 (const __nv_bfloat16*)vn, vn_sh, vn_sr,
-                 (const uint8_t*)mask, (const float*)m_part,
-                 (const float*)l_part, (const float*)acc_part, (float*)out,
-                 gt, tn, nparts, scale};
+               (float*)acc_part, hkv, gt, s, nsplit, nparts, scale};
+  CombineArgs ca{(const __nv_bfloat16*)q, q_sb, q_sh, q_sr,
+                 (const __nv_bfloat16*)kn, kn_sb, kn_sh, kn_sr,
+                 (const __nv_bfloat16*)vn, vn_sb, vn_sh, vn_sr,
+                 (const uint8_t*)mask, mask_sb, (const int*)k_len,
+                 (const float*)m_part, (const float*)l_part,
+                 (const float*)acc_part, (float*)out,
+                 hkv, gt, tn, s, nsplit, nparts, scale};
   cudaStream_t st = (cudaStream_t)stream;
-  if (d == 128) return launch<128, QUANT>(sa, ca, hkv, st);
-  if (d == 64) return launch<64, QUANT>(sa, ca, hkv, st);
+  if (d == 128) return launch<128, QUANT>(sa, ca, bsz * hkv, st);
+  if (d == 64) return launch<64, QUANT>(sa, ca, bsz * hkv, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -578,14 +632,10 @@ extern "C" int tf_flash_decode_bf16(
     const void* v, long long v_sh, long long v_sr,
     const void* kn, long long kn_sh, long long kn_sr,
     const void* vn, long long vn_sh, long long vn_sr,
-    const void* mask, const void* k_len,
-    void* m_part, void* l_part, void* acc_part, void* out,
-    int hkv, int gt, int tn, int s, int d, int nsplit, float scale,
-    void* stream) {
-  return run<false>(q, q_sh, q_sr, k, k_sh, k_sr, v, v_sh, v_sr,
-                    nullptr, 0, nullptr, 0, kn, kn_sh, kn_sr, vn, vn_sh, vn_sr,
-                    mask, k_len, m_part, l_part, acc_part, out,
-                    hkv, gt, tn, s, d, nsplit, scale, stream);
+    TF_FD_TAIL_PARAMS) {
+  return run<false>(1, q, 0, q_sh, q_sr, k, 0, k_sh, k_sr, v, 0, v_sh, v_sr,
+                    nullptr, 0, 0, nullptr, 0, 0, kn, 0, kn_sh, kn_sr,
+                    vn, 0, vn_sh, vn_sr, 0, TF_FD_TAIL_ARGS);
 }
 
 // int8 cache: k/v int8 codes [Hkv, S, D] (strides in elements = bytes),
@@ -597,12 +647,42 @@ extern "C" int tf_flash_decode_int8(
     const void* ks, long long ks_sh, const void* vs, long long vs_sh,
     const void* kn, long long kn_sh, long long kn_sr,
     const void* vn, long long vn_sh, long long vn_sr,
-    const void* mask, const void* k_len,
-    void* m_part, void* l_part, void* acc_part, void* out,
-    int hkv, int gt, int tn, int s, int d, int nsplit, float scale,
-    void* stream) {
-  return run<true>(q, q_sh, q_sr, k, k_sh, k_sr, v, v_sh, v_sr,
-                   ks, ks_sh, vs, vs_sh, kn, kn_sh, kn_sr, vn, vn_sh, vn_sr,
-                   mask, k_len, m_part, l_part, acc_part, out,
-                   hkv, gt, tn, s, d, nsplit, scale, stream);
+    TF_FD_TAIL_PARAMS) {
+  return run<true>(1, q, 0, q_sh, q_sr, k, 0, k_sh, k_sr, v, 0, v_sh, v_sr,
+                   ks, 0, ks_sh, vs, 0, vs_sh, kn, 0, kn_sh, kn_sr,
+                   vn, 0, vn_sh, vn_sr, 0, TF_FD_TAIL_ARGS);
+}
+
+// Row-batched: q [B, Hkv, GT, D], k/v [B, Hkv, S, D] (any strides with a
+// unit D stride: a layer of a [B, L, Hkv, S, D] pool is such a view),
+// kn/vn [B, Hkv, Tn, D], mask [B, GT, Tn] (mask_sb = GT * Tn, or 0 for one
+// mask shared by all rows), k_len [B] int32, out [B, Hkv, GT, D]; the
+// scratch holds B x the single-row scratch. nsplit is per row.
+extern "C" int tf_flash_decode_batched_bf16(
+    int bsz, const void* q, long long q_sb, long long q_sh, long long q_sr,
+    const void* k, long long k_sb, long long k_sh, long long k_sr,
+    const void* v, long long v_sb, long long v_sh, long long v_sr,
+    const void* kn, long long kn_sb, long long kn_sh, long long kn_sr,
+    const void* vn, long long vn_sb, long long vn_sh, long long vn_sr,
+    long long mask_sb, TF_FD_TAIL_PARAMS) {
+  return run<false>(bsz, q, q_sb, q_sh, q_sr, k, k_sb, k_sh, k_sr,
+                    v, v_sb, v_sh, v_sr, nullptr, 0, 0, nullptr, 0, 0,
+                    kn, kn_sb, kn_sh, kn_sr, vn, vn_sb, vn_sh, vn_sr, mask_sb,
+                    TF_FD_TAIL_ARGS);
+}
+
+// Row-batched int8: ks/vs fp32 [B, Hkv, S] with row and head strides
+extern "C" int tf_flash_decode_batched_int8(
+    int bsz, const void* q, long long q_sb, long long q_sh, long long q_sr,
+    const void* k, long long k_sb, long long k_sh, long long k_sr,
+    const void* v, long long v_sb, long long v_sh, long long v_sr,
+    const void* ks, long long ks_sb, long long ks_sh,
+    const void* vs, long long vs_sb, long long vs_sh,
+    const void* kn, long long kn_sb, long long kn_sh, long long kn_sr,
+    const void* vn, long long vn_sb, long long vn_sh, long long vn_sr,
+    long long mask_sb, TF_FD_TAIL_PARAMS) {
+  return run<true>(bsz, q, q_sb, q_sh, q_sr, k, k_sb, k_sh, k_sr,
+                   v, v_sb, v_sh, v_sr, ks, ks_sb, ks_sh, vs, vs_sb, vs_sh,
+                   kn, kn_sb, kn_sh, kn_sr, vn, vn_sb, vn_sh, vn_sr, mask_sb,
+                   TF_FD_TAIL_ARGS);
 }

@@ -13,6 +13,15 @@ only what the control flow needs:
 Random draws come from the state's ``torch.Generator``. The caches are
 updated in place (see ``cache.py``); a state is not reusable after a step
 unless it was cloned first (``TriForceState.clone``).
+
+The batched steps (``triforce_step_rows``, ``retrieval_spec_step_rows``)
+run the same step for B rows of a ``StackedState`` at once: every forward
+runs once for all rows, where the JAX package vmaps its batch-1 step. The
+control flow stays on the host, per row, but one read-back serves all rows:
+one vector per middle trip and one per outer verify. Each row owns a
+generator and draws from it exactly what the batch-1 step would draw, in
+the same order, so a batched row emits what its batch-1 run with the same
+seed emits.
 """
 
 from __future__ import annotations
@@ -23,9 +32,11 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .cache import (KVCache, RetrievalCache, StreamingCache, init_kv,
-                    init_retrieval, init_streaming, retrieval_tail_refresh,
-                    streaming_evict_for_spec, streaming_evict_prefill)
+from .cache import (KVCache, RetrievalCache, StreamingCache,
+                    batched_commit_and_refresh, init_kv, init_retrieval,
+                    init_streaming, retrieval_tail_refresh,
+                    streaming_evict_for_spec, streaming_evict_for_spec_rows,
+                    streaming_evict_prefill)
 from .config import ModelConfig, SpecConfig, resolve_device
 from .models import llama
 from .ops import sampling
@@ -91,6 +102,49 @@ class StepStats:
     mid_accept: int = 0       # drafter proposals the middle accepted
     mid_verify: int = 0       # middle (retrieval-cache) verify forwards run
     mid_live: int = 0         # middle verifies that read the retrieval cache
+
+
+@dataclasses.dataclass
+class StackedState:
+    """Decode state of B sequences, row-stacked (``cache.py``): caches
+    [B, L, Hkv, S, D] with ``kv.seq_len`` / ``dkv.seq_len`` [B]. A row
+    whose ``kv.seq_len`` is 0 is a dead slot: its forwards read no cache
+    and it stays at 0."""
+    kv: KVCache
+    rkv: RetrievalCache
+    dkv: Optional[StreamingCache]
+    next_token: torch.Tensor           # [B] int64
+    gens: list                         # one torch.Generator per row
+
+    @property
+    def rows(self) -> int:
+        return self.next_token.shape[0]
+
+    def clone(self) -> "StackedState":
+        return StackedState(
+            kv=self.kv.clone(), rkv=self.rkv.clone(),
+            dkv=None if self.dkv is None else self.dkv.clone(),
+            next_token=self.next_token.clone(),
+            gens=[_clone_generator(g) for g in self.gens])
+
+
+@dataclasses.dataclass
+class BatchedStepStats:
+    """Per-step outputs of a batched step, a leading row axis on each:
+    ``tokens`` and ``eos`` stay on the device, the counts are host arrays
+    (the step read them back to drive its control flow)."""
+    tokens: torch.Tensor      # [B, gamma + 2] emitted tokens, junk-padded
+    n_emitted: np.ndarray     # [B]
+    gamma2: np.ndarray
+    accepted: np.ndarray
+    resampled: np.ndarray
+    bonus: np.ndarray
+    eos: torch.Tensor         # [B] bool (device)
+    mid_draft: np.ndarray
+    mid_accept: np.ndarray
+    mid_verify: np.ndarray    # middle verifies each row took part in
+    mid_live: np.ndarray      # ... that read its retrieval cache
+    target_forwards: int = 0  # batched target forwards the step ran
 
 
 class Engine:
@@ -199,6 +253,12 @@ class Engine:
             raise ValueError(f"prompt has {input_ids.shape[1]} tokens, the "
                              f"engine was built for {self.prefill}")
         kv = self.prefill_body(state.kv, input_ids[:, :-1])
+        return self._build_and_sample(state, kv, input_ids)
+
+    def _build_and_sample(self, state: TriForceState, kv: KVCache,
+                          input_ids: torch.Tensor) -> TriForceState:
+        """The last prompt token's forward: builds the retrieval cache and
+        samples the first generated token."""
         logits, kv, rkv = llama.forward_append(
             self.target_cfg, self.t_params, input_ids[:, -1:], kv,
             build_rkv=state.rkv, prefill=self.prefill,
@@ -206,6 +266,33 @@ class Engine:
         return dataclasses.replace(
             state, kv=kv, rkv=rkv,
             next_token=self._sample_next(logits, state.gen))
+
+    def prefill_target_partial(self, state: TriForceState,
+                               input_ids: torch.Tensor, pos: int,
+                               max_chunks: int):
+        """Advance a chunked target prefill by up to ``max_chunks`` full
+        chunks from token offset ``pos``, running the ragged remainder and
+        the final build-token forward when the prompt is exhausted.
+        Returns ``(state, new_pos, done)``. This is the serving
+        scheduler's admission slice; chaining slices to completion equals
+        ``prefill_target`` (the same chunk boundaries)."""
+        if input_ids.shape[1] != self.prefill:
+            raise ValueError(f"prompt has {input_ids.shape[1]} tokens, the "
+                             f"engine was built for {self.prefill}")
+        c = self.prefill_chunk
+        body = input_ids[:, :-1]
+        n = min(max_chunks, (body.shape[1] - pos) // c)
+        stop = pos + n * c
+        if n < max_chunks and stop < body.shape[1]:
+            stop = body.shape[1]   # the remainder fits in the same slice
+        kv = state.kv
+        if stop > pos:
+            # whole chunks, then the remainder (if any) as prefill_body's
+            kv = self.prefill_body(kv, body[:, pos:stop])
+        if stop < body.shape[1]:
+            return dataclasses.replace(state, kv=kv), stop, False
+        return (self._build_and_sample(state, kv, input_ids), self.prefill,
+                True)
 
     def prefill_draft(self, state: TriForceState, input_ids: torch.Tensor,
                       mode: str = "full") -> TriForceState:
@@ -542,4 +629,300 @@ def _retrieval_spec_step(eng: Engine, state: TriForceState,
         force_accept=force_accept)
     stats.mid_verify = gamma
     stats.mid_live = gamma
+    return new_state, stats
+
+
+# ---------------------------------------------------------------------------
+# The batched steps: B rows of a StackedState at once
+# ---------------------------------------------------------------------------
+
+def _on(dev, xs, dtype=torch.int64) -> torch.Tensor:
+    """Host-side per-row values (a list or numpy array) as a tensor on
+    ``dev``."""
+    return torch.tensor(xs, dtype=dtype, device=dev)
+
+
+def _rand_rows(n: int, gens, draws, dev) -> torch.Tensor:
+    """[B, n] uniforms, row b from its own generator where ``draws[b]``
+    (0.5 elsewhere: the caller ignores those rows)."""
+    out = torch.full((len(gens), n), 0.5, dtype=torch.float32, device=dev)
+    for b, gen in enumerate(gens):
+        if draws[b]:
+            out[b] = torch.rand((n,), generator=gen, device=dev)
+    return out
+
+
+def _middle_spec_rows(eng: Engine, state: StackedState, force_accept=None):
+    """``_middle_spec`` for every row at once. The trips run in lockstep
+    until every row has its gamma proposals (or for ``middle_trips``
+    trips): a row that is done rides along as a dead trip, with a
+    zero-column retrieval read, and draws and counts nothing that its
+    batch-1 run would not. One read-back per trip serves all rows."""
+    t_cfg, d_cfg, sp = eng.target_cfg, eng.draft_cfg, eng.spec
+    gamma = sp.gamma
+    k = max(1, min(sp.middle_chain if sp.middle_chain > 0 else gamma, gamma))
+    vocab = t_cfg.vocab_size
+    dev = state.next_token.device
+    gens, rows = state.gens, state.rows
+    fixed = sp.middle_trips > 0
+    kv_seq_len = state.kv.seq_len
+    gen_tokens = torch.full((rows, gamma + 1), JUNK_TOKEN, dtype=torch.int64,
+                            device=dev)
+    gen_probs = torch.zeros((rows, gamma + 1, vocab), dtype=torch.float32,
+                            device=dev)
+    js = torch.arange(k, device=dev)
+    ar = torch.arange(rows, device=dev)
+    n = [0] * rows
+    mid_draft, mid_accept = np.zeros(rows, int), np.zeros(rows, int)
+    row_trips, live_trips = np.zeros(rows, int), np.zeros(rows, int)
+    trips = 0
+
+    while (trips < sp.middle_trips) if fixed else (min(n) < gamma):
+        n0 = list(n)
+        live = [x < gamma for x in n0]
+        # a batch-1 loop that has ended runs no trip: in the open-ended
+        # loop a finished row takes no part (no draw, no count)
+        takes_part = [fixed or lv for lv in live]
+        # --- chain drafting: up to k drafter forwards for all rows; row b
+        # takes proposal i while n0[b] + i stays under the gamma-1 cap
+        vt = torch.cat([state.next_token[:, None], gen_tokens[:, :gamma]], 1)
+        chain_toks = torch.full((rows, k), JUNK_TOKEN, dtype=torch.int64,
+                                device=dev)
+        chain_q = torch.zeros((rows, k), dtype=torch.float32, device=dev)
+        i_fin = [0] * rows
+        for i in range(k):
+            act = [n0[b] + i <= gamma - 1 for b in range(rows)]
+            if not any(act):
+                break
+            d_logits, _ = llama.draft_forward_spec_rows(
+                d_cfg, eng.d_params, vt, state.dkv, sp, commit=False)
+            at = _on(dev, [min(n0[b] + i, gamma) for b in range(rows)])
+            q = sampling.norm_logits(d_logits[ar, at], sp.temperature, -1,
+                                     sp.top_p)                   # [B, V]
+            tok = sampling.sample_rows(q, gens, act)
+            rb = [b for b in range(rows) if act[b]]
+            chain_toks[rb, i] = tok[rb]
+            chain_q[rb, i] = q[rb, tok[rb]]
+            vt[rb, [n0[b] + i + 1 for b in rb]] = tok[rb]
+            for b in rb:
+                i_fin[b] += 1
+
+        # --- ONE middle verify over every row's chain (read-only rkv)
+        live_t = _on(dev, live, torch.bool)
+        m_logits = llama.forward_spec_rows(
+            t_cfg, eng.t_params, vt, state.rkv,
+            torch.where(live_t, kv_seq_len, 0), sp.budget)
+        rows_idx = (_on(dev, n0)[:, None]
+                    + torch.arange(k + 1, device=dev)).clamp(0, gamma)
+        p_rows = sampling.norm_logits(m_logits[ar[:, None], rows_idx],
+                                      sp.temperature, -1,
+                                      sp.top_p)              # [B, k+1, V]
+
+        # --- accept walk, all rows' coins at once
+        rs = _rand_rows(k, gens, takes_part, dev)
+        if force_accept is None:
+            p_tok = p_rows[:, :k].gather(
+                2, chain_toks.clamp(0, vocab - 1)[..., None])[..., 0]
+            ok_v = rs < (p_tok / chain_q.clamp_min(1e-37)).clamp(max=1.0)
+        else:
+            ok_v = rs < force_accept
+        rej_v = (js[None, :] < _on(dev, i_fin)[:, None]) & ~ok_v
+        outcome = torch.stack([rej_v.any(1).long(),
+                               torch.argmax(rej_v.to(torch.int32), 1)],
+                              1).tolist()             # the trip's read-back
+        any_rej = [bool(o[0]) for o in outcome]
+        j_rej = [o[1] for o in outcome]
+        used = [j_rej[b] + 1 if any_rej[b] else i_fin[b]
+                for b in range(rows)]
+
+        # reject: sample from that position's middle distribution
+        final_toks = chain_toks
+        if any(any_rej):
+            res = sampling.sample_rows(p_rows[ar, _on(dev, j_rej)], gens,
+                                       any_rej)
+            rb = [b for b in range(rows) if any_rej[b]]
+            final_toks = chain_toks.clone()
+            final_toks[rb, [j_rej[b] for b in rb]] = res[rb]
+        # commit consumed positions: tokens and their middle rows
+        for b in range(rows):
+            if used[b]:
+                gen_tokens[b, n0[b]:n0[b] + used[b]] = final_toks[b, :used[b]]
+                gen_probs[b, n0[b]:n0[b] + used[b]] = p_rows[b, :used[b]]
+            n[b] = n0[b] + used[b]
+        mid_accept += np.array(used) - np.array(any_rej, int)
+        mid_draft += np.array(used)
+
+        # --- bonus on a fully accepted chain
+        bonus = [not any_rej[b] and n[b] <= gamma and n0[b] < gamma
+                 for b in range(rows)]
+        if any(bonus):
+            b_rows = p_rows[ar, _on(dev, [min(max(n[b] - n0[b], 0), k)
+                                        for b in range(rows)])]
+            b_tok = sampling.sample_rows(b_rows, gens, bonus)
+            for b in range(rows):
+                if bonus[b]:
+                    gen_tokens[b, n[b]] = b_tok[b]
+                    gen_probs[b, n[b]] = b_rows[b]
+                    n[b] += 1
+        trips += 1
+        row_trips += np.array(takes_part, int)
+        live_trips += np.array(live, int)
+
+    return {"n": n, "gen_tokens": gen_tokens, "gen_probs": gen_probs,
+            "mid_draft": mid_draft, "mid_accept": mid_accept,
+            "row_trips": row_trips, "live_trips": live_trips, "trips": trips}
+
+
+def _outer_verify_and_commit_rows(eng: Engine, state: StackedState, gamma2,
+                                  gen_tokens, gen_probs, has_draft: bool,
+                                  force_accept=None):
+    """``_outer_verify_and_commit`` for every row at once: one gamma+2-token
+    forward over all rows' full caches, every row's accept tests, ONE
+    read-back of the outcomes, then per row the rollback, the commit and
+    retrieval tail refresh (``batched_commit_and_refresh``) and, with a
+    drafter, the replay and window compaction. ``gamma2`` is a list of the
+    rows' proposal counts. A row whose pre-step length is 0 stays at 0."""
+    t_cfg, sp = eng.target_cfg, eng.spec
+    gamma = sp.gamma
+    dev = gen_tokens.device
+    gens, rows = state.gens, state.rows
+    old = state.kv.seq_len
+    ar = torch.arange(rows, device=dev)
+
+    verify_in = torch.cat([state.next_token[:, None], gen_tokens], 1)
+    logits, nk, nv = llama.forward_append_rows(t_cfg, eng.t_params,
+                                               verify_in, state.kv)
+    p_all = sampling.norm_logits(logits, sp.temperature, sp.top_k,
+                                 sp.top_p)                # [B, gamma+2, V]
+
+    pos = torch.arange(gamma + 1, device=dev)
+    tok_c = gen_tokens.clamp(0, t_cfg.vocab_size - 1)[..., None]
+    q_sel = gen_probs.gather(2, tok_c)[..., 0]
+    p_sel = p_all[:, :gamma + 1].gather(2, tok_c)[..., 0]
+    rs = _rand_rows(gamma + 1, gens, [True] * rows, dev)
+    if force_accept is None:
+        accept_v = rs < (p_sel / q_sel.clamp_min(1e-37)).clamp(max=1.0)
+    else:
+        accept_v = rs < force_accept
+    live = pos[None, :] < _on(dev, gamma2)[:, None]
+    # the walk stops at the first rejection OR the first ACCEPTED EOS
+    stop_v = live & (~accept_v
+                     | (accept_v & _is_eos(gen_tokens, eng.eos_token_id)))
+    j_stop_t = torch.argmax(stop_v.to(torch.int32), 1)
+    outcome = torch.stack([stop_v.any(1).long(), j_stop_t,
+                           accept_v[ar, j_stop_t].long()],
+                          1).tolist()                 # the step's read-back
+    count = np.array([o[1] + o[2] if o[0] else g2
+                      for o, g2 in zip(outcome, gamma2)])
+    rejected = np.array([bool(o[0] and not o[2]) for o in outcome])
+    eos_acc = np.array([bool(o[0] and o[2]) for o in outcome])
+    bonus = count == np.array(gamma2)
+    has_final = rejected | bonus
+
+    # bonus rows sample the target row after their last proposal, rejected
+    # rows the residual at the stop; the rest keep the accepted EOS
+    at = torch.where(_on(dev, bonus, torch.bool), _on(dev, gamma2), j_stop_t)
+    base = p_all[ar, at]
+    resid = sampling.max_fn(base - gen_probs[ar, j_stop_t])
+    probs = torch.where(_on(dev, bonus, torch.bool)[:, None], base, resid)
+    has_final_t = _on(dev, has_final, torch.bool)
+    pred = torch.where(has_final_t,
+                       sampling.sample_rows(probs, gens, has_final),
+                       gen_tokens[ar, j_stop_t])
+    eos_hit = _on(dev, eos_acc, torch.bool) \
+        | (has_final_t & _is_eos(pred, eng.eos_token_id))
+
+    # --- rollback + commit + retrieval tail refresh: row b keeps old +
+    # count + 1 slots, one fewer when an accepted EOS stays its next token
+    count_t = _on(dev, count)
+    keep = count_t + 1 - _on(dev, eos_acc & ~has_final)
+    kv = dataclasses.replace(state.kv, seq_len=(old + keep).to(old.dtype))
+    kv, rkv = batched_commit_and_refresh(kv, state.rkv, nk, nv, old, sp,
+                                         eng.prefill)
+    # dead-slot freeze: a row that started the step empty stays empty
+    kv = dataclasses.replace(
+        kv, seq_len=torch.where(old == 0, torch.zeros_like(old),
+                                kv.seq_len))
+
+    pos2 = torch.arange(gamma + 2, device=dev)[None, :]
+    emitted = torch.where(
+        pos2 < count_t[:, None], gen_tokens[:, pos2[0].clamp(max=gamma)],
+        torch.where((pos2 == count_t[:, None]) & has_final_t[:, None],
+                    pred[:, None], JUNK_TOKEN))
+
+    dkv = state.dkv
+    if has_draft:
+        ppos = torch.arange(gamma + 3, device=dev)[None, :]
+        pass_tokens = torch.where(
+            ppos == 0, state.next_token[:, None],
+            torch.where(ppos <= count_t[:, None],
+                        gen_tokens[:, (ppos[0] - 1).clamp(0, gamma)],
+                        torch.where((ppos == count_t[:, None] + 1)
+                                    & has_final_t[:, None], pred[:, None],
+                                    JUNK_TOKEN)))
+        _, dkv = llama.draft_forward_spec_rows(eng.draft_cfg, eng.d_params,
+                                               pass_tokens, dkv, sp)
+        # the reference's count includes the bonus but NOT a resample
+        dkv = streaming_evict_for_spec_rows(dkv, sp,
+                                            count_t + _on(dev, bonus))
+
+    new_state = dataclasses.replace(state, kv=kv, rkv=rkv, dkv=dkv,
+                                    next_token=pred)
+    zeros = np.zeros(rows, int)
+    stats = BatchedStepStats(
+        tokens=emitted, n_emitted=count + has_final, gamma2=np.array(gamma2),
+        accepted=count, resampled=rejected.astype(int),
+        bonus=bonus.astype(int), eos=eos_hit, mid_draft=zeros,
+        mid_accept=zeros, mid_verify=zeros, mid_live=zeros)
+    return new_state, stats
+
+
+def triforce_step_rows(eng: Engine, state: StackedState, force_accept=None):
+    """One full TriForce outer iteration for every row of ``state``."""
+    if eng.draft_cfg is None:
+        raise ValueError("triforce mode needs a drafter")
+    mid = _middle_spec_rows(eng, state, force_accept=force_accept)
+    new_state, stats = _outer_verify_and_commit_rows(
+        eng, state, mid["n"], mid["gen_tokens"], mid["gen_probs"], True,
+        force_accept=force_accept)
+    stats.mid_draft = mid["mid_draft"]
+    stats.mid_accept = mid["mid_accept"]
+    stats.mid_verify = mid["row_trips"]
+    stats.mid_live = mid["live_trips"]
+    stats.target_forwards = mid["trips"] + 1
+    return new_state, stats
+
+
+def retrieval_spec_step_rows(eng: Engine, state: StackedState,
+                             force_accept=None):
+    """Self-speculation step for every row of ``state``: gamma middle
+    forwards over all rows' retrieval caches with no host read-back, then
+    the full-cache verify."""
+    t_cfg, sp = eng.target_cfg, eng.spec
+    gamma = sp.gamma
+    dev = state.next_token.device
+    rows = state.rows
+    verify_tokens = torch.full((rows, gamma + 1), JUNK_TOKEN,
+                               dtype=torch.int64, device=dev)
+    verify_tokens[:, 0] = state.next_token
+    gen_tokens = torch.full((rows, gamma + 1), JUNK_TOKEN, dtype=torch.int64,
+                            device=dev)
+    gen_probs = torch.zeros((rows, gamma + 1, t_cfg.vocab_size),
+                            dtype=torch.float32, device=dev)
+    for n in range(gamma):
+        m_logits = llama.forward_spec_rows(t_cfg, eng.t_params,
+                                           verify_tokens, state.rkv,
+                                           state.kv.seq_len, sp.budget)
+        p_n = sampling.norm_logits(m_logits[:, n], sp.temperature, -1,
+                                   sp.top_p)
+        tok = sampling.sample_rows(p_n, state.gens)
+        gen_tokens[:, n] = tok
+        gen_probs[:, n] = p_n
+        verify_tokens[:, n + 1] = tok
+    new_state, stats = _outer_verify_and_commit_rows(
+        eng, state, [gamma] * rows, gen_tokens, gen_probs, False,
+        force_accept=force_accept)
+    stats.mid_verify = np.full(rows, gamma)
+    stats.mid_live = np.full(rows, gamma)
+    stats.target_forwards = gamma + 1
     return new_state, stats

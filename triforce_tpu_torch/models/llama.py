@@ -25,6 +25,15 @@ Forward modes:
   draft_forward       — drafter prefill into the StreamingLLM cache
   draft_forward_spec  — drafter speculation at the fixed spec slots with
                         un-rotated key storage + whole-window re-rotation
+
+``forward_append_rows``, ``forward_spec_rows`` and ``draft_forward_spec_rows``
+are the same forwards for B rows in ONE pass over the weights, over
+row-stacked caches (``[B, L, Hkv, S, D]``, ``seq_len`` [B]; see
+``cache.py``): ids [B, T], RoPE at each row's own positions, attention
+through ``append_attention_rows`` (the row-batched kernel on the card). They
+stand where the JAX package vmaps its batch-1 forwards. The target ones do
+not commit: they return the new K/V of every layer, which
+``cache.batched_commit_and_refresh`` writes at each row's own length.
 """
 
 from __future__ import annotations
@@ -40,7 +49,8 @@ from ..cache import (KVCache, RetrievalCache, StreamingCache, int8_scale,
                      quantize_tokens, window)
 from ..config import ModelConfig, SpecConfig
 from ..ops import retrieval as retrieval_ops
-from ..ops.attention import append_attention, append_attention_auto
+from ..ops.attention import (append_attention, append_attention_auto,
+                             append_attention_rows)
 from . import rope
 
 _MATMUL_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
@@ -369,11 +379,18 @@ def forward_spec(cfg: ModelConfig, params, input_ids: torch.Tensor,
 # Drafter forwards (StreamingLLM semantics)
 # ---------------------------------------------------------------------------
 
-def _draft_layers(cfg, params, x, dkv, positions, k_len, commit_at):
+def _draft_layers(cfg, params, x, dkv, positions, k_len, commit_at,
+                  rows: bool = False):
     """Shared drafter layer loop: keys are stored un-rotated, the whole
     window is re-rotated with slot positions, and attention is the plain
-    ``append_attention`` (no kernel, as in the JAX package)."""
+    ``append_attention`` (no kernel, as in the JAX package). ``rows``: the
+    cache is row-stacked [B, L, ...] (positions and ``k_len`` are the same
+    for every row at the fixed spec slots)."""
     dev = x.device
+
+    def layer(buf, li):
+        return buf[:, li] if rows else buf[li]
+
     cos, sin = rope.cos_sin_tables(cfg, max_len=dkv.real_budget, device=dev)
     slot_pos = torch.arange(dkv.real_budget, device=dev)
     if commit_at is not None:
@@ -383,13 +400,13 @@ def _draft_layers(cfg, params, x, dkv, positions, k_len, commit_at):
         h = _rms_norm(x, lp["ln_attn"], cfg.rms_norm_eps)
         q, k_new, v_new = _qkv(h, lp, cfg)
         q = rope.apply_rope(q, cos, sin, positions)
-        k_cache = rope.apply_rope(dkv.k[li], cos, sin, slot_pos)
+        k_cache = rope.apply_rope(layer(dkv.k, li), cos, sin, slot_pos)
         k_att = rope.apply_rope(k_new, cos, sin, positions)
-        ctx = append_attention(q, k_cache, dkv.v[li], k_att, v_new,
+        ctx = append_attention(q, k_cache, layer(dkv.v, li), k_att, v_new,
                                k_len=k_len)
         if commit_at is not None:
-            dkv.k[li].index_copy_(2, commit_idx, k_new)
-            dkv.v[li].index_copy_(2, commit_idx, v_new)
+            layer(dkv.k, li).index_copy_(2, commit_idx, k_new)
+            layer(dkv.v, li).index_copy_(2, commit_idx, v_new)
         x = x + _attn_out(ctx, lp)
         h = _rms_norm(x, lp["ln_mlp"], cfg.rms_norm_eps)
         x = x + _mlp(h, lp)
@@ -428,4 +445,91 @@ def draft_forward_spec(cfg: ModelConfig, params, input_ids: torch.Tensor,
     positions = _positions(spec0, t, input_ids.device)
     x = _draft_layers(cfg, params, _embed(params, input_ids), dkv,
                       positions, spec0, spec0 if commit else None)
+    return _logits(cfg, params, x), dkv
+
+
+# ---------------------------------------------------------------------------
+# Row-batched forwards (B rows, one pass over the weights)
+# ---------------------------------------------------------------------------
+
+def _target_layers_rows(cfg: ModelConfig, params, input_ids, cache,
+                        positions, k_len):
+    """The target's layer loop for B rows over a row-stacked cache, read
+    only: row b attends slots [0, k_len[b]) of its own cache plus its T new
+    tokens, at RoPE positions ``positions`` [B, T]. Returns (hidden
+    [B, T, H], new K stack, new V stack [B, L, Hkv, T, D]); keys rotated."""
+    cos, sin = rope.cos_sin_tables(cfg, device=input_ids.device)
+    quant = cache.quantized
+    x = _embed(params, input_ids)
+    nk, nv = [], []
+    for li in range(cfg.num_layers):
+        lp = _layer(params, li)
+        h = _rms_norm(x, lp["ln_attn"], cfg.rms_norm_eps)
+        q, k_new, v_new = _qkv(h, lp, cfg)
+        q = rope.apply_rope(q, cos, sin, positions)
+        k_new = rope.apply_rope(k_new, cos, sin, positions)
+        ctx = append_attention_rows(
+            q, cache.k[:, li], cache.v[:, li], k_new, v_new, k_len=k_len,
+            k_scale=cache.k_scale[:, li] if quant else None,
+            v_scale=cache.v_scale[:, li] if quant else None)
+        x = x + _attn_out(ctx, lp)
+        h = _rms_norm(x, lp["ln_mlp"], cfg.rms_norm_eps)
+        x = x + _mlp(h, lp)
+        nk.append(k_new)
+        nv.append(v_new)
+    return x, torch.stack(nk, 1), torch.stack(nv, 1)
+
+
+def _row_positions(start: torch.Tensor, t: int) -> torch.Tensor:
+    """[B, T] positions ``start[b] + arange(T)``."""
+    return start.to(torch.int64)[:, None] \
+        + torch.arange(t, device=start.device)
+
+
+def forward_append_rows(cfg: ModelConfig, params, input_ids: torch.Tensor,
+                        kv: KVCache):
+    """``forward_append`` for B rows at once: row b appends its T tokens at
+    its own length ``kv.seq_len[b]`` and attends its own live prefix. The
+    cache is NOT written: returns (logits [B, T, V] fp32, new K stack, new
+    V stack [B, L, Hkv, T, D]) for ``cache.batched_commit_and_refresh``
+    (or a plain per-row commit) to store."""
+    if cfg.rope_on_slots:
+        raise ValueError("a rope_on_slots drafter runs draft_forward_spec")
+    t = input_ids.shape[1]
+    x, nk, nv = _target_layers_rows(cfg, params, input_ids, kv,
+                                    _row_positions(kv.seq_len, t),
+                                    kv.seq_len)
+    return _logits(cfg, params, x), nk, nv
+
+
+def forward_spec_rows(cfg: ModelConfig, params, input_ids: torch.Tensor,
+                      rkv: RetrievalCache, kv_seq_len: torch.Tensor,
+                      budget: int) -> torch.Tensor:
+    """``forward_spec`` for B rows at once, read-only (the engines never
+    commit a middle verify): row b's gamma+1 tokens attend its budget
+    region plus themselves at positions ``kv_seq_len[b] + arange(T)``.
+    ``kv_seq_len[b] == 0`` (a dead slot, or a dead middle trip) collapses
+    that row's retrieval read to zero columns. Returns logits [B, T, V]."""
+    t = input_ids.shape[1]
+    k_len = torch.where(kv_seq_len > 0, budget, 0).to(torch.int32)
+    x, _, _ = _target_layers_rows(cfg, params, input_ids, rkv,
+                                  _row_positions(kv_seq_len, t), k_len)
+    return _logits(cfg, params, x)
+
+
+def draft_forward_spec_rows(cfg: ModelConfig, params,
+                            input_ids: torch.Tensor, dkv: StreamingCache,
+                            spec: SpecConfig, commit: bool = True
+                            ) -> Tuple[torch.Tensor, StreamingCache]:
+    """``draft_forward_spec`` for B rows over a row-stacked drafter cache
+    [B, L, Hkv, S, D]: every row's T tokens sit at the same fixed spec
+    slots, so positions and the visible window are shared and only the
+    cache contents differ by row."""
+    if not cfg.rope_on_slots:
+        raise ValueError("draft_forward_spec needs a rope_on_slots drafter")
+    t = input_ids.shape[1]
+    spec0 = spec.draft_start_size + spec.draft_recent_size
+    positions = _positions(spec0, t, input_ids.device)
+    x = _draft_layers(cfg, params, _embed(params, input_ids), dkv,
+                      positions, spec0, spec0 if commit else None, rows=True)
     return _logits(cfg, params, x), dkv

@@ -125,7 +125,12 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
                positions: torch.Tensor) -> torch.Tensor:
     """Rotate ``x`` ([..., T, D]) at ``positions`` ([T] long, on x's device);
     table rows are cast to x's dtype before the product, like the JAX
-    package."""
-    c = cos.index_select(0, positions).to(x.dtype)
-    s = sin.index_select(0, positions).to(x.dtype)
+    package. ``positions`` [B, T] rotates each row of ``x`` [B, H, T, D] at
+    its own positions."""
+    if positions.dim() == 2:
+        c = cos[positions][:, None].to(x.dtype)       # [B, 1, T, D]
+        s = sin[positions][:, None].to(x.dtype)
+    else:
+        c = cos.index_select(0, positions).to(x.dtype)
+        s = sin.index_select(0, positions).to(x.dtype)
     return x * c + rotate_half(x) * s

@@ -11,7 +11,11 @@ merge associatively:
 ``append_attention_auto`` is the dispatcher the models call: a CUDA tensor
 with no extra cache mask goes to the hand-written flash-decode kernel
 (``ops/flash_decode.py``; its int8 kernel for an int8 cache), a CPU tensor
-to ``append_attention``.
+to ``append_attention``. ``append_attention_rows`` is the same dispatch for
+B rows with a live length each (``k_len`` [B]): the row-batched kernel on a
+CUDA tensor, ``append_attention`` with per-row lengths on the CPU. It
+stands where the JAX package has its ``custom_vmap`` rules and
+``batching._batched_attention``.
 
 An int8 cache comes with fp32 per-token scales (``k_scale``/``v_scale``
 [B, Hkv, S]); the plain path dequantizes each block to fp32 and then runs
@@ -30,6 +34,8 @@ from typing import Tuple
 import torch
 
 from .flash_decode import (append_attention_kernel,
+                           append_attention_kernel_batched,
+                           append_attention_kernel_batched_int8,
                            append_attention_kernel_int8, causal_mask)
 
 _NEG_INF = -1e30
@@ -82,12 +88,15 @@ def attention_partials(q, k, v, *, k_len=None, mask_fn=None,
                        block: int = 2048, k_scale=None,
                        v_scale=None) -> Partials:
     """Online-softmax partials of q against a read-only key/value buffer.
-    ``k_len`` masks columns >= k_len; ``mask_fn(rows, cols) -> bool`` adds
-    extra masking. Blocks past a host-known ``k_len`` are skipped; with a
-    device ``k_len`` every block runs masked (no host sync). An int8
-    buffer passes its scales and is dequantized block by block."""
+    ``k_len`` masks columns >= k_len (a [B] tensor gives every row its own
+    length); ``mask_fn(rows, cols) -> bool`` adds extra masking. Blocks
+    past a host-known ``k_len`` are skipped; with a device ``k_len`` every
+    block runs masked (no host sync). An int8 buffer passes its scales and
+    is dequantized block by block."""
     t = q.shape[2]
     hkv, s = k.shape[1], k.shape[2]
+    if torch.is_tensor(k_len) and k_len.dim() == 1:
+        k_len = k_len.reshape(-1, 1, 1, 1, 1)     # against [B,Hkv,G,T,S]
     qg = _prescaled(q, hkv)
     m, l, acc = _init_partials(q, hkv)
     n_run = s if (k_len is None or torch.is_tensor(k_len)) \
@@ -111,8 +120,10 @@ def attention_partials(q, k, v, *, k_len=None, mask_fn=None,
 
 def new_block_partials(q, k_new, v_new, new_mask) -> Partials:
     """Partials of q against the new-token block; new_mask [T, Tn] bool
-    (True = attend), typically lower-triangular."""
+    (True = attend), typically lower-triangular, or [B, T, Tn] per row."""
     hkv = k_new.shape[1]
+    if new_mask.dim() == 3:
+        new_mask = new_mask[:, None, None]
     qg = _prescaled(q, hkv)
     m, l, acc = _init_partials(q, hkv)
     return _update(qg, m, l, acc, k_new, v_new, new_mask)
@@ -170,3 +181,27 @@ def append_attention_auto(q, k_cache, v_cache, k_new, v_new, *, k_len,
     return append_attention(q, k_cache, v_cache, k_new, v_new, k_len=k_len,
                             cache_mask_fn=cache_mask_fn, new_mask=new_mask,
                             block=block, k_scale=k_scale, v_scale=v_scale)
+
+
+def append_attention_rows(q, k_cache, v_cache, k_new, v_new, *, k_len,
+                          new_mask=None, block: int = 2048, k_scale=None,
+                          v_scale=None) -> torch.Tensor:
+    """Dispatch for B rows with a live length each: q [B, Hq, T, D]; k/v
+    cache [B, Hkv, S, D] (one layer of every row); k_new/v_new
+    [B, Hkv, Tn, D]; k_len [B] on q's device; new_mask None (causal),
+    [T, Tn] or [B, T, Tn]; scales [B, Hkv, S] for int8 caches. A CUDA
+    tensor launches the row-batched flash-decode kernel once for all rows,
+    the int8 one when the cache has scales (each raises on what it does not
+    take); a CPU tensor runs ``append_attention``, whose cache partials
+    mask each row at its own length."""
+    if q.device.type == "cuda":
+        if k_scale is not None:
+            return append_attention_kernel_batched_int8(
+                q, k_cache, v_cache, k_new, v_new, k_len=k_len,
+                new_mask=new_mask, k_scale=k_scale, v_scale=v_scale)
+        return append_attention_kernel_batched(
+            q, k_cache, v_cache, k_new, v_new, k_len=k_len,
+            new_mask=new_mask)
+    return append_attention(q, k_cache, v_cache, k_new, v_new, k_len=k_len,
+                            new_mask=new_mask, block=block, k_scale=k_scale,
+                            v_scale=v_scale)

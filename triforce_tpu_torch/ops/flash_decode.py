@@ -18,6 +18,20 @@ each group of keys, so its result depends on the grouping; the plain
 version takes the group as a parameter (the TPU kernel's block in the CPU
 tests, ``KERNEL_GROUP`` against the CUDA kernel).
 
+``flash_decode_append_batched`` (and ``..._batched_int8``) is the same
+attention for B rows at once, the port of the TPU's row-batched kernel
+``flash_decode_append_batched``: q ``[B, Hkv, GT, D]``, one cache layer per
+row ``[B, Hkv, S, D]`` (any row, head and token strides: a layer of a
+``[B, L, Hkv, S, D]`` pool is a view, so there is no layer index), a live
+length per row ``k_len [B]`` and a mask per row ``[B, GT, Tn]`` (or one
+``[GT, Tn]`` mask for all). A row with ``k_len = 0`` reads no cache and
+returns the attention over its new block alone. On the card the rows are a
+grid index of the same device code as the single-row kernel, one launch
+pair for all rows; each row is split as the single-row kernel would split
+it (``pick_nsplit`` does not look at B), so a row's result does not depend
+on its companions and equals the single-row kernel's bit for bit. The
+plain versions run the single-row plain version row by row.
+
 The Pallas kernel's TPU-only machinery does not carry over: its 128-lane
 pad of the new block, the VMEM-driven block choice and the 512/2048 cache
 alignment gate. ``k_len`` stays on the device and is read by the kernel.
@@ -277,6 +291,163 @@ def flash_decode_append_int8(q, k, v, k_new, v_new, k_len, new_mask,
 flash_decode_append_int8.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# Row-batched: B rows, each with its own live length and mask
+# ---------------------------------------------------------------------------
+
+def _row_mask(new_mask, b: int):
+    """Row ``b``'s [GT, Tn] mask of a per-row [B, GT, Tn] or shared mask."""
+    return new_mask[b] if new_mask.dim() == 3 else new_mask
+
+
+def flash_decode_append_batched_plain(q, k, v, k_new, v_new, k_len,
+                                      new_mask):
+    """Plain PyTorch version of the row-batched kernel: the single-row
+    plain version, row by row. q [B, Hkv, GT, D]; k/v [B, Hkv, S, D];
+    k_new/v_new [B, Hkv, Tn, D]; new_mask [B, GT, Tn] (or [GT, Tn] for all
+    rows) bool; k_len [B] int. -> [B, Hkv, GT, D] fp32."""
+    return torch.stack([
+        flash_decode_append_plain(q[b], k[b], v[b], k_new[b], v_new[b],
+                                  k_len[b], _row_mask(new_mask, b))
+        for b in range(q.shape[0])])
+
+
+def flash_decode_append_batched_int8_plain(q, k, v, k_new, v_new, k_len,
+                                           new_mask, k_scale, v_scale, *,
+                                           group: int):
+    """Plain PyTorch version of the row-batched int8 kernel: the
+    single-row int8 plain version at ``group``, row by row. k/v int8
+    [B, Hkv, S, D]; k_scale/v_scale [B, Hkv, S]."""
+    return torch.stack([
+        flash_decode_append_int8_plain(
+            q[b], k[b], v[b], k_new[b], v_new[b], k_len[b],
+            _row_mask(new_mask, b), k_scale[b], v_scale[b], group=group)
+        for b in range(q.shape[0])])
+
+
+def _check_batched_args(q, k, v, k_new, v_new, k_len, new_mask, cache_dtype):
+    for name, x in {"q": q, "k_new": k_new, "v_new": v_new, "k": k,
+                    "v": v}.items():
+        want = cache_dtype if name in ("k", "v") else torch.bfloat16
+        if x.device != q.device:
+            raise ValueError(f"{name} is on {x.device}, q on {q.device}")
+        if x.dtype != want:
+            raise TypeError(f"this flash_decode kernel takes {name} as "
+                            f"{want}; got {x.dtype}")
+        if x.dim() != 4 or x.stride(3) != 1:
+            raise ValueError(f"{name} must be [B, H, rows, D] with unit "
+                             f"stride in D, got {tuple(x.shape)} "
+                             f"{x.stride()}")
+    bsz, hkv, gt, d = q.shape
+    if d not in (64, 128):
+        raise ValueError(f"head_dim {d} not supported by the kernel")
+    per16 = 16 // k.element_size()     # elements in 16 bytes
+    for name, x in (("k", k), ("v", v)):
+        if (x.shape[:2] != (bsz, hkv) or x.shape[3] != d
+                or x.data_ptr() % 16
+                or any(x.stride(i) % per16 for i in range(3))):
+            raise ValueError(f"{name} {tuple(x.shape)} {x.stride()} is not "
+                             "a 16-byte aligned [B, Hkv, S, D] cache layer")
+    tn = k_new.shape[2]
+    if k_new.shape != v_new.shape or k_new.shape != (bsz, hkv, tn, d):
+        raise ValueError("k_new/v_new must be [B, Hkv, Tn, D]")
+    if new_mask.dtype != torch.bool or not new_mask.is_contiguous() \
+            or new_mask.device != q.device \
+            or new_mask.shape not in ((bsz, gt, tn), (gt, tn)):
+        raise ValueError("new_mask must be a contiguous bool [B, GT, Tn] or "
+                         "[GT, Tn] tensor on q's device")
+    if k_len.dtype != torch.int32 or k_len.shape != (bsz,) \
+            or not k_len.is_contiguous() or k_len.device != q.device:
+        raise ValueError("k_len must be int32 [B] on q's device")
+
+
+def _check_batched_scales(k, k_scale, v_scale):
+    for name, x in (("k_scale", k_scale), ("v_scale", v_scale)):
+        if (x.device != k.device or x.dtype != torch.float32
+                or x.shape != k.shape[:3] or x.stride(2) != 1):
+            raise ValueError(f"{name} must be fp32 [B, Hkv, S] with unit "
+                             f"token stride on k's device, got {x.dtype} "
+                             f"{tuple(x.shape)} {x.stride()}")
+
+
+def _launch_batched(fn, q, k, v, k_new, v_new, k_len, new_mask, scales=()):
+    """Allocate the outputs and scratch (B x the single-row scratch) and
+    launch one row-batched entry point of ``csrc/flash_decode.cu``."""
+    bsz, hkv, gt, d = q.shape
+    s, tn = k.shape[2], k_new.shape[2]
+    nsplit = pick_nsplit(hkv, gt, s)      # per row, whatever B is
+    parts = _n_parts(gt, nsplit)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    m_part = torch.empty((bsz, hkv, gt, parts), **f32)
+    l_part = torch.empty((bsz, hkv, gt, parts), **f32)
+    acc_part = torch.empty((bsz, hkv, gt, parts, d), **f32)
+    out = torch.empty((bsz, hkv, gt, d), **f32)
+    mask_sb = gt * tn if new_mask.dim() == 3 else 0
+    err = fn(bsz, q.data_ptr(), *q.stride()[:3],
+             k.data_ptr(), *k.stride()[:3], v.data_ptr(), *v.stride()[:3],
+             *scales,
+             k_new.data_ptr(), *k_new.stride()[:3],
+             v_new.data_ptr(), *v_new.stride()[:3],
+             mask_sb, new_mask.data_ptr(), k_len.data_ptr(),
+             m_part.data_ptr(), l_part.data_ptr(), acc_part.data_ptr(),
+             out.data_ptr(), hkv, gt, tn, s, d, nsplit, _scale(d),
+             torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "row-batched flash_decode kernel launch")
+    return out
+
+
+def _device_k_lens(k_len, q):
+    if q.device.type != "cuda":
+        raise ValueError(f"no flash_decode for device {q.device}")
+    return torch.as_tensor(k_len, device=q.device).to(torch.int32)
+
+
+def flash_decode_append_batched(q, k, v, k_new, v_new, k_len, new_mask):
+    """Row-batched fused decode attention; see the module docstring. CUDA
+    tensors launch the kernel once for all rows (or raise); CPU tensors
+    take the plain version.
+    ``flash_decode_append_batched.launches`` counts kernel launches."""
+    if q.device.type == "cpu":
+        return flash_decode_append_batched_plain(q, k, v, k_new, v_new,
+                                                 k_len, new_mask)
+    k_len = _device_k_lens(k_len, q)
+    _check_batched_args(q, k, v, k_new, v_new, k_len, new_mask,
+                        torch.bfloat16)
+    out = _launch_batched(_build.lib(_SOURCE).tf_flash_decode_batched_bf16,
+                          q, k, v, k_new, v_new, k_len, new_mask)
+    flash_decode_append_batched.launches += 1
+    return out
+
+
+flash_decode_append_batched.launches = 0
+
+
+def flash_decode_append_batched_int8(q, k, v, k_new, v_new, k_len, new_mask,
+                                     k_scale, v_scale):
+    """Row-batched fused decode attention over int8 caches: k/v int8 codes
+    [B, Hkv, S, D] with fp32 scales [B, Hkv, S]. CUDA tensors launch the
+    int8 kernel once for all rows (or raise); CPU tensors take the plain
+    version at the kernel's group.
+    ``flash_decode_append_batched_int8.launches`` counts kernel launches."""
+    if q.device.type == "cpu":
+        return flash_decode_append_batched_int8_plain(
+            q, k, v, k_new, v_new, k_len, new_mask, k_scale, v_scale,
+            group=KERNEL_GROUP)
+    k_len = _device_k_lens(k_len, q)
+    _check_batched_args(q, k, v, k_new, v_new, k_len, new_mask, torch.int8)
+    _check_batched_scales(k, k_scale, v_scale)
+    out = _launch_batched(
+        _build.lib(_SOURCE).tf_flash_decode_batched_int8, q, k, v, k_new,
+        v_new, k_len, new_mask,
+        scales=(k_scale.data_ptr(), *k_scale.stride()[:2],
+                v_scale.data_ptr(), *v_scale.stride()[:2]))
+    flash_decode_append_batched_int8.launches += 1
+    return out
+
+
+flash_decode_append_batched_int8.launches = 0
+
+
 @functools.lru_cache(maxsize=64)
 def causal_mask(t: int, tn: int, groups: int, device) -> torch.Tensor:
     """[G*T, Tn] bool: query row i of each group attends new token j <= i
@@ -322,4 +493,43 @@ def append_attention_kernel_int8(q, k_cache, v_cache, k_new, v_new, *,
     out = flash_decode_append_int8(qh, k_cache[0], v_cache[0], k_new[0],
                                    v_new[0], k_len, nmask, k_scale[0],
                                    v_scale[0])
+    return out.reshape(q.shape).to(q.dtype)
+
+
+def _kernel_layout_rows(q, k_new, new_mask):
+    """[B, Hq, T, D] queries -> [B, Hkv, G*T, D] rows and their mask:
+    ``new_mask`` None (causal, one [G*T, Tn] mask for all rows), [T, Tn]
+    (one for all rows) or [B, T, Tn] (per row)."""
+    b, hq, t, d = q.shape
+    hkv, tn = k_new.shape[1], k_new.shape[2]
+    g = hq // hkv
+    if new_mask is None:
+        nmask = causal_mask(t, tn, g, q.device)
+    else:
+        reps = (1, g, 1) if new_mask.dim() == 3 else (g, 1)
+        nmask = new_mask.to(torch.bool).repeat(*reps).contiguous()
+    return q.reshape(b, hkv, g * t, d), nmask
+
+
+def append_attention_kernel_batched(q, k_cache, v_cache, k_new, v_new, *,
+                                    k_len, new_mask=None):
+    """Row-batched counterpart of ``append_attention_kernel``: q
+    [B, Hq, T, D]; k/v cache [B, Hkv, S, D] (one layer of every row, a view
+    is fine); k_new/v_new [B, Hkv, Tn, D]; k_len [B]; new_mask None
+    (causal), [T, Tn] or [B, T, Tn] bool. -> [B, Hq, T, D] in q's dtype."""
+    qh, nmask = _kernel_layout_rows(q, k_new, new_mask)
+    out = flash_decode_append_batched(qh, k_cache, v_cache, k_new, v_new,
+                                      k_len, nmask)
+    return out.reshape(q.shape).to(q.dtype)
+
+
+def append_attention_kernel_batched_int8(q, k_cache, v_cache, k_new, v_new,
+                                         *, k_len, k_scale, v_scale,
+                                         new_mask=None):
+    """``append_attention_kernel_batched`` over int8 cache layers: k/v
+    cache int8 [B, Hkv, S, D] with scales [B, Hkv, S]."""
+    qh, nmask = _kernel_layout_rows(q, k_new, new_mask)
+    out = flash_decode_append_batched_int8(qh, k_cache, v_cache, k_new,
+                                           v_new, k_len, nmask, k_scale,
+                                           v_scale)
     return out.reshape(q.shape).to(q.dtype)

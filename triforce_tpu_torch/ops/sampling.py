@@ -78,16 +78,37 @@ def norm_logits(logits: torch.Tensor, temperature: float = 0.6,
     return torch.softmax(logits, dim=-1)
 
 
-def sample(probs: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
-    """One token index per row of a probability tensor [..., V], by
-    Gumbel-max on uniforms drawn from ``generator`` (on probs' device)."""
+def _gumbel_argmax(probs: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """Gumbel-max over the last axis from uniforms ``u`` of probs' shape."""
     logp = torch.where(probs > 0, torch.log(probs.clamp_min(1e-37)),
                        _NEG_INF)
-    u = torch.rand(probs.shape, generator=generator, device=probs.device,
-                   dtype=torch.float32)
     tiny = torch.finfo(torch.float32).tiny
     gumbel = -torch.log(-torch.log(u.clamp(tiny, 1.0 - 2 ** -24)))
     return torch.argmax(logp + gumbel, dim=-1)
+
+
+def sample(probs: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """One token index per row of a probability tensor [..., V], by
+    Gumbel-max on uniforms drawn from ``generator`` (on probs' device)."""
+    u = torch.rand(probs.shape, generator=generator, device=probs.device,
+                   dtype=torch.float32)
+    return _gumbel_argmax(probs, u)
+
+
+def sample_rows(probs: torch.Tensor, generators, active=None
+                ) -> torch.Tensor:
+    """``sample`` for B rows that each own a generator: row b of ``probs``
+    [B, V] draws its V uniforms from ``generators[b]``, exactly the draw
+    ``sample(probs[b], generators[b])`` makes, and the Gumbel-max runs once
+    for all rows. Rows whose ``active[b]`` is false draw nothing (their
+    generator does not advance) and their result is meaningless."""
+    u = torch.full(probs.shape, 0.5, dtype=torch.float32,
+                   device=probs.device)
+    for b, gen in enumerate(generators):
+        if active is None or active[b]:
+            u[b] = torch.rand(probs.shape[1:], generator=gen,
+                              device=probs.device, dtype=torch.float32)
+    return _gumbel_argmax(probs, u)
 
 
 def max_fn(x: torch.Tensor) -> torch.Tensor:
