@@ -7,29 +7,40 @@
 Phases, in order (any failure exits non-zero before the last line):
   1. device line: the card's name and power limit (nvidia-smi);
   2. build: nvcc builds every kernel of ``triforce_tpu_torch/csrc``;
-  3. kernels: each kernel (B1, B2 and the row-batched B3 in bf16; B1-int8,
-     B2-int8 and B3-int8 over an int8 cache) at the main path's shapes
-     against its plain PyTorch version (stated tolerance), with its time,
-     its bound, the plain version's time and a library yardstick's time;
-     B3 also against B1 row by row (bit equality) and, in device time,
-     with dead rows;
+  3. kernels: each kernel (B1, B2, the row-batched B3 and the cache-only
+     partials B4 in bf16; their int8 variants over an int8 cache) at its
+     paths' shapes against its plain PyTorch version (stated tolerance),
+     with its device time (CUDA-graph replay), its bound, the plain
+     version's time and a library yardstick's time; B1 also at the tree
+     verify's shapes under an ancestor mask; B3 also against B1 row by row
+     (bit equality) and with dead rows; B4 also merged with a new block
+     against B1, and with an empty prefix;
   4. reference: the full-width model at cut depth on a short prompt, the
      card's path (through the kernels) against an fp32 CPU run of the same
      weights: bf16 weights and cache, then int8 weights and cache;
-  5. end to end: Llama2-7B-128K + Llama-68M at full width with random
+  5. tree gate: on a 2-layer full-width model, the tree verify's logits
+     along the deepest root-to-leaf chain equal the sequential forward of
+     that chain (cosine > 0.999, top-1 equal up to near ties), and a tree
+     step leaves ``kv.seq_len = seq0 + n_nodes`` with
+     the compacted slots bit-equal to the verify's KV of the accepted nodes;
+  6. rows: on a 2-layer full-width model, a batched row emits what its
+     batch-1 run with the same seed emits;
+  7. end to end: Llama2-7B-128K + Llama-68M at full width with random
      weights: AR, retrieval-spec, TriForce and forced-acceptance TriForce
      through the decoding drivers, first in bf16, then with int8 weights
      and KV (``kv_quant``, ``weight_quant``); each run sets every kernel
      launch count to 0 before and checks it against the count the path
      implies after (the other precision's kernels at 0);
-  6. rows: on a 2-layer full-width model, a batched row emits what its
-     batch-1 run with the same seed emits;
-  7. batched end to end, in each precision after its batch-1 runs: 4 rows
+  8. tree end to end, in each precision after its batch-1 runs: Sequoia
+     tree speculation (``TreeEngine``, a 128-node tree) through
+     ``tree_decode``, then at forced acceptance, then with 4 hybrid
+     (``ssl``) layers; launch counts are checked as in 7;
+  9. batched end to end, in each precision after its tree runs: 4 rows
      speculate together (``BatchedSpecEngine``), then 6 requests are
      served through 4 slots by ``SpecScheduler`` (chunked admission
      between decode segments) and by the AR ``Scheduler``; launch counts
-     are checked as in 5;
-  8. the ``kernels`` JSON line, then the ``ok`` JSON line.
+     are checked as in 7;
+ 10. the ``kernels`` JSON line, then the ``ok`` JSON line.
 
 Exits non-zero (and prints no result) without a CUDA card or outside the
 repository.
@@ -52,6 +63,8 @@ H100_INT8_OPS = 1979e12         # dense int8 tensor cores
 H100_FP32_FLOPS = 67e12         # fp32 outside the tensor cores
 GEN = 128                       # generated tokens per end-to-end mode
 GAMMA = 6
+TREE_SIZE, TREE_DEPTH = 128, 12  # planned tree: 128 nodes, 11 levels, W 22
+TREE_GEN, TREE_FORCED_GEN = 32, 64
 ROWS = 4                        # rows (slots) of the batched phases
 SERVE_PREFILL = 8192            # prompt tokens of a served request
 SERVE_REQUESTS, SERVE_NEW, SERVE_SEGMENT = 6, 32, 4
@@ -117,9 +130,11 @@ def _bound(nbytes: float, flops: float, peak_flops: float):
 # ---------------------------------------------------------------------------
 
 def kernel_b1(fd, cache_mod, dev, gt, tn, k_len, s, quant=False, hkv=32,
-              d=128, seed=0):
+              d=128, seed=0, tree_mask=None):
     """B1 (or, with ``quant``, B1-int8 over the int8 codes and scales of
-    the same cache) at one shape: kernel vs plain, times and bound."""
+    the same cache) at one shape: kernel vs plain, times and bound.
+    ``tree_mask``: a [GT, Tn] ancestor mask (the tree verify) in place of
+    the causal one."""
     name = "B1-int8" if quant else "B1"
     g = torch.Generator(device=dev).manual_seed(seed)
     bf = torch.bfloat16
@@ -133,8 +148,11 @@ def kernel_b1(fd, cache_mod, dev, gt, tn, k_len, s, quant=False, hkv=32,
     v_st = rn(2, 1, hkv, s, d)
     k_st[1, 0, :, k_len:] = 50.0     # stale tail: must never be read
     v_st[1, 0, :, k_len:] = 50.0
-    rows = torch.arange(gt, device=dev)[:, None] % tn
-    mask = (torch.arange(tn, device=dev)[None, :] <= rows).contiguous()
+    if tree_mask is None:
+        rows = torch.arange(gt, device=dev)[:, None] % tn
+        mask = (torch.arange(tn, device=dev)[None, :] <= rows).contiguous()
+    else:
+        mask = torch.as_tensor(tree_mask, device=dev).contiguous()
     klen_t = torch.tensor(k_len, dtype=torch.int32, device=dev)
     if quant:
         # the int8 cache the model would commit: codes + per-token scales
@@ -209,7 +227,7 @@ def kernel_b1(fd, cache_mod, dev, gt, tn, k_len, s, quant=False, hkv=32,
                   f"plain when the new block dominates (err {err_new:.3e}, "
                   f"tol {tol:.3e})")
         err = max(err, err_new)
-    ms = _time_ms(lambda: kernel(kn))
+    ms = _device_ms(lambda: kernel(kn))
     plain_ms = _time_ms(lambda: plain(kn, mask), reps=5, warm=1)
     # yardstick: SDPA over [live cache prefix ++ new block] (prepared once;
     # an int8 prefix is dequantized to bf16 first, untimed)
@@ -221,8 +239,9 @@ def kernel_b1(fd, cache_mod, dev, gt, tn, k_len, s, quant=False, hkv=32,
     v_all = torch.cat([vp, vn], 1)[None]
     am = torch.cat([torch.ones(gt, k_len, dtype=torch.bool, device=dev),
                     mask], 1)
-    lib_ms = _time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        q[None], k_all, v_all, attn_mask=am))
+    lib_ms = _device_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            q[None], k_all, v_all, attn_mask=am))
     # each input read once, the output written once: an int8 prefix is
     # 1 byte a value plus a 4-byte scale a token for K and for V
     cache_bytes = hkv * k_len * (2 * d + 8) if quant \
@@ -232,10 +251,13 @@ def kernel_b1(fd, cache_mod, dev, gt, tn, k_len, s, quant=False, hkv=32,
     flops = 4.0 * hkv * gt * (k_len + tn) * d
     bound_ms, bound_by = _bound(nbytes, flops,
                                 H100_INT8_OPS if quant else H100_BF16_FLOPS)
-    row = dict(gt=gt, tn=tn, k_len=k_len, s=s, max_abs_err=err, tol=tol,
+    row = dict(gt=gt, tn=tn, k_len=k_len, s=s,
+               tree_mask=tree_mask is not None, max_abs_err=err, tol=tol,
                err_dominant_new=err_new, ms=ms, plain_ms=plain_ms,
                library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by)
-    print(f"{name} gt={gt} tn={tn} k_len={k_len}: err {err:.3e} (tol "
+    print(f"{name} gt={gt} tn={tn} k_len={k_len}"
+          f"{' (ancestor mask)' if tree_mask is not None else ''}: err "
+          f"{err:.3e} (tol "
           f"{tol:.3e}; dominant new block {err_new}) kernel {ms:.4f} ms, "
           f"bound {bound_ms:.4f} ms ({bound_by}), sdpa {lib_ms:.4f} ms, "
           f"plain {plain_ms:.4f} ms", flush=True)
@@ -292,11 +314,11 @@ def kernel_b2(rk, rt, cache_mod, dev, prefill, chunk, budget, s,
                 _fail(f"{name} head {h}: chunk {c} selected differently "
                       f"and is not a near-tie")
             n_diff += 1
-    ms = _time_ms(kernel)
+    ms = _device_ms(kernel)
     plain_ms = _time_ms(plain, reps=5, warm=1)
     # yardstick: einsum + means over the (dequantized, untimed) keys
-    lib_ms = _time_ms(lambda: torch.einsum("hgd,hsd->hgs", q, kp).float()
-                      .mean(1).reshape(hkv, -1, chunk).mean(-1))
+    lib_ms = _device_ms(lambda: torch.einsum("hgd,hsd->hgs", q, kp).float()
+                        .mean(1).reshape(hkv, -1, chunk).mean(-1))
     key_bytes = hkv * prefill * (d + 4) if quant else 2 * hkv * prefill * d
     nbytes = 2 * q.numel() + key_bytes + 4 * out.numel()
     flops = 2.0 * hkv * g * prefill * d
@@ -460,19 +482,170 @@ def kernel_b3(fd, cache_mod, dev, gt, tn, k_full, s, quant=False, hkv=32,
     return row
 
 
-def unported_bounds() -> dict:
-    """The least time for B4, the TPU kernel still to port, at the shape
-    the JAX package runs it, int8 KV (its bench's default): each cache
-    byte (1 a value + 4 a token for its scale) read once over the HBM
-    rate; its operations bound it far lower."""
-    def kv_ms(rows, hkv, keys, d=128):
-        return rows * hkv * keys * (2 * d + 8) / H100_BYTES_PER_S * 1e3
-    return {
-        # flash_decode_partials: Llama2-7B (32 heads) AR decode with its
-        # 124928-token context split over 4 cards, one card's share
-        "B4 partials, 32 heads x 31232 keys (1 of 4 cards)": kv_ms(1, 32,
-                                                                  31232),
-    }
+def kernel_b4(fd, att, cache_mod, dev, gt, k_len, s, quant=False, hkv=32,
+              d=128, seed=0):
+    """B4 (or, with ``quant``, B4-int8), the cache-only partials, at one
+    shape: (m, l, acc) against the plain version, the merge with a new
+    block against B1 on the same inputs, device time and bound."""
+    name = "B4-int8" if quant else "B4"
+    g = torch.Generator(device=dev).manual_seed(seed)
+    bf = torch.bfloat16
+
+    def rn(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(bf)
+
+    tn = gt                          # the grow's self block
+    q, kn, vn = rn(hkv, gt, d), rn(hkv, tn, d), rn(hkv, tn, d)
+    # one layer of a stacked [L, 1, Hkv, S, D] cache, as the model passes it
+    k_st, v_st = rn(2, 1, hkv, s, d), rn(2, 1, hkv, s, d)
+    k_st[1, 0, :, k_len:] = 50.0     # stale tail: must never be read
+    v_st[1, 0, :, k_len:] = 50.0
+    klen_t = torch.tensor(k_len, dtype=torch.int32, device=dev)
+    mask = torch.rand((gt, tn), generator=g, device=dev) < 0.6
+    mask[:, 0] = True
+    if quant:
+        (k8, ks), (v8, vs) = (cache_mod.quantize_tokens(x)
+                              for x in (k_st, v_st))
+        k, v, ks, vs = k8[1, 0], v8[1, 0], ks[1, 0], vs[1, 0]
+        del k_st, v_st
+
+        def kernel():
+            return fd.flash_decode_partials_int8(q, k, v, klen_t, ks, vs)
+
+        def plain():
+            return fd.flash_decode_partials_int8_plain(
+                q, k, v, klen_t, ks, vs, group=fd.KERNEL_GROUP)
+
+        def b1():
+            return fd.flash_decode_append_int8(q, k, v, kn, vn, klen_t, mask,
+                                               ks, vs)
+    else:
+        k, v = k_st[1, 0], v_st[1, 0]
+
+        def kernel():
+            return fd.flash_decode_partials(q, k, v, klen_t)
+
+        def plain():
+            return fd.flash_decode_partials_plain(q, k, v, klen_t)
+
+        def b1():
+            return fd.flash_decode_append(q, k, v, kn, vn, klen_t, mask)
+
+    (m, l, acc), (mr, lr, accr) = kernel(), plain()
+    torch.cuda.synchronize()
+    if not all(torch.isfinite(x).all() for x in (m, l, acc)):
+        _fail(f"{name} gt={gt} k_len={k_len}: non-finite partials")
+    # B1's tolerance on the normalised acc / l (see kernel_b1), m equal to
+    # 1e-5 and l to 1e-4 relative (fp32 sums in another order); acc itself
+    # to the same tolerance times l
+    tol = (INT8_B1_TOL if quant else 0.05) / max(k_len, 1) ** 0.5
+    if k_len == 0:
+        # the state the TPU kernel starts from, never -inf
+        if not ((m == -1e30).all() and (l == 0).all() and (acc == 0).all()
+                and (mr == -1e30).all() and (lr == 0).all()):
+            _fail(f"{name} gt={gt}: an empty prefix is not (-1e30, 0, 0)")
+        err = err_m = err_l = 0.0
+    else:
+        err_m = (m - mr).abs().max().item()
+        err_l = ((l - lr).abs() / lr).max().item()
+        err = (acc / l[..., None] - accr / lr[..., None]).abs().max().item()
+        err_acc = ((acc - accr).abs() / lr[..., None]).max().item()
+        if not (err_m <= 1e-5 and err_l <= 1e-4 and err <= tol
+                and err_acc <= tol):
+            _fail(f"{name} gt={gt} k_len={k_len}: kernel disagrees with "
+                  f"plain (m {err_m:.3e}, l rel {err_l:.3e}, acc / l "
+                  f"{err:.3e}, acc {err_acc:.3e} of l; tol {tol:.3e})")
+        # the check has the power to catch a normalisation applied in the
+        # kernel: acc / l in acc's place is far outside the tolerance
+        gap = ((accr / lr[..., None] - accr).abs() / lr[..., None]).max() \
+            .item()
+        if not gap > 10 * tol:
+            _fail(f"{name} gt={gt} k_len={k_len}: a normalised acc moves "
+                  f"the check only {gap:.3e}")
+    # finalize(merge(B4, new block)) = B1 on the same inputs. B1-int8 shows
+    # its new block bf16(q8 * qs): give the merge's new block that q
+    g_, t_ = 1, gt
+    part = (m.reshape(1, hkv, g_, t_), l.reshape(1, hkv, g_, t_),
+            acc.reshape(1, hkv, g_, t_, d))
+    if quant:
+        qf = (q.float() * fd._scale(d)).to(bf).float()
+        q8, qs = fd._quantize_rows(qf)
+        qg = (q8 * qs).to(bf).reshape(1, hkv, g_, t_, d)
+        pn = att._update(qg, *att._init_partials(q[None], hkv), kn[None],
+                         vn[None], mask)
+    else:
+        pn = att.new_block_partials(q[None], kn[None], vn[None], mask)
+    merged = att.finalize(att.merge_partials(part, pn), torch.float32)[0]
+    whole = b1()
+    torch.cuda.synchronize()
+    if not torch.isfinite(merged).all():
+        _fail(f"{name} gt={gt} k_len={k_len}: the merge is not finite")
+    err_b1 = (merged - whole).abs().max().item()
+    tol_b1 = (INT8_B1_TOL if quant else 0.05) / (k_len + tn) ** 0.5
+    if not err_b1 <= tol_b1:
+        _fail(f"{name} gt={gt} k_len={k_len}: merge(B4, new block) differs "
+              f"from B1 by {err_b1:.3e} (tol {tol_b1:.3e})")
+    ms = _device_ms(kernel)
+    plain_ms = _time_ms(plain, reps=5, warm=1)
+    lib_ms = None
+    if k_len:
+        # yardstick: SDPA over the live prefix (dequantized first, untimed)
+        kp, vp = k[:, :k_len], v[:, :k_len]
+        if quant:
+            kp = cache_mod.dequantize(kp, ks[:, :k_len], bf)
+            vp = cache_mod.dequantize(vp, vs[:, :k_len], bf)
+        kp, vp = kp[None].contiguous(), vp[None].contiguous()
+        lib_ms = _device_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                q[None], kp, vp))
+    cache_bytes = hkv * k_len * (2 * d + 8) if quant \
+        else 2 * 2 * hkv * k_len * d
+    nbytes = 2 * q.numel() + cache_bytes + 4 + 4 * hkv * gt * (d + 2)
+    flops = 4.0 * hkv * gt * k_len * d
+    bound_ms, bound_by = _bound(nbytes, flops,
+                                H100_INT8_OPS if quant else H100_BF16_FLOPS)
+    print(f"{name} gt={gt} k_len={k_len} s={s}: acc / l err {err:.3e} (tol "
+          f"{tol:.3e}), m err {err_m:.1e}, l rel err {err_l:.1e}; merge vs "
+          f"B1 {err_b1:.3e} (tol {tol_b1:.3e}); kernel {ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}), sdpa {lib_ms} ms, plain "
+          f"{plain_ms:.4f} ms", flush=True)
+    return dict(gt=gt, k_len=k_len, s=s, max_abs_err=err, tol=tol,
+                err_m=err_m, err_l_rel=err_l, err_merge_vs_b1=err_b1,
+                tol_merge_vs_b1=tol_b1, ms=ms, plain_ms=plain_ms,
+                library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def int8_gemm_probe(llama, dev, rows=22):
+    """The library's integer GEMM under ``_wmm(aq=True)`` (no kernel of
+    the port: a plain matrix product) at the tree grow's shapes, rows = a
+    padded level: exact against an fp64 reference, and its device time
+    beside the bf16 product of the same shape, the weight-only int8 path
+    (convert the weight, then the bf16 product) and the same integer GEMM
+    over a column-major copy of the weight."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    out = {}
+    for k, n in ((4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000)):
+        x8 = torch.randint(-127, 128, (rows, k), generator=g, device=dev,
+                           dtype=torch.int8)
+        w8 = torch.randint(-127, 128, (2, k, n), generator=g, device=dev,
+                           dtype=torch.int8)[1]      # a layer of a stack
+        got = llama._int_matmul(x8, w8)
+        want = (x8.double() @ w8.double()).to(torch.int64)
+        if not torch.equal(got.to(torch.int64), want):
+            _fail(f"int8 GEMM [{rows}, {k}] x [{k}, {n}] is not exact")
+        xb, wb = x8.to(torch.bfloat16), w8.to(torch.bfloat16)
+        w_cm = w8.t().contiguous().t()
+        out[f"{k}x{n}"] = dict(
+            int_mm_ms=_device_ms(lambda: llama._int_matmul(x8, w8)),
+            int_mm_colmajor_ms=_device_ms(
+                lambda: llama._int_matmul(x8, w_cm)),
+            bf16_ms=_device_ms(lambda: torch.matmul(xb, wb)),
+            weight_only_ms=_device_ms(
+                lambda: torch.matmul(xb, w8.to(torch.bfloat16))))
+        del w8, wb, w_cm
+    print("int8 GEMM (torch._int_mm, exact), device ms at "
+          f"{rows} rows: " + json.dumps(out), flush=True)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -607,14 +780,17 @@ def reference_check(tc, llama, cache_mod, rt, dev, quant=False, layers=2,
 # ---------------------------------------------------------------------------
 
 # kernel wrappers by short name; each counts its own launches
-COUNTERS = ("b1", "b1_int8", "b2", "b2_int8", "b3", "b3_int8")
+COUNTERS = ("b1", "b1_int8", "b2", "b2_int8", "b3", "b3_int8", "b4",
+            "b4_int8")
 
 
 def _wrappers(fd, rk):
     return dict(b1=fd.flash_decode_append, b1_int8=fd.flash_decode_append_int8,
                 b2=rk.chunk_scores, b2_int8=rk.chunk_scores_int8,
                 b3=fd.flash_decode_append_batched,
-                b3_int8=fd.flash_decode_append_batched_int8)
+                b3_int8=fd.flash_decode_append_batched_int8,
+                b4=fd.flash_decode_partials,
+                b4_int8=fd.flash_decode_partials_int8)
 
 
 def _reset(fd, rk):
@@ -622,13 +798,15 @@ def _reset(fd, rk):
         fn.launches = 0
 
 
-def _check_counts(fd, rk, what, quant, want_b1, want_b2, want_b3=0):
+def _check_counts(fd, rk, what, quant, want_b1, want_b2, want_b3=0,
+                  want_b4=0):
     """The path's kernels (the int8 ones when ``quant``) must have launched
     exactly as often as the path implies, the others never."""
     want = dict.fromkeys(COUNTERS, 0)
     want["b1_int8" if quant else "b1"] = want_b1
     want["b2_int8" if quant else "b2"] = want_b2
     want["b3_int8" if quant else "b3"] = want_b3
+    want["b4_int8" if quant else "b4"] = want_b4
     got = {k: fn.launches for k, fn in _wrappers(fd, rk).items()}
     print(f"  launches [{what}]: {got} (path implies {want})", flush=True)
     if got != want:
@@ -736,6 +914,211 @@ def end_to_end(tc, decoding, eng, fd, rk, dev, prefill, quant):
           f"mid_draft, mid_accept, mid_verify, mid_live] = "
           f"{[int(x) for x in counters]}", flush=True)
     res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return res
+
+
+def _grow_map(planner):
+    """The tree the JAX bench plans: modeled acceptance 0.8 over 4
+    branches, 128 nodes, depth limit 12."""
+    pvec = planner.modeled_acceptance_vector(0.8, 4)
+    T, choice = planner.plan_tree(pvec, TREE_SIZE, TREE_DEPTH)
+    return planner.build_grow_map(T, choice, TREE_SIZE, TREE_DEPTH)
+
+
+def tree_gate(tc, llama, planner, spectree, dev, quant, layers=2,
+              prefill=1024):
+    """On the card, a ``layers``-layer full-width target and the 128-node
+    tree: (1) the tree verify's logits along the deepest root-to-leaf chain
+    equal the sequential forward of that chain (cosine > 0.999, top-1
+    equal up to near ties); (2) after a step at forced acceptance
+    ``kv.seq_len = seq0 + n_nodes`` and the compacted slots hold the
+    verify's KV of the accepted nodes bit for bit (codes and scales alike
+    with ``quant``)."""
+    tag = "int8" if quant else "bf16"
+    cfg = tc.LLAMA2_7B_128K.with_(num_layers=layers)
+    gm = _grow_map(planner)
+    eng = spectree.TreeEngine(
+        cfg, gm, llama.init_params(cfg, device=dev, dtype=torch.bfloat16,
+                                   seed=7),
+        prefill=prefill, max_cache_len=prefill + 64, budget=256,
+        chunk_size=8, dtype=torch.bfloat16, prefill_chunk=512, device=dev,
+        kv_quant=quant, weight_quant=quant, eos_ids=())
+    ids = torch.randint(0, cfg.vocab_size, (1, prefill),
+                        generator=torch.Generator().manual_seed(4)).to(dev)
+    state = eng.prefill_target(eng.init_state(11), ids)
+    seq0 = int(state.kv.seq_len)
+    parents = {int(c): i for i in range(gm.size) for c in gm.successors[i]
+               if c >= 0}
+    chain = [int(gm.depth.argmax())]
+    while chain[-1] != 0:
+        chain.append(parents[chain[-1]])
+    chain.reverse()
+    tokens = torch.full((gm.size,), 7, dtype=torch.int64, device=dev)
+    tokens[chain] = 11 + torch.arange(len(chain), device=dev)
+    positions = state.kv.seq_len.to(torch.int64) + eng._depth
+    l_tree, _, _ = llama.forward_append(cfg, eng.params, tokens[None],
+                                        state.kv.clone(),
+                                        positions=positions,
+                                        tree_mask=eng._mask)
+    l_seq, _, _ = llama.forward_append(cfg, eng.params, tokens[chain][None],
+                                       state.kv.clone())
+    a, b = l_tree[0, chain].double(), l_seq[0].double()
+    cos = torch.nn.functional.cosine_similarity(a.flatten(), b.flatten(),
+                                                dim=0).item()
+    top1 = (a.argmax(-1) == b.argmax(-1)).double().mean().item()
+    # random-weight logits are nearly flat: a top-1 may differ only where
+    # the sequential run's two candidates lie within twice the row's
+    # largest |tree - sequential| logit difference (a near tie)
+    flips = 0
+    for r in (a.argmax(-1) != b.argmax(-1)).nonzero().flatten().tolist():
+        gap = (b[r].max() - b[r, a[r].argmax()]).item()
+        if gap > 2 * (a[r] - b[r]).abs().max().item():
+            _fail(f"tree gate [{tag}]: chain node {r}: the tree verify's "
+                  f"top-1 differs from the sequential forward's by "
+                  f"{gap:.3e}, not a near tie")
+        flips += 1
+    if not cos > 0.999:
+        _fail(f"tree gate [{tag}]: the tree verify along the deepest chain "
+              f"differs from its sequential forward (cosine {cos:.6f})")
+    # one step at forced acceptance; the twin redoes its grow and verify
+    twin = state.clone()
+    new, stats = eng.step(state, force_accept=0.9)
+    if int(new.kv.seq_len) != seq0 + stats.n_nodes:
+        _fail(f"tree gate [{tag}]: kv.seq_len {int(new.kv.seq_len)} != "
+              f"{seq0} + {stats.n_nodes}")
+    vt, _ = spectree._grow(eng, twin)
+    _, kv_v, _ = llama.forward_append(
+        cfg, eng.params, vt[None], twin.kv,
+        positions=twin.kv.seq_len.to(torch.int64) + eng._depth,
+        tree_mask=eng._mask)
+    path = [0]
+    for tok in stats.tokens[:stats.n_nodes - 1].tolist():
+        kids = [int(c) for c in gm.successors[path[-1]] if c >= 0]
+        path.append(next(c for c in kids if int(vt[c]) == tok))
+    slots = torch.tensor([seq0 + i for i in path], device=dev)
+    planes = ("k", "v", "k_scale", "v_scale") if quant else ("k", "v")
+    for plane in planes:
+        got = getattr(new.kv, plane)[:, :, :, seq0:seq0 + stats.n_nodes]
+        want = getattr(kv_v, plane).index_select(3, slots)
+        if not torch.equal(got, want):
+            _fail(f"tree gate [{tag}]: the compacted {plane} slots are not "
+                  f"the verify's KV of the accepted nodes {path}")
+    print(f"tree gate [{tag}]: {layers}-layer full-width model, "
+          f"{gm.size}-node tree: verify along the deepest chain "
+          f"({len(chain)} nodes) vs sequential cosine {cos:.6f}, top-1 "
+          f"{top1:.3f} ({flips} near-tie flips); a forced step accepted "
+          f"nodes {path}, kv.seq_len {seq0} -> {int(new.kv.seq_len)}, "
+          f"compacted slots bit-equal to "
+          f"the verify's", flush=True)
+    return dict(chain_cosine=cos, chain_top1=top1, near_tie_flips=flips,
+                path=path)
+
+
+def tree_end_to_end(tc, planner, spectree, fd, rk, dev, params, prefill,
+                    quant):
+    """Sequoia tree speculation at full width on ``params`` (with
+    ``quant`` already int8 codes and scales, over int8 KV; the grow then
+    runs int8 activations): ``tree_decode``, then forced acceptance, then
+    two steps with 4 hybrid (``ssl``) layers."""
+    tag = "int8 " if quant else ""
+    cfg = tc.LLAMA2_7B_128K
+    L = cfg.num_layers
+    gm = _grow_map(planner)
+    eng = spectree.TreeEngine(
+        cfg, gm, params, prefill=prefill,
+        max_cache_len=prefill + TREE_GEN + TREE_FORCED_GEN + 4 * gm.size,
+        budget=4096, chunk_size=8, temperature=0.6, top_p=0.9,
+        dtype=torch.bfloat16, prefill_chunk=512, device=dev, kv_quant=quant,
+        weight_quant=quant, eos_ids=())
+    fwd = gm.num_levels + 1          # grow forwards per step: root + levels
+    print(f"{tag}tree: {gm.size} nodes, depth {int(gm.depth.max())}, "
+          f"{gm.num_levels} levels, W {eng.W}, K {eng.K}, budget 4096, "
+          f"prefill {prefill}", flush=True)
+    ids = torch.randint(0, cfg.vocab_size, (1, prefill),
+                        generator=torch.Generator().manual_seed(5)).to(dev)
+    body = prefill - 1
+    pre_fwd = body // eng.prefill_chunk + bool(body % eng.prefill_chunk) + 1
+    res = {"launches": {}, "tree": dict(size=gm.size, levels=gm.num_levels,
+                                        depth=int(gm.depth.max()), W=eng.W,
+                                        K=eng.K)}
+    torch.cuda.reset_peak_memory_stats()
+
+    def counts(what, b1, b2, b4):
+        res["launches"][what] = _check_counts(fd, rk, tag + what, quant, b1,
+                                              b2, 0, b4)
+
+    def check_tokens(what, toks):
+        if not all(0 <= t < cfg.vocab_size for t in toks):
+            _fail(f"{tag}{what}: token out of range")
+
+    # --- tree_decode, the entry point a user calls
+    _reset(fd, rk)
+    t0 = time.perf_counter()
+    r = spectree.tree_decode(eng, ids, max_len=TREE_GEN, seed=1, device=dev)
+    total = time.perf_counter() - t0
+    check_tokens("tree_decode", r.tokens)
+    if len(r.tokens) < TREE_GEN + 1:
+        _fail(f"{tag}tree_decode: generated too few tokens")
+    counts("tree_decode", L * (pre_fwd + r.steps), L, L * fwd * r.steps)
+    if not r.steps:
+        _fail(f"{tag}tree_decode: the partials kernel was never launched")
+    res["tree_decode"] = dict(
+        prefill_s=total - r.wall_s, steps=r.steps,
+        tokens=len(r.tokens) - 1, ms_per_step=1e3 * r.wall_s / r.steps,
+        tokens_per_step=r.avg_tokens_per_step,
+        ms_per_token=1e3 / r.tokens_per_sec)
+    print(f"{tag}tree_decode: prefill {total - r.wall_s:.2f} s, {r.steps} "
+          f"steps, {1e3 * r.wall_s / r.steps:.1f} ms/step, "
+          f"{r.avg_tokens_per_step:.2f} tokens/step, "
+          f"{1e3 / r.tokens_per_sec:.3f} ms/token", flush=True)
+    torch.cuda.empty_cache()
+
+    # --- forced acceptance 0.9 (every forward still runs)
+    state = eng.prefill_target(eng.init_state(2), ids)
+    torch.cuda.synchronize()
+    _reset(fd, rk)
+    t0 = time.perf_counter()
+    state, buf, n, counters, _ = eng.generate_forced(state, TREE_FORCED_GEN,
+                                                     0.9)
+    toks = buf[:n].tolist()
+    dt = time.perf_counter() - t0
+    check_tokens("tree forced", toks)
+    steps, nodes, readbacks = (int(x) for x in counters)
+    counts("tree forced", L * steps, 0, L * fwd * steps)
+    if int(state.kv.seq_len) != prefill + nodes:
+        _fail(f"{tag}tree forced: kv.seq_len {int(state.kv.seq_len)} != "
+              f"{prefill} + {nodes}")
+    res["forced"] = dict(
+        alpha=0.9, steps=steps, tokens=n - 1, nodes_accepted=nodes,
+        ms_per_step=1e3 * dt / steps, tokens_per_step=(n - 1) / steps,
+        ms_per_token=1e3 * dt / (n - 1), readbacks_per_step=readbacks / steps)
+    print(f"{tag}tree forced a=0.9: {steps} steps, {1e3 * dt / steps:.1f} "
+          f"ms/step, {(n - 1) / steps:.2f} tokens/step, "
+          f"{1e3 * dt / (n - 1):.3f} ms/token, {nodes} nodes accepted, "
+          f"{readbacks / steps:.1f} host read-backs/step", flush=True)
+
+    # --- two more steps with the first 4 layers on the full cache (ssl)
+    eng.ssl = 4
+    _reset(fd, rk)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    seq = int(state.kv.seq_len)
+    nodes = 0
+    for _ in range(2):
+        state, stats = eng.step(state, force_accept=0.9)
+        nodes += stats.n_nodes
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts("tree ssl=4", L * 2, 0, L * fwd * 2)
+    if int(state.kv.seq_len) != seq + nodes:
+        _fail(f"{tag}tree ssl=4: kv.seq_len {int(state.kv.seq_len)} != "
+              f"{seq} + {nodes}")
+    res["ssl4"] = dict(steps=2, ms_per_step=1e3 * dt / 2,
+                       nodes_accepted=nodes)
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    print(f"{tag}tree ssl=4 a=0.9: 2 steps, {1e3 * dt / 2:.1f} ms/step, "
+          f"{nodes} nodes accepted; peak {res['peak_gib']:.1f} GiB",
+          flush=True)
     return res
 
 
@@ -930,7 +1313,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--prefill", type=int, default=32768)
     ap.add_argument("--skip-e2e", action="store_true",
-                    help="stop after the kernel and reference phases")
+                    help="stop after the kernel, reference and tree-gate "
+                    "phases")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -941,6 +1325,8 @@ def main() -> int:
         from triforce_tpu_torch import batched_spec, batching, decoding
         from triforce_tpu_torch.engine import Engine
         from triforce_tpu_torch.models import llama
+        from triforce_tpu_torch.tree import planner, spectree
+        from triforce_tpu_torch.ops import attention as att
         from triforce_tpu_torch.ops import flash_decode as fd
         from triforce_tpu_torch.ops import retrieval as rt
         from triforce_tpu_torch.ops import retrieval_kernel as rk
@@ -976,6 +1362,20 @@ def main() -> int:
               (512, 512, min(16384, prefill), s_kv)]     # prefill tile
     b1 = {quant: [kernel_b1(fd, cache, dev, *sh, quant=quant)
                   for sh in shapes] for quant in (False, True)}
+    # the tree verify: B1 at GT = Tn = tree size under the ancestor mask
+    # (the path's 128-node tree, and a 512-node one: the widest q tile)
+    gm = _grow_map(planner)
+    pv = planner.modeled_acceptance_vector(0.8, 4)
+    gm512 = planner.build_grow_map(*planner.plan_tree(pv, 512, 16), 512, 16)
+    w_pad = spectree._padded_levels(gm)[0]      # the padded level width
+    s_tree = prefill + TREE_GEN + TREE_FORCED_GEN + 4 * TREE_SIZE \
+        + TREE_SIZE + w_pad
+    for quant in (False, True):
+        b1[quant] += [
+            kernel_b1(fd, cache, dev, TREE_SIZE, TREE_SIZE, prefill, s_tree,
+                      quant=quant, tree_mask=gm.mask),
+            kernel_b1(fd, cache, dev, 512, 512, min(16384, prefill), s_tree,
+                      quant=quant, tree_mask=gm512.mask)]
     b2 = {quant: kernel_b2(rk, rt, cache, dev, prefill, 8, 4096, s_kv,
                            quant=quant) for quant in (False, True)}
     # B3 at the batched phases' shapes: ROWS rows of a SERVE_PREFILL-token
@@ -987,6 +1387,16 @@ def main() -> int:
                (GAMMA + 1, GAMMA + 1, 4096, 4096 + GAMMA + 1)]  # middle
     b3 = {quant: [kernel_b3(fd, cache, dev, *sh, quant=quant)
                   for sh in shapes3] for quant in (False, True)}
+    # B4 at the tree grow's shapes: a padded level (W rows, 22 here) and the
+    # root (1 row) over the 4096-slot budget region of the tree retrieval
+    # cache; a level over the full cache (the ssl layers; also one card's
+    # share of a sequence-parallel decode); an empty prefix
+    s_rkv = 4096 + TREE_SIZE + w_pad
+    shapes4 = [(w_pad, 4096, s_rkv), (1, 4096, s_rkv),
+               (w_pad, prefill, s_tree), (w_pad, 0, s_rkv)]
+    b4 = {quant: [kernel_b4(fd, att, cache, dev, *sh, quant=quant)
+                  for sh in shapes4] for quant in (False, True)}
+    int8_gemm_probe(llama, dev)
     torch.cuda.empty_cache()
     ref = {name: reference_check(tc, llama, cache, rt, dev, quant=quant)
            for name, quant in (("bf16", False), ("int8", True))}
@@ -994,13 +1404,17 @@ def main() -> int:
     # launches of each kernel in its own path's decoding.triforce run
     main_path = dict.fromkeys(COUNTERS)
     by_phase = {}
+    gate = {name: tree_gate(tc, llama, planner, spectree, dev, quant)
+            for name, quant in (("bf16", False), ("int8", True))}
+    print(json.dumps({"tree_gate": gate}), flush=True)
+    torch.cuda.empty_cache()
     if not args.skip_e2e:
         rows_eq = {name: rows_equal_batch1(tc, llama, Engine, batched_spec,
                                            dev, quant)
                    for name, quant in (("bf16", False), ("int8", True))}
         print(json.dumps({"rows_equal_batch1": rows_eq}), flush=True)
         torch.cuda.empty_cache()
-        e2e, bat_e2e = {}, {}
+        e2e, bat_e2e, tree_e2e = {}, {}, {}
         tcfg, dcfg = tc.LLAMA2_7B_128K, tc.LLAMA_68M
         spec = tc.SpecConfig(gamma=GAMMA, budget=4096, chunk_size=8)
         for name, quant in (("bf16", False), ("int8", True)):
@@ -1032,18 +1446,26 @@ def main() -> int:
                 main_path[k] = e2e[name]["launches"]["triforce"][k]
             print(f"end to end [{name}]: " + json.dumps(e2e[name]),
                   flush=True)
+            tree_e2e[name] = tree_end_to_end(tc, planner, spectree, fd, rk,
+                                             dev, tp, prefill, quant)
+            torch.cuda.empty_cache()
+            print(f"tree end to end [{name}]: " + json.dumps(tree_e2e[name]),
+                  flush=True)
             bat_e2e[name] = batched_end_to_end(
                 tc, llama, Engine, batched_spec, batching, fd, rk, dev, tp,
                 dp, quant)
             del tp, dp
             torch.cuda.empty_cache()
             k3 = "b3_int8" if quant else "b3"
+            k4 = "b4_int8" if quant else "b4"
             lb = bat_e2e[name]["launches"]
+            lt = tree_e2e[name]["launches"]
             main_path[k3] = lb["batched triforce"][k3] \
                 + lb["spec serving"][k3]
-            for k in b12 + (k3,):
+            main_path[k4] = lt["tree_decode"][k4]
+            for k in b12 + (k3, k4):
                 by_phase[k] = {ph: v[k] for ph, v in
-                               {**e2e[name]["launches"], **lb}.items()}
+                               {**e2e[name]["launches"], **lt, **lb}.items()}
             print(f"batched end to end [{name}]: " + json.dumps(bat_e2e[name]),
                   flush=True)
         by_phase["b3"]["ar_serving_int8_weights"] = \
@@ -1090,6 +1512,21 @@ def main() -> int:
                     bound_ms=main["bound_ms"], bound_by=main["bound_by"],
                     library_ms=main["library_ms"], shapes=b3[quant])
 
+    def b4_entry(name, source_fn, quant):
+        main = b4[quant][0]   # a padded grow level over the budget region
+        key = "b4_int8" if quant else "b4"
+        return dict(name=name, route="cuda",
+                    source="triforce_tpu_torch/csrc/flash_decode.cu",
+                    entry_point=source_fn,
+                    replaces="triforce_tpu/ops/flash_decode.py:233"
+                    + (" (quant branch)" if quant else ""),
+                    launches=main_path[key],
+                    launches_by_phase=by_phase.get(key),
+                    max_abs_err=max(r["max_abs_err"] for r in b4[quant]),
+                    ms=main["ms"], plain_ms=main["plain_ms"],
+                    bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+                    library_ms=main["library_ms"], shapes=b4[quant])
+
     kernels = [
         b1_entry("flash_decode_append", "tf_flash_decode_bf16", False,
                  "triforce_tpu/ops/flash_decode.py:332"),
@@ -1105,10 +1542,12 @@ def main() -> int:
                  "tf_flash_decode_batched_bf16", False),
         b3_entry("flash_decode_append_batched_int8",
                  "tf_flash_decode_batched_int8", True),
+        b4_entry("flash_decode_partials", "tf_flash_decode_partials_bf16",
+                 False),
+        b4_entry("flash_decode_partials_int8",
+                 "tf_flash_decode_partials_int8", True),
     ]
     print(json.dumps({"reference": ref}), flush=True)
-    print(json.dumps({"bound_ms_of_kernels_to_port": unported_bounds()}),
-          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

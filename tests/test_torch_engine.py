@@ -35,7 +35,7 @@ PREFILL = 32
 GEN = 20
 
 
-def _engines(spec_kw=SPEC_KW, eos=2):
+def _engines(spec_kw=SPEC_KW, eos=2, **engine_kw):
     pj = jl.init_params(jax.random.PRNGKey(0), jcfg.TINY_TARGET,
                         dtype=jnp.float32)
     dj = jl.init_params(jax.random.PRNGKey(1), jcfg.TINY_DRAFT,
@@ -45,7 +45,8 @@ def _engines(spec_kw=SPEC_KW, eos=2):
     dt = tl.params_from_numpy(jax.tree.map(np.asarray, dj),
                               tcfg.TINY_DRAFT, "cpu")
     common = dict(prefill=PREFILL, max_cache_len=PREFILL + 64,
-                  prefill_chunk=16, draft_prefill_chunk=8, eos_token_id=eos)
+                  prefill_chunk=16, draft_prefill_chunk=8, eos_token_id=eos,
+                  **engine_kw)
     je = JEngine(jcfg.TINY_TARGET, jcfg.SpecConfig(**spec_kw), pj,
                  draft_cfg=jcfg.TINY_DRAFT, draft_params=dj,
                  dtype=jnp.float32, donate=False, **common)
@@ -202,18 +203,75 @@ def test_constructors_without_device_raise(build, monkeypatch):
         build(tcfg.SpecConfig(**SPEC_KW))
 
 
-@pytest.mark.parametrize("option,spec_kw", [
-    (dict(mesh=object()), {}),
-    (dict(weight_quant=True), dict(mid_act_quant=True)),
+@pytest.mark.parametrize("option,spec_kw,ported", [
+    (dict(mesh=object()), {}, False),
+    (dict(weight_quant=True), dict(mid_act_quant=True), True),
 ], ids=["mesh", "mid_act_quant"])
-def test_unported_options_raise(pair, option, spec_kw):
-    """The mesh and int8 activations in the middle verify are not ported:
-    the Engine raises rather than quietly running something else."""
+def test_unported_options_raise(pair, option, spec_kw, ported):
+    """The mesh is not ported: the Engine raises rather than quietly
+    running something else. Int8 activations in the middle verify are
+    ported: the Engine takes the option and quantizes its weights for it
+    (``test_mid_act_quant_token_identity`` holds what it then computes)."""
     _, te, _, _, _ = pair
-    with pytest.raises(NotImplementedError):
-        TEngine(tcfg.TINY_TARGET, tcfg.SpecConfig(**SPEC_KW, **spec_kw),
-                te.t_params, prefill=PREFILL, max_cache_len=PREFILL + 64,
-                device="cpu", **option)
+
+    def build():
+        return TEngine(tcfg.TINY_TARGET,
+                       tcfg.SpecConfig(**SPEC_KW, **spec_kw), te.t_params,
+                       prefill=PREFILL, max_cache_len=PREFILL + 64,
+                       device="cpu", **option)
+
+    if ported:
+        eng = build()
+        assert eng.spec.mid_act_quant
+        assert eng.t_params["lm_head"].dtype == torch.int8
+    else:
+        with pytest.raises(NotImplementedError):
+            build()
+
+
+@pytest.fixture(scope="module")
+def aq_pair():
+    """int8 weights with int8 activations in the middle verify
+    (``mid_act_quant``), both packages, on a prompt without near ties."""
+    je, te = _engines(dict(SPEC_KW, mid_act_quant=True), weight_quant=True)
+    ids = np.random.default_rng(2).integers(0, 199, (1, PREFILL))
+    js, ts = _prefilled(je, te, ids)
+    return je, te, js, ts
+
+
+@pytest.mark.parametrize("mode", ["retrieval", "triforce"])
+def test_mid_act_quant_token_identity(aq_pair, mode):
+    """``mid_act_quant`` near-greedy: the middle verify's integer products
+    are exact on both sides, so the port emits the JAX Engine's tokens and
+    step counters."""
+    je, te, js, ts = aq_pair
+    _, jbuf, jn, jcnt, _ = je.generate(js, GEN, mode=mode)
+    _, tbuf, tn, tcnt = te.generate(ts.clone(seed=5), GEN, mode=mode)
+    assert int(jn) == tn
+    assert np.asarray(jbuf)[:tn].tolist() == tbuf[:tn].tolist()
+    assert np.asarray(jcnt).tolist() == tcnt.tolist()
+
+
+def test_mid_act_quant_changes_the_middle_logits_and_rows_agree(aq_pair):
+    """The option is live (the middle logits move by the activation
+    rounding, not to zero) and the row-batched middle verify computes each
+    row's batch-1 logits under it."""
+    _, te, _, ts = aq_pair
+    cfg, sp = tcfg.TINY_TARGET, te.spec
+    ids = torch.from_numpy(np.random.default_rng(6).integers(
+        0, 199, (2, sp.gamma + 1)))
+    one = [tl.forward_spec(cfg, te.t_params, ids[b:b + 1], ts.rkv,
+                           ts.kv.seq_len, sp.budget, commit=False,
+                           act_quant=aq)[0] for b in range(2)
+           for aq in (True, False)]
+    gap = (one[0] - one[1]).abs().max().item()
+    assert 0 < gap < 0.05 * one[1].abs().max().item()
+    pool = tcache.stack_rows([ts.rkv, ts.rkv])
+    rows = tl.forward_spec_rows(cfg, te.t_params, ids, pool,
+                                torch.stack([ts.kv.seq_len] * 2), sp.budget,
+                                act_quant=True)
+    torch.testing.assert_close(rows[0], one[0][0], rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(rows[1], one[2][0], rtol=2e-5, atol=2e-5)
 
 
 def test_state_clone_is_independent(pair):

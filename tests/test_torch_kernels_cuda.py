@@ -8,13 +8,16 @@ a machine without JAX:
 
 chip_smoke.py holds the same kernels against the same plain versions at the
 main path's full shapes. The row-batched kernels (B3, B3-int8) are also held
-against the single-row ones row by row, bit for bit.
+against the single-row ones row by row, bit for bit, and the partials
+kernels (B4, B4-int8) merged with a new block against B1.
 """
 
 import pytest
 import torch
 
 from triforce_tpu_torch import cache as tcache
+from triforce_tpu_torch.models import llama as tl
+from triforce_tpu_torch.ops import attention as tatt
 from triforce_tpu_torch.ops import flash_decode as tfd
 from triforce_tpu_torch.ops import retrieval_kernel as trk
 
@@ -261,3 +264,135 @@ def test_flash_decode_batched_rejects_what_it_does_not_take(dev):
     with pytest.raises(ValueError):
         tfd.flash_decode_append_batched_int8(q, k8, k8, q, q, [8, 8], mask,
                                              ks.half(), ks.half())
+
+
+# ---------------------------------------------------------------------------
+# cache-only partials: B4 and B4-int8
+# ---------------------------------------------------------------------------
+
+B4_CASES = [
+    # gt, k_len, s, d
+    (1, 1000, 1100, 128),
+    (22, 4096, 4246, 128),
+    (22, 0, 300, 128),        # an empty prefix: (-1e30, 0, 0)
+    (16, 5, 64, 128),         # warps of the key-split path with no live key
+    (200, 777, 1000, 128),
+    (40, 333, 400, 64),
+]
+
+
+def _assert_partials(got, ref, k_len, tol):
+    """m equal to 1e-5 and l to 1e-4 relative (fp32 sums in another
+    order), the normalised acc / l within B1's bound ``tol / sqrt(k_len)``;
+    with k_len = 0 exactly (-1e30, 0, 0)."""
+    (m, l, acc), (mr, lr, accr) = got, ref
+    assert all(torch.isfinite(x).all() for x in got)
+    if k_len == 0:
+        assert (m == -1e30).all() and (l == 0).all() and (acc == 0).all()
+        return
+    torch.testing.assert_close(m, mr, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(l, lr, rtol=1e-4, atol=0)
+    err = (acc / l[..., None] - accr / lr[..., None]).abs().max().item()
+    assert err <= tol / k_len ** 0.5
+
+
+def _as_partials(p, hkv, gt, d):
+    m, l, acc = p
+    return (m.reshape(1, hkv, 1, gt), l.reshape(1, hkv, 1, gt),
+            acc.reshape(1, hkv, 1, gt, d))
+
+
+@pytest.mark.parametrize("gt,k_len,s,d", B4_CASES)
+def test_flash_decode_partials_matches_plain_and_b1(dev, gt, k_len, s, d):
+    hkv = 4
+    q = _randn(dev, 0, hkv, gt, d)
+    # layer 1 of a stacked [L, 1, Hkv, S, D] cache: a view
+    k, v = _randn(dev, 3, 2, 1, hkv, s, d), _randn(dev, 4, 2, 1, hkv, s, d)
+    k[1, :, :, k_len:] = 50.0    # stale slots past k_len must never be read
+    v[1, :, :, k_len:] = 50.0
+    k, v = k[1, 0], v[1, 0]
+    kl = torch.tensor(k_len, dtype=torch.int32, device=dev)
+    before = tfd.flash_decode_partials.launches
+    got = tfd.flash_decode_partials(q, k, v, kl)
+    ref = tfd.flash_decode_partials_plain(q, k, v, kl)
+    torch.cuda.synchronize()
+    assert tfd.flash_decode_partials.launches == before + 1
+    assert got[0].shape == (hkv, gt) and got[2].shape == (hkv, gt, d)
+    _assert_partials(got, ref, k_len, 0.05)
+    # merged with a new block and normalised, B4 is B1 on the same inputs
+    tn = min(gt, 24)
+    kn, vn = _randn(dev, 1, hkv, tn, d), _randn(dev, 2, hkv, tn, d)
+    g = torch.Generator(device=dev).manual_seed(5)
+    mask = torch.rand((gt, tn), generator=g, device=dev) < 0.6
+    mask[:, 0] = True
+    pn = tatt.new_block_partials(q[None], kn[None], vn[None], mask)
+    out = tatt.finalize(tatt.merge_partials(_as_partials(got, hkv, gt, d),
+                                            pn), torch.float32)[0]
+    b1 = tfd.flash_decode_append(q, k, v, kn, vn, kl, mask)
+    assert torch.isfinite(out).all()
+    assert (out - b1).abs().max().item() <= 0.05 / (k_len + tn) ** 0.5
+
+
+@pytest.mark.parametrize("gt,k_len,s,d", B4_CASES)
+def test_flash_decode_partials_int8_matches_plain_and_b1(dev, gt, k_len, s,
+                                                         d):
+    hkv = 4
+    q = _randn(dev, 0, hkv, gt, d)
+    k, ks = _int8_cache(dev, 3, 2, 1, hkv, s, d)
+    v, vs = _int8_cache(dev, 4, 2, 1, hkv, s, d)
+    k[1, :, :, k_len:], v[1, :, :, k_len:] = 127, -127    # never read
+    ks[1, :, :, k_len:], vs[1, :, :, k_len:] = 1e3, 1e3
+    k, v, ks, vs = k[1, 0], v[1, 0], ks[1, 0], vs[1, 0]
+    kl = torch.tensor(k_len, dtype=torch.int32, device=dev)
+    before = tfd.flash_decode_partials_int8.launches
+    got = tfd.flash_decode_partials_int8(q, k, v, kl, ks, vs)
+    ref = tfd.flash_decode_partials_int8_plain(q, k, v, kl, ks, vs,
+                                               group=tfd.KERNEL_GROUP)
+    torch.cuda.synchronize()
+    assert tfd.flash_decode_partials_int8.launches == before + 1
+    _assert_partials(got, ref, k_len, 0.005)
+    # against B1-int8: the same codes of q and the cache, but B1-int8 shows
+    # its new block bf16(q8 * qs) where the merge here shows it q itself,
+    # so the two agree to q's quantization step, not to rounding
+    tn = min(gt, 24)
+    kn, vn = _randn(dev, 1, hkv, tn, d), _randn(dev, 2, hkv, tn, d)
+    mask = torch.ones((gt, tn), dtype=torch.bool, device=dev)
+    pn = tatt.new_block_partials(q[None], kn[None], vn[None], mask)
+    out = tatt.finalize(tatt.merge_partials(_as_partials(got, hkv, gt, d),
+                                            pn), torch.float32)[0]
+    b1 = tfd.flash_decode_append_int8(q, k, v, kn, vn, kl, mask, ks, vs)
+    assert torch.isfinite(out).all()
+    assert (out - b1).abs().max().item() <= 0.1
+
+
+def test_flash_decode_partials_rejects_what_it_does_not_take(dev):
+    q = _randn(dev, 0, 2, 1, 128)
+    kb = _randn(dev, 1, 2, 64, 128)
+    k8, ks = _int8_cache(dev, 2, 2, 64, 128)
+    with pytest.raises(TypeError):
+        tfd.flash_decode_partials(q.float(), kb, kb, 8)
+    with pytest.raises(TypeError):
+        tfd.flash_decode_partials(q, k8, k8, 8)
+    with pytest.raises(TypeError):
+        tfd.flash_decode_partials_int8(q, kb, kb, 8, ks, ks)
+    with pytest.raises(ValueError):
+        tfd.flash_decode_partials_int8(q, k8, k8, 8, ks.half(), ks.half())
+    with pytest.raises(ValueError):
+        tfd.flash_decode_partials(q, kb[:, :, :96], kb[:, :, :96], 8)
+
+
+@pytest.mark.parametrize("rows,k,n", [(1, 4096, 4096), (22, 4096, 11008),
+                                      (128, 11008, 4096), (7, 64, 32000)])
+def test_int_matmul_matches_int64_reference(dev, rows, k, n):
+    """The int8 x int8 product of ``_wmm(aq=True)`` on the card (the
+    library's integer GEMM over zero-padded rows) is exact: equal to an
+    int64 reference, at row counts below and above the GEMM's minimum."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    x = torch.randint(-127, 128, (rows, k), generator=g, device=dev,
+                      dtype=torch.int8)
+    w = torch.randint(-127, 128, (2, k, n), generator=g, device=dev,
+                      dtype=torch.int8)[1]          # a layer of a stack
+    out = tl._int_matmul(x, w)
+    assert out.dtype == torch.int32 and out.shape == (rows, n)
+    ref = (x.double() @ w.double()).to(torch.int64)   # exact: < 2^53
+    assert torch.equal(out.to(torch.int64), ref)

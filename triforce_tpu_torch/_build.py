@@ -61,6 +61,14 @@ _SIGNATURES = {
                                          _P, _L, _L, _L, _P, _L, _L, _L,
                                          _L, _P, _P, _P, _P, _P, _P,
                                          _I, _I, _I, _I, _I, _I, _F, _P],
+        # cache-only partials: q, k, v (+ scales), k_len, scratch x3, out x3
+        "tf_flash_decode_partials_bf16": [_P, _L, _L, _P, _L, _L, _P, _L, _L,
+                                          _P, _P, _P, _P, _P, _P, _P,
+                                          _I, _I, _I, _I, _I, _F, _P],
+        "tf_flash_decode_partials_int8": [_P, _L, _L, _P, _L, _L, _P, _L, _L,
+                                          _P, _L, _P, _L,
+                                          _P, _P, _P, _P, _P, _P, _P,
+                                          _I, _I, _I, _I, _I, _F, _P],
     },
     "chunk_scores.cu": {
         "tf_chunk_scores_bf16": [_P, _P, _L, _L, _P, _I, _I, _I, _I, _I,

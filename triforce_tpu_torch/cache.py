@@ -158,6 +158,20 @@ def init_retrieval(cfg: ModelConfig, spec: SpecConfig, batch: int = 1,
     return RetrievalCache(**_planes(shape, dtype, quant, device))
 
 
+def init_tree_retrieval(cfg: ModelConfig, budget: int, tree_size: int,
+                        batch: int = 1, dtype=torch.bfloat16, device=None,
+                        quant: bool = False, pad: int = 0) -> RetrievalCache:
+    """Tree-speculation retrieval cache: ``budget`` selected slots +
+    ``tree_size`` scratch slots (node i of the tree at ``budget + i``) +
+    ``pad`` junk slots past the tree region, so that the padded-width grow
+    levels (``tree/spectree.py``) can write their fixed-width blocks
+    without running over the end."""
+    device = resolve_device(device)
+    real = budget + tree_size + pad
+    shape = (cfg.num_layers, batch, cfg.num_kv_heads, real, cfg.head_dim)
+    return RetrievalCache(**_planes(shape, dtype, quant, device))
+
+
 def init_streaming(cfg: ModelConfig, spec: SpecConfig, batch: int = 1,
                    dtype=torch.bfloat16, device=None) -> StreamingCache:
     device = resolve_device(device)
@@ -333,6 +347,39 @@ def streaming_evict_for_spec(cache: StreamingCache, spec: SpecConfig,
     write_at(cache.k, slice_at(cache.k, src0, recent, 3), start, 3)
     write_at(cache.v, slice_at(cache.v, src0, recent, 3), start, 3)
     return cache
+
+
+def gather_kv_incremental(kv: KVCache, accept_idx: torch.Tensor, n_accept,
+                          offset, max_accept: int, max_span: int) -> KVCache:
+    """Compact an accepted speculation-tree path in place: slot
+    ``offset + accept_idx[j]`` moves to ``offset + j`` for ``j <
+    n_accept``, and ``seq_len`` becomes ``offset + n_accept``.
+    ``accept_idx`` is a fixed-size [max_accept] buffer of tree node ids in
+    path order (junk beyond ``n_accept``); ``max_span`` bounds the appended
+    region (the tree size). The block is read before it is written (the
+    move overlaps itself); an int8 cache moves its scales too. Mirrors the
+    JAX function down to its clamped slices."""
+    dev = kv.k.device
+    offset = torch.as_tensor(offset, device=dev).to(torch.int64)
+    n_accept = torch.as_tensor(n_accept, device=dev)
+    sel0 = torch.arange(max_accept, device=dev) < n_accept
+    idx = accept_idx[:max_accept].to(torch.int64).clamp(0, max_span - 1)
+
+    def one(buf):
+        block = slice_at(buf, offset, max_span, 3)        # a copy
+        gathered = block.index_select(3, idx)
+        sel = sel0.reshape((1, 1, 1, max_accept) + (1,) * (buf.dim() - 4))
+        block[:, :, :, :max_accept] = torch.where(
+            sel, gathered, block[:, :, :, :max_accept])
+        write_at(buf, block, offset, 3)
+
+    one(kv.k)
+    one(kv.v)
+    if kv.quantized:
+        one(kv.k_scale)
+        one(kv.v_scale)
+    return dataclasses.replace(
+        kv, seq_len=(offset + n_accept).to(torch.int32))
 
 
 def _rolling_window_blocks(base, budget: int, t_new: int, n_new,

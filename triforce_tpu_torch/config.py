@@ -71,8 +71,8 @@ class SpecConfig:
     # middle-loop trip bound: 0 = loop until gamma proposals; > 0 = a fixed
     # number of trips (dead trips run with a zero-column retrieval read)
     middle_trips: int = 0
-    # int8 activations in the middle verify (needs int8 weights; not in
-    # the port yet: the Engine raises NotImplementedError for it)
+    # int8 activations in the middle verify (takes effect with int8
+    # weights: ``llama._wmm(aq=True)``)
     mid_act_quant: bool = False
     draft_start_size: int = 16    # StreamingLLM sink
     draft_recent_size: int = 250  # StreamingLLM window

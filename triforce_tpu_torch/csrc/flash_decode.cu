@@ -13,6 +13,16 @@
 // run the same device code with the row as one more grid index; the
 // single-row ones are the case B = 1.
 //
+// It also replaces triforce_tpu/ops/flash_decode.py::flash_decode_partials
+// (Pallas `_kernel_partials`): the same walk over the live prefix WITHOUT the
+// new-token fold and WITHOUT the normalisation, returning the online-softmax
+// state (m [Hkv, GT], l [Hkv, GT], acc [Hkv, GT, D]) so that the caller can
+// merge it with other partials (the tree grow's staged and self blocks; a
+// sequence shard's neighbours). Entry points tf_flash_decode_partials_bf16 /
+// _int8: phase 1 as below, then fd_merge_kernel in place of phase 2. An
+// empty prefix (k_len = 0) returns m = -1e30, l = 0, acc = 0, the state the
+// TPU kernel starts from, never -inf: merging two -inf maxima would be NaN.
+//
 // What it computes (per KV head h, query row r of GT = G*T rows):
 //   q'      = bf16(fp32(q) / sqrt(D))                      (pre-scale, rounded)
 //   bf16 cache:
@@ -552,23 +562,82 @@ fd_combine_kernel(CombineArgs P) {
     P.out[((long long)bh * P.gt + row) * D + tid] = acc / fmaxf(L, 1e-37f);
 }
 
+struct MergeArgs {
+  const int* k_len;         // [B]
+  const float* m_part;
+  const float* l_part;
+  const float* acc_part;
+  float* m_out;             // [B, Hkv, GT]
+  float* l_out;             // [B, Hkv, GT]
+  float* acc_out;           // [B, Hkv, GT, D]
+  int hkv, gt, s, nsplit, nparts;
+};
+
+// The partials' second phase: one CTA per (query row, batch row x head),
+// thread d owns column d. Merges the splits that held a key of this row
+// and stops there: M = max m_s, l = sum l_s e^(m_s - M), acc = sum acc_s
+// e^(m_s - M); no new-token fold, no division. With no live key the state
+// is (-1e30, 0, 0).
+template <int D>
+__global__ void __launch_bounds__(D)
+fd_merge_kernel(MergeArgs P) {
+  const int row = blockIdx.x;
+  const int bh = blockIdx.y, b = bh / P.hkv;
+  const int tid = threadIdx.x;
+  int per;
+  const int klen = split_share(P.k_len[b], P.s, P.nsplit, &per);
+  const int live = klen == 0 ? 0 : (klen + per - 1) / per * (P.nparts / P.nsplit);
+  const long long r = (long long)bh * P.gt + row;
+  const long long o = r * P.nparts;
+  float M = -INFINITY;
+  for (int s = 0; s < live; ++s) M = fmaxf(M, P.m_part[o + s]);
+  float L = 0.f, acc = 0.f;
+  if (M != -INFINITY) {
+    for (int s = 0; s < live; ++s) {
+      const float ms = P.m_part[o + s];
+      if (ms == -INFINITY) continue;   // a warp's share with no live key
+      const float w = expf(ms - M);
+      L += P.l_part[o + s] * w;
+      acc += P.acc_part[(o + s) * D + tid] * w;
+    }
+  }
+  if (tid == 0) {
+    P.m_out[r] = M == -INFINITY ? -1e30f : M;
+    P.l_out[r] = L;
+  }
+  P.acc_out[r * D + tid] = acc;
+}
+
 template <int D, bool QUANT>
-int launch(const SplitArgs& sa, const CombineArgs& ca, int bh, cudaStream_t st) {
+int launch_split(const SplitArgs& sa, int bh, cudaStream_t st) {
   const int nq = (sa.gt + QT - 1) / QT;
   if (sa.gt <= 16)
     fd_split_kernel<D, true, QUANT><<<dim3(sa.nsplit, 1, bh), WARPS * 32, 0, st>>>(sa);
   else
     fd_split_kernel<D, false, QUANT><<<dim3(sa.nsplit, nq, bh), WARPS * 32, 0, st>>>(sa);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+template <int D, bool QUANT>
+int launch(const SplitArgs& sa, const CombineArgs& ca, int bh, cudaStream_t st) {
+  const int err = launch_split<D, QUANT>(sa, bh, st);
+  if (err != 0) return err;
   const size_t smem = (size_t)ca.tn * sizeof(float);
   if (smem > 48 * 1024) {
-    e = cudaFuncSetAttribute(fd_combine_kernel<D, QUANT>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
+    cudaError_t e = cudaFuncSetAttribute(fd_combine_kernel<D, QUANT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   fd_combine_kernel<D, QUANT><<<dim3(ca.gt, bh), 128, smem, st>>>(ca);
+  return (int)cudaGetLastError();
+}
+
+template <int D, bool QUANT>
+int launch_partials(const SplitArgs& sa, const MergeArgs& ma, int bh, cudaStream_t st) {
+  const int err = launch_split<D, QUANT>(sa, bh, st);
+  if (err != 0) return err;
+  fd_merge_kernel<D><<<dim3(ma.gt, bh), D, 0, st>>>(ma);
   return (int)cudaGetLastError();
 }
 
@@ -617,6 +686,33 @@ int run(int bsz, const void* q, long long q_sb, long long q_sh, long long q_sr,
   cudaStream_t st = (cudaStream_t)stream;
   if (d == 128) return launch<128, QUANT>(sa, ca, bsz * hkv, st);
   if (d == 64) return launch<64, QUANT>(sa, ca, bsz * hkv, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Cache-only partials of one row (B = 1): the split phase, then the merge.
+template <bool QUANT>
+int run_partials(const void* q, long long q_sh, long long q_sr,
+                 const void* k, long long k_sh, long long k_sr,
+                 const void* v, long long v_sh, long long v_sr,
+                 const void* ks, long long ks_sh, const void* vs, long long vs_sh,
+                 const void* k_len, void* m_part, void* l_part, void* acc_part,
+                 void* m_out, void* l_out, void* acc_out,
+                 int hkv, int gt, int s, int d, int nsplit, float scale,
+                 void* stream) {
+  if (hkv <= 0 || gt <= 0 || nsplit <= 0 || hkv > 65535)
+    return (int)cudaErrorInvalidValue;
+  const int nparts = n_parts(gt, nsplit);
+  SplitArgs sa{(const __nv_bfloat16*)q, 0, q_sh, q_sr, k, 0, k_sh, k_sr,
+               v, 0, v_sh, v_sr, (const float*)ks, 0, ks_sh,
+               (const float*)vs, 0, vs_sh,
+               (const int*)k_len, (float*)m_part, (float*)l_part,
+               (float*)acc_part, hkv, gt, s, nsplit, nparts, scale};
+  MergeArgs ma{(const int*)k_len, (const float*)m_part, (const float*)l_part,
+               (const float*)acc_part, (float*)m_out, (float*)l_out,
+               (float*)acc_out, hkv, gt, s, nsplit, nparts};
+  cudaStream_t st = (cudaStream_t)stream;
+  if (d == 128) return launch_partials<128, QUANT>(sa, ma, hkv, st);
+  if (d == 64) return launch_partials<64, QUANT>(sa, ma, hkv, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -685,4 +781,36 @@ extern "C" int tf_flash_decode_batched_int8(
                    v, v_sb, v_sh, v_sr, ks, ks_sb, ks_sh, vs, vs_sb, vs_sh,
                    kn, kn_sb, kn_sh, kn_sr, vn, vn_sb, vn_sh, vn_sr, mask_sb,
                    TF_FD_TAIL_ARGS);
+}
+
+// Cache-only partials (no new block, no normalisation): q [Hkv, GT, D] bf16,
+// k/v [Hkv, S, D] (a layer view: pointer + strides), k_len one int32;
+// m_out / l_out [Hkv, GT] and acc_out [Hkv, GT, D] fp32, contiguous. The
+// scratch is sized as for tf_flash_decode_bf16.
+extern "C" int tf_flash_decode_partials_bf16(
+    const void* q, long long q_sh, long long q_sr,
+    const void* k, long long k_sh, long long k_sr,
+    const void* v, long long v_sh, long long v_sr,
+    const void* k_len, void* m_part, void* l_part, void* acc_part,
+    void* m_out, void* l_out, void* acc_out,
+    int hkv, int gt, int s, int d, int nsplit, float scale, void* stream) {
+  return run_partials<false>(q, q_sh, q_sr, k, k_sh, k_sr, v, v_sh, v_sr,
+                             nullptr, 0, nullptr, 0, k_len, m_part, l_part,
+                             acc_part, m_out, l_out, acc_out, hkv, gt, s, d,
+                             nsplit, scale, stream);
+}
+
+// int8 cache: codes + fp32 scales [Hkv, S], as tf_flash_decode_int8
+extern "C" int tf_flash_decode_partials_int8(
+    const void* q, long long q_sh, long long q_sr,
+    const void* k, long long k_sh, long long k_sr,
+    const void* v, long long v_sh, long long v_sr,
+    const void* ks, long long ks_sh, const void* vs, long long vs_sh,
+    const void* k_len, void* m_part, void* l_part, void* acc_part,
+    void* m_out, void* l_out, void* acc_out,
+    int hkv, int gt, int s, int d, int nsplit, float scale, void* stream) {
+  return run_partials<true>(q, q_sh, q_sr, k, k_sh, k_sr, v, v_sh, v_sr,
+                            ks, ks_sh, vs, vs_sh, k_len, m_part, l_part,
+                            acc_part, m_out, l_out, acc_out, hkv, gt, s, d,
+                            nsplit, scale, stream);
 }

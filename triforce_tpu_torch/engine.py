@@ -157,7 +157,9 @@ class Engine:
     ``weight_quant``: the target's and the drafter's matmul weights are
     quantized to int8 per output channel here (``engine.py:141-150``); the
     prefill converts them back exactly once per call, since its wide
-    chunks would convert every weight per chunk (``engine.py:226-231``)."""
+    chunks would convert every weight per chunk (``engine.py:226-231``).
+    With ``spec.mid_act_quant`` the middle verify then runs int8 weights
+    against int8 activations (``llama._wmm(aq=True)``)."""
 
     def __init__(self, target_cfg: ModelConfig, spec: SpecConfig,
                  target_params, *, draft_cfg: Optional[ModelConfig] = None,
@@ -166,10 +168,6 @@ class Engine:
                  prefill_chunk: int = 512, draft_prefill_chunk: int = 64,
                  kv_quant: bool = False, weight_quant: bool = False,
                  mesh=None, device=None):
-        if spec.mid_act_quant:
-            raise NotImplementedError("int8 activations in the middle "
-                                      "verify (mid_act_quant) are not "
-                                      "ported yet")
         if mesh is not None:
             raise NotImplementedError("sharding over a mesh is not ported "
                                       "yet")
@@ -446,7 +444,7 @@ def _middle_spec(eng: Engine, state: TriForceState, force_accept=None):
         m_logits, _ = llama.forward_spec(
             t_cfg, eng.t_params, vt, state.rkv,
             kv_seq_len if live else torch.zeros_like(kv_seq_len),
-            sp.budget, commit=False)
+            sp.budget, commit=False, act_quant=sp.mid_act_quant)
         rows_idx = [min(max(n0 + j, 0), gamma) for j in range(k + 1)]
         p_rows = sampling.norm_logits(m_logits[0, rows_idx], sp.temperature,
                                       -1, sp.top_p)          # [k+1, V]
@@ -617,7 +615,8 @@ def _retrieval_spec_step(eng: Engine, state: TriForceState,
     for n in range(gamma):
         m_logits, _ = llama.forward_spec(t_cfg, eng.t_params, verify_tokens,
                                          state.rkv, state.kv.seq_len,
-                                         sp.budget, commit=False)
+                                         sp.budget, commit=False,
+                                         act_quant=sp.mid_act_quant)
         p_n = sampling.norm_logits(m_logits[0, n][None], sp.temperature, -1,
                                    sp.top_p)[0]
         tok = sampling.sample(p_n, state.gen)
@@ -711,7 +710,8 @@ def _middle_spec_rows(eng: Engine, state: StackedState, force_accept=None):
         live_t = _on(dev, live, torch.bool)
         m_logits = llama.forward_spec_rows(
             t_cfg, eng.t_params, vt, state.rkv,
-            torch.where(live_t, kv_seq_len, 0), sp.budget)
+            torch.where(live_t, kv_seq_len, 0), sp.budget,
+            act_quant=sp.mid_act_quant)
         rows_idx = (_on(dev, n0)[:, None]
                     + torch.arange(k + 1, device=dev)).clamp(0, gamma)
         p_rows = sampling.norm_logits(m_logits[ar[:, None], rows_idx],
@@ -912,7 +912,8 @@ def retrieval_spec_step_rows(eng: Engine, state: StackedState,
     for n in range(gamma):
         m_logits = llama.forward_spec_rows(t_cfg, eng.t_params,
                                            verify_tokens, state.rkv,
-                                           state.kv.seq_len, sp.budget)
+                                           state.kv.seq_len, sp.budget,
+                                           act_quant=sp.mid_act_quant)
         p_n = sampling.norm_logits(m_logits[:, n], sp.temperature, -1,
                                    sp.top_p)
         tok = sampling.sample_rows(p_n, state.gens)

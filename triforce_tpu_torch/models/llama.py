@@ -13,6 +13,10 @@ objects share their buffers with the ones passed in.
 Weights may be INT8 (``quantize_weights``): each matmul weight is then int8
 codes ``[.., in, out]`` beside an fp32 per-output-channel ``<name>_scale``;
 ``_wmm`` converts the codes to the activation dtype and scales the output.
+With ``aq`` (``act_quant`` on the forwards that take it: the
+middle verify under ``SpecConfig.mid_act_quant``, the tree grow) an int8
+weight meets int8 ACTIVATIONS: ``_wmm`` quantizes x per token and runs an
+exact integer product (``_int_matmul``).
 Caches may be INT8 (``cache.init_kv(quant=True)``): the forwards quantize
 the new K/V per token as they commit them and hand the scales to the
 attention.
@@ -20,8 +24,11 @@ attention.
 Forward modes:
   forward_append      — prefill chunks / AR decode / full-cache target
                         verify, optionally building the retrieval cache on
-                        a 1-token forward
+                        a 1-token forward, or verifying a speculation
+                        tree under its ancestor mask
   forward_spec        — middle-model verify over the retrieval cache
+  forward_tree_spec   — middle-model grow step over the tree retrieval
+                        cache (one frontier of the speculation tree)
   draft_forward       — drafter prefill into the StreamingLLM cache
   draft_forward_spec  — drafter speculation at the fixed spec slots with
                         un-rotated key storage + whole-window re-rotation
@@ -45,12 +52,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..cache import (KVCache, RetrievalCache, StreamingCache, int8_scale,
-                     quantize_tokens, window)
+from ..cache import (KVCache, RetrievalCache, StreamingCache, dequantize,
+                     int8_scale, quantize_tokens, slice_at, window)
 from ..config import ModelConfig, SpecConfig
 from ..ops import retrieval as retrieval_ops
 from ..ops.attention import (append_attention, append_attention_auto,
-                             append_attention_rows)
+                             append_attention_rows, attention_partials_auto,
+                             finalize, merge_partials, new_block_partials)
 from . import rope
 
 _MATMUL_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
@@ -196,54 +204,97 @@ def _rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     return w * (xf * torch.rsqrt(var + eps)).to(x.dtype)
 
 
-def _wmm(x: torch.Tensor, p, name: str, out_dtype=None) -> torch.Tensor:
+def _int_matmul(x8: torch.Tensor, w8: torch.Tensor) -> torch.Tensor:
+    """Exact int8 x int8 -> int32 product of codes x8 [..., K] and w8
+    [K, N]. The sums pass 2^24 at model widths (127 * 127 * 4096), so fp32
+    would not be exact. On the card this is the library's integer GEMM
+    (``torch._int_mm``: a plain large matrix product, as the JAX package
+    leaves it to XLA), which wants more than 16 rows and K, N in multiples
+    of 8: the rows are zero-padded to a multiple of 32. On the CPU it is an
+    int32 matmul."""
+    lead, k = x8.shape[:-1], x8.shape[-1]
+    x2 = x8.reshape(-1, k)
+    if x8.device.type == "cpu":
+        out = torch.matmul(x2.to(torch.int32), w8.to(torch.int32))
+    else:
+        if k % 8 or w8.shape[1] % 8:
+            raise ValueError(f"int8 x int8 product needs sizes in multiples "
+                             f"of 8, got {tuple(x2.shape)} x "
+                             f"{tuple(w8.shape)}")
+        rows = x2.shape[0]
+        pad = -rows % 32
+        if pad:
+            x2 = F.pad(x2, (0, 0, 0, pad))
+        out = torch._int_mm(x2.contiguous(), w8)[:rows]
+    return out.reshape(lead + (w8.shape[1],))
+
+
+def _wmm(x: torch.Tensor, p, name: str, out_dtype=None,
+         aq: bool = False) -> torch.Tensor:
     """Weight matmul ``x @ p[name]`` in the model dtype (bf16 or fp32); the
     GEMM accumulates in fp32. The weights stay ``torch.matmul``, as the JAX
     package leaves them to XLA. int8 weights (``llama.py:127-132``) are
     converted to x's dtype first (exactly) and, when ``p`` holds
     ``<name>_scale`` (also after ``dequant_weights``), the per-channel scale
-    multiplies the output in the output dtype: x's, or ``out_dtype``."""
+    multiplies the output in the output dtype: x's, or ``out_dtype``.
+
+    ``aq`` with an int8 weight (``llama.py:116-126``): x is quantized per
+    token (scale ``max(max|x|, 1e-6) / 127``, codes rounded half to even),
+    the product runs on the integer codes (``_int_matmul``, exact) and the
+    fp32 result is multiplied by the token scale, then the channel scale.
+    Activation rounding shifts the output slightly, so this is for
+    proposal forwards (tree grow, the middle verify on request); a weight
+    that is not int8 ignores ``aq``."""
     w = p[name]
+    scale = p.get(name + "_scale")
+    if w.dtype == torch.int8 and aq:
+        xf = x.float()
+        amax = xf.abs().amax(-1, keepdim=True).clamp_min(1e-6)
+        s_x = amax / torch.full_like(amax, 127.0)     # IEEE division
+        x8 = torch.round(xf / s_x).clamp(-127, 127).to(torch.int8)
+        out = _int_matmul(x8, w).float() * s_x
+        if scale is not None:
+            out = out * scale
+        return out.to(out_dtype if out_dtype is not None else x.dtype)
     if w.dtype == torch.int8:
         w = w.to(x.dtype)
     out = torch.matmul(x, w)
     if out_dtype is not None:
         out = out.to(out_dtype)
-    scale = p.get(name + "_scale")
     if scale is not None:
         out = out * scale.to(out.dtype)
     return out
 
 
-def _mlp(x, lp):
-    gate = _wmm(x, lp, "w_gate")
-    up = _wmm(x, lp, "w_up")
-    return _wmm(F.silu(gate) * up, lp, "w_down")
+def _mlp(x, lp, aq: bool = False):
+    gate = _wmm(x, lp, "w_gate", aq=aq)
+    up = _wmm(x, lp, "w_up", aq=aq)
+    return _wmm(F.silu(gate) * up, lp, "w_down", aq=aq)
 
 
-def _qkv(x, lp, cfg: ModelConfig):
+def _qkv(x, lp, cfg: ModelConfig, aq: bool = False):
     b, t, _ = x.shape
-    q = _wmm(x, lp, "wq").reshape(b, t, cfg.num_heads,
-                                  cfg.head_dim).transpose(1, 2)
-    k = _wmm(x, lp, "wk").reshape(b, t, cfg.num_kv_heads,
-                                  cfg.head_dim).transpose(1, 2)
-    v = _wmm(x, lp, "wv").reshape(b, t, cfg.num_kv_heads,
-                                  cfg.head_dim).transpose(1, 2)
+    q = _wmm(x, lp, "wq", aq=aq).reshape(b, t, cfg.num_heads,
+                                         cfg.head_dim).transpose(1, 2)
+    k = _wmm(x, lp, "wk", aq=aq).reshape(b, t, cfg.num_kv_heads,
+                                         cfg.head_dim).transpose(1, 2)
+    v = _wmm(x, lp, "wv", aq=aq).reshape(b, t, cfg.num_kv_heads,
+                                         cfg.head_dim).transpose(1, 2)
     return q, k, v  # [B, H, T, D]
 
 
-def _attn_out(ctx, lp):
+def _attn_out(ctx, lp, aq: bool = False):
     b, hq, t, d = ctx.shape
-    return _wmm(ctx.transpose(1, 2).reshape(b, t, hq * d), lp, "wo")
+    return _wmm(ctx.transpose(1, 2).reshape(b, t, hq * d), lp, "wo", aq=aq)
 
 
-def _logits(cfg: ModelConfig, params, x) -> torch.Tensor:
+def _logits(cfg: ModelConfig, params, x, aq: bool = False) -> torch.Tensor:
     """fp32 logits. In bf16 the GEMM output is rounded to bf16 before the
     cast (the reference's ``lm_head(h).float()``); the JAX package keeps the
     fp32 accumulator instead. An int8 lm_head's scale multiplies the fp32
     logits, as in the JAX package."""
     x = _rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
-    return _wmm(x, params, "lm_head", out_dtype=torch.float32)
+    return _wmm(x, params, "lm_head", out_dtype=torch.float32, aq=aq)
 
 
 def _embed(params, input_ids):
@@ -268,11 +319,12 @@ def _commit_layer(cache, li: int, idx, k_new, v_new) -> None:
     cache.v[li].index_copy_(2, idx, v_new)
 
 
-def _layer_attention(q, cache, li: int, k_new, v_new, k_len):
+def _layer_attention(q, cache, li: int, k_new, v_new, k_len, new_mask=None):
     """``append_attention_auto`` over layer ``li`` of a target cache."""
     quant = cache.quantized
     return append_attention_auto(
         q, cache.k[li], cache.v[li], k_new, v_new, k_len=k_len,
+        new_mask=new_mask,
         k_scale=cache.k_scale[li] if quant else None,
         v_scale=cache.v_scale[li] if quant else None)
 
@@ -282,9 +334,10 @@ def _layer_attention(q, cache, li: int, k_new, v_new, k_len):
 # ---------------------------------------------------------------------------
 
 def forward_append(cfg: ModelConfig, params, input_ids: torch.Tensor,
-                   kv: KVCache, *, build_rkv: Optional[RetrievalCache] = None,
+                   kv: KVCache, *, positions=None,
+                   build_rkv: Optional[RetrievalCache] = None,
                    prefill: int = 0, chunk_size: int = 8, budget: int = 0,
-                   need_logits: bool = True,
+                   tree_mask=None, need_logits: bool = True,
                    ) -> Tuple[Optional[torch.Tensor], KVCache,
                               Optional[RetrievalCache]]:
     """Append ``T`` tokens to the full cache (in place) and attend causally
@@ -294,7 +347,12 @@ def forward_append(cfg: ModelConfig, params, input_ids: torch.Tensor,
     With ``build_rkv`` (T must be 1) every layer's retrieval budget region
     is also built, in place, from this token's query (the chunk scoring
     runs through ``ops/retrieval_kernel.py``). ``need_logits=False`` skips
-    the lm_head projection (prefill chunks)."""
+    the lm_head projection (prefill chunks).
+
+    With ``tree_mask`` ([T, T] bool ancestor matrix) the T appended tokens
+    are a speculation tree: token i attends the committed prefix plus its
+    tree ancestors, and ``positions`` [T] must be the node depths offset by
+    ``seq_len``. The tokens still land at slots ``seq_len + i``."""
     b, t = input_ids.shape
     building = build_rkv is not None
     if building and t != 1:
@@ -304,7 +362,12 @@ def forward_append(cfg: ModelConfig, params, input_ids: torch.Tensor,
     dev = input_ids.device
     cos, sin = rope.cos_sin_tables(cfg, device=dev)
     seq_len0 = kv.seq_len
-    positions = _positions(seq_len0, t, dev)
+    if positions is None:
+        positions = _positions(seq_len0, t, dev)
+    else:
+        positions = torch.as_tensor(positions, device=dev).to(torch.int64)
+    new_mask = None if tree_mask is None else torch.as_tensor(
+        tree_mask, device=dev).to(torch.bool)
     commit_idx = window(seq_len0, t, kv.max_len, dev)   # clamped, like JAX
 
     x = _embed(params, input_ids)
@@ -315,7 +378,7 @@ def forward_append(cfg: ModelConfig, params, input_ids: torch.Tensor,
         q, k_new, v_new = _qkv(h, lp, cfg)
         q = rope.apply_rope(q, cos, sin, positions)
         k_new = rope.apply_rope(k_new, cos, sin, positions)  # stored rotated
-        ctx = _layer_attention(q, kv, li, k_new, v_new, seq_len0)
+        ctx = _layer_attention(q, kv, li, k_new, v_new, seq_len0, new_mask)
         _commit_layer(kv, li, commit_idx, k_new, v_new)
         x = x + _attn_out(ctx, lp)
         h = _rms_norm(x, lp["ln_mlp"], cfg.rms_norm_eps)
@@ -344,13 +407,14 @@ def forward_append(cfg: ModelConfig, params, input_ids: torch.Tensor,
 
 def forward_spec(cfg: ModelConfig, params, input_ids: torch.Tensor,
                  rkv: RetrievalCache, kv_seq_len, budget: int,
-                 commit: bool = True,
+                 commit: bool = True, act_quant: bool = False,
                  ) -> Tuple[torch.Tensor, RetrievalCache]:
     """Middle-model verify: the gamma+1 tokens attend the budget region
     plus themselves (causally) at absolute positions ``kv_seq_len +
     arange(T)``; with ``commit`` their KV lands in the scratch slots from
     ``budget`` (in place). ``kv_seq_len == 0`` gates the retrieval read to
-    zero columns (a dead trip)."""
+    zero columns (a dead trip). ``act_quant``: int8 weights meet int8
+    activations (``_wmm(aq=True)``)."""
     b, t = input_ids.shape
     dev = input_ids.device
     cos, sin = rope.cos_sin_tables(cfg, device=dev)
@@ -358,21 +422,142 @@ def forward_spec(cfg: ModelConfig, params, input_ids: torch.Tensor,
     positions = _positions(kv_seq_len, t, dev)
     k_len = torch.where(kv_seq_len > 0, budget, 0).to(torch.int32)
     commit_idx = window(budget, t, rkv.real_budget, dev)
+    aq = act_quant
 
     x = _embed(params, input_ids)
     for li in range(cfg.num_layers):
         lp = _layer(params, li)
         h = _rms_norm(x, lp["ln_attn"], cfg.rms_norm_eps)
-        q, k_new, v_new = _qkv(h, lp, cfg)
+        q, k_new, v_new = _qkv(h, lp, cfg, aq=aq)
         q = rope.apply_rope(q, cos, sin, positions)
         k_new = rope.apply_rope(k_new, cos, sin, positions)
         ctx = _layer_attention(q, rkv, li, k_new, v_new, k_len)
         if commit:
             _commit_layer(rkv, li, commit_idx, k_new, v_new)
-        x = x + _attn_out(ctx, lp)
+        x = x + _attn_out(ctx, lp, aq=aq)
         h = _rms_norm(x, lp["ln_mlp"], cfg.rms_norm_eps)
-        x = x + _mlp(h, lp)
-    return _logits(cfg, params, x), rkv
+        x = x + _mlp(h, lp, aq=aq)
+    return _logits(cfg, params, x, aq=aq), rkv
+
+
+# ---------------------------------------------------------------------------
+# Tree speculation: the middle model's grow forward
+# ---------------------------------------------------------------------------
+
+def _slots(buf, start, n: int):
+    """``n`` slots of a layer buffer [B, H, S, ...] from ``start``: a view
+    for a host int, a clamped gather for a device scalar."""
+    if isinstance(start, int):
+        return buf[:, :, start:start + n]
+    return slice_at(buf, start, n, 2)
+
+
+def _tree_grow_attention(q, cache, li: int, prefix_len, staged_start,
+                         slot_start: int, staged_len: int, amask, k_new,
+                         v_new, new_mask):
+    """Grow-level attention over layer ``li`` of ``cache``, as three
+    partials merged associatively (``llama.py:618-690``):
+
+      prefix — slots [0, prefix_len), fully visible: the partials kernel on
+               the card (``flash_decode_partials``), ``attention_partials``
+               on the CPU;
+      staged — the ``staged_len`` slots from ``staged_start`` (the tree
+               region); a column is visible iff it is already written
+               (col < slot_start) and an ancestor per ``amask``;
+      self   — the frontier block (same-level nodes see only themselves).
+    """
+    quant = cache.quantized
+    p = attention_partials_auto(
+        q, cache.k[li], cache.v[li], k_len=prefix_len,
+        k_scale=cache.k_scale[li] if quant else None,
+        v_scale=cache.v_scale[li] if quant else None)
+    if staged_len > 0:
+        ks = _slots(cache.k[li], staged_start, staged_len)
+        vs = _slots(cache.v[li], staged_start, staged_len)
+        if quant:
+            ks = dequantize(ks, _slots(cache.k_scale[li], staged_start,
+                                       staged_len), q.dtype)
+            vs = dequantize(vs, _slots(cache.v_scale[li], staged_start,
+                                       staged_len), q.dtype)
+        cols = torch.arange(staged_len, device=q.device)
+        staged_mask = amask[:, :staged_len] & (cols < slot_start)
+        p = merge_partials(p, new_block_partials(q, ks, vs, staged_mask))
+    p_self = new_block_partials(q, k_new, v_new, new_mask)
+    return finalize(merge_partials(p, p_self), q.dtype)
+
+
+def forward_tree_spec(cfg: ModelConfig, params, input_ids: torch.Tensor,
+                      rkv: RetrievalCache, kv_seq_len, budget: int, depths,
+                      ancestor_mask, slot_start: int,
+                      kv: Optional[KVCache] = None, ssl: int = 0, mesh=None,
+                      staged_len: Optional[int] = None,
+                      act_quant: bool = False,
+                      ) -> Tuple[torch.Tensor, RetrievalCache,
+                                 Optional[KVCache]]:
+    """Middle-model forward of one speculation-tree frontier over the tree
+    retrieval cache (``llama.py:476-614``, its meshless branch).
+
+    ``input_ids`` [1, T] are the frontier tokens (one grow level, padded to
+    a fixed width by the caller); their KV lands, in place, at the scratch
+    slots ``budget + slot_start .. + T`` (level slots are consecutive in
+    BFS order). ``depths`` [T] are the node depths (positions are
+    ``kv_seq_len + depth``); ``ancestor_mask`` [T, tree_size] the ancestor
+    rows of these nodes: a query sees the whole budget region, its already
+    written tree ancestors, and itself. ``staged_len`` is the length of the
+    tree window the attention reads (``slot_start`` when not given: the
+    whole tree on a level forward, 0 on the root forward).
+
+    ``ssl`` (self-speculation layers): the first ``ssl`` layers attend the
+    FULL cache (prefix + their tree ancestors) instead of the retrieval
+    cache, and stage their tree-node KV at full-cache slots ``kv_seq_len +
+    slot_start ..``; the later verify overwrites the same slots with the
+    same values. Needs ``kv``. ``act_quant``: int8 weights meet int8
+    activations. Returns (logits [1, T, V] fp32, rkv, kv)."""
+    if mesh is not None:
+        raise NotImplementedError("sharding over a mesh is not ported yet")
+    if not 0 <= ssl <= cfg.num_layers:
+        raise ValueError(f"ssl {ssl} outside [0, {cfg.num_layers}]")
+    if ssl > 0 and kv is None:
+        raise ValueError("ssl layers need the full cache")
+    if staged_len is None:
+        staged_len = slot_start
+    b, t = input_ids.shape
+    dev = input_ids.device
+    aq = act_quant
+    cos, sin = rope.cos_sin_tables(cfg, device=dev)
+    kv_seq_len = torch.as_tensor(kv_seq_len, device=dev)
+    positions = kv_seq_len.to(torch.int64) + torch.as_tensor(
+        depths, device=dev).to(torch.int64)
+    amask = torch.as_tensor(ancestor_mask, device=dev).to(torch.bool)
+    new_mask = torch.eye(t, dtype=torch.bool, device=dev)
+    budget_len = torch.tensor(budget, dtype=torch.int32, device=dev)
+    full_len = kv_seq_len.to(torch.int32)
+    # where each kind of layer reads its prefix and stages its nodes; a
+    # write that would run over the end slides back (JAX's clamp), which
+    # the caller's padding of both caches keeps from happening
+    rkv_idx = window(budget + slot_start, t, rkv.real_budget, dev)
+    if ssl > 0:
+        kv_idx = window(kv_seq_len.to(torch.int64) + slot_start, t,
+                        kv.max_len, dev)
+
+    x = _embed(params, input_ids)
+    for li in range(cfg.num_layers):
+        lp = _layer(params, li)
+        h = _rms_norm(x, lp["ln_attn"], cfg.rms_norm_eps)
+        q, k_new, v_new = _qkv(h, lp, cfg, aq=aq)
+        q = rope.apply_rope(q, cos, sin, positions)
+        k_new = rope.apply_rope(k_new, cos, sin, positions)
+        if li < ssl:
+            cache, prefix, start, idx = kv, full_len, full_len, kv_idx
+        else:
+            cache, prefix, start, idx = rkv, budget_len, budget, rkv_idx
+        ctx = _tree_grow_attention(q, cache, li, prefix, start, slot_start,
+                                   staged_len, amask, k_new, v_new, new_mask)
+        _commit_layer(cache, li, idx, k_new, v_new)
+        x = x + _attn_out(ctx, lp, aq=aq)
+        h = _rms_norm(x, lp["ln_mlp"], cfg.rms_norm_eps)
+        x = x + _mlp(h, lp, aq=aq)
+    return _logits(cfg, params, x, aq=aq), rkv, kv
 
 
 # ---------------------------------------------------------------------------
@@ -453,7 +638,7 @@ def draft_forward_spec(cfg: ModelConfig, params, input_ids: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def _target_layers_rows(cfg: ModelConfig, params, input_ids, cache,
-                        positions, k_len):
+                        positions, k_len, aq: bool = False):
     """The target's layer loop for B rows over a row-stacked cache, read
     only: row b attends slots [0, k_len[b]) of its own cache plus its T new
     tokens, at RoPE positions ``positions`` [B, T]. Returns (hidden
@@ -465,16 +650,16 @@ def _target_layers_rows(cfg: ModelConfig, params, input_ids, cache,
     for li in range(cfg.num_layers):
         lp = _layer(params, li)
         h = _rms_norm(x, lp["ln_attn"], cfg.rms_norm_eps)
-        q, k_new, v_new = _qkv(h, lp, cfg)
+        q, k_new, v_new = _qkv(h, lp, cfg, aq=aq)
         q = rope.apply_rope(q, cos, sin, positions)
         k_new = rope.apply_rope(k_new, cos, sin, positions)
         ctx = append_attention_rows(
             q, cache.k[:, li], cache.v[:, li], k_new, v_new, k_len=k_len,
             k_scale=cache.k_scale[:, li] if quant else None,
             v_scale=cache.v_scale[:, li] if quant else None)
-        x = x + _attn_out(ctx, lp)
+        x = x + _attn_out(ctx, lp, aq=aq)
         h = _rms_norm(x, lp["ln_mlp"], cfg.rms_norm_eps)
-        x = x + _mlp(h, lp)
+        x = x + _mlp(h, lp, aq=aq)
         nk.append(k_new)
         nv.append(v_new)
     return x, torch.stack(nk, 1), torch.stack(nv, 1)
@@ -504,17 +689,19 @@ def forward_append_rows(cfg: ModelConfig, params, input_ids: torch.Tensor,
 
 def forward_spec_rows(cfg: ModelConfig, params, input_ids: torch.Tensor,
                       rkv: RetrievalCache, kv_seq_len: torch.Tensor,
-                      budget: int) -> torch.Tensor:
+                      budget: int, act_quant: bool = False) -> torch.Tensor:
     """``forward_spec`` for B rows at once, read-only (the engines never
     commit a middle verify): row b's gamma+1 tokens attend its budget
     region plus themselves at positions ``kv_seq_len[b] + arange(T)``.
     ``kv_seq_len[b] == 0`` (a dead slot, or a dead middle trip) collapses
-    that row's retrieval read to zero columns. Returns logits [B, T, V]."""
+    that row's retrieval read to zero columns. ``act_quant`` as in
+    ``forward_spec``. Returns logits [B, T, V]."""
     t = input_ids.shape[1]
     k_len = torch.where(kv_seq_len > 0, budget, 0).to(torch.int32)
     x, _, _ = _target_layers_rows(cfg, params, input_ids, rkv,
-                                  _row_positions(kv_seq_len, t), k_len)
-    return _logits(cfg, params, x)
+                                  _row_positions(kv_seq_len, t), k_len,
+                                  aq=act_quant)
+    return _logits(cfg, params, x, aq=act_quant)
 
 
 def draft_forward_spec_rows(cfg: ModelConfig, params,

@@ -8,6 +8,10 @@ merge associatively:
                0-d device tensor or an int);
   new part   — the T tokens appended by this forward.
 
+``attention_partials_auto`` is the same dispatch for the cache part alone
+(the tree grow's prefix): the partials kernel on a CUDA tensor,
+``attention_partials`` on the CPU.
+
 ``append_attention_auto`` is the dispatcher the models call: a CUDA tensor
 with no extra cache mask goes to the hand-written flash-decode kernel
 (``ops/flash_decode.py``; its int8 kernel for an int8 cache), a CPU tensor
@@ -36,7 +40,8 @@ import torch
 from .flash_decode import (append_attention_kernel,
                            append_attention_kernel_batched,
                            append_attention_kernel_batched_int8,
-                           append_attention_kernel_int8, causal_mask)
+                           append_attention_kernel_int8,
+                           attention_partials_kernel, causal_mask)
 
 _NEG_INF = -1e30
 
@@ -116,6 +121,20 @@ def attention_partials(q, k, v, *, k_len=None, mask_fn=None,
         m, l, acc = _update(qg, m, l, acc, _deq(k[:, :, start:stop], ks),
                             _deq(v[:, :, start:stop], vs), valid)
     return m, l, acc
+
+
+def attention_partials_auto(q, k, v, *, k_len, k_scale=None,
+                            v_scale=None) -> Partials:
+    """Dispatch of the cache-only partials over a fully visible prefix
+    [0, k_len): a CUDA tensor goes to the partials kernel
+    (``flash_decode_partials``, the int8 one when the cache has scales;
+    each raises on what it does not take), a CPU tensor to
+    ``attention_partials``. k/v are one layer [1, Hkv, S, D]."""
+    if q.device.type == "cuda":
+        return attention_partials_kernel(q, k, v, k_len=k_len,
+                                         k_scale=k_scale, v_scale=v_scale)
+    return attention_partials(q, k, v, k_len=k_len, k_scale=k_scale,
+                              v_scale=v_scale)
 
 
 def new_block_partials(q, k_new, v_new, new_mask) -> Partials:

@@ -32,6 +32,16 @@ it (``pick_nsplit`` does not look at B), so a row's result does not depend
 on its companions and equals the single-row kernel's bit for bit. The
 plain versions run the single-row plain version row by row.
 
+``flash_decode_partials`` (and ``..._int8``) is the port of the TPU's
+``flash_decode_partials``: the same walk over the live prefix WITHOUT the
+new block and WITHOUT the normalisation. It returns the online-softmax
+state ``(m [Hkv, GT], l [Hkv, GT], acc [Hkv, GT, D])`` fp32, mergeable with
+``ops.attention.merge_partials``; an empty prefix gives ``(-1e30, 0, 0)``.
+The tree grow's prefix attention runs it (``models/llama.py``). On the card
+it is the first phase of the kernel above followed by a merge that stops
+before the fold (``fd_merge_kernel``); the TPU kernel's ``layer`` argument
+is a view of the stacked cache here.
+
 The Pallas kernel's TPU-only machinery does not carry over: its 128-lane
 pad of the new block, the VMEM-driven block choice and the 512/2048 cache
 alignment gate. ``k_len`` stays on the device and is read by the kernel.
@@ -83,6 +93,24 @@ def flash_decode_append_plain(q, k, v, k_new, v_new, k_len, new_mask):
     return acc / l.clamp_min(1e-37)
 
 
+def flash_decode_partials_plain(q, k, v, k_len):
+    """Plain PyTorch version of the partials kernel: q [Hkv, GT, D]
+    (pre-scaled here, rounded to q's dtype, as the TPU wrapper does); k/v
+    [Hkv, S, D]; k_len int or 0-d int tensor. -> (m [Hkv, GT], l [Hkv, GT],
+    acc [Hkv, GT, D]) fp32 over slots [0, k_len): m the row maximum of the
+    scores, l = sum p, acc = p.v with p = exp(s - m) cast to v's dtype
+    before p.v; no normalisation. ``k_len = 0`` gives (-1e30, 0, 0)."""
+    d = q.shape[-1]
+    qs = (q.float() * _scale(d)).to(q.dtype).float()
+    valid = torch.arange(k.shape[1], device=q.device) < k_len
+    sc = torch.einsum("hgd,hsd->hgs", qs, k.float())
+    sc = torch.where(valid, sc, _NEG_INF)
+    m = sc.amax(-1)
+    p = torch.where(valid, torch.exp(sc - m[..., None]), 0.0)
+    acc = torch.einsum("hgs,hsd->hgd", p.to(v.dtype).float(), v.float())
+    return m, p.sum(-1), acc
+
+
 def _quantize_rows(x):
     """Per-row int8 codes of fp32 ``x`` [..., D] as the TPU kernel makes
     them: (codes as fp32, scale = max(max|x| / 127, 1e-20) [..., 1])."""
@@ -98,26 +126,10 @@ def _first(x, n: int):
     return F.pad(x, (0, 0) * (x.dim() - 2) + (0, pad)) if pad else x
 
 
-def flash_decode_append_int8_plain(q, k, v, k_new, v_new, k_len, new_mask,
-                                   k_scale, v_scale, *, group: int):
-    """Plain PyTorch version of the int8 kernel, following the TPU
-    kernel's ``quant`` branch (``flash_decode.py:41-92, 436-448``) with
-    ``group`` as its block: q pre-scaled, rounded to q's dtype and
-    quantized per (head, row); scores (q8 . k8) * qs * ks; per group of
-    keys, p * vs is re-quantized per row for an integer p.v; the new block
-    sees q8 * qs in k_new's dtype. q [Hkv, GT, D]; k/v int8 [Hkv, S, D];
-    k_scale/v_scale [Hkv, S]; the rest as ``flash_decode_append_plain``.
-    -> [Hkv, GT, D] fp32.
-
-    Within each group p is taken against the group's own max score gm and
-    the group is weighted by exp(gm - m): the TPU kernel's softmax, whose p
-    is relative to the running max instead, so that the integer codes do
-    not depend on where a running max stands. The CUDA kernel's splits
-    each keep their own, and with this form it makes the very codes this
-    version makes; against the TPU kernel a code can differ by one step
-    where its rounding was a near tie. The integer q8 . k8 dots are summed
-    in fp32, exact below 2^24.
-    """
+def _int8_cache_partials(q, k, v, k_len, k_scale, v_scale, group: int):
+    """The cache part of the int8 plain versions: (m, l [Hkv, GT, 1], acc
+    [Hkv, GT, D], q8, qs) with q8/qs the per-row codes and scales of the
+    pre-scaled q. See ``flash_decode_append_int8_plain``."""
     hkv, gt, d = q.shape
     qf = (q.float() * _scale(d)).to(q.dtype).float()
     q8, qs = _quantize_rows(qf)
@@ -142,6 +154,44 @@ def flash_decode_append_int8_plain(q, k, v, k_new, v_new, k_len, new_mask,
         l = (p.sum(-1, keepdim=True) * w).sum(-2)
         acc = torch.einsum("hgbs,hbsd->hgd", p8 * (ps * w),
                            vf.reshape(hkv, nb, group, d))
+    return m, l, acc, q8, qs
+
+
+def flash_decode_partials_int8_plain(q, k, v, k_len, k_scale, v_scale, *,
+                                     group: int):
+    """Plain PyTorch version of the int8 partials kernel: the cache part
+    of ``flash_decode_append_int8_plain`` at ``group`` (q quantized per
+    row, integer q8.k8 and p8.v8 products, p re-quantized per group of
+    keys), with no new block and no normalisation. k/v int8 [Hkv, S, D];
+    k_scale/v_scale [Hkv, S]. -> (m [Hkv, GT], l [Hkv, GT], acc
+    [Hkv, GT, D]) fp32; ``k_len = 0`` gives (-1e30, 0, 0)."""
+    m, l, acc, _, _ = _int8_cache_partials(q, k, v, k_len, k_scale, v_scale,
+                                           group)
+    return m[..., 0], l[..., 0], acc
+
+
+def flash_decode_append_int8_plain(q, k, v, k_new, v_new, k_len, new_mask,
+                                   k_scale, v_scale, *, group: int):
+    """Plain PyTorch version of the int8 kernel, following the TPU
+    kernel's ``quant`` branch (``flash_decode.py:41-92, 436-448``) with
+    ``group`` as its block: q pre-scaled, rounded to q's dtype and
+    quantized per (head, row); scores (q8 . k8) * qs * ks; per group of
+    keys, p * vs is re-quantized per row for an integer p.v; the new block
+    sees q8 * qs in k_new's dtype. q [Hkv, GT, D]; k/v int8 [Hkv, S, D];
+    k_scale/v_scale [Hkv, S]; the rest as ``flash_decode_append_plain``.
+    -> [Hkv, GT, D] fp32.
+
+    Within each group p is taken against the group's own max score gm and
+    the group is weighted by exp(gm - m): the TPU kernel's softmax, whose p
+    is relative to the running max instead, so that the integer codes do
+    not depend on where a running max stands. The CUDA kernel's splits
+    each keep their own, and with this form it makes the very codes this
+    version makes; against the TPU kernel a code can differ by one step
+    where its rounding was a near tie. The integer q8 . k8 dots are summed
+    in fp32, exact below 2^24.
+    """
+    m, l, acc, q8, qs = _int8_cache_partials(q, k, v, k_len, k_scale,
+                                             v_scale, group)
     # fold in the new block with q dequantized to k_new's dtype
     qn = (q8 * qs).to(k_new.dtype).float()
     sn = torch.einsum("hgd,hnd->hgn", qn, k_new.float())
@@ -171,9 +221,11 @@ def _n_parts(gt: int, nsplit: int) -> int:
     return _build.lib(_SOURCE).tf_flash_decode_parts(gt, nsplit)
 
 
-def _check_cuda_args(q, k, v, k_new, v_new, k_len, new_mask, cache_dtype):
-    for name, x in {"q": q, "k_new": k_new, "v_new": v_new, "k": k,
-                    "v": v}.items():
+def _check_cache_args(q, k, v, k_len, cache_dtype, **more):
+    """q [Hkv, GT, D] bf16, a 16-byte aligned cache layer k/v [Hkv, S, D]
+    of ``cache_dtype`` and one int32 ``k_len``, all on q's device;
+    ``more`` are further bf16 [H, rows, D] tensors (the new block)."""
+    for name, x in {"q": q, "k": k, "v": v, **more}.items():
         want = cache_dtype if name in ("k", "v") else torch.bfloat16
         if x.device != q.device:
             raise ValueError(f"{name} is on {x.device}, q on {q.device}")
@@ -193,6 +245,16 @@ def _check_cuda_args(q, k, v, k_new, v_new, k_len, new_mask, cache_dtype):
                 or x.stride(0) % per16 or x.stride(1) % per16):
             raise ValueError(f"{name} {tuple(x.shape)} {x.stride()} is not "
                              "a 16-byte aligned [Hkv, S, D] cache layer")
+    if k.shape[1] != v.shape[1]:
+        raise ValueError("k and v hold different numbers of slots")
+    if k_len.dtype != torch.int32 or k_len.numel() != 1 \
+            or k_len.device != q.device:
+        raise ValueError("k_len must be one int32 on q's device")
+
+
+def _check_cuda_args(q, k, v, k_new, v_new, k_len, new_mask, cache_dtype):
+    _check_cache_args(q, k, v, k_len, cache_dtype, k_new=k_new, v_new=v_new)
+    hkv, gt, d = q.shape
     if k_new.shape != v_new.shape or k_new.shape[0] != hkv \
             or k_new.shape[2] != d:
         raise ValueError("k_new/v_new must be [Hkv, Tn, D]")
@@ -200,9 +262,6 @@ def _check_cuda_args(q, k, v, k_new, v_new, k_len, new_mask, cache_dtype):
             or not new_mask.is_contiguous() or new_mask.device != q.device:
         raise ValueError("new_mask must be a contiguous bool [GT, Tn] "
                          "tensor on q's device")
-    if k_len.dtype != torch.int32 or k_len.numel() != 1 \
-            or k_len.device != q.device:
-        raise ValueError("k_len must be one int32 on q's device")
 
 
 def _check_scales(k, k_scale, v_scale):
@@ -289,6 +348,78 @@ def flash_decode_append_int8(q, k, v, k_new, v_new, k_len, new_mask,
 
 
 flash_decode_append_int8.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Cache-only partials (no new block, no normalisation)
+# ---------------------------------------------------------------------------
+
+def _launch_partials(fn, q, k, v, k_len, scales=()):
+    """Allocate the outputs and scratch and launch one partials entry
+    point of ``csrc/flash_decode.cu``."""
+    hkv, gt, d = q.shape
+    s = k.shape[1]
+    nsplit = pick_nsplit(hkv, gt, s)
+    parts = _n_parts(gt, nsplit)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    m_part = torch.empty((hkv, gt, parts), **f32)
+    l_part = torch.empty((hkv, gt, parts), **f32)
+    acc_part = torch.empty((hkv, gt, parts, d), **f32)
+    m = torch.empty((hkv, gt), **f32)
+    l = torch.empty((hkv, gt), **f32)
+    acc = torch.empty((hkv, gt, d), **f32)
+    err = fn(q.data_ptr(), q.stride(0), q.stride(1),
+             k.data_ptr(), k.stride(0), k.stride(1),
+             v.data_ptr(), v.stride(0), v.stride(1), *scales,
+             k_len.data_ptr(), m_part.data_ptr(), l_part.data_ptr(),
+             acc_part.data_ptr(), m.data_ptr(), l.data_ptr(), acc.data_ptr(),
+             hkv, gt, s, d, nsplit, _scale(d),
+             torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "flash_decode partials kernel launch")
+    return m, l, acc
+
+
+def flash_decode_partials(q, k, v, k_len):
+    """Cache-only online-softmax partials of q [Hkv, GT, D] against slots
+    [0, k_len) of one cache layer k/v [Hkv, S, D] (a view of the stacked
+    cache is fine): (m [Hkv, GT], l [Hkv, GT], acc [Hkv, GT, D]) fp32,
+    unnormalised. q is pre-scaled by 1/sqrt(D) here. CUDA tensors launch
+    the kernel (or raise); CPU tensors take the plain version.
+    ``flash_decode_partials.launches`` counts kernel launches."""
+    if q.device.type == "cpu":
+        return flash_decode_partials_plain(q, k, v, k_len)
+    k_len = _device_k_len(k_len, q)
+    _check_cache_args(q, k, v, k_len, torch.bfloat16)
+    out = _launch_partials(_build.lib(_SOURCE).tf_flash_decode_partials_bf16,
+                           q, k, v, k_len)
+    flash_decode_partials.launches += 1
+    return out
+
+
+flash_decode_partials.launches = 0
+
+
+def flash_decode_partials_int8(q, k, v, k_len, k_scale, v_scale):
+    """``flash_decode_partials`` over an int8 cache layer: k/v int8 codes
+    [Hkv, S, D] with fp32 scales [Hkv, S]; q bf16 on the card. CUDA
+    tensors launch the int8 kernel (or raise); CPU tensors take the plain
+    version at the kernel's group.
+    ``flash_decode_partials_int8.launches`` counts kernel launches."""
+    if q.device.type == "cpu":
+        return flash_decode_partials_int8_plain(q, k, v, k_len, k_scale,
+                                                v_scale, group=KERNEL_GROUP)
+    k_len = _device_k_len(k_len, q)
+    _check_cache_args(q, k, v, k_len, torch.int8)
+    _check_scales(k, k_scale, v_scale)
+    out = _launch_partials(
+        _build.lib(_SOURCE).tf_flash_decode_partials_int8, q, k, v, k_len,
+        scales=(k_scale.data_ptr(), k_scale.stride(0),
+                v_scale.data_ptr(), v_scale.stride(0)))
+    flash_decode_partials_int8.launches += 1
+    return out
+
+
+flash_decode_partials_int8.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -533,3 +664,25 @@ def append_attention_kernel_batched_int8(q, k_cache, v_cache, k_new, v_new,
                                            v_new, k_len, nmask, k_scale,
                                            v_scale)
     return out.reshape(q.shape).to(q.dtype)
+
+
+def attention_partials_kernel(q, k_cache, v_cache, *, k_len, k_scale=None,
+                              v_scale=None):
+    """Cache-only partials in the layout of ``ops.attention``'s partials
+    (B = 1): q [1, Hq, T, D]; k/v cache [1, Hkv, S, D] (one layer, a view
+    is fine), int8 with scales [1, Hkv, S] when given. -> (m, l
+    [1, Hkv, G, T], acc [1, Hkv, G, T, D]) fp32 through
+    ``flash_decode_partials`` (``..._int8`` with scales)."""
+    b, hq, t, d = q.shape
+    hkv = k_cache.shape[1]
+    g = hq // hkv
+    if b != 1:
+        raise ValueError("the flash-decode kernel takes batch 1")
+    qh = q[0].reshape(hkv, g * t, d)
+    if k_scale is not None:
+        m, l, acc = flash_decode_partials_int8(qh, k_cache[0], v_cache[0],
+                                               k_len, k_scale[0], v_scale[0])
+    else:
+        m, l, acc = flash_decode_partials(qh, k_cache[0], v_cache[0], k_len)
+    return (m.reshape(b, hkv, g, t), l.reshape(b, hkv, g, t),
+            acc.reshape(b, hkv, g, t, d))

@@ -78,13 +78,21 @@ def norm_logits(logits: torch.Tensor, temperature: float = 0.6,
     return torch.softmax(logits, dim=-1)
 
 
+def _gumbel(u: torch.Tensor) -> torch.Tensor:
+    """Standard Gumbel noise from uniforms ``u`` in [0, 1)."""
+    tiny = torch.finfo(torch.float32).tiny
+    return -torch.log(-torch.log(u.clamp(tiny, 1.0 - 2 ** -24)))
+
+
+def _log_probs(probs: torch.Tensor) -> torch.Tensor:
+    """log p with zero-probability entries at the ``-1e30`` sentinel."""
+    return torch.where(probs > 0, torch.log(probs.clamp_min(1e-37)),
+                       _NEG_INF)
+
+
 def _gumbel_argmax(probs: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     """Gumbel-max over the last axis from uniforms ``u`` of probs' shape."""
-    logp = torch.where(probs > 0, torch.log(probs.clamp_min(1e-37)),
-                       _NEG_INF)
-    tiny = torch.finfo(torch.float32).tiny
-    gumbel = -torch.log(-torch.log(u.clamp(tiny, 1.0 - 2 ** -24)))
-    return torch.argmax(logp + gumbel, dim=-1)
+    return torch.argmax(_log_probs(probs) + _gumbel(u), dim=-1)
 
 
 def sample(probs: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
@@ -118,3 +126,36 @@ def max_fn(x: torch.Tensor) -> torch.Tensor:
     denom = pos.sum(-1, keepdim=True)
     denom = torch.where(denom <= 0, 1.0, denom)
     return pos / denom
+
+
+def topk_small(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Exact ordered top-k indices of ``x`` [..., V] for a SMALL k by k
+    argmax-and-mask passes (ties go to the lowest index, as in the JAX
+    package). Entries may already sit at the ``-1e30`` sentinel; a picked
+    entry is masked with ``-inf``, strictly below it, so a support smaller
+    than k still yields distinct indices. Returns [..., k] int64 indices
+    in descending-value order."""
+    x = x.clamp_min(_NEG_INF)
+    idxs = []
+    for _ in range(k):
+        i = torch.argmax(x, dim=-1, keepdim=True)
+        idxs.append(i)
+        x = x.scatter(-1, i, float("-inf"))
+    return torch.cat(idxs, dim=-1)
+
+
+def gumbel_noise(shape, generator: torch.Generator, device) -> torch.Tensor:
+    """Standard Gumbel noise of ``shape`` (fp32) from uniforms drawn from
+    ``generator``."""
+    return _gumbel(torch.rand(shape, generator=generator, device=device,
+                              dtype=torch.float32))
+
+
+def gumbel_topk_without_replacement(probs: torch.Tensor, k: int,
+                                    generator: torch.Generator
+                                    ) -> torch.Tensor:
+    """``k`` distinct indices ~ probs [..., V], sampled without
+    replacement: the arg-top-k of log p + Gumbel noise (k argmax passes,
+    see ``topk_small``)."""
+    return topk_small(_log_probs(probs) + gumbel_noise(
+        probs.shape, generator, probs.device), k)
