@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                 # full run (one H100)
     python3 chip_smoke.py --skip-e2e      # build + kernel phase only
+    python3 chip_smoke.py --ab TAG        # time the decode-shape kernels
 
 Phases, in order (any failure exits non-zero before the last line):
   1. device line: the card's name and power limit (nvidia-smi);
@@ -12,9 +13,12 @@ Phases, in order (any failure exits non-zero before the last line):
      paths' shapes against its plain PyTorch version (stated tolerance),
      with its device time (CUDA-graph replay), its bound, the plain
      version's time and a library yardstick's time; B1 also at the tree
-     verify's shapes under an ancestor mask; B3 also against B1 row by row
-     (bit equality) and with dead rows; B4 also merged with a new block
-     against B1, and with an empty prefix;
+     verify's shapes under an ancestor mask and at the decode path's edges
+     (ragged and sub-tile k_len, GT 16 and 17, a GQA row at D = 64); B3
+     also against B1 row by row (bit equality) and with dead rows; B4 also
+     merged with a new block against B1, and with an empty prefix; then
+     the decode path's study: per-kernel device times from the profiler,
+     B1's time against nsplit, registers and CTAs per SM of every kernel;
   4. reference: the full-width model at cut depth on a short prompt, the
      card's path (through the kernels) against an fp32 CPU run of the same
      weights: bf16 weights and cache, then int8 weights and cache;
@@ -50,6 +54,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -129,13 +134,12 @@ def _bound(nbytes: float, flops: float, peak_flops: float):
 # Kernel phase
 # ---------------------------------------------------------------------------
 
-def kernel_b1(fd, cache_mod, dev, gt, tn, k_len, s, quant=False, hkv=32,
-              d=128, seed=0, tree_mask=None):
-    """B1 (or, with ``quant``, B1-int8 over the int8 codes and scales of
-    the same cache) at one shape: kernel vs plain, times and bound.
-    ``tree_mask``: a [GT, Tn] ancestor mask (the tree verify) in place of
-    the causal one."""
-    name = "B1-int8" if quant else "B1"
+def _b1_inputs(cache_mod, dev, gt, tn, k_len, s, quant=False, hkv=32, d=128,
+               seed=0, tree_mask=None):
+    """B1's inputs at one shape, from ``seed``: q, the new block, a causal
+    (or the given ancestor) mask, ``k_len`` on the card and one layer of a
+    stacked cache whose slots past ``k_len`` hold 50.0 (never read); with
+    ``quant`` the int8 codes and scales of that layer."""
     g = torch.Generator(device=dev).manual_seed(seed)
     bf = torch.bfloat16
 
@@ -153,14 +157,65 @@ def kernel_b1(fd, cache_mod, dev, gt, tn, k_len, s, quant=False, hkv=32,
         mask = (torch.arange(tn, device=dev)[None, :] <= rows).contiguous()
     else:
         mask = torch.as_tensor(tree_mask, device=dev).contiguous()
-    klen_t = torch.tensor(k_len, dtype=torch.int32, device=dev)
+    x = dict(q=q, kn=kn, vn=vn, mask=mask, ks=None, vs=None,
+             klen=torch.tensor(k_len, dtype=torch.int32, device=dev))
     if quant:
         # the int8 cache the model would commit: codes + per-token scales
-        (k8, ks), (v8, vs) = (cache_mod.quantize_tokens(x)
-                              for x in (k_st, v_st))
-        k, v, ks, vs = k8[1, 0], v8[1, 0], ks[1, 0], vs[1, 0]
-        del k_st, v_st
+        (k8, ks), (v8, vs) = (cache_mod.quantize_tokens(t)
+                              for t in (k_st, v_st))
+        x.update(k=k8[1, 0], v=v8[1, 0], ks=ks[1, 0], vs=vs[1, 0])
+    else:
+        x.update(k=k_st[1, 0], v=v_st[1, 0])
+    return x
 
+
+def _b1_entry(fd, x, nsplit):
+    """One B1 launch through the library's C entry point with a chosen
+    ``nsplit`` (the wrapper takes its own), scratch sized by
+    ``tf_flash_decode_parts``; for the split sweep only."""
+    lib = fd._build.lib(fd._SOURCE)
+    q, k, v, kn, vn = (x[n] for n in ("q", "k", "v", "kn", "vn"))
+    hkv, gt, d = q.shape
+    s, tn = k.shape[1], kn.shape[1]
+    parts = lib.tf_flash_decode_parts(gt, nsplit)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    m_part = torch.empty((hkv, gt, parts), **f32)
+    l_part = torch.empty((hkv, gt, parts), **f32)
+    acc_part = torch.empty((hkv, gt, parts, d), **f32)
+    out = torch.empty((hkv, gt, d), **f32)
+    if x["ks"] is None:
+        fn, scales = lib.tf_flash_decode_bf16, ()
+    else:
+        fn = lib.tf_flash_decode_int8
+        scales = (x["ks"].data_ptr(), x["ks"].stride(0),
+                  x["vs"].data_ptr(), x["vs"].stride(0))
+    err = fn(q.data_ptr(), q.stride(0), q.stride(1),
+             k.data_ptr(), k.stride(0), k.stride(1),
+             v.data_ptr(), v.stride(0), v.stride(1), *scales,
+             kn.data_ptr(), kn.stride(0), kn.stride(1),
+             vn.data_ptr(), vn.stride(0), vn.stride(1),
+             x["mask"].data_ptr(), x["klen"].data_ptr(),
+             m_part.data_ptr(), l_part.data_ptr(), acc_part.data_ptr(),
+             out.data_ptr(), hkv, gt, tn, s, d, nsplit, fd._scale(d),
+             torch.cuda.current_stream().cuda_stream)
+    fd._build.check(err, f"B1 at nsplit {nsplit}")
+    return out
+
+
+def kernel_b1(fd, cache_mod, dev, gt, tn, k_len, s, quant=False, hkv=32,
+              d=128, seed=0, tree_mask=None):
+    """B1 (or, with ``quant``, B1-int8 over the int8 codes and scales of
+    the same cache) at one shape: kernel vs plain, times and bound.
+    ``tree_mask``: a [GT, Tn] ancestor mask (the tree verify) in place of
+    the causal one."""
+    name = "B1-int8" if quant else "B1"
+    bf = torch.bfloat16
+    x = _b1_inputs(cache_mod, dev, gt, tn, k_len, s, quant, hkv, d, seed,
+                   tree_mask)
+    q, kn, vn, k, v, ks, vs, mask, klen_t = (
+        x[n] for n in ("q", "kn", "vn", "k", "v", "ks", "vs", "mask",
+                       "klen"))
+    if quant:
         def kernel(kn):
             return fd.flash_decode_append_int8(q, k, v, kn, vn, klen_t,
                                                mask, ks, vs)
@@ -169,8 +224,6 @@ def kernel_b1(fd, cache_mod, dev, gt, tn, k_len, s, quant=False, hkv=32,
             return fd.flash_decode_append_int8_plain(
                 q, k, v, kn, vn, klen_t, m, ks, vs, group=fd.KERNEL_GROUP)
     else:
-        k, v = k_st[1, 0], v_st[1, 0]
-
         def kernel(kn):
             return fd.flash_decode_append(q, k, v, kn, vn, klen_t, mask)
 
@@ -214,7 +267,7 @@ def kernel_b1(fd, cache_mod, dev, gt, tn, k_len, s, quant=False, hkv=32,
         err_new, ref = check(kn_dom, "dominant new block")
         # the case has the power to catch each fault (no masked token at 1)
         faults = [("no fold", torch.zeros_like(mask))]
-        if gt > 1:
+        if not mask.all():   # a mask that hides nothing cannot be ignored
             faults.append(("mask ignored", torch.ones_like(mask)))
         for what, m in faults:
             alt = plain(kn_dom, m)
@@ -613,6 +666,221 @@ def kernel_b4(fd, att, cache_mod, dev, gt, k_len, s, quant=False, hkv=32,
                 err_m=err_m, err_l_rel=err_l, err_merge_vs_b1=err_b1,
                 tol_merge_vs_b1=tol_b1, ms=ms, plain_ms=plain_ms,
                 library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def _kernel_name(key: str) -> str:
+    """A profiler kernel name without its namespace and argument list."""
+    return key.replace("(anonymous namespace)::", "").split("(")[0]
+
+
+def _profile_kernels(fn, calls: int = 5) -> dict:
+    """Device ms per call of each kernel ``fn()`` launches, summed by
+    kernel name over ``calls`` calls under ``torch.profiler`` (CUDA
+    activity), and under "span" the device ms from a call's first kernel
+    start to its last kernel end (a programmatic dependent starts before
+    its primary ends, so the kernels' times may overlap); {} when the
+    profiler sees no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = next((getattr(e, a) for a in ("device_time_total",
+                                            "cuda_time_total")
+                   if getattr(e, a, 0)), 0)
+        if us and e.count:
+            name = _kernel_name(e.key)
+            out[name] = out.get(name, 0.0) + us / 1e3 / calls
+    kern = sorted((e.time_range.start, e.time_range.end)
+                  for e in prof.events()
+                  if str(e.device_type).endswith("CUDA") and e.name
+                  and _kernel_name(e.name) in out)
+    if out and len(kern) == calls * len(out):
+        per = len(out)
+        out["span"] = sum(max(b for _, b in kern[i:i + per]) - kern[i][0]
+                          for i in range(0, len(kern), per)) / 1e3 / calls
+    return out
+
+
+def _ptxas_kernels(log: str) -> list:
+    """(kernel, registers, static smem bytes, spill bytes) of every entry
+    function in an ``nvcc -Xptxas -v`` log."""
+    rows, name = [], None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name, spill = ln.split("'")[1], 0
+        elif name and "bytes spill stores" in ln:
+            spill = int(ln.split("bytes stack frame, ")[1].split()[0])
+        elif name and "Used " in ln and "registers" in ln:
+            regs = int(ln.split("Used ")[1].split()[0])
+            smem = int(ln.split(" bytes smem")[0].split()[-1]) \
+                if "bytes smem" in ln else 0
+            rows.append((name, regs, smem, spill))
+            name = None
+    return rows
+
+
+def _resident_ctas(regs: int, smem: int, threads: int = 128) -> int:
+    """CTAs per SM of an H100 for a kernel of ``regs`` registers a thread
+    and ``smem`` bytes of shared memory a CTA: registers allocated per warp
+    in units of 256, 64K per SM; 228 KB of shared memory per SM with 1 KB
+    reserved per CTA; at most 64 warps and 32 CTAs."""
+    warps = -(-threads // 32)
+    by_regs = 65536 // (-(-regs * 32 // 256) * 256) // warps
+    by_smem = 233472 // (smem + 1024)
+    return min(by_regs, by_smem, 64 // warps, 32)
+
+
+def kernel_study(fd, cache_mod, dev, prefill, s_kv, s_rkv):
+    """The GT <= 16 path's split and merge: per-kernel device times from
+    the profiler at B1's decode shapes and the B4 root, both precisions;
+    B1's time against ``nsplit`` at the AR and middle-verify shapes (each
+    nsplit also held to the plain version); the ptxas resources of every
+    kernel with its resident CTAs per SM."""
+    res = {"profile": {}, "nsplit_sweep": {}, "ptxas": []}
+    shapes = [(1, 1, prefill, s_kv), (GAMMA + 2, GAMMA + 2, prefill, s_kv),
+              (GAMMA + 1, GAMMA + 1, 4096, 4096 + GAMMA + 1)]
+    for quant in (False, True):
+        tag = "int8" if quant else "bf16"
+        for gt, tn, k_len, s in shapes:
+            x = _b1_inputs(cache_mod, dev, gt, tn, k_len, s, quant)
+            args = [x[n] for n in ("q", "k", "v", "kn", "vn", "klen",
+                                   "mask")]
+            if quant:
+                prof = _profile_kernels(lambda: fd.flash_decode_append_int8(
+                    *args, x["ks"], x["vs"]))
+            else:
+                prof = _profile_kernels(lambda: fd.flash_decode_append(*args))
+            key = f"B1 {tag} ({gt}, {tn}, {k_len})"
+            res["profile"][key] = prof
+            print(f"profile {key}: " + ", ".join(
+                f"{n} {ms:.4f} ms" for n, ms in prof.items())
+                if prof else f"profile {key}: not measured (no device "
+                "time in the trace)", flush=True)
+            if gt == 8:
+                continue
+            tol = (INT8_B1_TOL if quant else 0.05) / (k_len + tn) ** 0.5
+            ref = (fd.flash_decode_append_int8_plain(
+                *args, x["ks"], x["vs"], group=fd.KERNEL_GROUP) if quant
+                else fd.flash_decode_append_plain(*args))
+            sweep = {}
+            for ns in (8, 17, 33, 66, 132, 264):
+                err = (_b1_entry(fd, x, ns) - ref).abs().max().item()
+                if not err <= tol:
+                    _fail(f"{key} at nsplit {ns}: kernel disagrees with "
+                          f"plain (err {err:.3e}, tol {tol:.3e})")
+                sweep[ns] = _device_ms(lambda: _b1_entry(fd, x, ns))
+            res["nsplit_sweep"][key] = sweep
+            print(f"nsplit sweep {key} (device ms; the wrapper's choice "
+                  f"{fd._plan(x['q'], s, quant)[0]}): " + ", ".join(
+                      f"{ns}: {ms:.4f}" for ns, ms in sweep.items()),
+                  flush=True)
+            del x, args, ref
+        # the B4 root: one row over the tree's retrieval budget
+        x = _b1_inputs(cache_mod, dev, 1, 1, 4096, s_rkv, quant)
+        if quant:
+            prof = _profile_kernels(lambda: fd.flash_decode_partials_int8(
+                x["q"], x["k"], x["v"], x["klen"], x["ks"], x["vs"]))
+        else:
+            prof = _profile_kernels(lambda: fd.flash_decode_partials(
+                x["q"], x["k"], x["v"], x["klen"]))
+        key = f"B4 {tag} root (1, 4096)"
+        res["profile"][key] = prof
+        print(f"profile {key}: " + ", ".join(
+            f"{n} {ms:.4f} ms" for n, ms in prof.items()), flush=True)
+        del x
+    rows = _ptxas_kernels(fd._build.BUILD_LOG.get(fd._SOURCE, ""))
+    if shutil.which("c++filt"):
+        names = subprocess.run(["c++filt"], input="\n".join(r[0] for r in rows),
+                               capture_output=True, text=True).stdout.split("\n")
+        rows = [(_kernel_name(n), *r[1:]) for n, r in zip(names, rows)]
+    for name, regs, smem, spill in rows:
+        ctas = _resident_ctas(regs, smem)
+        res["ptxas"].append(dict(kernel=name, registers=regs,
+                                 static_smem=smem, spill=spill,
+                                 ctas_per_sm_static=ctas))
+        print(f"ptxas {name}: {regs} registers, {smem} B static smem, "
+              f"{spill} B spill stores -> {ctas} CTAs/SM of 128 threads "
+              "(static shared memory only)", flush=True)
+    # what the plan reads: the occupancy calculator on the built kernels
+    lib = fd._build.lib(fd._SOURCE)
+    res["ctas_per_sm"] = {
+        f"{path} D={d} {'int8' if quant else 'bf16'}":
+            lib.tf_flash_decode_ctas_per_sm(gt, d, int(quant))
+        for path, gt in (("decode", 1), ("wide", 17)) for d in (64, 128)
+        for quant in (False, True)}
+    print(f"CTAs per SM ({fd._wave(dev, 128, False)[0]} SMs): "
+          + json.dumps(res["ctas_per_sm"]), flush=True)
+    return res
+
+
+def _host_probe(fd, cache_mod, dev, quant):
+    """Host us of one B1 wrapper call (best of 5 x 500 calls, no
+    synchronisation between them) and its device ms, at GT = 1 over 37 and
+    64 keys (the host outruns the card there) and over 32768."""
+    out = {}
+    g = torch.Generator(device=dev).manual_seed(0)
+    for k_len, s in ((37, 64), (64, 4200), (32768, 32928)):
+        q, kn, vn = (torch.randn((32, 1, 128), generator=g, device=dev)
+                     .to(torch.bfloat16) for _ in range(3))
+        k, v = (torch.randn((32, s, 128), generator=g, device=dev)
+                .to(torch.bfloat16) for _ in range(2))
+        mask = torch.ones(1, 1, dtype=torch.bool, device=dev)
+        klen = torch.tensor(k_len, dtype=torch.int32, device=dev)
+        if quant:
+            (k, ks), (v, vs) = (cache_mod.quantize_tokens(t) for t in (k, v))
+
+            def fn():
+                return fd.flash_decode_append_int8(q, k, v, kn, vn, klen,
+                                                   mask, ks, vs)
+        else:
+            def fn():
+                return fd.flash_decode_append(q, k, v, kn, vn, klen, mask)
+        for _ in range(50):
+            fn()
+        torch.cuda.synchronize()
+        best = []
+        for _ in range(5):
+            t = time.perf_counter()
+            for _ in range(500):
+                fn()
+            best.append((time.perf_counter() - t) / 500 * 1e6)
+            torch.cuda.synchronize()
+        out[f"k_len={k_len}"] = dict(host_us=min(best),
+                                     device_ms=_device_ms(fn))
+    return out
+
+
+def kernel_ab(fd, att, cache_mod, dev, prefill):
+    """``--ab``: the decode-shape kernels of the checkout this file runs
+    in, each precision: B1 at the AR, target- and middle-verify shapes,
+    B4's root, B3's 4 rows at the batched AR and middle verify, checked and
+    timed as the kernel phase does them, and ``_host_probe``. To compare
+    two versions on one card, copy this file into the other checkout's
+    root and run both in one session (parent, change, change, parent)."""
+    s_kv = prefill + GEN + 4 * (GAMMA + 2)
+    keep = ("ms", "ms_one_live_three_dead", "library_ms", "bound_ms",
+            "max_abs_err")
+    res = {"b1": {}, "b3": {}, "b4": {}, "host": {}}
+    for quant in (False, True):
+        tag = "int8" if quant else "bf16"
+        for sh in ((1, 1, prefill, s_kv), (GAMMA + 2, GAMMA + 2, prefill,
+                                            s_kv),
+                   (GAMMA + 1, GAMMA + 1, 4096, 4096 + GAMMA + 1)):
+            r = kernel_b1(fd, cache_mod, dev, *sh, quant=quant)
+            res["b1"][f"{tag} {sh[:3]}"] = {k: r[k] for k in keep if k in r}
+        r = kernel_b4(fd, att, cache_mod, dev, 1, 4096, 4246, quant=quant)
+        res["b4"][f"{tag} root"] = {k: r[k] for k in keep if k in r}
+        for sh in ((1, 1, 8192, 8352), (GAMMA + 1, GAMMA + 1, 4096,
+                                        4096 + GAMMA + 1)):
+            r = kernel_b3(fd, cache_mod, dev, *sh, quant=quant)
+            res["b3"][f"{tag} {sh[:3]}"] = {k: r[k] for k in keep if k in r}
+        res["host"][tag] = _host_probe(fd, cache_mod, dev, quant)
+    return res
 
 
 def int8_gemm_probe(llama, dev, rows=22):
@@ -1315,6 +1583,9 @@ def main() -> int:
     ap.add_argument("--skip-e2e", action="store_true",
                     help="stop after the kernel, reference and tree-gate "
                     "phases")
+    ap.add_argument("--ab", metavar="TAG",
+                    help="only time the decode-shape kernels (kernel_ab) "
+                    "and print one 'AB TAG {...}' line")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -1353,6 +1624,11 @@ def main() -> int:
                      for ln in log.splitlines() if "spill stores" in ln)
         print(f"  ptxas [{name}]: {len(regs)} kernels, registers "
               f"{sorted(set(regs))}, {spills} with spills", flush=True)
+    if args.ab:
+        print(f"AB {args.ab} " + json.dumps(kernel_ab(fd, att, cache, dev,
+                                                      args.prefill)),
+              flush=True)
+        return 0
 
     prefill = args.prefill
     s_kv = prefill + GEN + 4 * (GAMMA + 2)
@@ -1362,6 +1638,18 @@ def main() -> int:
               (512, 512, min(16384, prefill), s_kv)]     # prefill tile
     b1 = {quant: [kernel_b1(fd, cache, dev, *sh, quant=quant)
                   for sh in shapes] for quant in (False, True)}
+    # the decode path's edges: a k_len that is not a whole number of 64-key
+    # tiles, one shorter than a tile, GT = 16 (the last decode shape) and
+    # 17 (the first wide one), and a GQA decode row at D = 64 with
+    # tinyllama-1.1b-128k's widths (4 KV heads, G = 8, Tn = 1)
+    edges = [dict(gt=1, tn=1, k_len=4133, s=4200),
+             dict(gt=1, tn=1, k_len=37, s=64),
+             dict(gt=16, tn=16, k_len=4096, s=4112),
+             dict(gt=17, tn=17, k_len=4096, s=4113),
+             dict(gt=8, tn=1, k_len=prefill, s=s_kv, hkv=4, d=64)]
+    for quant in (False, True):
+        b1[quant] += [kernel_b1(fd, cache, dev, quant=quant, **e)
+                      for e in edges]
     # the tree verify: B1 at GT = Tn = tree size under the ancestor mask
     # (the path's 128-node tree, and a 512-node one: the widest q tile)
     gm = _grow_map(planner)
@@ -1396,6 +1684,7 @@ def main() -> int:
                (w_pad, prefill, s_tree), (w_pad, 0, s_rkv)]
     b4 = {quant: [kernel_b4(fd, att, cache, dev, *sh, quant=quant)
                   for sh in shapes4] for quant in (False, True)}
+    study = kernel_study(fd, cache, dev, prefill, s_kv, s_rkv)
     int8_gemm_probe(llama, dev)
     torch.cuda.empty_cache()
     ref = {name: reference_check(tc, llama, cache, rt, dev, quant=quant)
@@ -1548,6 +1837,7 @@ def main() -> int:
                  "tf_flash_decode_partials_int8", True),
     ]
     print(json.dumps({"reference": ref}), flush=True)
+    print(json.dumps({"kernel_study": study}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -36,11 +36,18 @@ def _randn(dev, seed, *shape):
     return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
 
 
-@pytest.mark.parametrize("gt,tn,k_len,s,d", [(1, 1, 1000, 1100, 128),
-                                             (7, 7, 4096, 4103, 128),
-                                             (8, 8, 0, 64, 128),
-                                             (200, 200, 777, 1000, 128),
-                                             (16, 4, 333, 400, 64)])
+# B1's shapes: the decode path (GT <= 16) at its edges (a k_len that is not
+# a whole number of 64-key tiles, one shorter than a tile, GT = 16, a GQA
+# decode row at D = 64: tinyllama-1.1b-128k's 4 KV heads, G = 8), the wide
+# path from GT = 17 on
+B1_CASES = [(1, 1, 1000, 1100, 128), (7, 7, 4096, 4103, 128),
+            (8, 8, 0, 64, 128), (200, 200, 777, 1000, 128),
+            (16, 4, 333, 400, 64), (1, 1, 4133, 4200, 128),
+            (1, 1, 37, 64, 128), (16, 16, 1000, 1100, 128),
+            (17, 17, 1000, 1100, 128), (8, 1, 32768, 32800, 64)]
+
+
+@pytest.mark.parametrize("gt,tn,k_len,s,d", B1_CASES)
 def test_flash_decode_matches_plain(dev, gt, tn, k_len, s, d):
     q, kn, vn = (_randn(dev, 0, 4, gt, d), _randn(dev, 1, 4, tn, d),
                  _randn(dev, 2, 4, tn, d))
@@ -94,11 +101,7 @@ def _int8_cache(dev, seed, *shape):
     return tcache.quantize_tokens(_randn(dev, seed, *shape))
 
 
-@pytest.mark.parametrize("gt,tn,k_len,s,d", [(1, 1, 1000, 1100, 128),
-                                             (7, 7, 4096, 4103, 128),
-                                             (8, 8, 0, 64, 128),
-                                             (200, 200, 777, 1000, 128),
-                                             (16, 4, 333, 400, 64)])
+@pytest.mark.parametrize("gt,tn,k_len,s,d", B1_CASES)
 def test_flash_decode_int8_matches_plain(dev, gt, tn, k_len, s, d):
     """The int8 kernel against its plain version at the kernel's group,
     with codes and scales past k_len poisoned (never read) and k_len = 0
@@ -172,6 +175,10 @@ B3_CASES = [
     (8, 8, [0, 0, 0, 0], 64, 128, True),
     (40, 8, [777, 0, 5, 1000], 1000, 128, True),
     (16, 4, [333, 0, 2, 400], 400, 64, True),
+    # the decode path's edges: GT = 16 with a row shorter than a tile and
+    # one not a whole number of tiles; the GQA decode row at D = 64
+    (16, 16, [1100, 0, 37, 1000], 1100, 128, False),
+    (8, 1, [32768, 0, 37, 4133], 32800, 64, False),
 ]
 
 
@@ -278,6 +285,8 @@ B4_CASES = [
     (16, 5, 64, 128),         # warps of the key-split path with no live key
     (200, 777, 1000, 128),
     (40, 333, 400, 64),
+    (1, 37, 64, 128),         # the root, shorter than one 64-key tile
+    (1, 4133, 4246, 64),      # the root, not a whole number of tiles
 ]
 
 
@@ -396,3 +405,23 @@ def test_int_matmul_matches_int64_reference(dev, rows, k, n):
     assert out.dtype == torch.int32 and out.shape == (rows, n)
     ref = (x.double() @ w.double()).to(torch.int64)   # exact: < 2^53
     assert torch.equal(out.to(torch.int64), ref)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("quant", [False, True])
+def test_decode_plan_on_the_card(dev, d, quant):
+    """The decode path's plan from the built kernel: at least one CTA per
+    SM, one partial per split, and the splits of one row's heads in one
+    wave of the card."""
+    sms, per_sm = tfd._wave(dev, d, quant)
+    assert sms == torch.cuda.get_device_properties(dev).multi_processor_count
+    assert per_sm >= 1
+    q = torch.empty((32, 1, d), dtype=torch.bfloat16, device=dev)
+    nsplit, parts = tfd._plan(q, 32928, quant)
+    assert parts == nsplit == tfd.decode_nsplit(32, 32928, sms, per_sm)
+    assert 32 * nsplit <= sms * per_sm
+    # the library takes the decode path up to the wrapper's DECODE_ROWS
+    lib = tfd._build.lib(tfd._SOURCE)
+    assert lib.tf_flash_decode_ctas_per_sm(tfd.DECODE_ROWS, d, quant) == per_sm
+    assert lib.tf_flash_decode_ctas_per_sm(1, d, quant) == per_sm
+

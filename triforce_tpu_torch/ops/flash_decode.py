@@ -28,7 +28,7 @@ length per row ``k_len [B]`` and a mask per row ``[B, GT, Tn]`` (or one
 returns the attention over its new block alone. On the card the rows are a
 grid index of the same device code as the single-row kernel, one launch
 pair for all rows; each row is split as the single-row kernel would split
-it (``pick_nsplit`` does not look at B), so a row's result does not depend
+it (``_plan`` does not look at B), so a row's result does not depend
 on its companions and equals the single-row kernel's bit for bit. The
 plain versions run the single-row plain version row by row.
 
@@ -39,8 +39,13 @@ state ``(m [Hkv, GT], l [Hkv, GT], acc [Hkv, GT, D])`` fp32, mergeable with
 ``ops.attention.merge_partials``; an empty prefix gives ``(-1e30, 0, 0)``.
 The tree grow's prefix attention runs it (``models/llama.py``). On the card
 it is the first phase of the kernel above followed by a merge that stops
-before the fold (``fd_merge_kernel``); the TPU kernel's ``layer`` argument
-is a view of the stacked cache here.
+before the fold; the TPU kernel's ``layer`` argument is a view of the
+stacked cache here.
+
+Two device paths share every entry point: up to ``DECODE_ROWS`` = 16 query
+rows per KV head (the decode shapes) a pipelined kernel whose sequence
+splits fill one wave of the card (``decode_nsplit``, from its SM count and
+the kernel's occupancy), and above that the wide path (``pick_nsplit``).
 
 The Pallas kernel's TPU-only machinery does not carry over: its 128-lane
 pad of the new block, the VMEM-driven block choice and the 512/2048 cache
@@ -61,8 +66,12 @@ from ..cache import int8_scale
 
 _NEG_INF = -1e30
 _SOURCE = "flash_decode.cu"
-_SMS = 132          # H100 SXM streaming multiprocessors
-_CTA_ROWS = 64      # query rows per CTA of the split phase
+_SMS = 132          # H100 SXM streaming multiprocessors (the wide path's plan)
+_CTA_ROWS = 64      # query rows per CTA of the wide path's split phase
+DECODE_ROWS = 16    # GT up to this takes the decode kernel (one mma row
+                    # tile; csrc/flash_decode.cu's DECODE_ROWS)
+_MAX_SPLITS = 1024  # splits the decode path's merge can weigh
+_MIN_SPLIT_KEYS = 256
 KERNEL_GROUP = 16   # keys per p re-quantization group of the int8 kernel
 
 
@@ -207,11 +216,22 @@ def flash_decode_append_int8_plain(q, k, v, k_new, v_new, k_len, new_mask,
 
 
 def pick_nsplit(hkv: int, gt: int, s: int) -> int:
-    """Sequence splits of the kernel's first phase: enough CTAs for about
-    four per SM, each split at least 256 keys long."""
+    """Sequence splits of the wide path's first phase (GT > DECODE_ROWS):
+    enough CTAs for about four per SM, each split at least 256 keys long."""
     ctas = hkv * -(-gt // _CTA_ROWS)
     want = -(-4 * _SMS // ctas)
-    return max(1, min(want, -(-s // 256), 64))
+    return max(1, min(want, -(-s // _MIN_SPLIT_KEYS), 64))
+
+
+def decode_nsplit(hkv: int, s: int, sms: int, ctas_per_sm: int) -> int:
+    """Sequence splits of the decode path (GT <= DECODE_ROWS): as many as
+    let the splits of all ``hkv`` heads of one row run in one wave of
+    ``ctas_per_sm`` CTAs on each of ``sms`` SMs (a row of heads that
+    outnumbers the wave takes one split each), each split at least 256
+    keys of the ``s``-slot cache. A function of the shape alone, never of
+    the batch: B rows run B waves, each split as B = 1 splits it."""
+    wave = sms * ctas_per_sm // hkv
+    return max(1, min(wave, -(-s // _MIN_SPLIT_KEYS), _MAX_SPLITS))
 
 
 @functools.lru_cache(maxsize=None)
@@ -219,6 +239,38 @@ def _n_parts(gt: int, nsplit: int) -> int:
     """Partials per query row the kernel writes, as the library counts them
     (it alone decides; the wrapper sizes its scratch by this)."""
     return _build.lib(_SOURCE).tf_flash_decode_parts(gt, nsplit)
+
+
+@functools.lru_cache(maxsize=None)
+def _wave_at(index: int, d: int, quant: bool):
+    """(SMs, CTAs of the built decode kernel one SM holds at once) of card
+    ``index``: the device's SM count and the CUDA occupancy calculator."""
+    with torch.cuda.device(index):
+        n = _build.lib(_SOURCE).tf_flash_decode_ctas_per_sm(1, d, int(quant))
+    if n <= 0:
+        raise RuntimeError(f"flash_decode occupancy query: cudaError_t {-n}")
+    return torch.cuda.get_device_properties(index).multi_processor_count, n
+
+
+def _wave(device, d: int, quant: bool):
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    return _wave_at(index, d, quant)
+
+
+def _plan(q, s: int, quant: bool):
+    """(nsplit, partials per row) of a launch for queries q [..., Hkv, GT,
+    D] over an ``s``-slot cache; the batch dimension, if any, is not read."""
+    hkv, gt, d = q.shape[-3:]
+    if gt > DECODE_ROWS:
+        nsplit = pick_nsplit(hkv, gt, s)
+    else:
+        nsplit = decode_nsplit(hkv, s, *_wave(q.device, d, quant))
+    return nsplit, _n_parts(gt, nsplit)
+
+
+def _stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 def _check_cache_args(q, k, v, k_len, cache_dtype, **more):
@@ -279,8 +331,7 @@ def _launch(fn, q, k, v, k_new, v_new, k_len, new_mask, scales=()):
     (pointer, head stride) arguments."""
     hkv, gt, d = q.shape
     s, tn = k.shape[1], k_new.shape[1]
-    nsplit = pick_nsplit(hkv, gt, s)
-    parts = _n_parts(gt, nsplit)
+    nsplit, parts = _plan(q, s, bool(scales))
     f32 = dict(dtype=torch.float32, device=q.device)
     m_part = torch.empty((hkv, gt, parts), **f32)
     l_part = torch.empty((hkv, gt, parts), **f32)
@@ -294,7 +345,7 @@ def _launch(fn, q, k, v, k_new, v_new, k_len, new_mask, scales=()):
              new_mask.data_ptr(), k_len.data_ptr(),
              m_part.data_ptr(), l_part.data_ptr(), acc_part.data_ptr(),
              out.data_ptr(), hkv, gt, tn, s, d, nsplit, _scale(d),
-             torch.cuda.current_stream(q.device).cuda_stream)
+             _stream(q.device))
     _build.check(err, "flash_decode kernel launch")
     return out
 
@@ -359,8 +410,7 @@ def _launch_partials(fn, q, k, v, k_len, scales=()):
     point of ``csrc/flash_decode.cu``."""
     hkv, gt, d = q.shape
     s = k.shape[1]
-    nsplit = pick_nsplit(hkv, gt, s)
-    parts = _n_parts(gt, nsplit)
+    nsplit, parts = _plan(q, s, bool(scales))
     f32 = dict(dtype=torch.float32, device=q.device)
     m_part = torch.empty((hkv, gt, parts), **f32)
     l_part = torch.empty((hkv, gt, parts), **f32)
@@ -373,8 +423,7 @@ def _launch_partials(fn, q, k, v, k_len, scales=()):
              v.data_ptr(), v.stride(0), v.stride(1), *scales,
              k_len.data_ptr(), m_part.data_ptr(), l_part.data_ptr(),
              acc_part.data_ptr(), m.data_ptr(), l.data_ptr(), acc.data_ptr(),
-             hkv, gt, s, d, nsplit, _scale(d),
-             torch.cuda.current_stream(q.device).cuda_stream)
+             hkv, gt, s, d, nsplit, _scale(d), _stream(q.device))
     _build.check(err, "flash_decode partials kernel launch")
     return m, l, acc
 
@@ -506,8 +555,7 @@ def _launch_batched(fn, q, k, v, k_new, v_new, k_len, new_mask, scales=()):
     launch one row-batched entry point of ``csrc/flash_decode.cu``."""
     bsz, hkv, gt, d = q.shape
     s, tn = k.shape[2], k_new.shape[2]
-    nsplit = pick_nsplit(hkv, gt, s)      # per row, whatever B is
-    parts = _n_parts(gt, nsplit)
+    nsplit, parts = _plan(q, s, bool(scales))   # per row, whatever B is
     f32 = dict(dtype=torch.float32, device=q.device)
     m_part = torch.empty((bsz, hkv, gt, parts), **f32)
     l_part = torch.empty((bsz, hkv, gt, parts), **f32)
@@ -522,7 +570,7 @@ def _launch_batched(fn, q, k, v, k_new, v_new, k_len, new_mask, scales=()):
              mask_sb, new_mask.data_ptr(), k_len.data_ptr(),
              m_part.data_ptr(), l_part.data_ptr(), acc_part.data_ptr(),
              out.data_ptr(), hkv, gt, tn, s, d, nsplit, _scale(d),
-             torch.cuda.current_stream(q.device).cuda_stream)
+             _stream(q.device))
     _build.check(err, "row-batched flash_decode kernel launch")
     return out
 
