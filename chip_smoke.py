@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py                 # full run (one H100)
     python3 chip_smoke.py --skip-e2e      # build + kernel phase only
-    python3 chip_smoke.py --ab TAG        # time the decode-shape kernels
+    python3 chip_smoke.py --ab TAG        # time the kernels (decode, wide)
+    python3 chip_smoke.py --study         # the kernel study alone
 
 Phases, in order (any failure exits non-zero before the last line):
   1. device line: the card's name and power limit (nvidia-smi);
@@ -13,12 +14,15 @@ Phases, in order (any failure exits non-zero before the last line):
      paths' shapes against its plain PyTorch version (stated tolerance),
      with its device time (CUDA-graph replay), its bound, the plain
      version's time and a library yardstick's time; B1 also at the tree
-     verify's shapes under an ancestor mask and at the decode path's edges
-     (ragged and sub-tile k_len, GT 16 and 17, a GQA row at D = 64); B3
-     also against B1 row by row (bit equality) and with dead rows; B4 also
-     merged with a new block against B1, and with an empty prefix; then
-     the decode path's study: per-kernel device times from the profiler,
-     B1's time against nsplit, registers and CTAs per SM of every kernel;
+     verify's shapes under an ancestor mask, at the decode path's edges
+     (ragged and sub-tile k_len, GT 16 and 17, a GQA row at D = 64) and at
+     a GQA prefill tile (GT 4096 at D = 64), with a new block that
+     outweighs the cache at every shape with Tn = GT or GT <= 16 (a lost
+     fold or an ignored mask shown to fail); B3 also against B1 row by row (bit equality) and with
+     dead rows; B4 also merged with a new block against B1, and with an
+     empty prefix; then both paths' study: per-kernel device times from
+     the profiler at the decode and the wide shapes, B1's time against
+     nsplit, registers and CTAs per SM of every kernel;
   4. reference: the full-width model at cut depth on a short prompt, the
      card's path (through the kernels) against an fp32 CPU run of the same
      weights: bf16 weights and cache, then int8 weights and cache;
@@ -54,6 +58,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import shutil
 import statistics
 import subprocess
@@ -202,6 +207,52 @@ def _b1_entry(fd, x, nsplit):
     return out
 
 
+def _int8_fold_witness(fd, q, k, v, kn, vn, klen, mask, ks, vs, out, ref):
+    """B1-int8 against a second witness: the plain version's cache part
+    (its integer codes, in fp32) with the new block folded in fp64, p
+    rounded to bf16 from its fp64 value. Gives the kernel's and the plain
+    version's distance from it, and the plain version's with its new scores
+    from the library's tensor-core GEMM (bf16 in, fp32 accumulators) in
+    place of fp32 sums; and where the kernel and the plain version differ
+    most: the query row, its allowed new tokens, the cache's and the new
+    block's maximum score and the new block's share of the softmax."""
+    m, l, acc, q8, qs = fd._int8_cache_partials(q, k, v, klen, ks, vs,
+                                                 fd.KERNEL_GROUP)
+    qn = (q8 * qs).to(torch.bfloat16)
+    bias = torch.where(mask, 0.0, -1e30)
+
+    def fold(sn, dt):
+        sn = sn.to(dt) + bias.to(dt)
+        m_new = torch.maximum(m.to(dt), sn.amax(-1, keepdim=True))
+        alpha = torch.exp(m.to(dt) - m_new)
+        pn = torch.exp(sn - m_new)
+        l_new = pn.sum(-1, keepdim=True)
+        a = acc.to(dt) * alpha + torch.einsum(
+            "hgn,hnd->hgd", pn.to(torch.bfloat16).to(dt), vn.to(dt))
+        return (a / (l.to(dt) * alpha + l_new)).float(), sn, \
+            (l_new / (l.to(dt) * alpha + l_new)).float()
+
+    exact, sn, share = fold(torch.einsum("hgd,hnd->hgn", qn.double(),
+                                         kn.double()), torch.float64)
+    res = dict(kernel=(out - exact).abs().max().item(),
+               plain=(ref - exact).abs().max().item())
+    try:
+        tc, _, _ = fold(torch.bmm(qn, kn.transpose(1, 2).contiguous(),
+                                  out_dtype=torch.float32), torch.float32)
+        res["plain_tensor_core_scores"] = (tc - exact).abs().max().item()
+        res["plain_tensor_core_scores_vs_kernel"] = \
+            (tc - out).abs().max().item()
+    except (RuntimeError, TypeError) as e:   # no fp32-out bf16 GEMM
+        res["plain_tensor_core_scores"] = repr(e)[:80]
+    i = (out - ref).abs().flatten().argmax().item()
+    h, r = i // (q.shape[1] * q.shape[2]), (i // q.shape[2]) % q.shape[1]
+    res["worst"] = dict(head=h, row=r, allowed=int(mask[r].sum()),
+                        m_cache=m[h, r, 0].item(),
+                        m_new=sn[h, r].max().item(),
+                        new_share=share[h, r, 0].item())
+    return res
+
+
 def kernel_b1(fd, cache_mod, dev, gt, tn, k_len, s, quant=False, hkv=32,
               d=128, seed=0, tree_mask=None):
     """B1 (or, with ``quant``, B1-int8 over the int8 codes and scales of
@@ -248,23 +299,41 @@ def kernel_b1(fd, cache_mod, dev, gt, tn, k_len, s, quant=False, hkv=32,
         torch.cuda.synchronize()
         if not torch.isfinite(out).all():
             _fail(f"{name} gt={gt} k_len={k_len} {what}: non-finite output")
-        return (out - ref).abs().max().item(), ref
+        return (out - ref).abs().max().item(), ref, out
 
-    err, _ = check(kn, "random")
+    err, _, _ = check(kn, "random")
     if not err <= tol:
         _fail(f"{name} gt={gt} k_len={k_len}: kernel disagrees with plain "
               f"(err {err:.3e}, tol {tol:.3e})")
     err_new = None
-    if gt <= 16:
+    if gt <= 16 or tn == gt:
         # With random keys the new tokens hold ~Tn/k_len of the softmax
         # weight, too little for a lost fold or a wrong mask to show. Here
         # new key j = 1.5 (q_j + q_{j-1}): row r's allowed token j = r and
-        # its masked token j = r + 1 both outscore the whole cache.
+        # its masked token j = r + 1 (causal, or not an ancestor of node r)
+        # both outscore the whole cache. Not at a GQA tile (Tn < GT > 16):
+        # its other groups' rows see many heavy new tokens, whose bf16 p
+        # roundings differ from the plain version's past the int8 budget
+        # for any order of the fp32 score sums (PERF.md).
         qf = q.float()
         kn_dom = qf.clone()
         kn_dom[:, 1:] += qf[:, :-1]
         kn_dom = (1.5 * kn_dom[:, :tn]).to(bf)
-        err_new, ref = check(kn_dom, "dominant new block")
+        err_new, ref, out = check(kn_dom, "dominant new block")
+        if quant:
+            # the plain version's fp32 new scores round some p to the
+            # other side of a bf16 step than exact scores do, so the kernel
+            # is held to the fp64 fold as well (PERF.md)
+            witness = _int8_fold_witness(fd, q, k, v, kn_dom, vn, klen_t,
+                                         mask, ks, vs, out, ref)
+            print(f"{name} gt={gt} k_len={k_len} dominant new block, "
+                  f"distance from the fp64 fold: {json.dumps(witness)}",
+                  flush=True)
+            if not witness["kernel"] <= tol:
+                _fail(f"{name} gt={gt} k_len={k_len}: kernel disagrees with "
+                      f"the fp64 fold when the new block dominates (err "
+                      f"{witness['kernel']:.3e}, tol {tol:.3e})")
+        del out
         # the case has the power to catch each fault (no masked token at 1)
         faults = [("no fold", torch.zeros_like(mask))]
         if not mask.all():   # a mask that hides nothing cannot be ignored
@@ -735,19 +804,55 @@ def _resident_ctas(regs: int, smem: int, threads: int = 128) -> int:
     return min(by_regs, by_smem, 64 // warps, 32)
 
 
-def kernel_study(fd, cache_mod, dev, prefill, s_kv, s_rkv):
-    """The GT <= 16 path's split and merge: per-kernel device times from
-    the profiler at B1's decode shapes and the B4 root, both precisions;
-    B1's time against ``nsplit`` at the AR and middle-verify shapes (each
-    nsplit also held to the plain version); the ptxas resources of every
-    kernel with its resident CTAs per SM."""
+def _print_profile(key, prof):
+    print(f"profile {key}: " + ", ".join(
+        f"{n} {ms:.4f} ms" for n, ms in prof.items())
+        if prof else f"profile {key}: not measured (no device time in the "
+        "trace)", flush=True)
+
+
+def _nsplit_sweep(fd, x, key, tol, splits, ref, s, quant):
+    """B1's device ms at each of ``splits`` through the C entry point,
+    each held to the plain version's output ``ref`` first."""
+    sweep = {}
+    for ns in splits:
+        err = (_b1_entry(fd, x, ns) - ref).abs().max().item()
+        if not err <= tol:
+            _fail(f"{key} at nsplit {ns}: kernel disagrees with plain "
+                  f"(err {err:.3e}, tol {tol:.3e})")
+        sweep[ns] = _device_ms(lambda: _b1_entry(fd, x, ns))
+    print(f"nsplit sweep {key} (device ms; the wrapper's choice "
+          f"{fd._plan(x['q'], s, quant)[0]}): " + ", ".join(
+              f"{ns}: {ms:.4f}" for ns, ms in sweep.items()), flush=True)
+    return sweep
+
+
+def kernel_study(fd, cache_mod, dev, prefill, s_kv, s_rkv, tree_mask):
+    """Both paths' phases: per-kernel device times from the profiler at
+    B1's decode shapes, the B4 root, and the wide shapes (the prefill tile,
+    the tree verify under ``tree_mask``, GT 17, B4's grow level over the
+    budget region and over the full cache), both precisions; B1's time
+    against ``nsplit`` at the AR, middle-verify, prefill-tile and
+    tree-verify shapes (each nsplit also held to the plain version); B1's
+    device time at the wide shapes and a GQA prefill tile; the ptxas
+    resources of every kernel with its resident CTAs per SM."""
     res = {"profile": {}, "nsplit_sweep": {}, "ptxas": []}
-    shapes = [(1, 1, prefill, s_kv), (GAMMA + 2, GAMMA + 2, prefill, s_kv),
-              (GAMMA + 1, GAMMA + 1, 4096, 4096 + GAMMA + 1)]
+    tile = min(16384, prefill)
+    n_tree = len(tree_mask)
+    # (gt, tn, k_len, s, ancestor mask, nsplit sweep or None)
+    shapes = [(1, 1, prefill, s_kv, None, (8, 17, 33, 66, 132, 264)),
+              (GAMMA + 2, GAMMA + 2, prefill, s_kv, None, None),
+              (GAMMA + 1, GAMMA + 1, 4096, 4096 + GAMMA + 1, None,
+               (8, 17, 33, 66, 132, 264)),
+              (512, 512, tile, s_kv, None, (1, 2, 3, 4, 6, 8, 12)),
+              (n_tree, n_tree, prefill, s_kv + n_tree, tree_mask,
+               (1, 2, 4, 8, 9, 16, 32)),
+              (17, 17, 4096, 4113, None, None)]
     for quant in (False, True):
         tag = "int8" if quant else "bf16"
-        for gt, tn, k_len, s in shapes:
-            x = _b1_inputs(cache_mod, dev, gt, tn, k_len, s, quant)
+        for gt, tn, k_len, s, tmask, splits in shapes:
+            x = _b1_inputs(cache_mod, dev, gt, tn, k_len, s, quant,
+                           tree_mask=tmask)
             args = [x[n] for n in ("q", "k", "v", "kn", "vn", "klen",
                                    "mask")]
             if quant:
@@ -755,44 +860,56 @@ def kernel_study(fd, cache_mod, dev, prefill, s_kv, s_rkv):
                     *args, x["ks"], x["vs"]))
             else:
                 prof = _profile_kernels(lambda: fd.flash_decode_append(*args))
-            key = f"B1 {tag} ({gt}, {tn}, {k_len})"
+            key = f"B1 {tag} ({gt}, {tn}, {k_len})" \
+                + (" ancestor mask" if tmask is not None else "")
             res["profile"][key] = prof
-            print(f"profile {key}: " + ", ".join(
-                f"{n} {ms:.4f} ms" for n, ms in prof.items())
-                if prof else f"profile {key}: not measured (no device "
-                "time in the trace)", flush=True)
-            if gt == 8:
-                continue
-            tol = (INT8_B1_TOL if quant else 0.05) / (k_len + tn) ** 0.5
-            ref = (fd.flash_decode_append_int8_plain(
-                *args, x["ks"], x["vs"], group=fd.KERNEL_GROUP) if quant
-                else fd.flash_decode_append_plain(*args))
-            sweep = {}
-            for ns in (8, 17, 33, 66, 132, 264):
-                err = (_b1_entry(fd, x, ns) - ref).abs().max().item()
-                if not err <= tol:
-                    _fail(f"{key} at nsplit {ns}: kernel disagrees with "
-                          f"plain (err {err:.3e}, tol {tol:.3e})")
-                sweep[ns] = _device_ms(lambda: _b1_entry(fd, x, ns))
-            res["nsplit_sweep"][key] = sweep
-            print(f"nsplit sweep {key} (device ms; the wrapper's choice "
-                  f"{fd._plan(x['q'], s, quant)[0]}): " + ", ".join(
-                      f"{ns}: {ms:.4f}" for ns, ms in sweep.items()),
-                  flush=True)
-            del x, args, ref
-        # the B4 root: one row over the tree's retrieval budget
-        x = _b1_inputs(cache_mod, dev, 1, 1, 4096, s_rkv, quant)
-        if quant:
-            prof = _profile_kernels(lambda: fd.flash_decode_partials_int8(
-                x["q"], x["k"], x["v"], x["klen"], x["ks"], x["vs"]))
-        else:
-            prof = _profile_kernels(lambda: fd.flash_decode_partials(
-                x["q"], x["k"], x["v"], x["klen"]))
-        key = f"B4 {tag} root (1, 4096)"
-        res["profile"][key] = prof
-        print(f"profile {key}: " + ", ".join(
-            f"{n} {ms:.4f} ms" for n, ms in prof.items()), flush=True)
-        del x
+            _print_profile(key, prof)
+            if splits is not None:
+                tol = (INT8_B1_TOL if quant else 0.05) / (k_len + tn) ** 0.5
+                ref = (fd.flash_decode_append_int8_plain(
+                    *args, x["ks"], x["vs"], group=fd.KERNEL_GROUP) if quant
+                    else fd.flash_decode_append_plain(*args))
+                res["nsplit_sweep"][key] = _nsplit_sweep(
+                    fd, x, key, tol, splits, ref, s, quant)
+                del ref
+            del x, args
+        # B4: the root (one row) and a grow level (22 rows) over the tree's
+        # retrieval budget, a level over the full cache
+        for gt, k_len, s in ((1, 4096, s_rkv), (22, 4096, s_rkv),
+                             (22, prefill, s_kv + n_tree)):
+            x = _b1_inputs(cache_mod, dev, gt, 1, k_len, s, quant)
+            if quant:
+                prof = _profile_kernels(lambda: fd.flash_decode_partials_int8(
+                    x["q"], x["k"], x["v"], x["klen"], x["ks"], x["vs"]))
+            else:
+                prof = _profile_kernels(lambda: fd.flash_decode_partials(
+                    x["q"], x["k"], x["v"], x["klen"]))
+            key = f"B4 {tag} ({gt}, {k_len})"
+            res["profile"][key] = prof
+            _print_profile(key, prof)
+            del x
+    # B1's device ms at the wide shapes, wrapper only (the numbers PERF.md
+    # compares the wide path's variants by), with the GQA prefill tile
+    res["wide_ms"] = {}
+    for quant in (False, True):
+        for name, (gt, tn, k_len, s, tmask, hkv, d) in {
+                "prefill tile": (512, 512, tile, s_kv, None, 32, 128),
+                "tree verify": (n_tree, n_tree, prefill, s_kv + n_tree,
+                                tree_mask, 32, 128),
+                "gt17": (17, 17, 4096, 4113, None, 32, 128),
+                "gqa tile": (4096, 512, tile, tile + 512, None, 4, 64)}.items():
+            x = _b1_inputs(cache_mod, dev, gt, tn, k_len, s, quant, hkv, d,
+                           tree_mask=tmask)
+            args = [x[n] for n in ("q", "k", "v", "kn", "vn", "klen", "mask")]
+            if quant:
+                ms = _device_ms(lambda: fd.flash_decode_append_int8(
+                    *args, x["ks"], x["vs"]))
+            else:
+                ms = _device_ms(lambda: fd.flash_decode_append(*args))
+            res["wide_ms"][f"{'int8' if quant else 'bf16'} {name}"] = ms
+            del x, args
+    print("wide B1 device ms: " + json.dumps(
+        {k: round(v, 4) for k, v in res["wide_ms"].items()}), flush=True)
     rows = _ptxas_kernels(fd._build.BUILD_LOG.get(fd._SOURCE, ""))
     if shutil.which("c++filt"):
         names = subprocess.run(["c++filt"], input="\n".join(r[0] for r in rows),
@@ -811,7 +928,8 @@ def kernel_study(fd, cache_mod, dev, prefill, s_kv, s_rkv):
     res["ctas_per_sm"] = {
         f"{path} D={d} {'int8' if quant else 'bf16'}":
             lib.tf_flash_decode_ctas_per_sm(gt, d, int(quant))
-        for path, gt in (("decode", 1), ("wide", 17)) for d in (64, 128)
+        for path, gt in (("decode", 1), ("wide 64 rows", 17),
+                         ("wide 128 rows", 128)) for d in (64, 128)
         for quant in (False, True)}
     print(f"CTAs per SM ({fd._wave(dev, 128, False)[0]} SMs): "
           + json.dumps(res["ctas_per_sm"]), flush=True)
@@ -855,14 +973,18 @@ def _host_probe(fd, cache_mod, dev, quant):
     return out
 
 
-def kernel_ab(fd, att, cache_mod, dev, prefill):
-    """``--ab``: the decode-shape kernels of the checkout this file runs
-    in, each precision: B1 at the AR, target- and middle-verify shapes,
-    B4's root, B3's 4 rows at the batched AR and middle verify, checked and
-    timed as the kernel phase does them, and ``_host_probe``. To compare
-    two versions on one card, copy this file into the other checkout's
-    root and run both in one session (parent, change, change, parent)."""
+def kernel_ab(fd, att, cache_mod, dev, prefill, tree_mask):
+    """``--ab``: the kernels of the checkout this file runs in, each
+    precision, checked and timed as the kernel phase does them: B1 at the
+    decode shapes (AR, target and middle verify) and the wide ones (the
+    prefill tile, the tree verify under ``tree_mask``, GT 17, the GQA
+    prefill tile: Hkv 4, GT 4096, D 64), B4 at the root and at a grow level
+    (GT 22), B3's 4 rows at the batched AR, the
+    middle verify and GT 17, and ``_host_probe``. To compare two versions on
+    one card, copy this file into the other checkout's root and run both in
+    one call on the card (parent, change, change, parent)."""
     s_kv = prefill + GEN + 4 * (GAMMA + 2)
+    n_tree = len(tree_mask)
     keep = ("ms", "ms_one_live_three_dead", "library_ms", "bound_ms",
             "max_abs_err")
     res = {"b1": {}, "b3": {}, "b4": {}, "host": {}}
@@ -870,13 +992,26 @@ def kernel_ab(fd, att, cache_mod, dev, prefill):
         tag = "int8" if quant else "bf16"
         for sh in ((1, 1, prefill, s_kv), (GAMMA + 2, GAMMA + 2, prefill,
                                             s_kv),
-                   (GAMMA + 1, GAMMA + 1, 4096, 4096 + GAMMA + 1)):
+                   (GAMMA + 1, GAMMA + 1, 4096, 4096 + GAMMA + 1),
+                   (512, 512, min(16384, prefill), s_kv),
+                   (17, 17, 4096, 4113)):
             r = kernel_b1(fd, cache_mod, dev, *sh, quant=quant)
             res["b1"][f"{tag} {sh[:3]}"] = {k: r[k] for k in keep if k in r}
-        r = kernel_b4(fd, att, cache_mod, dev, 1, 4096, 4246, quant=quant)
-        res["b4"][f"{tag} root"] = {k: r[k] for k in keep if k in r}
+        r = kernel_b1(fd, cache_mod, dev, n_tree, n_tree, prefill,
+                      s_kv + n_tree, quant=quant, tree_mask=tree_mask)
+        res["b1"][f"{tag} {(n_tree, n_tree, prefill)} ancestor mask"] = {
+            k: r[k] for k in keep if k in r}
+        tile = min(16384, prefill)
+        r = kernel_b1(fd, cache_mod, dev, 4096, 512, tile, tile + 512,
+                      quant=quant, hkv=4, d=64)
+        res["b1"][f"{tag} {(4096, 512, tile)} Hkv 4 D 64"] = {
+            k: r[k] for k in keep if k in r}
+        for sh in ((1, 4096, 4246), (22, 4096, 4246)):
+            r = kernel_b4(fd, att, cache_mod, dev, *sh, quant=quant)
+            res["b4"][f"{tag} {sh[:2]}"] = {k: r[k] for k in keep if k in r}
         for sh in ((1, 1, 8192, 8352), (GAMMA + 1, GAMMA + 1, 4096,
-                                        4096 + GAMMA + 1)):
+                                        4096 + GAMMA + 1),
+                   (17, 17, 4096, 4113)):
             r = kernel_b3(fd, cache_mod, dev, *sh, quant=quant)
             res["b3"][f"{tag} {sh[:3]}"] = {k: r[k] for k in keep if k in r}
         res["host"][tag] = _host_probe(fd, cache_mod, dev, quant)
@@ -1390,14 +1525,32 @@ def tree_end_to_end(tc, planner, spectree, fd, rk, dev, params, prefill,
     return res
 
 
+def _ulps4(ref, got):
+    """|got - ref| at its largest, in units of 4 bf16 ulps of ref's largest
+    logit: a GEMM of another height rounds a logit by about one ulp, a row
+    that reads another row's cache slots moves it by O(1)."""
+    top = ref.abs().max().item()
+    ulp = 2.0 ** (math.floor(math.log2(top)) - 7) if top else 1.0
+    return (got - ref).abs().max().item() / (4 * ulp)
+
+
 def rows_equal_batch1(tc, llama, Engine, bs, dev, quant, layers=2,
                       prefill=1024, steps=3):
     """On the card, a batched row emits what its batch-1 run with the same
     seed emits: a ``layers``-layer full-width target + Llama-68M, 2 rows,
     ``steps`` TriForce steps. Each row's attention is bit-identical in the
-    two runs (B3 splits a row as B1 does); the matmuls see 2 rows instead
-    of 1, so this holds as long as the library's GEMM sums each output the
-    same way at both heights."""
+    two runs (B3 splits a row as B1 does), but the matmuls see 2 rows
+    instead of 1, and on the card the library's GEMM then sums some outputs
+    in another order: logits about one bf16 ulp apart, enough to move a
+    token sampled at a near tie. So the batched run is held to its batch-1
+    runs forward by forward. Every forward of a row (drafter, middle and
+    target) whose input tokens are those of the batch-1 run's next forward
+    of its kind must give logits within 4 bf16 ulps of that forward's
+    (``_ulps4``), and then hands the row the batch-1 run's logits, so that
+    the sampling sees the same numbers in both runs. Every row must then
+    emit its batch-1 run's tokens at every step, and every forward of a
+    batch-1 run must have met its counterpart: a wrong generator, a wrong
+    top-p or a swapped row changes the tokens, a wrong cache the logits."""
     tag = "int8" if quant else "bf16"
     tcfg, dcfg = tc.LLAMA2_7B_128K.with_(num_layers=layers), tc.LLAMA_68M
     spec = tc.SpecConfig(gamma=GAMMA, budget=256, chunk_size=8)
@@ -1414,29 +1567,101 @@ def rows_equal_batch1(tc, llama, Engine, bs, dev, quant, layers=2,
     prompts = [torch.randint(0, tcfg.vocab_size, (1, prefill),
                              generator=gen).to(dev) for _ in range(2)]
     seeds = [31, 32]
+    kinds = ("draft_forward_spec", "forward_spec", "forward_append")
+    orig = {n: getattr(llama, n) for k in kinds for n in (k, k + "_rows")}
+    # per batch-1 run, per step, per kind: its forwards' (input ids,
+    # logits); the batched run's place in them and its drift per kind
+    want_fw = []
+    at = [{} for _ in prompts]
+    drift = [dict.fromkeys(kinds, 0.0) for _ in prompts]
+    step_i = [0]
+
+    def logits_of(out):
+        return out[0] if isinstance(out, tuple) else out
+
+    def record(kind):
+        def fn(*a, **k):
+            out = orig[kind](*a, **k)
+            want_fw[-1][step_i[0]][kind].append(
+                (a[2][0].clone(), logits_of(out)[0].clone()))
+            return out
+        return fn
+
+    def substitute(kind):
+        def fn(*a, **k):
+            out = orig[kind + "_rows"](*a, **k)
+            lg = logits_of(out).clone()
+            for r in range(lg.shape[0]):
+                fws = want_fw[r][step_i[0]][kind]
+                j = at[r].get((step_i[0], kind), 0)
+                if j < len(fws) and torch.equal(a[2][r], fws[j][0]) \
+                        and lg[r].shape == fws[j][1].shape:
+                    drift[r][kind] = max(drift[r][kind],
+                                         _ulps4(fws[j][1], lg[r]))
+                    lg[r] = fws[j][1]
+                    at[r][(step_i[0], kind)] = j + 1
+            return (lg,) + tuple(out[1:]) if isinstance(out, tuple) else lg
+        return fn
+
+    def run_steps(step, wrap, names):
+        for n in names:
+            setattr(llama, n, wrap(n.removesuffix("_rows")))
+        try:
+            out = []
+            for i in range(steps):
+                step_i[0] = i
+                out.append(step())
+        finally:
+            for n in names:
+                setattr(llama, n, orig[n])
+        return out
+
     want = []
     for ids, seed in zip(prompts, seeds):
-        st = eng.prefill_draft(eng.prefill_target(eng.init_state(seed), ids),
-                               ids)
-        rec = []
-        for _ in range(steps):
-            st, stats = eng._step_fn("triforce", None)(st)
-            rec.append((stats.tokens.tolist(), stats.n_emitted))
-        want.append(rec)
+        box = [eng.prefill_draft(
+            eng.prefill_target(eng.init_state(seed), ids), ids)]
+        want_fw.append([{k: [] for k in kinds} for _ in range(steps)])
+
+        def step1():
+            box[0], stats = eng._step_fn("triforce", None)(box[0])
+            return stats.tokens.tolist(), stats.n_emitted
+        want.append(run_steps(step1, record, kinds))
     bat = bs.BatchedSpecEngine(eng, mode="triforce")
-    state = bat.prefill_rows(prompts, seeds)
-    for i in range(steps):
-        state, stats = bat.step(state)
-        for r in range(2):
-            got = (stats.tokens[r].tolist(), int(stats.n_emitted[r]))
-            if got != want[r][i]:
-                _fail(f"rows [{tag}]: row {r} step {i} emitted {got}, its "
-                      f"batch-1 run {want[r][i]}")
+    box = [bat.prefill_rows(prompts, seeds)]
+
+    def step2():
+        box[0], stats = bat.step(box[0])
+        return [(stats.tokens[r].tolist(), int(stats.n_emitted[r]))
+                for r in range(2)]
+    got = run_steps(step2, substitute, [k + "_rows" for k in kinds])
+    for r in range(2):
+        for i in range(steps):
+            if got[i][r] != want[r][i]:
+                _fail(f"rows [{tag}]: row {r} step {i} emitted {got[i][r]}, "
+                      f"its batch-1 run {want[r][i]}, on the same logits")
+            for kind in kinds:
+                n1 = len(want_fw[r][i][kind])
+                n2 = at[r].get((i, kind), 0)
+                if n2 != n1:
+                    _fail(f"rows [{tag}]: row {r} step {i}: {n2} of its "
+                          f"batch-1 run's {n1} {kind} forwards met one of "
+                          f"the batched run on the same input tokens")
+        worst = max(drift[r].values())
+        if not worst <= 1.0:
+            _fail(f"rows [{tag}]: row {r}'s logits moved {worst:.2f} x 4 "
+                  f"bf16 ulps from its batch-1 run's on the same input "
+                  f"tokens ({drift[r]})")
     emitted = [[n for _, n in rec] for rec in want]
+    forwards = [sum(len(v) for st in fw for v in st.values())
+                for fw in want_fw]
     print(f"rows [{tag}]: {layers}-layer full-width model, 2 rows x {steps} "
           f"TriForce steps: every batched row emitted its batch-1 run's "
-          f"tokens (n_emitted per step {emitted})", flush=True)
-    return dict(steps=steps, n_emitted=emitted)
+          f"tokens on its batch-1 run's logits (n_emitted per step "
+          f"{emitted}); {forwards} forwards per row met, their logits' "
+          f"largest difference on equal inputs in units of 4 bf16 ulps "
+          f"{drift}", flush=True)
+    return dict(steps=steps, n_emitted=emitted, forwards=forwards,
+                logit_drift_of_4_ulps=drift)
 
 
 def batched_end_to_end(tc, llama, Engine, bs, batching, fd, rk, dev, tp, dp,
@@ -1584,8 +1809,11 @@ def main() -> int:
                     help="stop after the kernel, reference and tree-gate "
                     "phases")
     ap.add_argument("--ab", metavar="TAG",
-                    help="only time the decode-shape kernels (kernel_ab) "
-                    "and print one 'AB TAG {...}' line")
+                    help="only time the kernels at the decode and wide "
+                    "shapes (kernel_ab) and print one 'AB TAG {...}' line")
+    ap.add_argument("--study", action="store_true",
+                    help="only run the kernel study (kernel_study) and "
+                    "print its JSON line")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -1619,19 +1847,25 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in _build.BUILD_LOG.items():
         regs = [ln.split("Used ")[1].split(",")[0]
-                for ln in log.splitlines() if "registers" in ln]
+                for ln in log.splitlines() if "Used " in ln and "registers" in ln]
         spills = sum(" 0 bytes spill stores" not in ln
                      for ln in log.splitlines() if "spill stores" in ln)
         print(f"  ptxas [{name}]: {len(regs)} kernels, registers "
               f"{sorted(set(regs))}, {spills} with spills", flush=True)
+    gm = _grow_map(planner)
     if args.ab:
         print(f"AB {args.ab} " + json.dumps(kernel_ab(fd, att, cache, dev,
-                                                      args.prefill)),
+                                                      args.prefill, gm.mask)),
               flush=True)
         return 0
 
     prefill = args.prefill
     s_kv = prefill + GEN + 4 * (GAMMA + 2)
+    s_rkv = 4096 + TREE_SIZE + spectree._padded_levels(gm)[0]
+    if args.study:
+        print(json.dumps({"kernel_study": kernel_study(
+            fd, cache, dev, prefill, s_kv, s_rkv, gm.mask)}), flush=True)
+        return 0
     shapes = [(1, 1, prefill, s_kv),                     # AR decode
               (GAMMA + 2, GAMMA + 2, prefill, s_kv),     # full-cache verify
               (GAMMA + 1, GAMMA + 1, 4096, 4096 + GAMMA + 1),  # middle
@@ -1641,18 +1875,21 @@ def main() -> int:
     # the decode path's edges: a k_len that is not a whole number of 64-key
     # tiles, one shorter than a tile, GT = 16 (the last decode shape) and
     # 17 (the first wide one), and a GQA decode row at D = 64 with
-    # tinyllama-1.1b-128k's widths (4 KV heads, G = 8, Tn = 1)
+    # tinyllama-1.1b-128k's widths (4 KV heads, G = 8, Tn = 1); the wide
+    # path's widest tile, that model's 512-token prefill chunk (GT 4096)
     edges = [dict(gt=1, tn=1, k_len=4133, s=4200),
              dict(gt=1, tn=1, k_len=37, s=64),
              dict(gt=16, tn=16, k_len=4096, s=4112),
              dict(gt=17, tn=17, k_len=4096, s=4113),
-             dict(gt=8, tn=1, k_len=prefill, s=s_kv, hkv=4, d=64)]
+             dict(gt=8, tn=1, k_len=prefill, s=s_kv, hkv=4, d=64),
+             # a GQA prefill tile of the same model: G 8 x T 512 rows
+             dict(gt=4096, tn=512, k_len=min(16384, prefill),
+                  s=min(16384, prefill) + 512, hkv=4, d=64)]
     for quant in (False, True):
         b1[quant] += [kernel_b1(fd, cache, dev, quant=quant, **e)
                       for e in edges]
     # the tree verify: B1 at GT = Tn = tree size under the ancestor mask
     # (the path's 128-node tree, and a 512-node one: the widest q tile)
-    gm = _grow_map(planner)
     pv = planner.modeled_acceptance_vector(0.8, 4)
     gm512 = planner.build_grow_map(*planner.plan_tree(pv, 512, 16), 512, 16)
     w_pad = spectree._padded_levels(gm)[0]      # the padded level width
@@ -1679,12 +1916,11 @@ def main() -> int:
     # root (1 row) over the 4096-slot budget region of the tree retrieval
     # cache; a level over the full cache (the ssl layers; also one card's
     # share of a sequence-parallel decode); an empty prefix
-    s_rkv = 4096 + TREE_SIZE + w_pad
     shapes4 = [(w_pad, 4096, s_rkv), (1, 4096, s_rkv),
                (w_pad, prefill, s_tree), (w_pad, 0, s_rkv)]
     b4 = {quant: [kernel_b4(fd, att, cache, dev, *sh, quant=quant)
                   for sh in shapes4] for quant in (False, True)}
-    study = kernel_study(fd, cache, dev, prefill, s_kv, s_rkv)
+    study = kernel_study(fd, cache, dev, prefill, s_kv, s_rkv, gm.mask)
     int8_gemm_probe(llama, dev)
     torch.cuda.empty_cache()
     ref = {name: reference_check(tc, llama, cache, rt, dev, quant=quant)

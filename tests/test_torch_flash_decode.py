@@ -73,10 +73,12 @@ def test_plain_matches_pallas_interpret_and_xla(g, t, dtype):
                                    **TOL[dtype], err_msg=f"k_len={k_len}")
 
 
-def test_plain_kernel_layout_matches_jax_kernel():
+@pytest.mark.parametrize("gt,tn,k_len", [(8, 5, 200), (48, 40, 300)])
+def test_plain_kernel_layout_matches_jax_kernel(gt, tn, k_len):
     """The raw kernel contract (q [Hkv, GT, D], fp32 output, bias mask)
-    on a non-causal mask, against the JAX kernel called the same way."""
-    gt, tn, k_len = 8, 5, 200
+    on a random non-causal mask, against the JAX kernel called the same
+    way: a decode shape, and a wide one (GT > 16: the CUDA kernel's wide
+    path)."""
     rng = np.random.default_rng(7)
     q = rng.standard_normal((HKV, gt, D)).astype(np.float32)
     k = rng.standard_normal((HKV, S, D)).astype(np.float32)

@@ -12,6 +12,8 @@ against the single-row ones row by row, bit for bit, and the partials
 kernels (B4, B4-int8) merged with a new block against B1.
 """
 
+import random
+
 import pytest
 import torch
 
@@ -65,6 +67,85 @@ def test_flash_decode_matches_plain(dev, gt, tn, k_len, s, d):
     # 1/sqrt(keys); chip_smoke.py states the same bound
     tol = 0.05 / (k_len + tn) ** 0.5
     assert (out - ref).abs().max().item() <= tol
+
+
+def _mask(dev, kind, gt, tn, seed=5):
+    """[GT, Tn] bool: "causal" (row r attends token j <= r % Tn), "random"
+    (60%, token 0 always) or "ancestor" (a random tree of Tn = GT nodes:
+    a node attends itself and its ancestors)."""
+    if kind == "causal":
+        return tfd.causal_mask(tn, tn, gt // tn, dev)
+    if kind == "random":
+        g = torch.Generator(device=dev).manual_seed(seed)
+        m = torch.rand((gt, tn), generator=g, device=dev) < 0.6
+        m[:, 0] = True
+        return m
+    rng = random.Random(seed)
+    parent = [-1] + [rng.randrange(i) for i in range(1, tn)]
+    m = torch.zeros((gt, tn), dtype=torch.bool)
+    for i in range(tn):
+        j = i
+        while j >= 0:
+            m[i, j] = True
+            j = parent[j]
+    return m.to(dev)
+
+
+# the wide path (GT > 16) at its edges: the first wide GT with a k_len
+# that is not a whole number of tiles, one warpgroup's 64 rows with a
+# k_len shorter than a tile, the first two-warpgroup GT, the tree verify's
+# 128 rows under an ancestor mask, an empty prefix, a GQA prefill tile at
+# D = 64 (tinyllama-1.1b-128k: 4 KV heads, G 8 x T 512), and one warpgroup
+# at D = 64 (GT 17, 40 and 64; an empty prefix at 40), whose q' fragments
+# phase 1 keeps in registers
+WIDE_CASES = [
+    # hkv, gt, tn, k_len, s, d, mask
+    (4, 17, 17, 4133, 4200, 128, "causal"),
+    (4, 64, 64, 37, 100, 128, "random"),
+    (4, 65, 65, 1000, 1100, 128, "causal"),
+    (4, 128, 128, 4096, 4300, 128, "ancestor"),
+    (4, 40, 8, 0, 64, 128, "random"),
+    (4, 4096, 512, 16384, 16896, 64, "causal"),
+    (4, 17, 17, 4133, 4200, 64, "causal"),
+    (4, 40, 40, 1000, 1100, 64, "random"),
+    (4, 64, 64, 4096, 4300, 64, "ancestor"),
+    (4, 40, 8, 0, 64, 64, "random"),
+]
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("hkv,gt,tn,k_len,s,d,mask", WIDE_CASES)
+def test_flash_decode_wide_matches_plain(dev, hkv, gt, tn, k_len, s, d, mask,
+                                         quant):
+    """B1 and B1-int8 on the wide path against their plain versions, with
+    the cache past k_len poisoned (never read)."""
+    q, kn, vn = (_randn(dev, 0, hkv, gt, d), _randn(dev, 1, hkv, tn, d),
+                 _randn(dev, 2, hkv, tn, d))
+    kb, vb = _randn(dev, 3, hkv, s, d), _randn(dev, 4, hkv, s, d)
+    m = _mask(dev, mask, gt, tn)
+    kl = torch.tensor(k_len, dtype=torch.int32, device=dev)
+    if quant:
+        (k, ks), (v, vs) = tcache.quantize_tokens(kb), tcache.quantize_tokens(vb)
+        k[:, k_len:], v[:, k_len:] = 127, -127
+        ks[:, k_len:], vs[:, k_len:] = 1e3, 1e3
+        fn = tfd.flash_decode_append_int8
+        before = fn.launches
+        out = fn(q, k, v, kn, vn, kl, m, ks, vs)
+        ref = tfd.flash_decode_append_int8_plain(q, k, v, kn, vn, kl, m, ks,
+                                                 vs, group=tfd.KERNEL_GROUP)
+        tol = 0.005
+    else:
+        kb[:, k_len:], vb[:, k_len:] = 50.0, 50.0
+        fn = tfd.flash_decode_append
+        before = fn.launches
+        out = fn(q, kb, vb, kn, vn, kl, m)
+        ref = tfd.flash_decode_append_plain(q, kb, vb, kn, vn, kl, m)
+        tol = 0.05
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert torch.isfinite(out).all()
+    # chip_smoke.py states the same bounds
+    assert (out - ref).abs().max().item() <= tol / (k_len + tn) ** 0.5
 
 
 def test_flash_decode_rejects_fp32_on_cuda(dev):
@@ -179,6 +260,11 @@ B3_CASES = [
     # one not a whole number of tiles; the GQA decode row at D = 64
     (16, 16, [1100, 0, 37, 1000], 1100, 128, False),
     (8, 1, [32768, 0, 37, 4133], 32800, 64, False),
+    # the wide path's edges: GT 17, 64 and 65, the tree verify's 128 rows
+    (17, 17, [4133, 0, 37, 1000], 4200, 128, False),
+    (64, 64, [37, 0, 1, 1100], 1100, 128, True),
+    (65, 65, [1000, 0, 3, 777], 1100, 128, False),
+    (128, 128, [4096, 0, 5, 2500], 4300, 128, True),
 ]
 
 
@@ -287,6 +373,13 @@ B4_CASES = [
     (40, 333, 400, 64),
     (1, 37, 64, 128),         # the root, shorter than one 64-key tile
     (1, 4133, 4246, 64),      # the root, not a whole number of tiles
+    # the wide path's edges: GT 17, 64, 65 and 128, ragged and sub-tile
+    # k_len, an empty prefix
+    (17, 4133, 4200, 128),
+    (64, 37, 100, 128),
+    (65, 1000, 1100, 64),
+    (128, 4096, 4300, 128),
+    (128, 0, 300, 128),
 ]
 
 
@@ -425,3 +518,26 @@ def test_decode_plan_on_the_card(dev, d, quant):
     assert lib.tf_flash_decode_ctas_per_sm(tfd.DECODE_ROWS, d, quant) == per_sm
     assert lib.tf_flash_decode_ctas_per_sm(1, d, quant) == per_sm
 
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("quant", [False, True])
+def test_wide_plan_on_the_card(dev, d, quant):
+    """The wide path's plan from the built library: a q tile of 64 or 128
+    rows (the library's choice, more rows for more GT), at least one CTA
+    per SM, and the splits of all q tiles of one row's heads in whole
+    waves of the card."""
+    lib = tfd._build.lib(tfd._SOURCE)
+    assert lib.tf_flash_decode_cta_rows(1) == 1
+    tiles = [lib.tf_flash_decode_cta_rows(gt) for gt in (17, 64, 65, 4096)]
+    assert set(tiles) <= {64, 128} and tiles == sorted(tiles)
+    for hkv, gt in ((32, 17), (32, 128), (32, 512), (4, 4096)):
+        sms, per_sm = tfd._wave(dev, d, quant, gt)
+        assert per_sm >= 1
+        q = torch.empty((hkv, gt, d), dtype=torch.bfloat16, device=dev)
+        nsplit, parts = tfd._plan(q, 32928, quant)
+        cta = tfd._cta_rows(gt)
+        assert parts == nsplit == tfd.wide_nsplit(hkv, gt, 32928, sms, per_sm,
+                                                  cta)
+        tiles = hkv * -(-gt // cta)
+        assert nsplit == 1 or tiles * nsplit <= sms * per_sm

@@ -6,9 +6,11 @@ partials those CTAs wrote. The wrappers choose nsplit from the shape alone
 (``ops/flash_decode.py``: ``_plan``), and the kernel reads k_len on the
 card, so the plan has to hold for every k_len a launch may meet. Here the
 plan, as the wrappers compute it (the card's SM count and occupancy
-stubbed), and a mirror of ``split_share`` are held to that contract over a
-grid of shapes and lengths.
+stubbed), and mirrors of ``split_share`` and of the wide path's grid are
+held to that contract over a grid of shapes and lengths.
 """
+
+import itertools
 
 import pytest
 import torch
@@ -32,13 +34,28 @@ def split_share(klen, s, nsplit):
     return klen, -(-p // KT) * KT
 
 
-def _plan(monkeypatch, wave, hkv, gt, s, quant=False, d=128):
+def n_parts(gt, nsplit):
+    """Mirror of the kernel's ``n_parts``: one partial per split on both
+    paths."""
+    return nsplit
+
+
+def _plan(monkeypatch, wave, hkv, gt, s, quant=False, d=128, rows=None,
+          cta_rows=128):
     """nsplit and partials per row as ``_plan`` computes them on a card of
-    the given (SMs, CTAs per SM)."""
-    monkeypatch.setattr(tfd, "_wave", lambda device, d, quant: wave)
-    monkeypatch.setattr(tfd, "_n_parts", lambda gt, nsplit: nsplit)
-    q = torch.empty((hkv, gt, d), dtype=torch.bfloat16)
-    return tfd._plan(q, s, quant)
+    the given (SMs, CTAs per SM) whose library gives a wide CTA
+    ``cta_rows`` query rows; ``rows``: a batch of that many rows."""
+    monkeypatch.setattr(tfd, "_wave", lambda device, d, quant, gt=1: wave)
+    monkeypatch.setattr(tfd, "_n_parts", n_parts)
+    monkeypatch.setattr(tfd, "_cta_rows", lambda gt: cta_rows)
+    shape = (hkv, gt, d) if rows is None else (rows, hkv, gt, d)
+    return tfd._plan(torch.empty(shape, dtype=torch.bfloat16), s, quant)
+
+
+def _splits(k_len, s, nsplit):
+    """The [begin, end) share of each split of a row at ``k_len``."""
+    klen, per = split_share(k_len, s, nsplit)
+    return klen, [(i * per, min(klen, (i + 1) * per)) for i in range(nsplit)]
 
 
 @pytest.mark.parametrize("hkv,gt", [(1, 1), (4, 8), (8, 16), (32, 1),
@@ -90,16 +107,46 @@ def test_decode_plan_fills_one_wave(monkeypatch, wave):
                     assert nsplit == 1
 
 
-@pytest.mark.parametrize("hkv,gt,s", [(32, 17, 32928), (32, 128, 32928),
-                                      (32, 512, 16384), (32, 22, 4246),
-                                      (4, 4096, 4200)])
-def test_wide_plan_is_unchanged(monkeypatch, hkv, gt, s):
-    """GT > 16 keeps the wide path's rule: about four CTAs per SM of an
-    H100's 132, each split at least 256 keys, at most 64 splits; the card's
-    occupancy is not consulted."""
-    want = max(1, min(-(-4 * 132 // (hkv * -(-gt // 64))), -(-s // 256), 64))
-    for wave in WAVES:
-        assert _plan(monkeypatch, wave, hkv, gt, s) == (want, want)
+@pytest.mark.parametrize("hkv,gt,s", [(32, 17, 32928), (32, 22, 4246),
+                                      (32, 64, 4113), (32, 65, 32928),
+                                      (32, 128, 32928), (32, 512, 16384),
+                                      (4, 4096, 16896), (1, 4096, 64)])
+def test_wide_plan_covers_once_and_fills_whole_waves(monkeypatch, hkv, gt, s):
+    """GT > 16: every key of [0, k_len) is in exactly one cache split and
+    every query row in exactly one q tile, whose one phase-2 CTA folds the
+    whole new block in (so each new token is covered once per row); the
+    splits of all q tiles and heads of a row fill whole waves of the card's
+    occupancy (one split each when they outnumber a wave), each at least
+    256 keys, at most 64; and the plan is the same for a batch of rows.
+    For either q tile the library may give a CTA (64 or 128 rows)."""
+    for rows, wave in itertools.product((64, 128), WAVES):
+        qtiles = -(-gt // rows)
+        cover = [0] * gt
+        for qt in range(qtiles):
+            for r in range(qt * rows, min(gt, (qt + 1) * rows)):
+                cover[r] += 1
+        assert cover == [1] * gt
+        nsplit, parts = _plan(monkeypatch, wave, hkv, gt, s, cta_rows=rows)
+        # phase 1's grid (q tiles, nsplit, heads) writes one partial per
+        # split; phase 2's (q tiles, 1, heads) reads them all
+        assert 1 <= nsplit <= 64 and parts == nsplit
+        tiles, full = hkv * qtiles, wave[0] * wave[1]
+        capped = nsplit in (-(-s // 256), 64)
+        if tiles <= full:
+            assert tiles * nsplit <= full
+            assert capped or tiles * (nsplit + 1) > full
+        else:
+            assert nsplit == 1
+        for k_len in LENGTHS + (s - 1, s, s + 5):
+            klen, shares = _splits(k_len, s, nsplit)
+            keys = [0] * klen
+            for b, e in shares:
+                for j in range(b, e):
+                    keys[j] += 1
+            assert keys == [1] * klen
+        for bsz in (1, 3):
+            assert _plan(monkeypatch, wave, hkv, gt, s, rows=bsz,
+                         cta_rows=rows) == (nsplit, parts)
 
 
 class _Entry:
@@ -113,13 +160,15 @@ class _Entry:
         return 0
 
 
-@pytest.mark.parametrize("gt,tn", [(1, 1), (7, 7), (16, 16), (17, 17)])
+@pytest.mark.parametrize("gt,tn", [(1, 1), (7, 7), (16, 16), (17, 17),
+                                   (128, 128)])
 @pytest.mark.parametrize("quant", [False, True])
 def test_plan_does_not_depend_on_the_batch(monkeypatch, gt, tn, quant):
     """The row-batched launch splits each row as the single-row launch
     splits it, whatever B is: the nsplit each passes its entry point."""
-    monkeypatch.setattr(tfd, "_wave", lambda device, d, quant: (132, 2))
-    monkeypatch.setattr(tfd, "_n_parts", lambda gt, nsplit: nsplit)
+    monkeypatch.setattr(tfd, "_wave", lambda device, d, quant, gt=1: (132, 2))
+    monkeypatch.setattr(tfd, "_n_parts", n_parts)
+    monkeypatch.setattr(tfd, "_cta_rows", lambda gt: 128)
     monkeypatch.setattr(tfd, "_stream", lambda device: 0)
     hkv, s, d = 8, 4103, 64
     cache = torch.int8 if quant else torch.bfloat16

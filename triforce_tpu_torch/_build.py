@@ -39,6 +39,7 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "flash_decode.cu": {
         "tf_flash_decode_parts": [_I, _I],
+        "tf_flash_decode_cta_rows": [_I],
         "tf_flash_decode_ctas_per_sm": [_I, _I, _I],
         "tf_flash_decode_bf16": [_P, _L, _L, _P, _L, _L, _P, _L, _L,
                                  _P, _L, _L, _P, _L, _L, _P, _P,

@@ -44,8 +44,10 @@ stacked cache here.
 
 Two device paths share every entry point: up to ``DECODE_ROWS`` = 16 query
 rows per KV head (the decode shapes) a pipelined kernel whose sequence
-splits fill one wave of the card (``decode_nsplit``, from its SM count and
-the kernel's occupancy), and above that the wide path (``pick_nsplit``).
+splits fill one wave of the card (``decode_nsplit``), and above that the
+wide path, whose CTAs take a q tile of 64 or 128 query rows on Hopper's
+warpgroup products and whose splits fill whole waves (``wide_nsplit``);
+both plans read the card's SM count and the built kernel's occupancy.
 
 The Pallas kernel's TPU-only machinery does not carry over: its 128-lane
 pad of the new block, the VMEM-driven block choice and the 512/2048 cache
@@ -66,11 +68,10 @@ from ..cache import int8_scale
 
 _NEG_INF = -1e30
 _SOURCE = "flash_decode.cu"
-_SMS = 132          # H100 SXM streaming multiprocessors (the wide path's plan)
-_CTA_ROWS = 64      # query rows per CTA of the wide path's split phase
 DECODE_ROWS = 16    # GT up to this takes the decode kernel (one mma row
                     # tile; csrc/flash_decode.cu's DECODE_ROWS)
 _MAX_SPLITS = 1024  # splits the decode path's merge can weigh
+_WIDE_MAX_SPLITS = 64   # cache splits the wide path's merge can weigh
 _MIN_SPLIT_KEYS = 256
 KERNEL_GROUP = 16   # keys per p re-quantization group of the int8 kernel
 
@@ -215,12 +216,20 @@ def flash_decode_append_int8_plain(q, k, v, k_new, v_new, k_len, new_mask,
     return acc / l.clamp_min(1e-37)
 
 
-def pick_nsplit(hkv: int, gt: int, s: int) -> int:
-    """Sequence splits of the wide path's first phase (GT > DECODE_ROWS):
-    enough CTAs for about four per SM, each split at least 256 keys long."""
-    ctas = hkv * -(-gt // _CTA_ROWS)
-    want = -(-4 * _SMS // ctas)
-    return max(1, min(want, -(-s // _MIN_SPLIT_KEYS), 64))
+def wide_nsplit(hkv: int, gt: int, s: int, sms: int, ctas_per_sm: int,
+                cta_rows: int) -> int:
+    """Cache splits of the wide path: as many as let the CTAs of all q
+    tiles (``cta_rows`` query rows each) of all ``hkv`` heads of one row,
+    one per split, run in one wave of ``ctas_per_sm`` CTAs on each of
+    ``sms`` SMs (tiles that outnumber the wave take one split each), each
+    split at least 256 keys of the
+    ``s``-slot cache, at most 64 (the new block is folded in after them,
+    by phase 2 or, with one split, by the split itself). A function of the
+    shape alone, never of the batch."""
+    tiles = hkv * -(-gt // cta_rows)
+    wave = sms * ctas_per_sm
+    return max(1, min(wave // tiles, -(-s // _MIN_SPLIT_KEYS),
+                      _WIDE_MAX_SPLITS))
 
 
 def decode_nsplit(hkv: int, s: int, sms: int, ctas_per_sm: int) -> int:
@@ -242,30 +251,43 @@ def _n_parts(gt: int, nsplit: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _wave_at(index: int, d: int, quant: bool):
-    """(SMs, CTAs of the built decode kernel one SM holds at once) of card
-    ``index``: the device's SM count and the CUDA occupancy calculator."""
+def _cta_rows(gt: int) -> int:
+    """Query rows of one KV head one phase-1 CTA of a launch at ``gt``
+    takes, as the library decides them (a q tile on the wide path)."""
+    return _build.lib(_SOURCE).tf_flash_decode_cta_rows(gt)
+
+
+@functools.lru_cache(maxsize=None)
+def _wave_at(index: int, d: int, quant: bool, rows: int):
+    """(SMs, CTAs one SM holds at once of the built phase-1 kernel that a
+    launch with ``rows`` query rows runs) of card ``index``: the device's
+    SM count and the CUDA occupancy calculator."""
     with torch.cuda.device(index):
-        n = _build.lib(_SOURCE).tf_flash_decode_ctas_per_sm(1, d, int(quant))
+        n = _build.lib(_SOURCE).tf_flash_decode_ctas_per_sm(rows, d,
+                                                            int(quant))
     if n <= 0:
         raise RuntimeError(f"flash_decode occupancy query: cudaError_t {-n}")
     return torch.cuda.get_device_properties(index).multi_processor_count, n
 
 
-def _wave(device, d: int, quant: bool):
+def _wave(device, d: int, quant: bool, gt: int = 1):
+    """(SMs, CTAs per SM) of the phase-1 kernel a launch at ``gt`` rows
+    runs on ``device``."""
     index = device.index if device.index is not None \
         else torch.cuda.current_device()
-    return _wave_at(index, d, quant)
+    rows = 1 if gt <= DECODE_ROWS else _cta_rows(gt)
+    return _wave_at(index, d, quant, rows)
 
 
 def _plan(q, s: int, quant: bool):
     """(nsplit, partials per row) of a launch for queries q [..., Hkv, GT,
     D] over an ``s``-slot cache; the batch dimension, if any, is not read."""
     hkv, gt, d = q.shape[-3:]
+    wave = _wave(q.device, d, quant, gt)
     if gt > DECODE_ROWS:
-        nsplit = pick_nsplit(hkv, gt, s)
+        nsplit = wide_nsplit(hkv, gt, s, *wave, _cta_rows(gt))
     else:
-        nsplit = decode_nsplit(hkv, s, *_wave(q.device, d, quant))
+        nsplit = decode_nsplit(hkv, s, *wave)
     return nsplit, _n_parts(gt, nsplit)
 
 
@@ -325,11 +347,22 @@ def _check_scales(k, k_scale, v_scale):
                              f"{tuple(x.shape)} {x.stride()}")
 
 
+def _aligned16(x):
+    """``x``, or a contiguous copy of it when its rows do not start on 16
+    bytes: the wide path copies the new block in 16-byte chunks."""
+    per16 = 16 // x.element_size()
+    if x.data_ptr() % 16 or any(st % per16 for st in x.stride()[:-1]):
+        return x.clone(memory_format=torch.contiguous_format)
+    return x
+
+
 def _launch(fn, q, k, v, k_new, v_new, k_len, new_mask, scales=()):
     """Allocate the outputs and scratch and launch one entry point of
     ``csrc/flash_decode.cu``; ``scales`` are the int8 entry's extra
     (pointer, head stride) arguments."""
     hkv, gt, d = q.shape
+    if gt > DECODE_ROWS:
+        k_new, v_new = _aligned16(k_new), _aligned16(v_new)
     s, tn = k.shape[1], k_new.shape[1]
     nsplit, parts = _plan(q, s, bool(scales))
     f32 = dict(dtype=torch.float32, device=q.device)
@@ -556,6 +589,8 @@ def _launch_batched(fn, q, k, v, k_new, v_new, k_len, new_mask, scales=()):
     bsz, hkv, gt, d = q.shape
     s, tn = k.shape[2], k_new.shape[2]
     nsplit, parts = _plan(q, s, bool(scales))   # per row, whatever B is
+    if gt > DECODE_ROWS:
+        k_new, v_new = _aligned16(k_new), _aligned16(v_new)
     f32 = dict(dtype=torch.float32, device=q.device)
     m_part = torch.empty((bsz, hkv, gt, parts), **f32)
     l_part = torch.empty((bsz, hkv, gt, parts), **f32)
