@@ -5,6 +5,7 @@
     python3 chip_smoke.py --skip-e2e      # build + kernel phase only
     python3 chip_smoke.py --ab TAG        # time the kernels (decode, wide)
     python3 chip_smoke.py --study         # the kernel study alone
+    python3 chip_smoke.py --gqa           # the GQA gates and the CLI alone
 
 Phases, in order (any failure exits non-zero before the last line):
   1. device line: the card's name and power limit (nvidia-smi);
@@ -20,12 +21,19 @@ Phases, in order (any failure exits non-zero before the last line):
      outweighs the cache at every shape with Tn = GT or GT <= 16 (a lost
      fold or an ignored mask shown to fail); B3 also against B1 row by row (bit equality) and with
      dead rows; B4 also merged with a new block against B1, and with an
-     empty prefix; then both paths' study: per-kernel device times from
-     the profiler at the decode and the wide shapes, B1's time against
-     nsplit, registers and CTAs per SM of every kernel;
+     empty prefix; every kernel again at the shapes the GQA model of
+     phase 10 gives it (TinyLlama-1.1B-128K: 4 KV heads x 64, G = 8; B1
+     at its target, middle and tree verifies, B2 at its build, B3 at its
+     served rows, B4 at its grow levels and root); then both paths'
+     study: per-kernel device times from the profiler at the decode and
+     the wide shapes, B1's time against nsplit, registers and CTAs per SM
+     of every kernel;
   4. reference: the full-width model at cut depth on a short prompt, the
      card's path (through the kernels) against an fp32 CPU run of the same
-     weights: bf16 weights and cache, then int8 weights and cache;
+     weights: bf16 weights and cache (top-1 may differ only at a near
+     tie, and the card's run with the plain attention beside it shows
+     the flip does not come from the kernels), then int8 weights and
+     cache; at Llama2-7B-128K's widths, then at TinyLlama-1.1B-128K's;
   5. tree gate: on a 2-layer full-width model, the tree verify's logits
      along the deepest root-to-leaf chain equal the sequential forward of
      that chain (cosine > 0.999, top-1 equal up to near ties), and a tree
@@ -48,7 +56,17 @@ Phases, in order (any failure exits non-zero before the last line):
      served through 4 slots by ``SpecScheduler`` (chunked admission
      between decode segments) and by the AR ``Scheduler``; launch counts
      are checked as in 7;
- 10. the ``kernels`` JSON line, then the ``ok`` JSON line.
+ 10. cli: TinyLlama-1.1B-128K at full width and depth + Llama-68M, random
+     weights written as HF checkpoints (the target in two indexed shards)
+     and loaded back bit-equal (streaming, and through the native
+     checkpoint); every mode of ``triforce_tpu_torch.cli.main`` (ar,
+     retrieval, triforce, tree, serve; then ar, triforce, tree with int8
+     weights and KV), launch counts checked as in 7; the CLI's AR tokens
+     equal ``decoding.autoregressive``'s on the same weights; ``python3 -m
+     triforce_tpu_torch.cli --mode ar`` as a process; the card's
+     ``measure_phase_times`` table and a profiler trace of two TriForce
+     steps (its ten largest device operations);
+ 11. the ``kernels`` JSON line, then the ``ok`` JSON line.
 
 Exits non-zero (and prints no result) without a CUDA card or outside the
 repository.
@@ -57,14 +75,18 @@ repository.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
+import os
 import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
+import numpy as np
 import torch
 
 H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
@@ -605,10 +627,12 @@ def kernel_b3(fd, cache_mod, dev, gt, tn, k_full, s, quant=False, hkv=32,
 
 
 def kernel_b4(fd, att, cache_mod, dev, gt, k_len, s, quant=False, hkv=32,
-              d=128, seed=0):
+              d=128, seed=0, tn=None):
     """B4 (or, with ``quant``, B4-int8), the cache-only partials, at one
     shape: (m, l, acc) against the plain version, the merge with a new
-    block against B1 on the same inputs, device time and bound."""
+    block of ``tn`` tokens (the grow's self block: GT, or a level's W
+    tokens under a GQA model's G groups of rows) against B1 on the same
+    inputs, device time and bound."""
     name = "B4-int8" if quant else "B4"
     g = torch.Generator(device=dev).manual_seed(seed)
     bf = torch.bfloat16
@@ -616,7 +640,7 @@ def kernel_b4(fd, att, cache_mod, dev, gt, k_len, s, quant=False, hkv=32,
     def rn(*shape):
         return torch.randn(shape, generator=g, device=dev).to(bf)
 
-    tn = gt                          # the grow's self block
+    tn = gt if tn is None else tn    # the grow's self block
     q, kn, vn = rn(hkv, gt, d), rn(hkv, tn, d), rn(hkv, tn, d)
     # one layer of a stacked [L, 1, Hkv, S, D] cache, as the model passes it
     k_st, v_st = rn(2, 1, hkv, s, d), rn(2, 1, hkv, s, d)
@@ -1055,14 +1079,35 @@ def int8_gemm_probe(llama, dev, rows=22):
 # Reference phase: the card's kernel path vs an fp32 CPU run
 # ---------------------------------------------------------------------------
 
-def reference_check(tc, llama, cache_mod, rt, dev, quant=False, layers=2,
-                    prompt=512):
+def _near_tie_misses(got, ref, rows):
+    """Of ``rows`` (where got's top-1 differs from ref's), those that are
+    not a near tie: ref's two candidates further apart than twice the
+    row's largest |got - ref| logit difference."""
+    hard = []
+    for r in rows:
+        e = (got[r] - ref[r]).abs().max().item()
+        gap = (ref[r, ref[r].argmax()] - ref[r, got[r].argmax()]).item()
+        if gap > 2 * e:
+            hard.append(r)
+    return hard
+
+
+def _flips(a, b):
+    return (a.argmax(-1) != b.argmax(-1)).nonzero().flatten().tolist()
+
+
+def reference_check(tc, llama, cache_mod, rt, fd, dev, quant=False,
+                    layers=2, prompt=512, model="llama2-7b-128k"):
     """bf16: the card's bf16 weights, activations and cache against fp32
-    on the CPU. ``quant``: int8 weights and an int8 cache on both sides
-    (the card's activations bf16, through B1-int8 and B2-int8; the CPU's
-    fp32, through the dequantizing partials path and chunk_scores_xla)."""
-    name = "int8" if quant else "bf16"
-    cfg = tc.LLAMA2_7B_128K.with_(num_layers=layers)
+    on the CPU; and, as the witness of where the card's top-1 flips come
+    from, the same card run with the attention and chunk-score kernels
+    swapped for their plain versions. ``quant``: int8 weights and an int8
+    cache on both sides (the card's activations bf16, through B1-int8 and
+    B2-int8; the CPU's fp32, through the dequantizing partials path and
+    chunk_scores_xla). ``model``: the preset whose widths the check runs
+    at, cut to ``layers``."""
+    name = ("int8" if quant else "bf16") + f" {model}"
+    cfg = tc.PRESETS[model].with_(num_layers=layers)
     spec = tc.SpecConfig(budget=128, chunk_size=8)
     sets = spec.budget // spec.chunk_size
     p_gpu = llama.init_params(cfg, device=dev, dtype=torch.bfloat16, seed=7)
@@ -1087,11 +1132,18 @@ def reference_check(tc, llama, cache_mod, rt, dev, quant=False, layers=2,
 
     outs = {}
     planes = ("k", "v", "k_scale", "v_scale") if quant else ("k", "v")
+    rk, kernels = rt.retrieval_kernel, (fd.flash_decode_append,
+                                        rt.retrieval_kernel.chunk_scores)
+    sides = [("gpu", p_gpu, dev, torch.bfloat16),
+             ("cpu", p_cpu, torch.device("cpu"), torch.float32)]
+    if not quant:
+        sides.append(("plain", p_gpu, dev, torch.bfloat16))
     rt.chunk_scores = recording
     try:
-        for side, params, device, dtype in (
-                ("gpu", p_gpu, dev, torch.bfloat16),
-                ("cpu", p_cpu, torch.device("cpu"), torch.float32)):
+        for side, params, device, dtype in sides:
+            if side == "plain":
+                fd.flash_decode_append = fd.flash_decode_append_plain
+                rk.chunk_scores = rk.chunk_scores_plain
             recorded.clear()
             kv = cache_mod.init_kv(cfg, prompt + 16, dtype=dtype,
                                    device=device, quant=quant)
@@ -1122,6 +1174,7 @@ def reference_check(tc, llama, cache_mod, rt, dev, quant=False, layers=2,
                           .cpu(), scores, sel)
     finally:
         rt.chunk_scores = chunk_scores
+        fd.flash_decode_append, rk.chunk_scores = kernels
     (lg, sg, selg), (lc, sc, selc) = outs["gpu"], outs["cpu"]
 
     def cosine(a, b):
@@ -1138,8 +1191,22 @@ def reference_check(tc, llama, cache_mod, rt, dev, quant=False, layers=2,
             top1_agreement=(a.argmax(-1) == b.argmax(-1)).double().mean()
             .item(),
             max_rel_logit_err=((a - b).abs().max() / b.abs().max()).item())
-    cos, top1 = (stats["last"][k] for k in ("logits_cosine",
-                                            "top1_agreement"))
+    # rows whose top-1 differs from the CPU's, and those of them that are
+    # not a near tie
+    flips = _flips(lg, lc)
+    hard = _near_tie_misses(lg, lc, flips)
+    stats["top1_flips"], stats["top1_flips_not_near_tie"] = flips, hard
+    # the witness: the card with the plain attention flips its own rows;
+    # where the kernels' top-1 differs from the plain run's it must be a
+    # near tie between the two, so each kernel flip is either the plain
+    # run's flip too or a near tie between kernel and plain
+    if not quant:
+        lp = outs["plain"][0]
+        kp = _flips(lg, lp)
+        stats["plain"] = dict(
+            top1_flips=_flips(lp, lc), kernel_vs_plain_cosine=cosine(lg, lp),
+            kernel_vs_plain_top1_diffs=kp,
+            kernel_vs_plain_not_near_tie=_near_tie_misses(lg, lp, kp))
     sc_cos = cosine(sg, sc)
     # the two runs' scores differ, so they may pick different chunks. A
     # pick can flip only between chunks whose CPU scores lie within 2e of
@@ -1159,7 +1226,15 @@ def reference_check(tc, llama, cache_mod, rt, dev, quant=False, layers=2,
           f"prompt, card vs fp32 CPU: logits (cosine, top-1 agreement, max "
           f"|dlogit| / max |logit|) over the last 4 rows "
           f"{tuple(round(v, 6) for v in stats['last'].values())}, over all "
-          f"{lg.shape[0]} rows {tuple(round(v, 6) for v in stats['all'].values())}; "
+          f"{lg.shape[0]} rows {tuple(round(v, 6) for v in stats['all'].values())}"
+          f" (top-1 differs at rows {flips}, {len(hard)} of them not a "
+          f"near tie"
+          + ("" if quant else
+             f"; with the plain attention on the card at rows "
+             f"{stats['plain']['top1_flips']}; kernel vs plain cosine "
+             f"{stats['plain']['kernel_vs_plain_cosine']:.6f}, top-1 differs"
+             f" at rows {stats['plain']['kernel_vs_plain_top1_diffs']}")
+          + "); "
           f"chunk scores cosine {sc_cos:.6f}, selected chunks agree "
           f"{agree:.4f} ({n_diff} near-tie differences); each retrieval "
           f"cache is the gather of its own selection", flush=True)
@@ -1170,8 +1245,14 @@ def reference_check(tc, llama, cache_mod, rt, dev, quant=False, layers=2,
               and a["max_rel_logit_err"] < INT8_REF_MAX_REL
               and sc_cos > INT8_REF_SCORES_COSINE)
     else:
-        # bf16 weights and activations vs fp32 agree to well under 1%
-        ok = cos > 0.999 and top1 >= 0.9 and sc_cos > 0.999
+        # bf16 weights and activations vs fp32 agree to well under 1%; a
+        # top-1 flips only at a near tie, and not through the kernels
+        pl = stats["plain"]
+        ok = (stats["last"]["logits_cosine"] > 0.999
+              and stats["all"]["logits_cosine"] > 0.999
+              and stats["all"]["top1_agreement"] >= 0.9 and not hard
+              and sc_cos > 0.999 and pl["kernel_vs_plain_cosine"] > 0.999
+              and not pl["kernel_vs_plain_not_near_tie"])
     if not ok:
         _fail(f"card {name} forward disagrees with the fp32 CPU reference")
     return dict(logits=stats, chunk_scores_cosine=sc_cos,
@@ -1802,6 +1883,383 @@ def batched_end_to_end(tc, llama, Engine, bs, batching, fd, rk, dev, tp, dp,
     return res
 
 
+# ---------------------------------------------------------------------------
+# GQA phase: TinyLlama-1.1B-128K widths (4 KV heads x 64, G = 8), first the
+# kernels at the shapes its run gives them, then the command line end to end
+# ---------------------------------------------------------------------------
+
+GQA_MODEL, CLI_DRAFT = "tinyllama-1.1b-128k", "llama-68m"
+CLI_PREFILL, CLI_GEN, CLI_TREE_GEN, CLI_BUDGET = 32768, 64, 32, 4096
+CLI_TREE_SIZE, CLI_TREE_DEPTH = 128, 8      # --tree_size 128, the default depth
+CLI_SERVE_PREFILL, CLI_SERVE_GEN, CLI_SERVE_ROWS, CLI_SERVE_PROMPTS = \
+    8192, 32, 4, 6
+CLI_SUBPROCESS_GEN = 16
+
+
+def _cli_grow_map(planner, depth=CLI_TREE_DEPTH):
+    """The tree the CLI plans for ``--tree_size 128`` (modeled acceptance
+    0.8 over 4 branches, ``--tree_depth``, 8 by default)."""
+    pvec = planner.modeled_acceptance_vector(0.8, 4)
+    T, choice = planner.plan_tree(pvec, CLI_TREE_SIZE, depth)
+    return planner.build_grow_map(T, choice, CLI_TREE_SIZE, depth)
+
+
+def gqa_kernel_gates(tc, fd, att, rk, rt, cache_mod, planner, spectree,
+                     batched_spec, dev):
+    """Every kernel, bf16 and int8, at the shapes the TinyLlama run gives
+    it (Hkv 4, D 64, G 8 query rows per KV head), against its plain
+    version with the kernel phase's tolerances, timed beside its bound and
+    the library yardstick: B1 at the target verify (GT 64, Tn 8 over the
+    32K prefix), the middle verify (GT 56, Tn 7 over 4096) and the tree
+    verify (GT 1024, Tn 128 under the CLI tree's ancestor mask); B2 at the
+    build (32768, chunk 8, 8 query rows a head); B3 at 4 served rows of
+    the target verify; B4 at a grow level of the CLI's tree (depth 8: W 36,
+    GT 288), of the kernel phase's tree (W 22, GT 176) and at the root."""
+    cfg = tc.PRESETS[GQA_MODEL]
+    hkv, d = cfg.num_kv_heads, cfg.head_dim
+    g = cfg.num_heads // hkv
+    P = CLI_PREFILL
+    s_kv = P + 2 * (CLI_GEN + GAMMA + 2)
+    gm = _cli_grow_map(planner)
+    w_cli = spectree._padded_levels(gm)[0]
+    w_deep = spectree._padded_levels(_grow_map(planner))[0]
+    s_tree = P + CLI_TREE_GEN + 3 * gm.size + w_cli
+    s_rkv = 4096 + gm.size + max(w_cli, w_deep)
+    s_pool = CLI_SERVE_PREFILL + batched_spec.SpecScheduler.required_headroom(
+        CLI_SERVE_GEN, 4, GAMMA)
+    tree_mask = np.tile(gm.mask, (g, 1))        # each group's rows, in turn
+    kw = dict(hkv=hkv, d=d)
+    out = {}
+    for quant in (False, True):
+        out[quant] = dict(
+            b1=[kernel_b1(fd, cache_mod, dev, g * (GAMMA + 2), GAMMA + 2, P,
+                          s_kv, quant, **kw),
+                kernel_b1(fd, cache_mod, dev, g * (GAMMA + 1), GAMMA + 1,
+                          4096, 4096 + GAMMA + 1, quant, **kw),
+                kernel_b1(fd, cache_mod, dev, g * gm.size, gm.size, P,
+                          s_tree, quant, tree_mask=tree_mask, **kw)],
+            b2=kernel_b2(rk, rt, cache_mod, dev, P, 8, 4096, s_kv, quant,
+                         g=g, **kw),
+            b3=kernel_b3(fd, cache_mod, dev, g * (GAMMA + 2), GAMMA + 2,
+                         CLI_SERVE_PREFILL, s_pool, quant, **kw),
+            b4=[kernel_b4(fd, att, cache_mod, dev, g * w, 4096, s_rkv, quant,
+                          tn=w, **kw) for w in (w_cli, w_deep, 1)])
+        torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def _constructed(classes, store):
+    """Inside the block every instance of ``classes`` lands in ``store``
+    with its constructor's seconds: the command line builds its engines
+    itself, and the launch counts need their plans. The hook sits on the
+    classes, so it sees an instance wherever the class is imported from."""
+    saved = {cls: cls.__dict__.get("__init__") for cls in classes}
+
+    def hook(cls, init):
+        def __init__(self, *args, **kwargs):
+            t0 = time.perf_counter()
+            init(self, *args, **kwargs)
+            if type(self) is cls:       # once, where it was built
+                torch.cuda.synchronize()
+                store.append((self, time.perf_counter() - t0))
+        return __init__
+
+    for cls in classes:
+        cls.__init__ = hook(cls, cls.__init__)
+    try:
+        yield store
+    finally:
+        for cls, init in saved.items():
+            if init is None:
+                del cls.__init__
+            else:
+                cls.__init__ = init
+
+
+def _built(store, cls, tag):
+    """The one instance of ``cls`` the command line built."""
+    got = [o for o, _ in store if type(o) is cls]
+    if len(got) != 1:
+        _fail(f"cli {tag}: the command line built {len(got)} "
+              f"{cls.__name__}, not one")
+    return got[0]
+
+
+def _params_equal(a, b) -> bool:
+    """The same leaves, dtypes and values, bit for bit."""
+    def leaves(p):
+        out = {k: v for k, v in p.items() if k != "layers"}
+        out.update({"layers." + k: v for k, v in p["layers"].items()})
+        return out
+    la, lb = leaves(a), leaves(b)
+    return la.keys() == lb.keys() and all(
+        la[k].dtype == lb[k].dtype and torch.equal(la[k], lb[k]) for k in la)
+
+
+def _pre_fwd(prefill, chunk):
+    """Target forwards of one prefill: full chunks, the remainder, the
+    last token's."""
+    body = prefill - 1
+    return body // chunk + bool(body % chunk) + 1
+
+
+def _device_ops(prof, n=10):
+    """The ``n`` device operations (kernels, copies) with the most device
+    time in a profile: (name, calls, total ms)."""
+    evs = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    def dev_us(e):
+        return getattr(e, "device_time_total", None) \
+            or getattr(e, "cuda_time_total", 0)
+    evs.sort(key=dev_us, reverse=True)
+    return [(e.key, e.count, dev_us(e) / 1e3) for e in evs[:n]]
+
+
+def cli_phase(tc, llama, Engine, cli, hf, ckpt, data, decoding, profiling,
+              planner, spectree, batched_spec, fd, rk, dev, tmp):
+    """TinyLlama-1.1B-128K (full width and depth) + Llama-68M through the
+    command line a user types, from checkpoints this phase writes: random
+    weights from a seed, written in HF layout (the target as two indexed
+    shards), loaded back bit-equal by the streaming loader and through the
+    native checkpoint; then every mode of ``cli.main`` in bf16 and ``ar``,
+    ``triforce``, ``tree`` with int8 weights and KV, each with its launch
+    counts checked; the CLI's AR tokens against ``decoding.autoregressive``
+    on the in-memory weights; ``python3 -m triforce_tpu_torch.cli`` as a
+    process; the card's phase table (``measure_phase_times``) and a
+    profiler trace of two TriForce steps."""
+    cfg, dcfg = tc.PRESETS[GQA_MODEL], tc.PRESETS[CLI_DRAFT]
+    L, P, bf = cfg.num_layers, CLI_PREFILL, torch.bfloat16
+    res = {"runs": {}, "launches": {}}
+
+    # --- 1. write the checkpoints (HF layout, nothing downloaded)
+    t0 = time.perf_counter()
+    tp = llama.init_params(cfg, device=dev, dtype=bf, seed=11)
+    dp = llama.init_params(dcfg, device=dev, dtype=bf, seed=12)
+    tdir, ddir, ndir = (os.path.join(tmp, n)
+                        for n in ("target", "draft", "native"))
+    hf.save_params(tdir, cfg, tp, shards=2)
+    hf.save_params(ddir, dcfg, dp)
+    with open(os.path.join(tdir, "config.json")) as f:
+        rs = json.load(f)["rope_scaling"]
+    if rs != {"type": cfg.rope.kind, "factor": cfg.rope.scaling_factor,
+              "original_max_position_embeddings":
+                  cfg.rope.original_max_position_embeddings}:
+        _fail(f"cli: the written config's rope_scaling is {rs}")
+    if not os.path.isfile(os.path.join(tdir,
+                                       "model.safetensors.index.json")):
+        _fail("cli: the target was not written as indexed shards")
+    res["write_s"] = time.perf_counter() - t0
+
+    # --- 2. the loaders give back what was written, bit for bit
+    t0 = time.perf_counter()
+    c2, p2 = hf.load_params_streaming(tdir, dtype=bf, device=dev)
+    torch.cuda.synchronize()
+    res["stream_load_s"] = time.perf_counter() - t0
+    if c2 != cfg or not _params_equal(p2, tp):
+        _fail("cli: the streamed target differs from what was written")
+    del p2
+    c3, p3 = hf.load_params_streaming(ddir, dtype=bf, rope_on_slots=True,
+                                      device=dev)
+    if c3 != dcfg or not c3.rope_on_slots or not _params_equal(p3, dp):
+        _fail("cli: the streamed drafter differs from what was written")
+    del p3
+    t0 = time.perf_counter()
+    c4, p4 = ckpt.convert_hf(tdir, ndir, dtype="bfloat16", device=dev)
+    del p4
+    res["convert_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    c5, p5 = ckpt.load_checkpoint(ndir, dtype=bf, device=dev)
+    torch.cuda.synchronize()
+    res["native_load_s"] = time.perf_counter() - t0
+    if c4 != cfg or c5 != cfg or not _params_equal(p5, tp):
+        _fail("cli: the native checkpoint differs from what was written")
+    del p5
+    shutil.rmtree(ndir)
+    torch.cuda.empty_cache()
+    print(f"cli: {GQA_MODEL} ({cfg.num_layers} layers, hidden "
+          f"{cfg.hidden_size}, {cfg.num_heads} heads over {cfg.num_kv_heads} "
+          f"KV heads x {cfg.head_dim}) + {CLI_DRAFT} written in HF layout in "
+          f"{res['write_s']:.1f} s; streamed back in "
+          f"{res['stream_load_s']:.1f} s, converted in {res['convert_s']:.1f}"
+          f" s, native load {res['native_load_s']:.1f} s: every leaf "
+          f"bit-equal, configs equal the presets", flush=True)
+
+    # --- 3-4. every mode through cli.main, launch counts checked
+    base = ["--device", dev.type, "--model", tdir, "--draft", ddir,
+            "--prefill", str(P),
+            "--budget", str(CLI_BUDGET), "--chunk_size", "8", "--gamma",
+            str(GAMMA),
+            "--temp", "0.6", "--top_p", "0.9"]
+    int8 = ["--kv_dtype", "int8", "--weight_dtype", "int8"]
+    gen = ["--gen_len", str(CLI_GEN)]
+    tree = ["--tree_size", str(CLI_TREE_SIZE), "--gen_len", str(CLI_TREE_GEN)]
+    serve = ["--batch", str(CLI_SERVE_ROWS), "--num_prompts",
+             str(CLI_SERVE_PROMPTS), "--prefill", str(CLI_SERVE_PREFILL),
+             "--gen_len", str(CLI_SERVE_GEN)]
+    runs = [("ar", "ar", gen), ("retrieval", "retrieval", gen),
+            ("triforce", "triforce", gen), ("tree", "tree", tree),
+            ("serve", "serve", serve), ("int8 ar", "ar", gen + int8),
+            ("int8 triforce", "triforce", gen + int8),
+            ("int8 tree", "tree", tree + int8)]
+    outs = {}
+    for tag, mode, extra in runs:
+        quant = tag.startswith("int8")
+        built, load_s = [], [0.0]
+        real_load = cli.load_model
+
+        def timed_load(*args, **kwargs):
+            t = time.perf_counter()
+            out = real_load(*args, **kwargs)
+            torch.cuda.synchronize()
+            load_s[0] += time.perf_counter() - t
+            return out
+
+        cli.load_model = timed_load
+        _reset(fd, rk)
+        t0 = time.perf_counter()
+        try:
+            with _constructed((Engine, spectree.TreeEngine,
+                               batched_spec.SpecScheduler), built):
+                out = cli.main(base + ["--mode", mode, *extra])
+        finally:
+            cli.load_model = real_load
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        setup_s = sum(t for _, t in built)
+        if mode == "serve":
+            sched = _built(built, batched_spec.SpecScheduler, tag)
+            eng = _built(built, Engine, tag)
+            n = CLI_SERVE_PROMPTS
+            if len(out) != n or not all(
+                    r.done and 1 <= len(r.out) <= CLI_SERVE_GEN
+                    and all(0 <= t < cfg.vocab_size for t in r.out)
+                    for r in out):
+                _fail(f"cli {tag}: the requests did not complete")
+            got = _check_counts(
+                fd, rk, f"cli {tag}", quant,
+                L * _pre_fwd(CLI_SERVE_PREFILL, eng.prefill_chunk) * n,
+                L * n, L * sched.bat.target_forwards)
+            st = sched.stats
+            decoded = sum(len(r.out) - 1 for r in out)
+            row = dict(admit_s=st["admit_s"], decode_s=st["decode_s"],
+                       steps=st["steps"], decode_tokens=decoded,
+                       tokens_per_s=decoded / st["decode_s"],
+                       target_forwards=st["target_forwards"])
+            print(f"cli {tag}: {n} requests x <= {CLI_SERVE_GEN} tokens "
+                  f"through {CLI_SERVE_ROWS} slots: "
+                  f"{row['tokens_per_s']:.1f} tokens/s over decode segments, "
+                  f"admit {st['admit_s']:.2f} s, decode {st['decode_s']:.2f}"
+                  f" s, {st['steps']} steps; load {load_s[0]:.2f} s, call "
+                  f"{total:.1f} s", flush=True)
+        else:
+            r = out
+            if not all(0 <= t < cfg.vocab_size for t in r.tokens):
+                _fail(f"cli {tag}: token out of range")
+            if mode == "tree":
+                te = _built(built, spectree.TreeEngine, tag)
+                fwd = te.gm.num_levels + 1
+                if not r.steps or len(r.tokens) < 2:
+                    _fail(f"cli {tag}: no tree step ran")
+                got = _check_counts(
+                    fd, rk, f"cli {tag}", quant,
+                    L * (_pre_fwd(P, te.prefill_chunk) + r.steps), L, 0,
+                    L * fwd * r.steps)
+            else:
+                eng = _built(built, Engine, tag)
+                if len(r.tokens) < CLI_GEN + 1 or (
+                        mode == "ar" and len(r.tokens) != CLI_GEN + 1):
+                    _fail(f"cli {tag}: {len(r.tokens)} tokens")
+                pre = _pre_fwd(P, eng.prefill_chunk)
+                if mode == "ar":
+                    got = _check_counts(fd, rk, f"cli {tag}", quant,
+                                        L * (pre + CLI_GEN), 0)
+                else:
+                    got = _check_counts(
+                        fd, rk, f"cli {tag}", quant,
+                        L * (pre + r.middle_verifies + r.steps), L)
+            prefill_s = total - load_s[0] - setup_s - r.wall_s
+            row = dict(ms_per_token=1e3 / r.tokens_per_sec,
+                       tokens_per_step=r.avg_tokens_per_step,
+                       acceptance_rate=r.acceptance_rate, steps=r.steps,
+                       tokens=len(r.tokens) - 1, prefill_s=prefill_s,
+                       load_s=load_s[0], setup_s=setup_s, call_s=total)
+            print(f"cli {tag}: {row['ms_per_token']:.3f} ms/token, "
+                  f"{r.avg_tokens_per_step:.2f} tokens/step, acceptance "
+                  f"{r.acceptance_rate:.3f}, {r.steps} steps, prefill "
+                  f"{prefill_s:.2f} s (load {load_s[0]:.2f} s, engine set-up "
+                  f"{setup_s:.2f} s, call {total:.1f} s)", flush=True)
+        res["launches"][tag] = got
+        res["runs"][tag] = row
+        outs[tag] = out
+        del built, out
+        torch.cuda.empty_cache()
+
+    # --- the CLI's AR tokens are decoding.autoregressive's on the same weights
+    spec = tc.SpecConfig(gamma=GAMMA, budget=CLI_BUDGET, chunk_size=8,
+                         draft_start_size=16,
+                         draft_recent_size=266 - 16 - GAMMA,
+                         temperature=0.6, top_p=0.9, max_len=CLI_GEN)
+    eng = Engine(cfg, spec, tp, draft_cfg=dcfg, draft_params=dp, prefill=P,
+                 max_cache_len=P + 2 * (CLI_GEN + GAMMA + 2), dtype=bf,
+                 device=dev)
+    ids = torch.from_numpy(data.fit_prompt(
+        data.synthetic_prompts(1, P, cfg.vocab_size, 0)[0], P)).to(dev)
+    r = decoding.autoregressive(eng, ids, max_len=CLI_GEN, seed=0,
+                                device=dev)
+    if r.tokens != outs["ar"].tokens:
+        _fail("cli ar: the command line's tokens differ from "
+              "decoding.autoregressive on the same weights and seed")
+    print(f"cli ar: {len(r.tokens)} tokens equal decoding.autoregressive's "
+          f"on the in-memory weights, bit for bit", flush=True)
+
+    # --- 5. the command a user types, as its own process
+    t0 = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run(
+        [sys.executable, "-m", "triforce_tpu_torch.cli", "--mode", "ar",
+         *base, "--gen_len", str(CLI_SUBPROCESS_GEN)],
+        capture_output=True, text=True, cwd=root, env=env, timeout=300)
+    line = [ln for ln in proc.stdout.splitlines() if "[ar] prompt 0:" in ln]
+    if proc.returncode != 0 or not line:
+        _fail(f"cli: python3 -m triforce_tpu_torch.cli --mode ar exited "
+              f"{proc.returncode}: {proc.stderr[-1500:]}")
+    res["subprocess_s"] = time.perf_counter() - t0
+    print(f"cli subprocess (python3 -m triforce_tpu_torch.cli --mode ar, "
+          f"{res['subprocess_s']:.1f} s): {line[0].strip()}", flush=True)
+
+    # --- 6. the card's phase table and the first profiler trace
+    state = eng.prefill_draft(eng.prefill_target(eng.init_state(3), ids),
+                              ids)
+    times = profiling.measure_phase_times(eng, state, iters=20)
+    res["phase_ms"] = {k: v * 1e3 for k, v in times.items()}
+    print("cli measure_phase_times (ms): " + json.dumps(res["phase_ms"]),
+          flush=True)
+    step = eng._step_fn("triforce", None)
+    state, _ = step(state)                      # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profiling.trace(os.path.join(tmp, "trace")) as prof:
+        for _ in range(2):
+            state, _ = step(state)
+        torch.cuda.synchronize()
+    res["trace_wall_ms"] = (time.perf_counter() - t0) * 1e3
+    ops = _device_ops(prof)
+    res["trace_top_ops"] = [dict(name=n, calls=c, ms=ms) for n, c, ms in ops]
+    print(f"cli trace: two TriForce steps, {res['trace_wall_ms']:.1f} ms "
+          f"wall under the profiler; ten largest device operations by total "
+          f"time:", flush=True)
+    for n, c, ms in ops:
+        print(f"  {ms:9.3f} ms  x{c:<5d} {n[:110]}", flush=True)
+    if not ops:
+        print("  (no device time in the trace)", flush=True)
+    del eng, state, tp, dp
+    torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--prefill", type=int, default=32768)
@@ -1814,6 +2272,10 @@ def main() -> int:
     ap.add_argument("--study", action="store_true",
                     help="only run the kernel study (kernel_study) and "
                     "print its JSON line")
+    ap.add_argument("--gqa", action="store_true",
+                    help="only the GQA phase: the kernels at "
+                    "tinyllama-1.1b-128k's shapes, its reference check and "
+                    "the command line end to end")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -1822,8 +2284,9 @@ def main() -> int:
     try:
         from triforce_tpu_torch import _build, config as tc, cache
         from triforce_tpu_torch import batched_spec, batching, decoding
+        from triforce_tpu_torch import cli, data, profiling
         from triforce_tpu_torch.engine import Engine
-        from triforce_tpu_torch.models import llama
+        from triforce_tpu_torch.models import ckpt, hf, llama
         from triforce_tpu_torch.tree import planner, spectree
         from triforce_tpu_torch.ops import attention as att
         from triforce_tpu_torch.ops import flash_decode as fd
@@ -1857,6 +2320,38 @@ def main() -> int:
         print(f"AB {args.ab} " + json.dumps(kernel_ab(fd, att, cache, dev,
                                                       args.prefill, gm.mask)),
               flush=True)
+        return 0
+
+    def gqa_gates():
+        return gqa_kernel_gates(tc, fd, att, rk, rt, cache, planner,
+                                spectree, batched_spec, dev)
+
+    def references(model):
+        return {name: reference_check(tc, llama, cache, rt, fd, dev,
+                                      quant=quant, model=model)
+                for name, quant in (("bf16", False), ("int8", True))}
+
+    def cli_run():
+        """The command line end to end at TinyLlama-1.1B-128K widths."""
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory(prefix="triforce_cli_") as tmp:
+            res = cli_phase(tc, llama, Engine, cli, hf, ckpt, data, decoding,
+                            profiling, planner, spectree, batched_spec, fd,
+                            rk, dev, tmp)
+        res["phase_s"] = time.perf_counter() - t0
+        print(f"cli phase: {res['phase_s']:.1f} s; " + json.dumps(res),
+              flush=True)
+        torch.cuda.empty_cache()
+        return res
+
+    if args.gqa:
+        gqa_gates()
+        print(json.dumps({"reference": {GQA_MODEL: references(GQA_MODEL)}}),
+              flush=True)
+        cli_run()
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
         return 0
 
     prefill = args.prefill
@@ -1920,11 +2415,17 @@ def main() -> int:
                (w_pad, prefill, s_tree), (w_pad, 0, s_rkv)]
     b4 = {quant: [kernel_b4(fd, att, cache, dev, *sh, quant=quant)
                   for sh in shapes4] for quant in (False, True)}
+    # every kernel at the GQA model's shapes (the cli phase's run)
+    gates = gqa_gates()
+    for quant in (False, True):
+        b1[quant] += gates[quant]["b1"]
+        b3[quant].append(gates[quant]["b3"])
+        b4[quant] += gates[quant]["b4"]
     study = kernel_study(fd, cache, dev, prefill, s_kv, s_rkv, gm.mask)
     int8_gemm_probe(llama, dev)
     torch.cuda.empty_cache()
-    ref = {name: reference_check(tc, llama, cache, rt, dev, quant=quant)
-           for name, quant in (("bf16", False), ("int8", True))}
+    ref = {model: references(model) for model in ("llama2-7b-128k",
+                                                  GQA_MODEL)}
 
     # launches of each kernel in its own path's decoding.triforce run
     main_path = dict.fromkeys(COUNTERS)
@@ -1995,6 +2496,10 @@ def main() -> int:
                   flush=True)
         by_phase["b3"]["ar_serving_int8_weights"] = \
             bat_e2e["int8"]["launches"]["ar_serving"]["b3"]
+        for tag, got in cli_run()["launches"].items():
+            for k, n in got.items():
+                if n:
+                    by_phase.setdefault(k, {})["cli " + tag] = n
 
     def b1_entry(name, source_fn, quant, replaces):
         main = b1[quant][0]   # AR decode shape: the path's most frequent
@@ -2017,10 +2522,12 @@ def main() -> int:
                     entry_point=source_fn, replaces=replaces,
                     launches=main_path[key],
                     launches_by_phase=by_phase.get(key),
-                    max_abs_err=r["max_abs_err"], ms=r["ms"],
-                    plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-                    bound_by=r["bound_by"], library_ms=r["library_ms"],
-                    shapes=[r])
+                    max_abs_err=max(r["max_abs_err"],
+                                    gates[quant]["b2"]["max_abs_err"]),
+                    ms=r["ms"], plain_ms=r["plain_ms"],
+                    bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                    library_ms=r["library_ms"],
+                    shapes=[r, gates[quant]["b2"]])
 
     def b3_entry(name, source_fn, quant):
         main = b3[quant][1]   # the outer verify: one per speculation step

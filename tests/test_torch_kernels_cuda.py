@@ -71,8 +71,9 @@ def test_flash_decode_matches_plain(dev, gt, tn, k_len, s, d):
 
 def _mask(dev, kind, gt, tn, seed=5):
     """[GT, Tn] bool: "causal" (row r attends token j <= r % Tn), "random"
-    (60%, token 0 always) or "ancestor" (a random tree of Tn = GT nodes:
-    a node attends itself and its ancestors)."""
+    (60%, token 0 always) or "ancestor" (a random tree of Tn nodes: a
+    node attends itself and its ancestors; with GT = G * Tn, each of the G
+    groups of rows in turn)."""
     if kind == "causal":
         return tfd.causal_mask(tn, tn, gt // tn, dev)
     if kind == "random":
@@ -82,13 +83,13 @@ def _mask(dev, kind, gt, tn, seed=5):
         return m
     rng = random.Random(seed)
     parent = [-1] + [rng.randrange(i) for i in range(1, tn)]
-    m = torch.zeros((gt, tn), dtype=torch.bool)
+    m = torch.zeros((tn, tn), dtype=torch.bool)
     for i in range(tn):
         j = i
         while j >= 0:
             m[i, j] = True
             j = parent[j]
-    return m.to(dev)
+    return m.repeat(gt // tn, 1).to(dev)     # each group's rows, in turn
 
 
 # the wide path (GT > 16) at its edges: the first wide GT with a k_len
@@ -110,6 +111,13 @@ WIDE_CASES = [
     (4, 40, 40, 1000, 1100, 64, "random"),
     (4, 64, 64, 4096, 4300, 64, "ancestor"),
     (4, 40, 8, 0, 64, 64, "random"),
+    # tinyllama-1.1b-128k's run (Hkv 4, D 64, G 8): the target verify
+    # (GT 64, Tn 8) over its 32K prefix, the middle verify (GT 56, Tn 7)
+    # over the 4096-token retrieval cache, the tree verify (GT 1024, Tn 128)
+    # under an ancestor mask
+    (4, 64, 8, 32768, 32912, 64, "causal"),
+    (4, 56, 7, 4096, 4103, 64, "causal"),
+    (4, 1024, 128, 32768, 33200, 64, "ancestor"),
 ]
 
 
@@ -170,6 +178,34 @@ def test_chunk_scores_matches_plain(dev, g, chunk, prefill):
     assert trk.chunk_scores.launches == before + 1
     # the same fp32 products summed in another order
     torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_chunk_scores_gqa_widths(dev, quant):
+    """B2 and B2-int8 at tinyllama-1.1b-128k's retrieval build: 4 KV heads
+    x 64, 8 query rows a head, a 32K prefill in chunks of 8."""
+    q = _randn(dev, 5, 4, 8, 64)
+    kb = _randn(dev, 6, 4, 32912, 64)
+    prefill = 32768
+    if quant:
+        k, ks = tcache.quantize_tokens(kb)
+        k[:, prefill:], ks[:, prefill:] = 127, 1e3    # never read
+        fn = trk.chunk_scores_int8
+        before = fn.launches
+        out = fn(q, k, ks, chunk=8, prefill=prefill)
+        ref = trk.chunk_scores_int8_plain(q, k, ks, chunk=8, prefill=prefill)
+        tol = 1e-6
+    else:
+        kb[:, prefill:] = 50.0
+        fn = trk.chunk_scores
+        before = fn.launches
+        out = fn(q, kb, chunk=8, prefill=prefill)
+        ref = trk.chunk_scores_plain(q, kb, chunk=8, prefill=prefill)
+        tol = 1e-5
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    # chip_smoke.py's bounds, of the score scale
+    assert (out - ref).abs().max().item() <= tol * ref.abs().max().item()
 
 
 # ---------------------------------------------------------------------------
@@ -265,6 +301,8 @@ B3_CASES = [
     (64, 64, [37, 0, 1, 1100], 1100, 128, True),
     (65, 65, [1000, 0, 3, 777], 1100, 128, False),
     (128, 128, [4096, 0, 5, 2500], 4300, 128, True),
+    # tinyllama-1.1b-128k's served rows: the target verify, G 8 x Tn 8
+    (64, 8, [8192, 0, 37, 4133], 8528, 64, False),
 ]
 
 
@@ -281,7 +319,7 @@ def _b3_inputs(dev, gt, tn, k_lens, s, d, per_row_mask, hkv=4):
         mask = torch.rand((rows, gt, tn), generator=g, device=dev) < 0.7
         mask[:, :, 0] = True
     else:
-        mask = tfd.causal_mask(gt, tn, 1, dev)
+        mask = tfd.causal_mask(tn, tn, gt // tn, dev)
     kl = torch.tensor(k_lens, dtype=torch.int32, device=dev)
     return q, kn, vn, k, v, mask, kl
 
@@ -380,6 +418,11 @@ B4_CASES = [
     (65, 1000, 1100, 64),
     (128, 4096, 4300, 128),
     (128, 0, 300, 128),
+    # tinyllama-1.1b-128k's tree grow (G 8): a level of the CLI's 128-node
+    # tree (W 36, GT 288), of the 11-level one (W 22, GT 176), the root
+    (288, 4096, 4260, 64),
+    (176, 4096, 4260, 64),
+    (8, 4096, 4260, 64),
 ]
 
 

@@ -1,0 +1,229 @@
+"""The port's profiling (``triforce_tpu_torch/profiling.py``) and the
+``return_probs`` payload of its engine steps, on the CPU, against the JAX
+package where both compute the same thing.
+
+``return_probs`` is compared near-greedy (temperature 1e-4, as in
+``tests/test_torch_engine.py``): every row is then one-hot up to fp32
+rounding, so the tokens must be equal and the rows within 1e-5.
+"""
+
+import functools
+import json
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from triforce_tpu import config as jcfg
+from triforce_tpu import engine as jeng
+from triforce_tpu.models import llama as jl
+from triforce_tpu_torch import config as tcfg
+from triforce_tpu_torch import engine as teng
+from triforce_tpu_torch import profiling
+from triforce_tpu_torch.models import llama as tl
+from triforce_tpu_torch.tree import planner
+
+torch.set_num_threads(1)
+
+PREFILL = 32
+SPEC_KW = dict(gamma=3, budget=16, chunk_size=4, draft_start_size=4,
+               draft_recent_size=12, temperature=1e-4, top_p=0.9)
+
+
+def _params():
+    pj = jl.init_params(jax.random.PRNGKey(0), jcfg.TINY_TARGET,
+                        dtype=jnp.float32)
+    dj = jl.init_params(jax.random.PRNGKey(1), jcfg.TINY_DRAFT,
+                        dtype=jnp.float32)
+    pt = tl.params_from_numpy(jax.tree.map(np.asarray, pj),
+                              tcfg.TINY_TARGET, "cpu")
+    dt = tl.params_from_numpy(jax.tree.map(np.asarray, dj),
+                              tcfg.TINY_DRAFT, "cpu")
+    return pj, dj, pt, dt
+
+
+def _torch_engine(spec_kw=SPEC_KW, max_cache_len=PREFILL + 64, **kw):
+    _, _, pt, dt = _params()
+    return teng.Engine(tcfg.TINY_TARGET, tcfg.SpecConfig(**spec_kw), pt,
+                       draft_cfg=tcfg.TINY_DRAFT, draft_params=dt,
+                       prefill=PREFILL, max_cache_len=max_cache_len,
+                       prefill_chunk=16, draft_prefill_chunk=8,
+                       dtype=torch.float32, device="cpu", **kw)
+
+
+def _ids():
+    return np.random.default_rng(2).integers(0, 199, (1, PREFILL))
+
+
+def _state(eng, seed=100):
+    ids = torch.from_numpy(_ids())
+    st = eng.prefill_target(eng.init_state(seed), ids)
+    return eng.prefill_draft(st, ids)
+
+
+def test_timer_spans():
+    t = profiling.Timer()
+    x = torch.zeros(3)
+    with t.span("a", sync=x):
+        pass
+    with t.span("a"):
+        pass
+    with t.span("b", sync=x):
+        x += 1
+    rep = t.report()
+    assert rep["a"]["count"] == 2 and rep["b"]["count"] == 1
+    assert rep["a"]["total_s"] >= 0 and rep["a"]["mean_ms"] >= 0
+    assert "a" in t.pretty() and "b" in t.pretty()
+
+
+def test_return_probs_rows_equal_jax():
+    """Three retrieval-speculation steps with ``return_probs``: the same
+    tokens, the same one-hot q (middle) and p (target) rows."""
+    pj, _, _, _ = _params()
+    common = dict(prefill=PREFILL, max_cache_len=PREFILL + 64,
+                  prefill_chunk=16, eos_token_id=2)
+    je = jeng.Engine(jcfg.TINY_TARGET, jcfg.SpecConfig(**SPEC_KW), pj,
+                     dtype=jnp.float32, donate=False, **common)
+    te = _torch_engine()
+    js = je.prefill_target(je.init_state(jax.random.PRNGKey(100)),
+                           jnp.asarray(_ids()))
+    ts = te.prefill_target(te.init_state(100), torch.from_numpy(_ids()))
+    jstep = functools.partial(
+        jeng._retrieval_spec_step, je.target_cfg, je.spec, je.prefill,
+        je.eos_token_id, je.mesh, je.shard_seq, return_probs=True)
+    for _ in range(3):
+        js, jst, (jt, jq, jp) = jstep(je.t_params, js)
+        ts, tst, (tt, tq, tp) = teng._retrieval_spec_step(te, ts,
+                                                          return_probs=True)
+        assert np.asarray(jt).tolist() == tt.tolist()
+        np.testing.assert_allclose(tq.numpy(), np.asarray(jq), atol=1e-5)
+        np.testing.assert_allclose(tp.numpy(), np.asarray(jp), atol=1e-5)
+        assert int(jst.n_emitted) == tst.n_emitted
+        assert tst.mid_verify == tst.mid_live == SPEC_KW["gamma"]
+    assert int(js.kv.seq_len) == int(ts.kv.seq_len)
+
+
+def test_return_probs_leaves_the_step_unchanged():
+    """The payload is an addition: the step with and without it makes the
+    same state and stats."""
+    te = _torch_engine(dict(SPEC_KW, temperature=0.8))
+    a = _state(te)
+    b = a.clone()
+    sa, sta = teng._retrieval_spec_step(te, a)
+    sb, stb, (toks, q, p) = teng._retrieval_spec_step(te, b,
+                                                      return_probs=True)
+    assert sta.tokens.tolist() == stb.tokens.tolist()
+    assert int(sa.kv.seq_len) == int(sb.kv.seq_len)
+    assert torch.equal(sa.kv.k, sb.kv.k)
+    gamma = SPEC_KW["gamma"]
+    vocab = tcfg.TINY_TARGET.vocab_size
+    assert q.shape == (gamma + 1, vocab) and p.shape == (gamma + 2, vocab)
+    np.testing.assert_allclose(q[:gamma].sum(-1).numpy(), 1.0, atol=1e-5)
+    np.testing.assert_allclose(p.sum(-1).numpy(), 1.0, atol=1e-5)
+    assert toks.shape[0] == gamma + 1
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["fp32", "int8"])
+def test_measure_phase_times_keys_and_state_unchanged(quant):
+    eng = _torch_engine(kv_quant=quant, weight_quant=quant)
+    st = _state(eng)
+    before = st.clone()
+    times = profiling.measure_phase_times(eng, st, iters=2)
+    assert set(times) == {"target_verify", "middle_step", "ar_step",
+                          "retrieval_build", "draft_step"}
+    assert all(v > 0 for v in times.values())
+    for name in ("kv", "rkv", "dkv"):
+        a, b = getattr(st, name), getattr(before, name)
+        for plane in ("k", "v", "k_scale", "v_scale", "seq_len"):
+            x, y = getattr(a, plane, None), getattr(b, plane, None)
+            assert (x is None) == (y is None)
+            if x is not None:
+                assert torch.equal(x, y), (name, plane)
+    assert torch.equal(st.next_token, before.next_token)
+    # the state still decodes as its untouched copy does
+    _, buf, n, _ = eng.generate(st, 6, mode="triforce")
+    _, buf2, n2, _ = eng.generate(before, 6, mode="triforce")
+    assert n == n2 and buf[:n].tolist() == buf2[:n2].tolist()
+
+
+def test_measure_phase_times_without_drafter():
+    _, _, pt, _ = _params()
+    eng = teng.Engine(tcfg.TINY_TARGET, tcfg.SpecConfig(**SPEC_KW), pt,
+                      prefill=PREFILL, max_cache_len=PREFILL + 64,
+                      prefill_chunk=16, dtype=torch.float32, device="cpu")
+    st = eng.prefill_target(eng.init_state(0), torch.from_numpy(_ids()))
+    times = profiling.measure_phase_times(eng, st, iters=2)
+    assert "draft_step" not in times and len(times) == 4
+    assert all(v > 0 for v in times.values())
+
+
+def test_measure_acceptance_vector_deterministic():
+    spec = dict(SPEC_KW, temperature=0.8)
+
+    def run(seed):
+        eng = _torch_engine(spec, max_cache_len=256)
+        return profiling.measure_acceptance_vector(
+            eng, torch.from_numpy(_ids()), max_branch=3, steps=12,
+            seed=seed)
+    p1, p2, p3 = run(5), run(5), run(6)
+    np.testing.assert_array_equal(p1, p2)
+    assert p1.shape == (4,) and p1[0] == 0.0
+    assert (p1 >= 0).all() and p1.sum() <= 1.0 + 1e-6
+    assert p1[1] > 0                   # the first candidate accepts
+    assert not np.array_equal(p1, p3)  # another seed, other draws
+
+
+def test_accept_walk_matches_a_loop():
+    """The vectorised accept chain equals the per-position loop of the
+    JAX package's ``walk_one`` on the same candidates and coins."""
+    g = np.random.default_rng(0)
+    q = g.random((5, 11)) ** 3
+    p = g.random((5, 11)) ** 3
+    q /= q.sum(-1, keepdims=True)
+    p /= p.sum(-1, keepdims=True)
+    cand = np.stack([g.permutation(11)[:4] for _ in range(5)])
+    rs = g.random((5, 4))
+    got = profiling._accept_walk(torch.tensor(q), torch.tensor(p),
+                                 torch.tensor(cand), torch.tensor(rs))
+    for i in range(5):
+        qn, pn, acc = q[i].copy(), p[i].copy(), 0
+        for b in range(4):
+            tok = cand[i, b]
+            if acc == 0 and pn[tok] > rs[i, b] * max(qn[tok], 1e-37):
+                acc = b + 1
+            if acc == 0:
+                resid = np.maximum(pn - qn, 0)
+                pn = resid / max(resid.sum(), 1e-37)
+                qn[tok] = 0.0
+                qn = qn / max(qn.sum(), 1e-37)
+        assert int(got[i]) == acc
+
+
+def test_planner_main_round_trips_measured_times(tmp_path):
+    """The measured phase times feed the tree planner's own command."""
+    eng = _torch_engine()
+    times = profiling.measure_phase_times(eng, _state(eng), iters=2)
+    cfgp = tmp_path / "cfg.json"
+    dst = str(tmp_path / "gm.json")
+    json.dump({"acceptance_rate": 0.8, "max_branch": 3, "max_depth": 6,
+               "valid_budget": [8, 12],
+               "target_time": [times["target_verify"],
+                               1.2 * times["target_verify"]],
+               "draft_time": times["middle_step"], "max_budget": 12,
+               "dst": dst}, open(cfgp, "w"))
+    planner.main(["--config", str(cfgp)])
+    gm = planner.GrowMap.load(dst)
+    assert gm.size >= 2
+
+
+def test_trace_writes_a_chrome_trace(tmp_path):
+    eng = _torch_engine()
+    st = _state(eng)
+    with profiling.trace(str(tmp_path / "tr")) as prof:
+        eng.generate(st, 4, mode="triforce")
+    events = json.load(open(tmp_path / "tr" / "trace.json"))
+    assert events["traceEvents"]
+    assert any("mm" in e.key or "matmul" in e.key
+               for e in prof.key_averages())

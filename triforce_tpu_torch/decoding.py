@@ -5,7 +5,9 @@ self-speculation.
 Each driver runs on ``engine.device``; ``device`` defaults to the first
 CUDA card and must match the engine's, so a call with no device on a
 machine without CUDA raises instead of running on the CPU. Timings wait
-for the device before reading the clock.
+for the device before reading the clock. With ``verbose`` the tokens are
+streamed (``utils.misc.spec_stream``, through ``tokenizer`` when given)
+after the timed loop, so no read-back enters the timed window.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import torch
 from .config import resolve_device
 from .engine import Engine, TriForceState
 from .models import llama
+from .utils.misc import spec_stream
 
 
 @dataclasses.dataclass
@@ -46,8 +49,8 @@ def _sync(device: torch.device) -> None:
 
 
 def autoregressive(engine: Engine, input_ids: torch.Tensor,
-                   max_len: int = 256, seed: int = 0, device=None
-                   ) -> DecodeResult:
+                   max_len: int = 256, seed: int = 0, verbose: bool = False,
+                   tokenizer=None, device=None) -> DecodeResult:
     """Plain AR decoding baseline: chunked prefill, then ``max_len`` tokens
     with no host read-back until the end."""
     _check_device(engine, device)
@@ -61,13 +64,17 @@ def autoregressive(engine: Engine, input_ids: torch.Tensor,
     kv, token, _, buf = engine.generate_ar(kv, token, state.gen, max_len)
     toks = buf.tolist()       # read-back: generation is done
     t1 = time.perf_counter()
-    return DecodeResult(tokens=[first] + toks,
-                        tokens_per_sec=max_len / (t1 - t0),
+    out = [first] + toks
+    if verbose:
+        for t in out:
+            spec_stream(t, tokenizer, "cyan")
+    return DecodeResult(tokens=out, tokens_per_sec=max_len / (t1 - t0),
                         steps=max_len, wall_s=t1 - t0)
 
 
 def _run_spec_loop(engine: Engine, state: TriForceState, mode: str,
-                   max_len: int, stop_on_eos: bool) -> DecodeResult:
+                   max_len: int, stop_on_eos: bool, verbose: bool,
+                   tokenizer) -> DecodeResult:
     first = int(state.next_token[0])   # read-back: prefill is done
     t0 = time.perf_counter()
     state, buf, n, counters = engine.generate(state, max_len, mode=mode,
@@ -77,6 +84,9 @@ def _run_spec_loop(engine: Engine, state: TriForceState, mode: str,
     assert out[0] == first
     (steps, accepted, proposed, resampled, bonus, mid_draft, mid_accept,
      mid_verify, _mid_live) = (int(x) for x in counters)
+    if verbose:
+        for t in out:
+            spec_stream(t, tokenizer, "green")
     gen = n - 1   # tokens produced by speculation steps
     return DecodeResult(
         tokens=out, tokens_per_sec=gen / (t1 - t0),
@@ -87,24 +97,28 @@ def _run_spec_loop(engine: Engine, state: TriForceState, mode: str,
 
 
 def triforce(engine: Engine, input_ids: torch.Tensor, max_len: int = 256,
-             seed: int = 0, stop_on_eos: bool = False,
-             draft_prefill_mode: str = "full", device=None) -> DecodeResult:
+             seed: int = 0, verbose: bool = False, tokenizer=None,
+             stop_on_eos: bool = False, draft_prefill_mode: str = "full",
+             device=None) -> DecodeResult:
     """The full three-level hierarchy."""
     _check_device(engine, device)
     state = engine.init_state(seed)
     state = engine.prefill_target(state, input_ids)
     state = engine.prefill_draft(state, input_ids, mode=draft_prefill_mode)
     _sync(engine.device)
-    return _run_spec_loop(engine, state, "triforce", max_len, stop_on_eos)
+    return _run_spec_loop(engine, state, "triforce", max_len, stop_on_eos,
+                          verbose, tokenizer)
 
 
 def retrieval_spec(engine: Engine, input_ids: torch.Tensor,
-                   max_len: int = 256, seed: int = 0,
-                   stop_on_eos: bool = False, device=None) -> DecodeResult:
+                   max_len: int = 256, seed: int = 0, verbose: bool = False,
+                   tokenizer=None, stop_on_eos: bool = False,
+                   device=None) -> DecodeResult:
     """Self-speculation: target weights over the retrieval cache draft,
     the full-cache target verifies (lossless; no drafter level)."""
     _check_device(engine, device)
     state = engine.init_state(seed)
     state = engine.prefill_target(state, input_ids)
     _sync(engine.device)
-    return _run_spec_loop(engine, state, "retrieval", max_len, stop_on_eos)
+    return _run_spec_loop(engine, state, "retrieval", max_len, stop_on_eos,
+                          verbose, tokenizer)

@@ -495,11 +495,16 @@ def _middle_spec(eng: Engine, state: TriForceState, force_accept=None):
 
 def _outer_verify_and_commit(eng: Engine, state: TriForceState, gamma2: int,
                              gen_tokens, gen_probs, has_draft: bool,
-                             force_accept=None):
+                             force_accept=None, return_probs=False):
     """Target full-cache verify + exact rejection sampling + cache commit:
     one gamma+2-token forward, all accept tests at once, one read-back of
     the outcome, then rollback, retrieval tail refresh and (with a
-    drafter) the drafter replay and window compaction."""
+    drafter) the drafter replay and window compaction.
+
+    ``return_probs``: also return ``(gen_tokens, gen_probs, p_all)``, the
+    step's real middle (q) and target (p) distribution rows, for
+    acceptance measurement (``profiling.measure_acceptance_vector``). The
+    batched steps (``*_step_rows``) return no such payload."""
     t_cfg, sp = eng.target_cfg, eng.spec
     gamma = sp.gamma
     dev = gen_tokens.device
@@ -580,6 +585,8 @@ def _outer_verify_and_commit(eng: Engine, state: TriForceState, gamma2: int,
     stats = StepStats(tokens=emitted, n_emitted=count + int(has_final),
                       gamma2=gamma2, accepted=count,
                       resampled=int(rejected), bonus=int(bonus), eos=eos_hit)
+    if return_probs:
+        return new_state, stats, (gen_tokens, gen_probs, p_all)
     return new_state, stats
 
 
@@ -598,10 +605,11 @@ def _triforce_step(eng: Engine, state: TriForceState, force_accept=None):
 
 
 def _retrieval_spec_step(eng: Engine, state: TriForceState,
-                         force_accept=None):
+                         force_accept=None, return_probs=False):
     """Self-speculation step: the middle model (target weights over the
     retrieval cache) drafts gamma tokens autoregressively with no host
-    read-back, then the full-cache target verifies them."""
+    read-back, then the full-cache target verifies them. ``return_probs``
+    as in ``_outer_verify_and_commit``: (state, stats, (tokens, q, p))."""
     t_cfg, sp = eng.target_cfg, eng.spec
     gamma = sp.gamma
     dev = state.next_token.device
@@ -623,12 +631,13 @@ def _retrieval_spec_step(eng: Engine, state: TriForceState,
         gen_tokens[n] = tok
         gen_probs[n] = p_n
         verify_tokens[0, n + 1] = tok
-    new_state, stats = _outer_verify_and_commit(
+    out = _outer_verify_and_commit(
         eng, state, gamma, gen_tokens, gen_probs, False,
-        force_accept=force_accept)
+        force_accept=force_accept, return_probs=return_probs)
+    stats = out[1]
     stats.mid_verify = gamma
     stats.mid_live = gamma
-    return new_state, stats
+    return out
 
 
 # ---------------------------------------------------------------------------

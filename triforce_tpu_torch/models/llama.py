@@ -153,7 +153,11 @@ def quantize_weights(params):
     weight, layers and lm_head (``llama.py:167-188``): scale = max|w| / 127
     over the input axis (at least 1e-8), codes rounded half to even. The
     embedding and the norms stay as they are. One layer at a time, so no
-    fp32 copy of a whole stacked weight exists."""
+    fp32 copy of a whole stacked weight exists. Params that already hold
+    int8 codes (a native checkpoint saved after quantization) are
+    returned as they are."""
+    if params["lm_head"].dtype == torch.int8:
+        return params
     def q(w):
         wf = w.float()
         s = int8_scale(wf.abs().amax(-2), 1e-8)

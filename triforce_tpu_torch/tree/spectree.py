@@ -156,7 +156,7 @@ class TreeEngine:
         self.kv_quant = kv_quant
         self.ssl = ssl
         self.weight_quant = weight_quant
-        if weight_quant and params["lm_head"].dtype != torch.int8:
+        if weight_quant:
             params = llama.quantize_weights(params)    # unless already codes
         self.params = params
         self.max_path = int(grow_map.depth.max()) + 1
