@@ -27,7 +27,8 @@ Phases, in order (any failure exits non-zero before the last line):
      served rows, B4 at its grow levels and root); then both paths'
      study: per-kernel device times from the profiler at the decode and
      the wide shapes, B1's time against nsplit, registers and CTAs per SM
-     of every kernel;
+     of every kernel; B1 replayed from a graph with its dependent phase
+     as a programmatic dependent and as an ordinary launch (lines "pdl");
   4. reference: the full-width model at cut depth on a short prompt, the
      card's path (through the kernels) against an fp32 CPU run of the same
      weights: bf16 weights and cache (top-1 may differ only at a near
@@ -46,7 +47,14 @@ Phases, in order (any failure exits non-zero before the last line):
      through the decoding drivers, first in bf16, then with int8 weights
      and KV (``kv_quant``, ``weight_quant``); each run sets every kernel
      launch count to 0 before and checks it against the count the path
-     implies after (the other precision's kernels at 0);
+     implies after (the other precision's kernels at 0). Every decode mode
+     of phases 7-10 runs from CUDA graphs (the engines' default on a card)
+     and has a graph gate (lines "graphs [...]"): an eager witness
+     (``graphs=False``) of the same seed and prompt runs its first 32
+     tokens (2 steps for the tree and the rows; the whole request set for
+     the schedulers), and the graphed run must match it in tokens, step
+     counters, ``kv.seq_len`` and launch counts; the timed run's captures
+     must equal the gate's shorter run's (a fixed number per state);
   8. tree end to end, in each precision after its batch-1 runs: Sequoia
      tree speculation (``TreeEngine``, a 128-node tree) through
      ``tree_decode``, then at forced acceptance, then with 4 hybrid
@@ -65,7 +73,8 @@ Phases, in order (any failure exits non-zero before the last line):
      equal ``decoding.autoregressive``'s on the same weights; ``python3 -m
      triforce_tpu_torch.cli --mode ar`` as a process; the card's
      ``measure_phase_times`` table and a profiler trace of two TriForce
-     steps (its ten largest device operations);
+     steps (its ten largest device operations), the phase table graphed
+     and eager;
  11. the ``kernels`` JSON line, then the ``ok`` JSON line.
 
 Exits non-zero (and prints no result) without a CUDA card or outside the
@@ -135,7 +144,7 @@ def _time_ms(fn, reps: int = 20, warm: int = 3) -> float:
 
 def _device_ms(fn, calls: int = 20, reps: int = 10) -> float:
     """Device time of one ``fn()``: ``calls`` of them captured into a CUDA
-    graph (a measuring device only; the port captures none), the graph
+    graph (a measuring device, apart from the engines' own graphs), the graph
     replayed ``reps`` times, the median replay over ``calls``. Unlike
     ``_time_ms`` it holds no host time, which on a busy host outweighs a
     kernel of ~0.1 ms."""
@@ -960,6 +969,45 @@ def kernel_study(fd, cache_mod, dev, prefill, s_kv, s_rkv, tree_mask):
     return res
 
 
+def pdl_study(fd, cache_mod, dev, prefill, s_kv, s_tree, tree_mask):
+    """B1 (bf16 and int8) replayed from a CUDA graph with its dependent
+    phase launched as a programmatic dependent (the default) and as an
+    ordinary launch, at the AR step, the target verify and the tree
+    verify: the graph keeps the programmatic edge, and this is what it is
+    worth there (median device ms of one launch)."""
+    shapes = {"ar": (1, 1, prefill, s_kv),
+              "verify": (GAMMA + 2, GAMMA + 2, prefill, s_kv),
+              "tree verify": (TREE_SIZE, TREE_SIZE, prefill, s_tree)}
+    out = {}
+    for quant in (False, True):
+        for what, (gt, tn, k_len, s) in shapes.items():
+            x = _b1_inputs(cache_mod, dev, gt, tn, k_len, s, quant,
+                           tree_mask=tree_mask if what == "tree verify"
+                           else None)
+            if quant:
+                def fn():
+                    return fd.flash_decode_append_int8(
+                        x["q"], x["k"], x["v"], x["kn"], x["vn"], x["klen"],
+                        x["mask"], x["ks"], x["vs"])
+            else:
+                def fn():
+                    return fd.flash_decode_append(
+                        x["q"], x["k"], x["v"], x["kn"], x["vn"], x["klen"],
+                        x["mask"])
+            ms = {}
+            for on in (True, False, True, False):
+                fd.set_programmatic_launch(on)
+                ms.setdefault(on, []).append(_device_ms(fn))
+            fd.set_programmatic_launch(True)
+            key = ("int8 " if quant else "") + what
+            out[key] = dict(pdl_ms=min(ms[True]), plain_launch_ms=min(
+                ms[False]))
+            print(f"pdl [{key}] GT {gt}: B1 from a graph, programmatic "
+                  f"dependent {out[key]['pdl_ms']:.4f} ms, ordinary launch "
+                  f"{out[key]['plain_launch_ms']:.4f} ms", flush=True)
+    return out
+
+
 def _host_probe(fd, cache_mod, dev, quant):
     """Host us of one B1 wrapper call (best of 5 x 500 calls, no
     synchronisation between them) and its device ms, at GT = 1 over 37 and
@@ -1298,19 +1346,197 @@ def _check_counts(fd, rk, what, quant, want_b1, want_b2, want_b3=0,
     return got
 
 
-def end_to_end(tc, decoding, eng, fd, rk, dev, prefill, quant):
-    """All four batch-1 modes at full width on ``eng``; ``quant``: it holds
-    int8 weights and int8 KV."""
+# ---------------------------------------------------------------------------
+# Graph gates: every graphed decode mode against its eager witness
+# ---------------------------------------------------------------------------
+
+GATE_TOKENS, GATE_STEPS = 32, 2   # the witness's share of a mode (tokens;
+                                  # steps of the tree and of the rows)
+
+
+def _eager_twin(eng):
+    """The eager witness (``graphs=False``) of a graphed engine: the same
+    configs, settings and weights (shared, not copied; int8 codes pass
+    ``quantize_weights`` unchanged)."""
+    from triforce_tpu_torch.engine import Engine
+    from triforce_tpu_torch.tree.spectree import TreeEngine
+    if isinstance(eng, TreeEngine):
+        return TreeEngine(
+            eng.cfg, eng.gm, eng.params, prefill=eng.prefill,
+            max_cache_len=eng.max_cache_len - eng.gm.size - eng.W,
+            budget=eng.budget, chunk_size=eng.chunk_size,
+            temperature=eng.temperature, top_p=eng.top_p,
+            eos_ids=eng.eos_ids, dtype=eng.dtype,
+            prefill_chunk=eng.prefill_chunk, kv_quant=eng.kv_quant,
+            weight_quant=eng.weight_quant, ssl=eng.ssl, device=eng.device,
+            graphs=False)
+    return Engine(eng.target_cfg, eng.spec, eng.t_params,
+                  draft_cfg=eng.draft_cfg, draft_params=eng.d_params,
+                  prefill=eng.prefill, max_cache_len=eng.max_cache_len,
+                  eos_token_id=eng.eos_token_id, dtype=eng.dtype,
+                  prefill_chunk=eng.prefill_chunk,
+                  draft_prefill_chunk=eng.draft_prefill_chunk,
+                  kv_quant=eng.kv_quant, device=eng.device, graphs=False)
+
+
+def _snap(graphs):
+    return (graphs.captures, graphs.capture_s, graphs.pool_bytes)
+
+
+def _since(graphs, snap):
+    """(captures, capture seconds, pool bytes) ``graphs`` added since
+    ``snap``."""
+    now = _snap(graphs)
+    return dict(captures=now[0] - snap[0], capture_s=now[1] - snap[1],
+                pool_bytes=now[2] - snap[2])
+
+
+def _timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def ar_gate_run(llama, eng, ids, seed, n=GATE_TOKENS):
+    """``decoding.autoregressive``'s steps on ``eng``, for a gate: the
+    prefill, then ``n`` tokens."""
+    def run():
+        state = eng.init_state(seed)
+        kv = eng.prefill_body(state.kv, ids[:, :-1])
+        logits, kv, _ = llama.forward_append(eng.target_cfg, eng.t_params,
+                                             ids[:, -1:], kv)
+        tok = eng._sample_next(logits, state.gen)
+        first = int(tok[0])
+        c0 = eng.graphs.captures
+        (kv, _, gen, buf), dt = _timed(
+            lambda: eng.generate_ar(kv, tok, state.gen, n))
+        return dict(tokens=[first] + buf.tolist(), counters=None,
+                    seq_len=int(kv.seq_len), decode_s=dt, n=n,
+                    captures=eng.graphs.captures - c0)
+    return run
+
+
+def spec_gate_run(eng, ids, mode, seed, alpha=None, n=GATE_TOKENS):
+    """The steps of ``decoding.retrieval_spec`` / ``triforce`` (or, with
+    ``alpha``, of ``generate_forced``) on ``eng``, for a gate."""
+    def run():
+        st = eng.prefill_target(eng.init_state(seed), ids)
+        if mode == "triforce":
+            st = eng.prefill_draft(st, ids)
+        c0 = eng.graphs.captures
+        if alpha is None:
+            (st, buf, m, c), dt = _timed(
+                lambda: eng.generate(st, n, mode=mode))
+        else:
+            (st, buf, m, c), dt = _timed(
+                lambda: eng.generate_forced(st, n, alpha, mode=mode))
+        return dict(tokens=buf[:m].tolist(), counters=[int(x) for x in c],
+                    seq_len=int(st.kv.seq_len), decode_s=dt, n=m - 1,
+                    captures=eng.graphs.captures - c0)
+    return run
+
+
+def tree_gate_run(eng, ids, seed, alpha=None, steps=GATE_STEPS):
+    """``tree_decode``'s first ``steps`` steps (or forced ones) on
+    ``eng``, for a gate."""
+    def run():
+        st = eng.prefill_target(eng.init_state(seed), ids)
+        toks, counters = [int(st.next_token[0])], []
+        c0 = eng.graphs.captures
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            st, a = eng.step(st, force_accept=alpha)
+            toks += a.tokens[:a.n_emitted].tolist()
+            counters.append([a.n_emitted, a.n_nodes, a.readbacks,
+                             int(a.terminal)])
+        torch.cuda.synchronize()
+        return dict(tokens=toks, counters=counters,
+                    seq_len=int(st.kv.seq_len),
+                    decode_s=time.perf_counter() - t0, n=len(toks) - 1,
+                    captures=eng.graphs.captures - c0)
+    return run
+
+
+def rows_gate_run(bs, eng, mode, prompts, seeds, alpha, steps=GATE_STEPS):
+    """``steps`` batched steps of ``BatchedSpecEngine`` on ``eng``."""
+    def run():
+        bat = bs.BatchedSpecEngine(eng, mode=mode, force_accept=alpha)
+        state = bat.prefill_rows(prompts, seeds)
+        c0 = eng.graphs.captures
+        (state, toks, ns, c, _), dt = _timed(lambda: bat.decode(state, steps))
+        return dict(tokens=toks.tolist(), counters=[ns.tolist(), c.tolist()],
+                    seq_len=state.kv.seq_len.tolist(), decode_s=dt,
+                    n=int(ns.sum()), captures=eng.graphs.captures - c0)
+    return run
+
+
+def graph_gate(what, fd, rk, graphed, eager):
+    """One mode's graph gate: ``graphed()`` and ``eager()`` run the same
+    seed and prompt (``*_gate_run``) on a graphed engine and on its eager
+    witness; tokens, step counters, kv lengths and kernel launch counts
+    must be equal (the regions replay the same kernels on the same inputs
+    with the same Philox offsets)."""
+    res = {}
+    for tag, fn in (("graphed", graphed), ("eager", eager)):
+        _reset(fd, rk)
+        r = fn()
+        r["launches"] = {k: f.launches for k, f in _wrappers(fd, rk).items()}
+        res[tag] = r
+    g, e = res["graphed"], res["eager"]
+    for key in ("tokens", "counters", "seq_len", "launches"):
+        if g[key] != e[key]:
+            _fail(f"graph gate [{what}]: the graphed run's {key} {g[key]} "
+                  f"differ from the eager witness's {e[key]}")
+    if not g["captures"]:
+        _fail(f"graph gate [{what}]: the graphed run captured no graph")
+    return dict(tokens=e["tokens"], n_tokens=e["n"],
+                eager_ms_per_token=1e3 * e["decode_s"] / max(e["n"], 1),
+                gate_captures=g["captures"],
+                launches=sum(e["launches"].values()))
+
+
+def mode_graphs(what, d, ms_graphed, timed_tokens, gate):
+    """Report a graphed mode beside its gate: ms/token graphed and eager,
+    the timed run's captures ``d`` (``_since``; they must equal the gate's:
+    a fixed number per state, however many steps), their seconds and the
+    pool bytes; the timed run's first tokens must be the witness's."""
+    if d["captures"] != gate["gate_captures"]:
+        _fail(f"graphs [{what}]: the timed run captured {d['captures']} "
+              f"graphs, the gate's shorter run {gate['gate_captures']}")
+    want = gate["tokens"]
+    if timed_tokens is not None and timed_tokens[:len(want)] != want:
+        _fail(f"graphs [{what}]: the timed run's first tokens differ from "
+              f"the eager witness's")
+    out = dict(ms_per_token_graphed=ms_graphed,
+               ms_per_token_eager=gate["eager_ms_per_token"],
+               gate_tokens=gate["n_tokens"], **d)
+    print(f"graphs [{what}]: graphed {ms_graphed:.3f} ms/token, eager "
+          f"witness {gate['eager_ms_per_token']:.3f} ms/token; gate: "
+          f"{gate['n_tokens']} tokens, counters, kv.seq_len and "
+          f"{gate['launches']} kernel launches equal; {d['captures']} "
+          f"captures in {d['capture_s']:.3f} s (as many as the gate's "
+          f"run), pool {d['pool_bytes'] / 2**20:.1f} MiB", flush=True)
+    return out
+
+
+def end_to_end(tc, decoding, llama, eng, fd, rk, dev, prefill, quant):
+    """All four batch-1 modes at full width on ``eng`` (graphed), each with
+    its graph gate against an eager witness; ``quant``: it holds int8
+    weights and int8 KV."""
     tag = "int8 " if quant else ""
     tcfg = eng.target_cfg
     L = tcfg.num_layers
+    witness = _eager_twin(eng)
     ids = torch.randint(0, tcfg.vocab_size, (1, prefill),
                         generator=torch.Generator().manual_seed(5)).to(dev)
     # target forwards of one prefill: full chunks + remainder + last token
     body = prefill - 1
     pre_fwd = body // eng.prefill_chunk + (1 if body % eng.prefill_chunk
                                            else 0) + 1
-    res = {"launches": {}}
+    res = {"launches": {}, "graphs": {}}
 
     def check_tokens(name, toks):
         if not all(0 <= t < tcfg.vocab_size for t in toks):
@@ -1324,41 +1550,55 @@ def end_to_end(tc, decoding, eng, fd, rk, dev, prefill, quant):
 
     # --- AR
     _reset(fd, rk)
+    snap = _snap(eng.graphs)
     t0 = time.perf_counter()
     r = decoding.autoregressive(eng, ids, max_len=GEN, seed=0,
                                 device=dev)
     total = time.perf_counter() - t0
+    d = _since(eng.graphs, snap)
     check_tokens("ar", r.tokens)
     if len(r.tokens) != GEN + 1:
         _fail(f"{tag}ar: wrong token count")
     counts("ar", L * (pre_fwd + GEN), 0)
+    prefill_s = total - r.wall_s - r.capture_s
     res["ar"] = dict(ms_per_token=1e3 / r.tokens_per_sec,
-                     prefill_s=total - r.wall_s, tokens=len(r.tokens))
-    print(f"{tag}AR: prefill {total - r.wall_s:.2f} s, "
+                     prefill_s=prefill_s, tokens=len(r.tokens))
+    print(f"{tag}AR: prefill {prefill_s:.2f} s, "
           f"{1e3 / r.tokens_per_sec:.3f} ms/token", flush=True)
+    res["graphs"]["ar"] = mode_graphs(
+        tag + "ar", d, 1e3 / r.tokens_per_sec, r.tokens,
+        graph_gate(tag + "ar", fd, rk, ar_gate_run(llama, eng, ids, 0),
+                   ar_gate_run(llama, witness, ids, 0)))
     torch.cuda.empty_cache()
 
     # --- retrieval-spec and TriForce through the drivers
     for mode, fn in (("retrieval", decoding.retrieval_spec),
                      ("triforce", decoding.triforce)):
         _reset(fd, rk)
+        snap = _snap(eng.graphs)
         t0 = time.perf_counter()
         r = fn(eng, ids, max_len=GEN, seed=1, device=dev)
         total = time.perf_counter() - t0
+        d = _since(eng.graphs, snap)
         check_tokens(mode, r.tokens)
         if len(r.tokens) < GEN + 1:
             _fail(f"{tag}{mode}: generated too few tokens")
         # every step: its middle verifies + one full-cache verify
         counts(mode, L * (pre_fwd + r.middle_verifies + r.steps), L)
+        prefill_s = total - r.wall_s - r.capture_s
         res[mode] = dict(ms_per_token=1e3 / r.tokens_per_sec,
-                         prefill_s=total - r.wall_s, steps=r.steps,
+                         prefill_s=prefill_s, steps=r.steps,
                          acceptance_rate=r.acceptance_rate,
                          avg_tokens_per_step=r.avg_tokens_per_step,
                          middle_verifies=r.middle_verifies)
-        print(f"{tag}{mode}: prefill {total - r.wall_s:.2f} s, "
+        print(f"{tag}{mode}: prefill {prefill_s:.2f} s, "
               f"{1e3 / r.tokens_per_sec:.3f} ms/token, {r.steps} steps, "
               f"acceptance {r.acceptance_rate:.3f}, "
               f"{r.avg_tokens_per_step:.2f} tokens/step", flush=True)
+        res["graphs"][mode] = mode_graphs(
+            tag + mode, d, 1e3 / r.tokens_per_sec, r.tokens,
+            graph_gate(tag + mode, fd, rk, spec_gate_run(eng, ids, mode, 1),
+                       spec_gate_run(witness, ids, mode, 1)))
         torch.cuda.empty_cache()
 
     # --- TriForce at forced acceptance 0.9 (every forward still runs)
@@ -1375,11 +1615,13 @@ def end_to_end(tc, decoding, eng, fd, rk, dev, prefill, quant):
     t_pd = time.perf_counter() - t0
     counts("prefill_target", L * pre_fwd, L)
     _reset(fd, rk)
+    snap = _snap(eng.graphs)
     t0 = time.perf_counter()
     state, buf, n, counters = eng.generate_forced(state, GEN, 0.9,
                                                   mode="triforce")
     toks = buf[:n].tolist()
-    dt = time.perf_counter() - t0
+    d = _since(eng.graphs, snap)
+    dt = time.perf_counter() - t0 - d["capture_s"]
     check_tokens("forced", toks)
     steps, accepted, proposed = (int(x) for x in counters[:3])
     mid_verify = int(counters[7])
@@ -1388,6 +1630,7 @@ def end_to_end(tc, decoding, eng, fd, rk, dev, prefill, quant):
     if int(state.kv.seq_len) != want_len:
         _fail(f"{tag}forced: kv.seq_len {int(state.kv.seq_len)} != "
               f"{want_len}")
+    del state
     res["forced"] = dict(alpha=0.9, ms_per_token=dt * 1e3 / (n - 1),
                          prefill_target_s=t_pt, prefill_draft_s=t_pd,
                          counters=[int(x) for x in counters],
@@ -1397,7 +1640,13 @@ def end_to_end(tc, decoding, eng, fd, rk, dev, prefill, quant):
           f"counters [steps, accepted, proposed, resampled, bonus, "
           f"mid_draft, mid_accept, mid_verify, mid_live] = "
           f"{[int(x) for x in counters]}", flush=True)
+    res["graphs"]["forced"] = mode_graphs(
+        tag + "forced", d, dt * 1e3 / (n - 1), toks,
+        graph_gate(tag + "forced", fd, rk,
+                   spec_gate_run(eng, ids, "triforce", 2, 0.9),
+                   spec_gate_run(witness, ids, "triforce", 2, 0.9)))
     res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    eng.release_graphs()
     return res
 
 
@@ -1514,6 +1763,7 @@ def tree_end_to_end(tc, planner, spectree, fd, rk, dev, params, prefill,
         budget=4096, chunk_size=8, temperature=0.6, top_p=0.9,
         dtype=torch.bfloat16, prefill_chunk=512, device=dev, kv_quant=quant,
         weight_quant=quant, eos_ids=())
+    witness = _eager_twin(eng)
     fwd = gm.num_levels + 1          # grow forwards per step: root + levels
     print(f"{tag}tree: {gm.size} nodes, depth {int(gm.depth.max())}, "
           f"{gm.num_levels} levels, W {eng.W}, K {eng.K}, budget 4096, "
@@ -1522,9 +1772,9 @@ def tree_end_to_end(tc, planner, spectree, fd, rk, dev, params, prefill,
                         generator=torch.Generator().manual_seed(5)).to(dev)
     body = prefill - 1
     pre_fwd = body // eng.prefill_chunk + bool(body % eng.prefill_chunk) + 1
-    res = {"launches": {}, "tree": dict(size=gm.size, levels=gm.num_levels,
-                                        depth=int(gm.depth.max()), W=eng.W,
-                                        K=eng.K)}
+    res = {"launches": {}, "graphs": {},
+           "tree": dict(size=gm.size, levels=gm.num_levels,
+                        depth=int(gm.depth.max()), W=eng.W, K=eng.K)}
     torch.cuda.reset_peak_memory_stats()
 
     def counts(what, b1, b2, b4):
@@ -1537,35 +1787,48 @@ def tree_end_to_end(tc, planner, spectree, fd, rk, dev, params, prefill,
 
     # --- tree_decode, the entry point a user calls
     _reset(fd, rk)
+    snap = _snap(eng.graphs)
     t0 = time.perf_counter()
     r = spectree.tree_decode(eng, ids, max_len=TREE_GEN, seed=1, device=dev)
     total = time.perf_counter() - t0
+    d = _since(eng.graphs, snap)
     check_tokens("tree_decode", r.tokens)
     if len(r.tokens) < TREE_GEN + 1:
         _fail(f"{tag}tree_decode: generated too few tokens")
     counts("tree_decode", L * (pre_fwd + r.steps), L, L * fwd * r.steps)
     if not r.steps:
         _fail(f"{tag}tree_decode: the partials kernel was never launched")
+    prefill_s = total - r.wall_s - r.capture_s
     res["tree_decode"] = dict(
-        prefill_s=total - r.wall_s, steps=r.steps,
+        prefill_s=prefill_s, steps=r.steps,
         tokens=len(r.tokens) - 1, ms_per_step=1e3 * r.wall_s / r.steps,
         tokens_per_step=r.avg_tokens_per_step,
         ms_per_token=1e3 / r.tokens_per_sec)
-    print(f"{tag}tree_decode: prefill {total - r.wall_s:.2f} s, {r.steps} "
+    print(f"{tag}tree_decode: prefill {prefill_s:.2f} s, {r.steps} "
           f"steps, {1e3 * r.wall_s / r.steps:.1f} ms/step, "
           f"{r.avg_tokens_per_step:.2f} tokens/step, "
           f"{1e3 / r.tokens_per_sec:.3f} ms/token", flush=True)
+    res["graphs"]["tree_decode"] = mode_graphs(
+        tag + "tree_decode", d, 1e3 / r.tokens_per_sec, r.tokens,
+        graph_gate(tag + "tree_decode", fd, rk, tree_gate_run(eng, ids, 1),
+                   tree_gate_run(witness, ids, 1)))
     torch.cuda.empty_cache()
 
-    # --- forced acceptance 0.9 (every forward still runs)
+    # --- forced acceptance 0.9 (every forward still runs); its gate runs
+    # first, so that no gate state lives beside the timed run's
+    forced_gate = graph_gate(tag + "tree forced", fd, rk,
+                             tree_gate_run(eng, ids, 2, 0.9),
+                             tree_gate_run(witness, ids, 2, 0.9))
     state = eng.prefill_target(eng.init_state(2), ids)
     torch.cuda.synchronize()
     _reset(fd, rk)
+    snap = _snap(eng.graphs)
     t0 = time.perf_counter()
     state, buf, n, counters, _ = eng.generate_forced(state, TREE_FORCED_GEN,
                                                      0.9)
     toks = buf[:n].tolist()
-    dt = time.perf_counter() - t0
+    d = _since(eng.graphs, snap)
+    dt = time.perf_counter() - t0 - d["capture_s"]
     check_tokens("tree forced", toks)
     steps, nodes, readbacks = (int(x) for x in counters)
     counts("tree forced", L * steps, 0, L * fwd * steps)
@@ -1580,6 +1843,8 @@ def tree_end_to_end(tc, planner, spectree, fd, rk, dev, params, prefill,
           f"ms/step, {(n - 1) / steps:.2f} tokens/step, "
           f"{1e3 * dt / (n - 1):.3f} ms/token, {nodes} nodes accepted, "
           f"{readbacks / steps:.1f} host read-backs/step", flush=True)
+    res["graphs"]["tree forced"] = mode_graphs(
+        tag + "tree forced", d, 1e3 * dt / (n - 1), toks, forced_gate)
 
     # --- two more steps with the first 4 layers on the full cache (ssl)
     eng.ssl = 4
@@ -1600,6 +1865,7 @@ def tree_end_to_end(tc, planner, spectree, fd, rk, dev, params, prefill,
     res["ssl4"] = dict(steps=2, ms_per_step=1e3 * dt / 2,
                        nodes_accepted=nodes)
     res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    eng.release_graphs()
     print(f"{tag}tree ssl=4 a=0.9: 2 steps, {1e3 * dt / 2:.1f} ms/step, "
           f"{nodes} nodes accepted; peak {res['peak_gib']:.1f} GiB",
           flush=True)
@@ -1635,6 +1901,7 @@ def rows_equal_batch1(tc, llama, Engine, bs, dev, quant, layers=2,
     tag = "int8" if quant else "bf16"
     tcfg, dcfg = tc.LLAMA2_7B_128K.with_(num_layers=layers), tc.LLAMA_68M
     spec = tc.SpecConfig(gamma=GAMMA, budget=256, chunk_size=8)
+    # eager: the gate wraps the forwards in Python that reads values back
     eng = Engine(tcfg, spec,
                  llama.init_params(tcfg, device=dev, dtype=torch.bfloat16,
                                    seed=7),
@@ -1643,7 +1910,7 @@ def rows_equal_batch1(tc, llama, Engine, bs, dev, quant, layers=2,
                                                 dtype=torch.bfloat16, seed=8),
                  prefill=prefill, max_cache_len=prefill + 64,
                  dtype=torch.bfloat16, device=dev, kv_quant=quant,
-                 weight_quant=quant)
+                 weight_quant=quant, graphs=False)
     gen = torch.Generator().manual_seed(9)
     prompts = [torch.randint(0, tcfg.vocab_size, (1, prefill),
                              generator=gen).to(dev) for _ in range(2)]
@@ -1745,13 +2012,52 @@ def rows_equal_batch1(tc, llama, Engine, bs, dev, quant, layers=2,
                 logit_drift_of_4_ulps=drift)
 
 
+def serve_gate(what, fd, rk, run_graphed, run_eager):
+    """A serving graph gate: ``run_*()`` serve the same requests through a
+    graphed and an eager scheduler and return (scheduler, finished
+    requests); every request's tokens, the steps, the target forwards and
+    the launch counts must be equal. Returns the graphed (scheduler,
+    requests), its launch counts and the gate's numbers; the scheduler's
+    pool is dropped before the witness runs (``drained``: its slots'
+    lengths at the end), so that the two pools never live at once."""
+    out = {}
+    for tag, fn in (("graphed", run_graphed), ("eager", run_eager)):
+        _reset(fd, rk)
+        sched, done = fn()
+        torch.cuda.synchronize()
+        launches = {k: f.launches for k, f in _wrappers(fd, rk).items()}
+        st = sched.stats
+        out[tag] = (sched, done, launches,
+                    dict(tokens=sorted((r.rid, r.out) for r in done),
+                         steps=st["steps"],
+                         target_forwards=st["target_forwards"],
+                         launches=launches))
+        sched.drained = sched.state.kv.seq_len.tolist()
+        sched.state = None
+        sched.graphs.release()
+        del sched
+        torch.cuda.empty_cache()
+    g, e = out["graphed"][3], out["eager"][3]
+    for key in g:
+        if g[key] != e[key]:
+            _fail(f"graph gate [{what}]: the graphed run's {key} differ "
+                  f"from the eager witness's ({g[key]} != {e[key]})")
+    est = out["eager"][0].stats
+    decoded = sum(len(r.out) - 1 for r in out["eager"][1])
+    gate = dict(eager_tokens_per_s=decoded / est["decode_s"],
+                eager_decode_s=est["decode_s"],
+                requests=len(out["eager"][1]))
+    return out["graphed"][0], out["graphed"][1], out["graphed"][2], gate
+
+
 def batched_end_to_end(tc, llama, Engine, bs, batching, fd, rk, dev, tp, dp,
                        quant):
     """Batched speculation and serving at full width, ROWS slots, prompts
-    of SERVE_PREFILL tokens. ``tp``/``dp`` are the weights as the batch-1
-    engine runs them: with ``quant`` already int8 codes and scales, over
-    int8 KV. No token id is an EOS here (random weights would emit one now
-    and then), so every request runs to its length."""
+    of SERVE_PREFILL tokens, each graphed and gated against an eager
+    witness. ``tp``/``dp`` are the weights as the batch-1 engine runs them:
+    with ``quant`` already int8 codes and scales, over int8 KV. No token id
+    is an EOS here (random weights would emit one now and then), so every
+    request runs to its length."""
     tag = "int8 " if quant else ""
     tcfg, dcfg = tc.LLAMA2_7B_128K, tc.LLAMA_68M
     spec = tc.SpecConfig(gamma=GAMMA, budget=4096, chunk_size=8)
@@ -1761,12 +2067,14 @@ def batched_end_to_end(tc, llama, Engine, bs, batching, fd, rk, dev, tp, dp,
     eng = Engine(tcfg, spec, tp, draft_cfg=dcfg, draft_params=dp, prefill=P,
                  max_cache_len=P + headroom, dtype=torch.bfloat16, device=dev,
                  kv_quant=quant, eos_token_id=-1)
+    witness = _eager_twin(eng)
     body = P - 1
     pre_fwd = body // eng.prefill_chunk + bool(body % eng.prefill_chunk) + 1
     gen = torch.Generator().manual_seed(6)
     prompts = [torch.randint(0, tcfg.vocab_size, (1, P), generator=gen)
                for _ in range(SERVE_REQUESTS)]
-    res = {"launches": {}}
+    rows_in = [p.to(dev) for p in prompts[:ROWS]]
+    res = {"launches": {}, "graphs": {}}
     torch.cuda.reset_peak_memory_stats()
 
     def counts(what, b1, b2, b3):
@@ -1785,26 +2093,37 @@ def batched_end_to_end(tc, llama, Engine, bs, batching, fd, rk, dev, tp, dp,
                 _fail(f"{tag}{what}: request {r.rid} ended with "
                       f"{len(r.out)} tokens")
 
-    def serve_line(what, sched, done):
+    def serve_line(what, sched, done, gate):
         st = sched.stats
         decoded = sum(len(r.out) - 1 for r in done)   # all but the prefill's
         out = dict(admit_s=st["admit_s"], decode_s=st["decode_s"],
                    steps=st["steps"], target_forwards=st["target_forwards"],
                    decode_tokens=decoded,
-                   tokens_per_s=decoded / st["decode_s"])
+                   tokens_per_s=decoded / st["decode_s"],
+                   captures=st["captures"], capture_s=st["capture_s"],
+                   **gate)
         print(f"{tag}{what}: {SERVE_REQUESTS} requests x {SERVE_NEW} tokens "
               f"through {ROWS} slots: {out['tokens_per_s']:.1f} tokens/s "
-              f"over decode segments, admit {st['admit_s']:.2f} s, decode "
-              f"{st['decode_s']:.2f} s, {st['steps']} steps, "
-              f"{st['target_forwards']} batched target forwards", flush=True)
+              f"over decode segments (eager witness "
+              f"{gate['eager_tokens_per_s']:.1f}; every request's tokens, "
+              f"the steps and the launch counts equal), admit "
+              f"{st['admit_s']:.2f} s, decode {st['decode_s']:.2f} s, "
+              f"{st['steps']} steps, {st['target_forwards']} batched target "
+              f"forwards; {st['captures']} captures in "
+              f"{st['capture_s']:.3f} s", flush=True)
         return out
 
-    # --- (a) ROWS rows speculate together, TriForce at forced acceptance
+    # --- (a) ROWS rows speculate together, TriForce at forced acceptance;
+    # the gate runs first, so that no gate state lives beside the timed one
+    rows_gate = graph_gate(
+        tag + "batched triforce", fd, rk,
+        rows_gate_run(bs, eng, "triforce", rows_in, list(range(ROWS)), 0.9),
+        rows_gate_run(bs, witness, "triforce", rows_in, list(range(ROWS)),
+                      0.9))
     bat = bs.BatchedSpecEngine(eng, mode="triforce", force_accept=0.9)
     _reset(fd, rk)
     t0 = time.perf_counter()
-    state = bat.prefill_rows([p.to(dev) for p in prompts[:ROWS]],
-                             list(range(ROWS)))
+    state = bat.prefill_rows(rows_in, list(range(ROWS)))
     torch.cuda.synchronize()
     t_prefill = time.perf_counter() - t0
     counts_pre = _check_counts(fd, rk, tag + "batched prefill_rows", quant,
@@ -1812,10 +2131,12 @@ def batched_end_to_end(tc, llama, Engine, bs, batching, fd, rk, dev, tp, dp,
     res["launches"]["prefill_rows"] = counts_pre
     _reset(fd, rk)
     steps = 8
+    snap = _snap(eng.graphs)
     t0 = time.perf_counter()
     state, toks, ns, counters, _eos = bat.decode(state, steps)
     torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
+    d = _since(eng.graphs, snap)
+    dt = time.perf_counter() - t0 - d["capture_s"]
     counts("batched triforce", 0, 0, L * bat.target_forwards)
     if toks.shape != (ROWS, steps, GAMMA + 2) or not (ns >= 1).all():
         _fail(f"{tag}batched triforce: wrong outputs")
@@ -1841,45 +2162,77 @@ def batched_end_to_end(tc, llama, Engine, bs, batching, fd, rk, dev, tp, dp,
           f"{res['batched_triforce']['accepted']} of "
           f"{res['batched_triforce']['proposed']}), "
           f"{bat.target_forwards} batched target forwards", flush=True)
+    res["graphs"]["batched triforce"] = mode_graphs(
+        tag + "batched triforce", d, 1e3 * dt / emitted, None, rows_gate)
+    if toks[:, :GATE_STEPS].tolist() != rows_gate["tokens"]:
+        _fail(f"{tag}batched triforce: the timed run's first steps differ "
+              f"from the eager witness's")
     del state
 
     # --- (b) speculative serving: chunked admission between segments
-    sched = bs.SpecScheduler(eng, mode="triforce", slots=ROWS,
-                             segment=SERVE_SEGMENT, bat=bat, admit_chunks=4)
-    for i, p in enumerate(prompts):
-        sched.submit(batching.Request(rid=i, prompt=p[0].numpy(),
-                                      max_new_tokens=SERVE_NEW))
-    _reset(fd, rk)
+    def spec_serving(e, b):
+        def run():
+            sched = bs.SpecScheduler(e, mode="triforce", slots=ROWS,
+                                     segment=SERVE_SEGMENT, bat=b,
+                                     admit_chunks=4)
+            for i, p in enumerate(prompts):
+                sched.submit(batching.Request(rid=i, prompt=p[0].numpy(),
+                                              max_new_tokens=SERVE_NEW))
+            return sched, sched.run(max_wall_s=600)
+        return run
+
     before = bat.target_forwards
-    done = sched.run(max_wall_s=600)
+    sched, done, got, gate = serve_gate(
+        tag + "spec serving", fd, rk, spec_serving(eng, bat),
+        spec_serving(witness, bs.BatchedSpecEngine(witness, mode="triforce",
+                                                   force_accept=0.9)))
     check_requests("spec serving", done)
+    _reset(fd, rk)
+    for k, fn in _wrappers(fd, rk).items():
+        fn.launches = got[k]
     counts("spec serving", L * pre_fwd * SERVE_REQUESTS, L * SERVE_REQUESTS,
            L * (bat.target_forwards - before))
-    if sched.state.kv.seq_len.tolist() != [0] * ROWS:
+    if sched.drained != [0] * ROWS:
         _fail(f"{tag}spec serving: a drained slot is not gated")
+    if sched.stats["captures"] != rows_gate["gate_captures"]:
+        _fail(f"{tag}spec serving: {sched.stats['captures']} captures, not "
+              f"one set of rows graphs ({rows_gate['gate_captures']})")
     res["spec_serving"] = serve_line("spec serving (triforce a=0.9)", sched,
-                                     done)
+                                     done, gate)
     res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     del sched, bat
+    eng.release_graphs()
     torch.cuda.empty_cache()
 
     # --- (c) AR serving over a bf16 pool (the AR scheduler's pool is never
     # int8; with ``quant`` it runs the int8 weights over bf16 KV)
     chunk = 512
-    ar = batching.Scheduler(tcfg, spec, eng.t_params, batch=ROWS,
-                            max_len=P + SERVE_NEW + 16, prefill_chunk=chunk,
-                            dtype=torch.bfloat16, segment=16, device=dev,
-                            eos_token_id=-1)
-    for i, p in enumerate(prompts):
-        ar.submit(batching.Request(rid=i, prompt=p[0].numpy(),
-                                   max_new_tokens=SERVE_NEW))
-    _reset(fd, rk)
-    done = ar.run(max_wall_s=600)
+
+    def ar_serving(graphs):
+        def run():
+            ar = batching.Scheduler(tcfg, spec, eng.t_params, batch=ROWS,
+                                    max_len=P + SERVE_NEW + 16,
+                                    prefill_chunk=chunk,
+                                    dtype=torch.bfloat16, segment=16,
+                                    device=dev, eos_token_id=-1,
+                                    graphs=graphs)
+            for i, p in enumerate(prompts):
+                ar.submit(batching.Request(rid=i, prompt=p[0].numpy(),
+                                           max_new_tokens=SERVE_NEW))
+            return ar, ar.run(max_wall_s=600)
+        return run
+
+    ar, done, got, gate = serve_gate(tag + "AR serving", fd, rk,
+                                     ar_serving(None), ar_serving(False))
     check_requests("AR serving", done)
+    for k, fn in _wrappers(fd, rk).items():
+        fn.launches = got[k]
     res["launches"]["ar_serving"] = _check_counts(
         fd, rk, tag + "AR serving (bf16 KV)", False,
         L * -(-P // chunk) * SERVE_REQUESTS, 0, L * ar.stats["steps"])
-    res["ar_serving"] = serve_line("AR serving", ar, done)
+    if ar.stats["captures"] != 1:
+        _fail(f"{tag}AR serving: {ar.stats['captures']} captures, not one")
+    res["ar_serving"] = serve_line("AR serving", ar, done, gate)
     return res
 
 
@@ -2016,6 +2369,59 @@ def _device_ops(prof, n=10):
     return [(e.key, e.count, dev_us(e) / 1e3) for e in evs[:n]]
 
 
+def cli_serve_gate(tag, fd, rk, bs, data, eng, sched, done, vocab,
+                   launches):
+    """The graph gate of ``cli.main --mode serve``: the same requests
+    through a ``SpecScheduler`` on the eager witness of the command
+    line's engine; every request's tokens, the steps, the target forwards
+    and the launch counts (``launches``, the command line's) must be
+    equal, and the command line's run must have captured one set of rows
+    graphs. Leaves the counters at ``launches``."""
+    wit = _eager_twin(eng)
+    prompts = data.synthetic_prompts(CLI_SERVE_PROMPTS, CLI_SERVE_PREFILL,
+                                     vocab, 0)
+    w = bs.SpecScheduler(wit, mode=sched.mode, slots=sched.slots,
+                         segment=sched.segment, seed=0,
+                         admit_chunks=sched.admit_chunks)
+    for i, p in enumerate(prompts):
+        w.submit(bs.batching.Request(
+            rid=i, prompt=data.fit_prompt(p, CLI_SERVE_PREFILL).reshape(-1),
+            max_new_tokens=CLI_SERVE_GEN))
+    _reset(fd, rk)
+    wdone = w.run()
+    torch.cuda.synchronize()
+    got = {k: f.launches for k, f in _wrappers(fd, rk).items()}
+    g = (sorted((r.rid, r.out) for r in done), sched.stats["steps"],
+         sched.stats["target_forwards"], launches)
+    e = (sorted((r.rid, r.out) for r in wdone), w.stats["steps"],
+         w.stats["target_forwards"], got)
+    for name, a, b in zip(("tokens", "steps", "target forwards",
+                           "launches"), g, e):
+        if a != b:
+            _fail(f"graph gate [cli {tag}]: the graphed run's {name} differ "
+                  f"from the eager witness's ({a} != {b})")
+    want = 4 if sched.mode == "triforce" else 2
+    if sched.stats["captures"] != want:
+        _fail(f"cli {tag}: {sched.stats['captures']} captures, not one set "
+              f"of rows graphs ({want})")
+    for k, f in _wrappers(fd, rk).items():
+        f.launches = launches[k]
+    st = sched.stats
+    dec = sum(len(r.out) - 1 for r in done)
+    out = dict(tokens_per_s_graphed=dec / st["decode_s"],
+               tokens_per_s_eager=dec / w.stats["decode_s"],
+               captures=st["captures"], capture_s=st["capture_s"],
+               pool_bytes=eng.graphs.pool_bytes)
+    print(f"graphs [cli {tag}]: graphed {out['tokens_per_s_graphed']:.1f} "
+          f"tokens/s over decode segments, eager witness "
+          f"{out['tokens_per_s_eager']:.1f}; gate: every request's tokens, "
+          f"the steps and the launch counts equal; {st['captures']} "
+          f"captures in {st['capture_s']:.3f} s, pool "
+          f"{out['pool_bytes'] / 2**20:.1f} MiB", flush=True)
+    eng.release_graphs()
+    return out
+
+
 def cli_phase(tc, llama, Engine, cli, hf, ckpt, data, decoding, profiling,
               planner, spectree, batched_spec, fd, rk, dev, tmp):
     """TinyLlama-1.1B-128K (full width and depth) + Llama-68M through the
@@ -2100,9 +2506,14 @@ def cli_phase(tc, llama, Engine, cli, hf, ckpt, data, decoding, profiling,
     runs = [("ar", "ar", gen), ("retrieval", "retrieval", gen),
             ("triforce", "triforce", gen), ("tree", "tree", tree),
             ("serve", "serve", serve), ("int8 ar", "ar", gen + int8),
+            ("int8 retrieval", "retrieval", gen + int8),
             ("int8 triforce", "triforce", gen + int8),
-            ("int8 tree", "tree", tree + int8)]
+            ("int8 tree", "tree", tree + int8),
+            ("int8 serve", "serve", serve + int8)]
     outs = {}
+    res["graphs"] = {}
+    prompt0 = torch.from_numpy(data.fit_prompt(
+        data.synthetic_prompts(1, P, cfg.vocab_size, 0)[0], P)).to(dev)
     for tag, mode, extra in runs:
         quant = tag.startswith("int8")
         built, load_s = [], [0.0]
@@ -2126,11 +2537,15 @@ def cli_phase(tc, llama, Engine, cli, hf, ckpt, data, decoding, profiling,
             cli.load_model = real_load
         torch.cuda.synchronize()
         total = time.perf_counter() - t0
+        cli_launches = {k: fn.launches for k, fn in _wrappers(fd, rk).items()}
         setup_s = sum(t for _, t in built)
         if mode == "serve":
             sched = _built(built, batched_spec.SpecScheduler, tag)
             eng = _built(built, Engine, tag)
             n = CLI_SERVE_PROMPTS
+            res["graphs"][tag] = cli_serve_gate(
+                tag, fd, rk, batched_spec, data, eng, sched, out,
+                cfg.vocab_size, cli_launches)
             if len(out) != n or not all(
                     r.done and 1 <= len(r.out) <= CLI_SERVE_GEN
                     and all(0 <= t < cfg.vocab_size for t in r.out)
@@ -2159,6 +2574,18 @@ def cli_phase(tc, llama, Engine, cli, hf, ckpt, data, decoding, profiling,
             if mode == "tree":
                 te = _built(built, spectree.TreeEngine, tag)
                 fwd = te.gm.num_levels + 1
+                res["graphs"][tag] = mode_graphs(
+                    "cli " + tag, dict(captures=r.captures,
+                                       capture_s=r.capture_s,
+                                       pool_bytes=te.graphs.pool_bytes),
+                    1e3 / r.tokens_per_sec, r.tokens,
+                    graph_gate("cli " + tag, fd, rk,
+                               tree_gate_run(te, prompt0, 0),
+                               tree_gate_run(_eager_twin(te), prompt0, 0)))
+                te.release_graphs()
+                _reset(fd, rk)
+                for k, fn in _wrappers(fd, rk).items():
+                    fn.launches = cli_launches[k]
                 if not r.steps or len(r.tokens) < 2:
                     _fail(f"cli {tag}: no tree step ran")
                 got = _check_counts(
@@ -2170,6 +2597,23 @@ def cli_phase(tc, llama, Engine, cli, hf, ckpt, data, decoding, profiling,
                 if len(r.tokens) < CLI_GEN + 1 or (
                         mode == "ar" and len(r.tokens) != CLI_GEN + 1):
                     _fail(f"cli {tag}: {len(r.tokens)} tokens")
+                wit = _eager_twin(eng)
+                runs_ = ((ar_gate_run(llama, eng, prompt0, 0),
+                          ar_gate_run(llama, wit, prompt0, 0))
+                         if mode == "ar" else
+                         (spec_gate_run(eng, prompt0, mode, 0),
+                          spec_gate_run(wit, prompt0, mode, 0)))
+                res["graphs"][tag] = mode_graphs(
+                    "cli " + tag, dict(captures=r.captures,
+                                       capture_s=r.capture_s,
+                                       pool_bytes=eng.graphs.pool_bytes),
+                    1e3 / r.tokens_per_sec, r.tokens,
+                    graph_gate("cli " + tag, fd, rk, *runs_))
+                eng.release_graphs()
+                del wit
+                _reset(fd, rk)
+                for k, fn in _wrappers(fd, rk).items():
+                    fn.launches = cli_launches[k]
                 pre = _pre_fwd(P, eng.prefill_chunk)
                 if mode == "ar":
                     got = _check_counts(fd, rk, f"cli {tag}", quant,
@@ -2178,7 +2622,7 @@ def cli_phase(tc, llama, Engine, cli, hf, ckpt, data, decoding, profiling,
                     got = _check_counts(
                         fd, rk, f"cli {tag}", quant,
                         L * (pre + r.middle_verifies + r.steps), L)
-            prefill_s = total - load_s[0] - setup_s - r.wall_s
+            prefill_s = total - load_s[0] - setup_s - r.wall_s - r.capture_s
             row = dict(ms_per_token=1e3 / r.tokens_per_sec,
                        tokens_per_step=r.avg_tokens_per_step,
                        acceptance_rate=r.acceptance_rate, steps=r.steps,
@@ -2235,10 +2679,15 @@ def cli_phase(tc, llama, Engine, cli, hf, ckpt, data, decoding, profiling,
                               ids)
     times = profiling.measure_phase_times(eng, state, iters=20)
     res["phase_ms"] = {k: v * 1e3 for k, v in times.items()}
-    print("cli measure_phase_times (ms): " + json.dumps(res["phase_ms"]),
-          flush=True)
+    print("cli measure_phase_times, graphed (ms): "
+          + json.dumps(res["phase_ms"]), flush=True)
+    times = profiling.measure_phase_times(_eager_twin(eng), state, iters=20)
+    res["phase_ms_eager"] = {k: v * 1e3 for k, v in times.items()}
+    print("cli measure_phase_times, eager (ms): "
+          + json.dumps(res["phase_ms_eager"]), flush=True)
     step = eng._step_fn("triforce", None)
-    state, _ = step(state)                      # warm
+    for _ in range(2):            # warm: the second step captures
+        state, _ = step(state)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profiling.trace(os.path.join(tmp, "trace")) as prof:
@@ -2248,13 +2697,14 @@ def cli_phase(tc, llama, Engine, cli, hf, ckpt, data, decoding, profiling,
     res["trace_wall_ms"] = (time.perf_counter() - t0) * 1e3
     ops = _device_ops(prof)
     res["trace_top_ops"] = [dict(name=n, calls=c, ms=ms) for n, c, ms in ops]
-    print(f"cli trace: two TriForce steps, {res['trace_wall_ms']:.1f} ms "
-          f"wall under the profiler; ten largest device operations by total "
-          f"time:", flush=True)
+    print(f"cli trace: two graphed TriForce steps, "
+          f"{res['trace_wall_ms']:.1f} ms wall under the profiler; ten "
+          f"largest device operations by total time:", flush=True)
     for n, c, ms in ops:
         print(f"  {ms:9.3f} ms  x{c:<5d} {n[:110]}", flush=True)
     if not ops:
         print("  (no device time in the trace)", flush=True)
+    eng.release_graphs()
     del eng, state, tp, dp
     torch.cuda.empty_cache()
     return res
@@ -2422,6 +2872,7 @@ def main() -> int:
         b3[quant].append(gates[quant]["b3"])
         b4[quant] += gates[quant]["b4"]
     study = kernel_study(fd, cache, dev, prefill, s_kv, s_rkv, gm.mask)
+    study["pdl"] = pdl_study(fd, cache, dev, prefill, s_kv, s_tree, gm.mask)
     int8_gemm_probe(llama, dev)
     torch.cuda.empty_cache()
     ref = {model: references(model) for model in ("llama2-7b-128k",
@@ -2461,8 +2912,8 @@ def main() -> int:
                   f"{time.perf_counter() - t0:.1f} s to make random weights "
                   f"on the card{' and quantize them' if quant else ''}",
                   flush=True)
-            e2e[name] = end_to_end(tc, decoding, eng, fd, rk, dev, prefill,
-                                   quant)
+            e2e[name] = end_to_end(tc, decoding, llama, eng, fd, rk, dev,
+                                   prefill, quant)
             del eng
             torch.cuda.empty_cache()
             # the batch-1 TriForce run counts B1 and B2, the batched phases

@@ -584,3 +584,175 @@ def test_wide_plan_on_the_card(dev, d, quant):
                                                   cta)
         tiles = hkv * -(-gt // cta)
         assert nsplit == 1 or tiles * nsplit <= sms * per_sm
+
+
+# ---------------------------------------------------------------------------
+# CUDA graphs: every graphed decode region against its eager witness
+# ---------------------------------------------------------------------------
+
+from triforce_tpu_torch import batched_spec as tbs  # noqa: E402
+from triforce_tpu_torch import batching as tbatching  # noqa: E402
+from triforce_tpu_torch import config as tcfg  # noqa: E402
+from triforce_tpu_torch import graphs as tgraphs  # noqa: E402
+from triforce_tpu_torch.engine import Engine as TEngine  # noqa: E402
+from triforce_tpu_torch.tree import planner as tplanner  # noqa: E402
+from triforce_tpu_torch.tree import spectree as tspectree  # noqa: E402
+
+# small configs the kernels take (head_dim 64, bf16 on the card)
+CARD_TARGET = tcfg.TINY_TARGET.with_(vocab_size=512, hidden_size=256,
+                                     intermediate_size=512, num_heads=4,
+                                     num_kv_heads=2, head_dim=64)
+CARD_DRAFT = tcfg.TINY_DRAFT.with_(vocab_size=512, hidden_size=128,
+                                   intermediate_size=256, num_heads=2,
+                                   num_kv_heads=2, head_dim=64)
+CARD_SPEC = tcfg.SpecConfig(gamma=3, budget=64, chunk_size=8,
+                            draft_start_size=4, draft_recent_size=60,
+                            temperature=0.6, top_p=0.9)
+CARD_PREFILL = 256
+
+
+def _card_engines(dev, quant):
+    tp = tl.init_params(CARD_TARGET, device=dev, seed=3)
+    dp = tl.init_params(CARD_DRAFT, device=dev, seed=4)
+    kw = dict(draft_cfg=CARD_DRAFT, draft_params=dp, prefill=CARD_PREFILL,
+              max_cache_len=CARD_PREFILL + 256, prefill_chunk=128,
+              device=dev, kv_quant=quant, weight_quant=quant)
+    return (TEngine(CARD_TARGET, CARD_SPEC, tp, graphs=True, **kw),
+            TEngine(CARD_TARGET, CARD_SPEC, tp, graphs=False, **kw))
+
+
+def _prompt(dev, seed=0, n=CARD_PREFILL):
+    g = torch.Generator().manual_seed(seed)
+    return torch.randint(0, CARD_TARGET.vocab_size, (1, n), generator=g
+                         ).to(dev)
+
+
+def _launches():
+    return [fn.launches for fn in tgraphs.COUNTED]
+
+
+def _zero_launches():
+    for fn in tgraphs.COUNTED:
+        fn.launches = 0
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("mode,alpha", [("ar", None), ("retrieval", None),
+                                        ("triforce", None),
+                                        ("triforce", 0.9)])
+def test_graphed_engine_equals_eager(dev, quant, mode, alpha):
+    """The graphed engine emits the eager engine's tokens bit for bit, with
+    the same counters, the same kv length, the same kernel launches and
+    the generator in the same state; its captures do not grow with the
+    steps (a capture that raises fails the test)."""
+    ge, ee = _card_engines(dev, quant)
+    ids = _prompt(dev)
+    out = {}
+    for eng in (ge, ee):
+        state = eng.init_state(7)
+        state = eng.prefill_target(state, ids)
+        if mode != "ar":
+            state = eng.prefill_draft(state, ids)
+        _zero_launches()
+        if mode == "ar":
+            kv, tok, gen, buf = eng.generate_ar(state.kv, state.next_token,
+                                                state.gen, 24)
+            res = (buf.tolist(), int(kv.seq_len), None)
+        elif alpha is None:
+            state, buf, n, c = eng.generate(state, 24, mode=mode)
+            res = (buf[:n].tolist(), int(state.kv.seq_len), c.tolist())
+        else:
+            state, buf, n, c = eng.generate_forced(state, 24, alpha, mode=mode)
+            res = (buf[:n].tolist(), int(state.kv.seq_len), c.tolist())
+        torch.cuda.synchronize()
+        gen = state.gen if mode != "ar" else gen
+        out[eng is ge] = res + (_launches(), gen.get_state())
+    (gt, gl, gc, gla, gs), (et, el, ec, ela, es) = out[True], out[False]
+    assert gt == et and gl == el and gc == ec
+    assert gla == ela and any(gla)
+    assert torch.equal(gs, es)
+    assert ge.graphs.captures >= 1 and ge.graphs.replays >= 1
+    assert ee.graphs.captures == 0
+    caps = ge.graphs.captures
+    # a second state of the same engine captures the same number again
+    state = ge.prefill_target(ge.init_state(8), ids)
+    if mode == "ar":
+        ge.generate_ar(state.kv, state.next_token, state.gen, 48)
+    else:
+        state = ge.prefill_draft(state, ids)
+        ge.generate(state, 48, mode=mode) if alpha is None \
+            else ge.generate_forced(state, 48, alpha, mode=mode)
+    torch.cuda.synchronize()
+    assert ge.graphs.captures == 2 * caps
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_graphed_tree_equals_eager(dev, quant):
+    pv = tplanner.modeled_acceptance_vector(0.8, 4)
+    gm = tplanner.build_grow_map(*tplanner.plan_tree(pv, 16, 5), 16, 5)
+    tp = tl.init_params(CARD_TARGET, device=dev, seed=3)
+    kw = dict(prefill=CARD_PREFILL, max_cache_len=CARD_PREFILL + 256,
+              budget=64, chunk_size=8, prefill_chunk=128, device=dev,
+              kv_quant=quant, weight_quant=quant, eos_ids=())
+    ids = _prompt(dev)
+    out = {}
+    for graphs in (True, False):
+        eng = tspectree.TreeEngine(CARD_TARGET, gm, tp, graphs=graphs, **kw)
+        state = eng.prefill_target(eng.init_state(5), ids)
+        _zero_launches()
+        state, buf, n, c, _ = eng.generate(state, 16)
+        state, buf2, n2, c2, _ = eng.generate_forced(state, 8, 0.9)
+        torch.cuda.synchronize()
+        out[graphs] = (buf[:n].tolist(), c.tolist(), buf2[:n2].tolist(),
+                       c2.tolist(), int(state.kv.seq_len), _launches(),
+                       state.gen.get_state(), eng.graphs.captures)
+    g, e = out[True], out[False]
+    assert g[:6] == e[:6] and torch.equal(g[6], e[6])
+    assert g[7] >= 3 and e[7] == 0
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("mode", ["retrieval", "triforce"])
+def test_graphed_batched_equals_eager(dev, quant, mode):
+    ge, ee = _card_engines(dev, quant)
+    prompts = [_prompt(dev, s) for s in (1, 2, 3)]
+    out = {}
+    for eng in (ge, ee):
+        bat = tbs.BatchedSpecEngine(eng, mode=mode)
+        state = bat.prefill_rows(prompts, [11, 12, 13])
+        _zero_launches()
+        state, toks, ns, c, _ = bat.decode(state, 4)
+        torch.cuda.synchronize()
+        out[eng is ge] = (toks.tolist(), ns.tolist(), c.tolist(),
+                          state.kv.seq_len.tolist(), _launches(),
+                          [g.get_state() for g in state.gens])
+    g, e = out[True], out[False]
+    assert g[:5] == e[:5] and any(g[4])
+    assert all(torch.equal(a, b) for a, b in zip(g[5], e[5]))
+    # rows forwards: middle verify and target verify, with a drafter its
+    # chain forward and its replay
+    assert ge.graphs.captures == (4 if mode == "triforce" else 2)
+
+
+def test_graphed_ar_scheduler_equals_eager(dev):
+    tp = tl.init_params(CARD_TARGET, device=dev, seed=3)
+    out = {}
+    for graphs in (True, False):
+        sched = tbatching.Scheduler(CARD_TARGET, CARD_SPEC, tp, batch=2,
+                                    max_len=CARD_PREFILL + 64,
+                                    prefill_chunk=128, segment=4, device=dev,
+                                    eos_token_id=-1, graphs=graphs)
+        for i in range(3):
+            sched.submit(tbatching.Request(
+                rid=i, prompt=_prompt(dev, i)[0].cpu().numpy(),
+                max_new_tokens=10))
+        done = sched.run()
+        out[graphs] = (sorted((r.rid, r.out) for r in done),
+                       sched.graphs.captures)
+    assert out[True][0] == out[False][0]
+    assert out[True][1] == 1 and out[False][1] == 0
+
+
+def test_graphs_refuse_the_cpu():
+    with pytest.raises(ValueError):
+        tgraphs.GraphSet("cpu", True)

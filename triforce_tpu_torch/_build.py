@@ -38,6 +38,7 @@ _F = ctypes.c_float
 # C signatures of the entry points, by library
 _SIGNATURES = {
     "flash_decode.cu": {
+        "tf_flash_decode_set_pdl": [_I],
         "tf_flash_decode_parts": [_I, _I],
         "tf_flash_decode_cta_rows": [_I],
         "tf_flash_decode_ctas_per_sm": [_I, _I, _I],

@@ -16,6 +16,13 @@ admission interleaved with decode segments, retirement on EOS or length,
 dead slots gated by ``kv.seq_len == 0`` (their attention reads no cache).
 The control loop is ``batching.SchedulerBase``, shared with the AR
 scheduler.
+
+On a CUDA device the rows forwards (drafter, middle verify, target
+verify, drafter replay) replay CUDA graphs captured at the pool's fixed B
+on the batch-1 engine's graph set (``graphs.py``); the per-row sampling,
+gated by host flags, and the per-row commit stay eager. ``write_row``
+fills a slot in place, so the graphs captured on the pool stay valid when
+a slot is refilled.
 """
 
 from __future__ import annotations
@@ -237,7 +244,8 @@ class SpecScheduler(batching.SchedulerBase):
                  slots: int = 4, segment: int = 4, seed: int = 0,
                  force_accept=None, mesh=None, bat=None,
                  admit_chunks: int = 8):
-        super().__init__(slots, engine.eos_token_id, engine.device)
+        super().__init__(slots, engine.eos_token_id, engine.device,
+                         engine.graphs)
         self.engine = engine
         self.mode = mode
         self.segment = segment

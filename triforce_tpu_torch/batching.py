@@ -18,7 +18,9 @@ per-row sequence lengths and rolling admission — the port of
 scheduler (``batched_spec.SpecScheduler``). Where the JAX package runs a
 decode segment as one compiled program, the port runs it as a host loop
 over ``batched_ar_step`` with one read-back of the output buffer per
-segment.
+segment; on a CUDA device each step (forward, commit, sample, output
+append: no host decision) is the replay of one captured CUDA graph
+(``graphs.py``).
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from . import graphs as graphs_mod
 from .cache import KVCache, init_kv_rows, row_view, set_entry
 from .config import ModelConfig, SpecConfig, resolve_device
 from .engine import _as_eos_tuple
@@ -70,13 +73,36 @@ def init_batch(cfg: ModelConfig, batch: int, max_len: int, seed: int = 0,
 
 
 def batched_ar_step(cfg: ModelConfig, spec: SpecConfig, params,
-                    state: BatchState) -> BatchState:
+                    state: BatchState,
+                    graphs: Optional[graphs_mod.GraphSet] = None
+                    ) -> BatchState:
     """One decode token for every live row, in one pass over the weights.
 
     Each row attends its own live prefix and writes its new KV at its own
     ``seq_lens[b]``; dead rows are masked out of the length advance, so
     their caches stay frozen (the slot they overwrite is past their
-    length)."""
+    length). With ``graphs`` the step runs through that set (one graph
+    region on a CUDA device)."""
+    if graphs is None:
+        return _ar_rows(cfg, spec, params, state)
+
+    def region(tokens, live, out_buf, n_out, seq_len):
+        st = _ar_rows(cfg, spec, params, dataclasses.replace(
+            state, kv=dataclasses.replace(state.kv, seq_len=seq_len),
+            tokens=tokens, live=live, out_buf=out_buf, n_out=n_out))
+        return st.tokens, st.out_buf, st.n_out, st.kv.seq_len
+
+    tokens, out_buf, n_out, seq_len = graphs.run(
+        "ar_rows", region, (state.tokens, state.live, state.out_buf,
+                            state.n_out, state.kv.seq_len),
+        caches=graphs_mod.planes(state.kv), gens=(state.gen,))
+    return dataclasses.replace(
+        state, kv=dataclasses.replace(state.kv, seq_len=seq_len),
+        tokens=tokens, out_buf=out_buf, n_out=n_out)
+
+
+def _ar_rows(cfg: ModelConfig, spec: SpecConfig, params,
+             state: BatchState) -> BatchState:
     kv = state.kv
     positions = kv.seq_len
     logits, nk, nv = llama.forward_append_rows(cfg, params,
@@ -135,7 +161,9 @@ class SchedulerBase:
     static id tuple like the engines'), trim to ``max_new_tokens``, retire
     on EOS / length / force."""
 
-    def __init__(self, slots: int, eos_token_id, device: torch.device):
+    def __init__(self, slots: int, eos_token_id, device: torch.device,
+                 graphs: graphs_mod.GraphSet):
+        self.graphs = graphs      # the set the decode segments replay from
         self.slots = slots
         self.device = device
         self.slot_req: List[Optional[Request]] = [None] * slots
@@ -145,10 +173,13 @@ class SchedulerBase:
 
     @staticmethod
     def _blank_stats() -> dict:
-        """Wall seconds in admission and in decode segments, prompt tokens
-        prefilled, batched decode steps and the target forwards they ran."""
+        """Wall seconds in admission and in decode segments (without the
+        seconds of the CUDA graphs captured in them, ``capture_s``), prompt
+        tokens prefilled, batched decode steps and the target forwards they
+        ran, graphs captured."""
         return {"admit_s": 0.0, "decode_s": 0.0, "prefill_tokens": 0,
-                "steps": 0, "target_forwards": 0}
+                "steps": 0, "target_forwards": 0, "capture_s": 0.0,
+                "captures": 0}
 
     def submit(self, req: Request) -> None:
         self.queue.append(req)
@@ -193,8 +224,12 @@ class SchedulerBase:
             if not any(r is not None for r in self.slot_req):
                 continue   # nothing live yet (admission still chunking)
             td = time.perf_counter()
+            c0, s0 = self.graphs.captures, self.graphs.capture_s
             new_tokens, force = self._decode_segment()
-            self.stats["decode_s"] += time.perf_counter() - td
+            cap = self.graphs.capture_s - s0
+            self.stats["decode_s"] += time.perf_counter() - td - cap
+            self.stats["capture_s"] += cap
+            self.stats["captures"] += self.graphs.captures - c0
             for slot, req in enumerate(self.slot_req):
                 if req is None:
                     continue
@@ -220,7 +255,9 @@ class Scheduler(SchedulerBase):
     """AR continuous batching: admit -> prefill into a free slot ->
     batched decode segments -> retire. Host-side control, device-side
     compute. ``device=None`` means the first CUDA card and raises without
-    one. The prompt is prefilled in ``prefill_chunk``-token forwards
+    one; ``graphs`` as ``Engine``'s (None: the decode steps replay a CUDA
+    graph on a card, eager on the CPU; False: eager on the card too). The
+    prompt is prefilled in ``prefill_chunk``-token forwards
     straight into the slot's row of the pool (the JAX class takes
     ``prefill_chunk`` too but runs the prompt as one forward; in chunks a
     long prompt needs no [T, vocab] logits and no T x T new-token block)."""
@@ -229,8 +266,10 @@ class Scheduler(SchedulerBase):
                  batch: int = 4, max_len: int = 4096,
                  prefill_chunk: int = 256, eos_token_id: int = 2,
                  dtype=torch.bfloat16, segment: int = 16, seed: int = 0,
-                 out_cap: int = 1024, device=None):
-        super().__init__(batch, eos_token_id, resolve_device(device))
+                 out_cap: int = 1024, device=None, graphs=None):
+        dev = resolve_device(device)
+        super().__init__(batch, eos_token_id, dev,
+                         graphs_mod.GraphSet(dev, graphs))
         if params["embed"].device != self.device:
             raise ValueError(f"params are on {params['embed'].device}, "
                              f"scheduler on {self.device}")
@@ -272,7 +311,7 @@ class Scheduler(SchedulerBase):
     def _decode_segment(self):
         for _ in range(self.segment):
             self.state = batched_ar_step(self.cfg, self.spec, self.params,
-                                         self.state)
+                                         self.state, graphs=self.graphs)
         self.stats["steps"] += self.segment
         self.stats["target_forwards"] += self.segment
         out = self.state.out_buf.cpu().numpy()     # the segment's read-back

@@ -294,10 +294,24 @@ def dequantize(codes: torch.Tensor, scale: torch.Tensor,
 
 def window(start, size: int, extent: int, device) -> torch.Tensor:
     """Indices ``clamp(start, 0, extent - size) + arange(size)`` (the
-    slots a JAX dynamic slice of ``size`` at ``start`` touches)."""
-    start = torch.as_tensor(start, device=device).to(torch.int64)
+    slots a JAX dynamic slice of ``size`` at ``start`` touches). A host
+    int start is clamped on the host and the indices filled on the device
+    (no copy from host memory, so the call can be captured in a graph)."""
+    if not torch.is_tensor(start):
+        start = min(max(int(start), 0), extent - size)
+        return torch.arange(start, start + size, device=device)
+    start = start.to(device=device, dtype=torch.int64)
     start = start.clamp(0, extent - size)
     return start + torch.arange(size, device=device)
+
+
+def device_scalar(x, device, dtype=torch.int64) -> torch.Tensor:
+    """``x`` (a host number or a tensor) as a 0-d tensor of ``dtype`` on
+    ``device``; a host number is filled on the device, never copied from
+    host memory."""
+    if torch.is_tensor(x):
+        return x.to(device=device, dtype=dtype)
+    return torch.full((), x, dtype=dtype, device=device)
 
 
 def slice_at(x: torch.Tensor, start, size: int, dim: int) -> torch.Tensor:
@@ -360,8 +374,8 @@ def gather_kv_incremental(kv: KVCache, accept_idx: torch.Tensor, n_accept,
     move overlaps itself); an int8 cache moves its scales too. Mirrors the
     JAX function down to its clamped slices."""
     dev = kv.k.device
-    offset = torch.as_tensor(offset, device=dev).to(torch.int64)
-    n_accept = torch.as_tensor(n_accept, device=dev)
+    offset = device_scalar(offset, dev)
+    n_accept = device_scalar(n_accept, dev)
     sel0 = torch.arange(max_accept, device=dev) < n_accept
     idx = accept_idx[:max_accept].to(torch.int64).clamp(0, max_span - 1)
 
@@ -419,7 +433,7 @@ def retrieval_tail_refresh(rkv: RetrievalCache, kv: KVCache,
     if max_new is None:
         max_new = spec.gamma + 2
     budget = spec.budget
-    new_from = torch.as_tensor(new_from, device=kv.k.device).to(torch.int64)
+    new_from = device_scalar(new_from, kv.k.device)
     n_new = kv.seq_len.to(torch.int64) - new_from
     base = torch.remainder(new_from - prefill, budget)
     blocks = _rolling_window_blocks(base, budget, max_new, n_new,

@@ -306,7 +306,9 @@ def main(argv=None):
               f"({1e3 / max(r.tokens_per_sec, 1e-9):.1f} ms/token), "
               f"acceptance {r.acceptance_rate:.3f}, "
               f"{r.avg_tokens_per_step:.2f} tokens/step, "
-              f"{r.steps} steps, wall {r.wall_s:.1f}s")
+              f"{r.steps} steps, wall {r.wall_s:.1f}s"
+              + (f" (+ {r.captures} CUDA graphs captured in "
+                 f"{r.capture_s:.2f}s)" if r.captures else ""))
     if len(runs) > 1:
         # latency averaged per token, acceptance pooled over proposals
         tps = [r.tokens_per_sec for r in runs]
@@ -351,7 +353,7 @@ def _run_batched(engine, args, prompts):
     """--batch N: N rows speculate together (``BatchedSpecEngine``).
     tokens/s over all rows; acceptance pooled."""
     from .batched_spec import BatchedSpecEngine
-    from .decoding import DecodeResult
+    from .decoding import DecodeResult, _CaptureClock
 
     b = args.batch
     bat = BatchedSpecEngine(engine, mode=args.mode)
@@ -362,9 +364,10 @@ def _run_batched(engine, args, prompts):
     _ = int(state.next_token[0])     # read-back: the prefill is done
     # a fixed step count: ~gen_len tokens a row at >= 1 token a step
     steps = args.gen_len
+    clock = _CaptureClock(engine.graphs)
     t0 = time.perf_counter()
     state, toks, ns, counters, _eos = bat.decode(state, steps)
-    wall = time.perf_counter() - t0
+    wall = time.perf_counter() - t0 - clock.seconds
     total = int(ns.sum())
     # row 0's emitted stream: per step, the first n_emitted slots
     row0 = [int(t) for s in range(steps) for t in toks[0, s, :ns[0, s]]]
@@ -374,7 +377,8 @@ def _run_batched(engine, args, prompts):
         acceptance_rate=float(counters[:, 0].sum()) /
         max(int(counters[:, 1].sum()), 1),
         avg_tokens_per_step=total / (b * steps),
-        steps=steps, wall_s=wall)
+        steps=steps, wall_s=wall, captures=clock.count,
+        capture_s=clock.seconds)
 
 
 def _run_serve(engine, args, prompt_ids):

@@ -254,6 +254,13 @@ struct CombineArgs {
 // ---------------------------------------------------------------------------
 
 constexpr int DECODE_ROWS = 16;   // query rows of one mma tile
+
+// 1: every dependent launch (the reduce, the wide fold and merge) is a
+// programmatic dependent of the launch before it, which a CUDA graph
+// capture keeps as a programmatic edge; 0: ordinary launches (the
+// dependent's griddepcontrol.wait then returns at once). A switch for
+// measuring the edge (tf_flash_decode_set_pdl).
+int g_pdl = 1;
 constexpr int MAX_SPLITS = 1024;  // splits fd_reduce_kernel can weigh
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -827,7 +834,7 @@ int launch_decode(const SplitArgs& sa, const ReduceArgs& ra, int bh, cudaStream_
   cfg.dynamicSmemBytes = smem;
   cfg.stream = st;
   cfg.attrs = pdl;
-  cfg.numAttrs = 1;
+  cfg.numAttrs = g_pdl;
   return (int)cudaLaunchKernelEx(&cfg, fd_reduce_kernel<D, RQ, FOLD>, ra);
 }
 
@@ -1817,7 +1824,7 @@ int launch_wide_grid(K kernel, dim3 grid, const WideArgs& wa, bool pdl, cudaStre
   cfg.dynamicSmemBytes = WideSmem<D, NWG>::BYTES;
   cfg.stream = st;
   cfg.attrs = attr;
-  cfg.numAttrs = pdl ? 1 : 0;
+  cfg.numAttrs = pdl && g_pdl ? 1 : 0;
   return (int)cudaLaunchKernelEx(&cfg, kernel, wa);
 }
 
@@ -1842,7 +1849,7 @@ int launch_wide(const WideArgs& wa, const WideMergeArgs& ma, int bh, cudaStream_
   cfg.blockDim = dim3(128);
   cfg.stream = st;
   cfg.attrs = pdl;
-  cfg.numAttrs = 1;
+  cfg.numAttrs = g_pdl;
   return (int)cudaLaunchKernelEx(&cfg, fd_wide_merge_kernel<D>, ma);
 }
 
@@ -1974,6 +1981,15 @@ int run_partials(const void* q, long long q_sh, long long q_sr,
 }
 
 }  // namespace
+
+// Programmatic dependent launches on (1, the default) or off (0); returns
+// the previous setting. Set it outside a graph capture: a captured graph
+// keeps the launches it was captured with.
+extern "C" int tf_flash_decode_set_pdl(int on) {
+  const int was = g_pdl;
+  g_pdl = on != 0;
+  return was;
+}
 
 extern "C" int tf_flash_decode_parts(int gt, int nsplit) {
   return n_parts(gt, nsplit);

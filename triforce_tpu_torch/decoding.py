@@ -7,7 +7,10 @@ CUDA card and must match the engine's, so a call with no device on a
 machine without CUDA raises instead of running on the CPU. Timings wait
 for the device before reading the clock. With ``verbose`` the tokens are
 streamed (``utils.misc.spec_stream``, through ``tokenizer`` when given)
-after the timed loop, so no read-back enters the timed window.
+after the timed loop, so no read-back enters the timed window. On a card
+the engine captures its decode graphs inside the timed loop (the second
+call of each region); ``DecodeResult.capture_s`` holds those seconds and
+``wall_s`` (hence ``tokens_per_sec``) leaves them out.
 """
 
 from __future__ import annotations
@@ -34,6 +37,24 @@ class DecodeResult:
     steps: int = 0
     wall_s: float = 0.0
     middle_verifies: int = 0   # retrieval-cache verify forwards run
+    captures: int = 0          # CUDA graphs captured during the run
+    capture_s: float = 0.0     # their capture seconds (not in wall_s)
+
+
+class _CaptureClock:
+    """The capture seconds and count a graph set adds while it is open."""
+
+    def __init__(self, graphs):
+        self.graphs = graphs
+        self.s0, self.n0 = graphs.capture_s, graphs.captures
+
+    @property
+    def seconds(self) -> float:
+        return self.graphs.capture_s - self.s0
+
+    @property
+    def count(self) -> int:
+        return self.graphs.captures - self.n0
 
 
 def _check_device(engine: Engine, device) -> None:
@@ -60,27 +81,30 @@ def autoregressive(engine: Engine, input_ids: torch.Tensor,
                                          input_ids[:, -1:], kv)
     token = engine._sample_next(logits, state.gen)
     first = int(token[0])     # read-back: prefill is done
+    clock = _CaptureClock(engine.graphs)
     t0 = time.perf_counter()
     kv, token, _, buf = engine.generate_ar(kv, token, state.gen, max_len)
     toks = buf.tolist()       # read-back: generation is done
-    t1 = time.perf_counter()
+    wall = time.perf_counter() - t0 - clock.seconds
     out = [first] + toks
     if verbose:
         for t in out:
             spec_stream(t, tokenizer, "cyan")
-    return DecodeResult(tokens=out, tokens_per_sec=max_len / (t1 - t0),
-                        steps=max_len, wall_s=t1 - t0)
+    return DecodeResult(tokens=out, tokens_per_sec=max_len / wall,
+                        steps=max_len, wall_s=wall, captures=clock.count,
+                        capture_s=clock.seconds)
 
 
 def _run_spec_loop(engine: Engine, state: TriForceState, mode: str,
                    max_len: int, stop_on_eos: bool, verbose: bool,
                    tokenizer) -> DecodeResult:
     first = int(state.next_token[0])   # read-back: prefill is done
+    clock = _CaptureClock(engine.graphs)
     t0 = time.perf_counter()
     state, buf, n, counters = engine.generate(state, max_len, mode=mode,
                                               stop_on_eos=stop_on_eos)
     out = buf[:n].tolist()
-    t1 = time.perf_counter()
+    wall = time.perf_counter() - t0 - clock.seconds
     assert out[0] == first
     (steps, accepted, proposed, resampled, bonus, mid_draft, mid_accept,
      mid_verify, _mid_live) = (int(x) for x in counters)
@@ -89,11 +113,12 @@ def _run_spec_loop(engine: Engine, state: TriForceState, mode: str,
             spec_stream(t, tokenizer, "green")
     gen = n - 1   # tokens produced by speculation steps
     return DecodeResult(
-        tokens=out, tokens_per_sec=gen / (t1 - t0),
+        tokens=out, tokens_per_sec=gen / wall,
         acceptance_rate=accepted / max(proposed, 1),
         avg_tokens_per_step=gen / max(steps, 1),
         middle_acceptance_rate=mid_accept / max(mid_draft, 1),
-        steps=steps, wall_s=t1 - t0, middle_verifies=mid_verify)
+        steps=steps, wall_s=wall, middle_verifies=mid_verify,
+        captures=clock.count, capture_s=clock.seconds)
 
 
 def triforce(engine: Engine, input_ids: torch.Tensor, max_len: int = 256,

@@ -14,6 +14,17 @@ Random draws come from the state's ``torch.Generator``. The caches are
 updated in place (see ``cache.py``); a state is not reusable after a step
 unless it was cloned first (``TriForceState.clone``).
 
+On a CUDA device every forward of the decode path, with the sampling
+that needs no host decision, runs as the replay of a captured CUDA graph
+(``graphs.py``, where the JAX engine runs its jitted programs): the AR
+step whole; the retrieval step's gamma middle forwards with the target
+verify up to the outer read-back; in the TriForce step the drafter
+forward, the middle verify, the target verify and the drafter replay. The
+host loops, their read-backs and what follows a read-back (rollback,
+tail refresh, window compaction: they take host counts) stay eager.
+``Engine(graphs=False)`` runs every region eagerly (the witness a graphed
+run is held against); the CPU never captures.
+
 The batched steps (``triforce_step_rows``, ``retrieval_spec_step_rows``)
 run the same step for B rows of a ``StackedState`` at once: every forward
 runs once for all rows, where the JAX package vmaps its batch-1 step. The
@@ -32,6 +43,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from . import graphs as graphs_mod
 from .cache import (KVCache, RetrievalCache, StreamingCache,
                     batched_commit_and_refresh, init_kv, init_retrieval,
                     init_streaming, retrieval_tail_refresh,
@@ -159,7 +171,13 @@ class Engine:
     prefill converts them back exactly once per call, since its wide
     chunks would convert every weight per chunk (``engine.py:226-231``).
     With ``spec.mid_act_quant`` the middle verify then runs int8 weights
-    against int8 activations (``llama._wmm(aq=True)``)."""
+    against int8 activations (``llama._wmm(aq=True)``).
+
+    ``graphs``: None captures the decode regions as CUDA graphs on a CUDA
+    device and runs them eagerly on the CPU; False runs them eagerly on
+    the card too (the eager witness); True on the CPU raises. The graphs
+    are ``self.graphs`` (``graphs.GraphSet``); ``release_graphs`` drops
+    them."""
 
     def __init__(self, target_cfg: ModelConfig, spec: SpecConfig,
                  target_params, *, draft_cfg: Optional[ModelConfig] = None,
@@ -167,13 +185,14 @@ class Engine:
                  eos_token_id: int = 2, dtype=torch.bfloat16,
                  prefill_chunk: int = 512, draft_prefill_chunk: int = 64,
                  kv_quant: bool = False, weight_quant: bool = False,
-                 mesh=None, device=None):
+                 mesh=None, device=None, graphs=None):
         if mesh is not None:
             raise NotImplementedError("sharding over a mesh is not ported "
                                       "yet")
         if prefill % spec.chunk_size:
             raise ValueError("prefill must be a multiple of chunk_size")
         self.device = resolve_device(device)
+        self.graphs = graphs_mod.GraphSet(self.device, graphs)
         if target_params["embed"].device != self.device:
             raise ValueError(f"target params are on "
                              f"{target_params['embed'].device}, engine on "
@@ -323,12 +342,25 @@ class Engine:
     # decode
     # ------------------------------------------------------------------
 
+    def release_graphs(self) -> None:
+        """Drop this engine's CUDA graphs (``torch.cuda.empty_cache`` can
+        then return their pool)."""
+        self.graphs.release()
+
     def ar_step(self, kv: KVCache, token: torch.Tensor,
                 gen: torch.Generator):
-        """One autoregressive token: (next token [1], kv)."""
-        logits, kv, _ = llama.forward_append(self.target_cfg, self.t_params,
-                                             token[:, None], kv)
-        return self._sample_next(logits, gen), kv
+        """One autoregressive token: (next token [1], kv). One graph: the
+        forward, the filter and the sample."""
+        def region(token, seq_len):
+            logits, kv_out, _ = llama.forward_append(
+                self.target_cfg, self.t_params, token[:, None],
+                dataclasses.replace(kv, seq_len=seq_len))
+            return self._sample_next(logits, gen), kv_out.seq_len
+
+        tok, seq_len = self.graphs.run("ar", region, (token, kv.seq_len),
+                                       caches=graphs_mod.planes(kv),
+                                       gens=(gen,))
+        return tok, dataclasses.replace(kv, seq_len=seq_len)
 
     def generate_ar(self, kv: KVCache, token: torch.Tensor,
                     gen: torch.Generator, max_len: int):
@@ -393,6 +425,64 @@ class Engine:
 # The TriForce step
 # ---------------------------------------------------------------------------
 
+def _kv_at(kv: KVCache, seq_len: torch.Tensor) -> KVCache:
+    return dataclasses.replace(kv, seq_len=seq_len)
+
+
+def _chain_len(sp: SpecConfig) -> int:
+    gamma = sp.gamma
+    return max(1, min(sp.middle_chain if sp.middle_chain > 0 else gamma,
+                      gamma))
+
+
+def _draft_region(eng: Engine, state: TriForceState):
+    """The middle loop's drafter forward at its fixed width gamma+1 over
+    ``vt`` [1, gamma+1], then the proposal sampled from row ``at``:
+    returns (token [1], its drafter probability [1])."""
+    d_cfg, sp, dkv, gen = eng.draft_cfg, eng.spec, state.dkv, state.gen
+
+    def region(vt, at):
+        d_logits, _ = llama.draft_forward_spec(d_cfg, eng.d_params, vt, dkv,
+                                               sp, commit=False)
+        q = sampling.norm_logits(d_logits[0].index_select(0, at.reshape(1)),
+                                 sp.temperature, -1, sp.top_p)[0]
+        tok = sampling.sample(q, gen).reshape(1)
+        return tok, q.gather(0, tok)
+    return region
+
+
+def _mid_verify_region(eng: Engine, state: TriForceState, force_accept):
+    """ONE middle verify (target weights over the read-only retrieval
+    cache) of the chain in ``vt``, its filtered rows from ``n0`` and the
+    chain's accept tests up to the trip's read-back: returns (p_rows
+    [k+1, V], [any rejection, first rejection])."""
+    t_cfg, sp = eng.target_cfg, eng.spec
+    gamma, k, vocab = sp.gamma, _chain_len(sp), t_cfg.vocab_size
+    rkv, gen = state.rkv, state.gen
+
+    def region(vt, kv_len, n0, chain_toks, chain_q, i_fin):
+        dev = vt.device
+        m_logits, _ = llama.forward_spec(
+            t_cfg, eng.t_params, vt, rkv, kv_len, sp.budget, commit=False,
+            act_quant=sp.mid_act_quant)
+        rows_idx = (n0 + torch.arange(k + 1, device=dev)).clamp(0, gamma)
+        p_rows = sampling.norm_logits(m_logits[0].index_select(0, rows_idx),
+                                      sp.temperature, -1, sp.top_p)
+        # all per-proposal coins at once
+        rs = torch.rand((k,), generator=gen, device=dev)
+        js = torch.arange(k, device=dev)
+        if force_accept is None:
+            ratios = p_rows[js, chain_toks.clamp(0, vocab - 1)] \
+                / chain_q.clamp_min(1e-37)
+            ok_v = rs < ratios.clamp(max=1.0)
+        else:
+            ok_v = rs < force_accept
+        rej_v = (js < i_fin) & ~ok_v
+        return p_rows, torch.stack([rej_v.any().long(),
+                                    torch.argmax(rej_v.to(torch.int32))])
+    return region
+
+
 def _middle_spec(eng: Engine, state: TriForceState, force_accept=None):
     """Drafter <-> middle speculation loop, generalized to drafter CHAINS
     of ``middle_chain`` tokens per middle verify: k drafter forwards propose
@@ -403,19 +493,21 @@ def _middle_spec(eng: Engine, state: TriForceState, force_accept=None):
 
     ``middle_trips=0`` loops until gamma proposals; ``middle_trips>0`` runs
     that many trips, dead ones (n >= gamma) with a zero-column retrieval
-    read. Each trip reads its outcome back once."""
-    t_cfg, d_cfg, sp = eng.target_cfg, eng.draft_cfg, eng.spec
-    gamma = sp.gamma
-    k = max(1, min(sp.middle_chain if sp.middle_chain > 0 else gamma, gamma))
-    vocab = t_cfg.vocab_size
+    read. Each trip reads its outcome back once. The drafter forwards and
+    the middle verify are graph regions; the rest is eager."""
+    t_cfg, sp = eng.target_cfg, eng.spec
+    gamma, k = sp.gamma, _chain_len(sp)
     dev = state.next_token.device
     gen = state.gen
     kv_seq_len = state.kv.seq_len
     gen_tokens = torch.full((gamma + 1,), JUNK_TOKEN, dtype=torch.int64,
                             device=dev)
-    gen_probs = torch.zeros((gamma + 1, vocab), dtype=torch.float32,
-                            device=dev)
-    js = torch.arange(k, device=dev)
+    gen_probs = torch.zeros((gamma + 1, t_cfg.vocab_size),
+                            dtype=torch.float32, device=dev)
+    draft = _draft_region(eng, state)
+    verify = _mid_verify_region(eng, state, force_accept)
+    d_planes = graphs_mod.planes(state.dkv)
+    r_planes = graphs_mod.planes(state.rkv)
     n = mid_draft = mid_accept = trips = live_trips = 0
 
     while (trips < sp.middle_trips) if sp.middle_trips > 0 else (n < gamma):
@@ -430,38 +522,21 @@ def _middle_spec(eng: Engine, state: TriForceState, force_accept=None):
         i_fin = 0
         while i_fin < k and n0 + i_fin <= gamma - 1:
             i = i_fin
-            d_logits, _ = llama.draft_forward_spec(
-                d_cfg, eng.d_params, vt, state.dkv, sp, commit=False)
-            q = sampling.norm_logits(d_logits[0, n0 + i][None],
-                                     sp.temperature, -1, sp.top_p)[0]
-            tok = sampling.sample(q, gen)
-            chain_toks[i] = tok
-            chain_q[i] = q[tok]
-            vt[0, n0 + i + 1] = tok
+            tok, q_tok = eng.graphs.run("draft", draft, (vt, n0 + i),
+                                        caches=d_planes, gens=(gen,))
+            chain_toks[i:i + 1] = tok
+            chain_q[i:i + 1] = q_tok
+            vt[0, n0 + i + 1:n0 + i + 2] = tok
             i_fin += 1
 
-        # --- ONE middle verify over the whole chain (read-only rkv)
-        m_logits, _ = llama.forward_spec(
-            t_cfg, eng.t_params, vt, state.rkv,
-            kv_seq_len if live else torch.zeros_like(kv_seq_len),
-            sp.budget, commit=False, act_quant=sp.mid_act_quant)
-        rows_idx = [min(max(n0 + j, 0), gamma) for j in range(k + 1)]
-        p_rows = sampling.norm_logits(m_logits[0, rows_idx], sp.temperature,
-                                      -1, sp.top_p)          # [k+1, V]
-
-        # --- accept walk over the chain, all per-proposal coins at once
-        rs = torch.rand((k,), generator=gen, device=dev)
-        if force_accept is None:
-            ratios = p_rows[js, chain_toks.clamp(0, vocab - 1)] \
-                / chain_q.clamp_min(1e-37)
-            ok_v = rs < ratios.clamp(max=1.0)
-        else:
-            ok_v = rs < force_accept
-        rej_v = (js < i_fin) & ~ok_v
-        any_rej_t = rej_v.any()
-        j_rej_t = torch.argmax(rej_v.to(torch.int32))   # first rejection
-        any_rej, j_rej = (int(x) for x in
-                          torch.stack([any_rej_t.long(), j_rej_t]).tolist())
+        # --- ONE middle verify over the whole chain (read-only rkv) and
+        # its accept tests
+        p_rows, outcome = eng.graphs.run(
+            "mid_verify", verify,
+            (vt, kv_seq_len if live else torch.zeros_like(kv_seq_len), n0,
+             chain_toks, chain_q, i_fin),
+            caches=r_planes, gens=(gen,), extra=(force_accept,))
+        any_rej, j_rej = outcome.tolist()          # the trip's read-back
         used = j_rej + 1 if any_rej else i_fin          # proposals consumed
 
         final_toks = chain_toks
@@ -493,31 +568,21 @@ def _middle_spec(eng: Engine, state: TriForceState, force_accept=None):
             "trips": trips, "live_trips": live_trips}
 
 
-def _outer_verify_and_commit(eng: Engine, state: TriForceState, gamma2: int,
-                             gen_tokens, gen_probs, has_draft: bool,
-                             force_accept=None, return_probs=False):
-    """Target full-cache verify + exact rejection sampling + cache commit:
-    one gamma+2-token forward, all accept tests at once, one read-back of
-    the outcome, then rollback, retrieval tail refresh and (with a
-    drafter) the drafter replay and window compaction.
-
-    ``return_probs``: also return ``(gen_tokens, gen_probs, p_all)``, the
-    step's real middle (q) and target (p) distribution rows, for
-    acceptance measurement (``profiling.measure_acceptance_vector``). The
-    batched steps (``*_step_rows``) return no such payload."""
+def _verify_body(eng: Engine, kv: KVCache, gen, next_token, gen_tokens,
+                 gen_probs, gamma2, force_accept):
+    """The target's full-cache verify of ``[next_token] + gen_tokens``
+    (gamma+2 tokens, written into ``kv`` in place), the filtered target
+    rows and every accept test, up to the outer read-back: returns (p_all
+    [gamma+2, V], [any stop, first stop, accepted at it], kv length after
+    the forward). ``gamma2`` (int or 0-d tensor) counts the proposals."""
     t_cfg, sp = eng.target_cfg, eng.spec
     gamma = sp.gamma
     dev = gen_tokens.device
-    gen = state.gen
-    old_seq_len = state.kv.seq_len
-
-    verify_in = torch.cat([state.next_token[:1],
-                           gen_tokens[:gamma + 1]])[None]     # [1, gamma+2]
-    logits, kv, _ = llama.forward_append(t_cfg, eng.t_params, verify_in,
-                                         state.kv)
+    verify_in = torch.cat([next_token[:1], gen_tokens[:gamma + 1]])[None]
+    logits, kv_out, _ = llama.forward_append(t_cfg, eng.t_params, verify_in,
+                                             kv)
     p_all = sampling.norm_logits(logits[0], sp.temperature, sp.top_k,
                                  sp.top_p)                    # [gamma+2, V]
-
     pos = torch.arange(gamma + 1, device=dev)
     toks = gen_tokens[:gamma + 1]
     tok_c = toks.clamp(0, t_cfg.vocab_size - 1)
@@ -531,9 +596,56 @@ def _outer_verify_and_commit(eng: Engine, state: TriForceState, gamma2: int,
     live = pos < gamma2
     # the walk stops at the first rejection OR the first ACCEPTED EOS
     stop_v = live & (~accept_v | (accept_v & _is_eos(toks, eng.eos_token_id)))
-    j_stop_t = torch.argmax(stop_v.to(torch.int32))
-    any_stop, j_stop, stop_acc = (int(x) for x in torch.stack(
-        [stop_v.any().long(), j_stop_t, accept_v[j_stop_t].long()]).tolist())
+    j_stop_t = torch.argmax(stop_v.to(torch.int32)).reshape(1)
+    outcome = torch.cat([stop_v.any().long().reshape(1), j_stop_t,
+                         accept_v.gather(0, j_stop_t).long()])
+    return p_all, outcome, kv_out.seq_len
+
+
+def _verify_region(eng: Engine, state: TriForceState, force_accept):
+    kv, gen = state.kv, state.gen
+
+    def region(next_token, seq_len, gen_tokens, gen_probs, gamma2):
+        return _verify_body(eng, _kv_at(kv, seq_len), gen, next_token,
+                            gen_tokens, gen_probs, gamma2, force_accept)
+    return region
+
+
+def _outer_verify_and_commit(eng: Engine, state: TriForceState, gamma2: int,
+                             gen_tokens, gen_probs, has_draft: bool,
+                             force_accept=None, return_probs=False):
+    """Target full-cache verify + exact rejection sampling + cache commit:
+    one gamma+2-token forward, all accept tests at once (one graph region),
+    one read-back of the outcome, then rollback, retrieval tail refresh and
+    (with a drafter) the drafter replay and window compaction.
+
+    ``return_probs``: also return ``(gen_tokens, gen_probs, p_all)``, the
+    step's real middle (q) and target (p) distribution rows, for
+    acceptance measurement (``profiling.measure_acceptance_vector``). The
+    batched steps (``*_step_rows``) return no such payload."""
+    p_all, outcome, seq_len = eng.graphs.run(
+        "verify", _verify_region(eng, state, force_accept),
+        (state.next_token, state.kv.seq_len, gen_tokens, gen_probs, gamma2),
+        caches=graphs_mod.planes(state.kv), gens=(state.gen,),
+        extra=(force_accept,))
+    return _commit(eng, state, _kv_at(state.kv, seq_len), p_all, outcome,
+                   gamma2, gen_tokens, gen_probs, has_draft, return_probs)
+
+
+def _commit(eng: Engine, state: TriForceState, kv: KVCache, p_all, outcome,
+            gamma2: int, gen_tokens, gen_probs, has_draft: bool,
+            return_probs: bool):
+    """What follows the outer read-back (eager: it takes host counts):
+    the resample or bonus, rollback, retrieval tail refresh, emitted
+    tokens and, with a drafter, its replay (a graph region) and window
+    compaction."""
+    sp = eng.spec
+    gamma = sp.gamma
+    dev = gen_tokens.device
+    gen = state.gen
+    old_seq_len = state.kv.seq_len
+    toks = gen_tokens[:gamma + 1]
+    any_stop, j_stop, stop_acc = outcome.tolist()      # the step's read-back
     count = j_stop + stop_acc if any_stop else gamma2
     rejected = bool(any_stop and not stop_acc)
     bonus = count == gamma2
@@ -548,7 +660,7 @@ def _outer_verify_and_commit(eng: Engine, state: TriForceState, gamma2: int,
     has_final = rejected or bonus
     # EOS on any emitting path: accepted proposal, residual, bonus
     eos_acc = bool(any_stop and stop_acc)
-    eos_hit = torch.tensor(eos_acc, device=dev)
+    eos_hit = torch.full((), eos_acc, dtype=torch.bool, device=dev)
     if has_final:
         eos_hit = eos_hit | _is_eos(pred, eng.eos_token_id)
 
@@ -574,8 +686,13 @@ def _outer_verify_and_commit(eng: Engine, state: TriForceState, gamma2: int,
         pass_tokens[1:count + 1] = gen_tokens[:count]
         if has_final:
             pass_tokens[count + 1] = pred
-        _, dkv = llama.draft_forward_spec(eng.draft_cfg, eng.d_params,
-                                          pass_tokens[None], dkv, sp)
+
+        def replay(pass_tokens):
+            llama.draft_forward_spec(eng.draft_cfg, eng.d_params,
+                                     pass_tokens[None], dkv, sp)
+            return ()
+        eng.graphs.run("draft_replay", replay, (pass_tokens,),
+                       caches=graphs_mod.planes(dkv))
         # the reference's count includes the bonus but NOT a resample — it
         # drops the last accepted token from the window on rejection
         dkv = streaming_evict_for_spec(dkv, sp, count + int(bonus))
@@ -604,36 +721,56 @@ def _triforce_step(eng: Engine, state: TriForceState, force_accept=None):
     return new_state, stats
 
 
+def _retrieval_region(eng: Engine, state: TriForceState, force_accept):
+    """The self-speculation step up to its read-back, one graph region:
+    the middle model (target weights over the retrieval cache) drafts
+    gamma tokens autoregressively, then the full-cache target verifies
+    them. Returns (gen_tokens, gen_probs) + ``_verify_body``'s outputs."""
+    t_cfg, sp = eng.target_cfg, eng.spec
+    gamma = sp.gamma
+    kv, rkv, gen = state.kv, state.rkv, state.gen
+
+    def region(next_token, seq_len):
+        dev = next_token.device
+        verify_tokens = torch.full((1, gamma + 1), JUNK_TOKEN,
+                                   dtype=torch.int64, device=dev)
+        verify_tokens[0, 0] = next_token[0]
+        gen_tokens = torch.full((gamma + 1,), JUNK_TOKEN, dtype=torch.int64,
+                                device=dev)
+        gen_probs = torch.zeros((gamma + 1, t_cfg.vocab_size),
+                                dtype=torch.float32, device=dev)
+        for n in range(gamma):
+            m_logits, _ = llama.forward_spec(t_cfg, eng.t_params,
+                                             verify_tokens, rkv, seq_len,
+                                             sp.budget, commit=False,
+                                             act_quant=sp.mid_act_quant)
+            p_n = sampling.norm_logits(m_logits[0, n][None], sp.temperature,
+                                       -1, sp.top_p)[0]
+            tok = sampling.sample(p_n, gen)
+            gen_tokens[n] = tok
+            gen_probs[n] = p_n
+            verify_tokens[0, n + 1] = tok
+        return (gen_tokens, gen_probs) + _verify_body(
+            eng, _kv_at(kv, seq_len), gen, next_token, gen_tokens,
+            gen_probs, gamma, force_accept)
+    return region
+
+
 def _retrieval_spec_step(eng: Engine, state: TriForceState,
                          force_accept=None, return_probs=False):
     """Self-speculation step: the middle model (target weights over the
     retrieval cache) drafts gamma tokens autoregressively with no host
-    read-back, then the full-cache target verifies them. ``return_probs``
-    as in ``_outer_verify_and_commit``: (state, stats, (tokens, q, p))."""
-    t_cfg, sp = eng.target_cfg, eng.spec
-    gamma = sp.gamma
-    dev = state.next_token.device
-    verify_tokens = torch.full((1, gamma + 1), JUNK_TOKEN, dtype=torch.int64,
-                               device=dev)
-    verify_tokens[0, 0] = state.next_token[0]
-    gen_tokens = torch.full((gamma + 1,), JUNK_TOKEN, dtype=torch.int64,
-                            device=dev)
-    gen_probs = torch.zeros((gamma + 1, t_cfg.vocab_size),
-                            dtype=torch.float32, device=dev)
-    for n in range(gamma):
-        m_logits, _ = llama.forward_spec(t_cfg, eng.t_params, verify_tokens,
-                                         state.rkv, state.kv.seq_len,
-                                         sp.budget, commit=False,
-                                         act_quant=sp.mid_act_quant)
-        p_n = sampling.norm_logits(m_logits[0, n][None], sp.temperature, -1,
-                                   sp.top_p)[0]
-        tok = sampling.sample(p_n, state.gen)
-        gen_tokens[n] = tok
-        gen_probs[n] = p_n
-        verify_tokens[0, n + 1] = tok
-    out = _outer_verify_and_commit(
-        eng, state, gamma, gen_tokens, gen_probs, False,
-        force_accept=force_accept, return_probs=return_probs)
+    read-back, then the full-cache target verifies them, all one graph
+    region up to the outer read-back. ``return_probs`` as in
+    ``_outer_verify_and_commit``: (state, stats, (tokens, q, p))."""
+    gamma = eng.spec.gamma
+    gen_tokens, gen_probs, p_all, outcome, seq_len = eng.graphs.run(
+        "retrieval", _retrieval_region(eng, state, force_accept),
+        (state.next_token, state.kv.seq_len),
+        caches=graphs_mod.planes(state.kv, state.rkv), gens=(state.gen,),
+        extra=(force_accept,))
+    out = _commit(eng, state, _kv_at(state.kv, seq_len), p_all, outcome,
+                  gamma, gen_tokens, gen_probs, False, return_probs)
     stats = out[1]
     stats.mid_verify = gamma
     stats.mid_live = gamma
@@ -646,8 +783,51 @@ def _retrieval_spec_step(eng: Engine, state: TriForceState,
 
 def _on(dev, xs, dtype=torch.int64) -> torch.Tensor:
     """Host-side per-row values (a list or numpy array) as a tensor on
-    ``dev``."""
-    return torch.tensor(xs, dtype=dtype, device=dev)
+    ``dev``: on a card through pinned memory, queued on the stream without
+    waiting for the device (a plain copy from pageable memory would
+    synchronise it)."""
+    t = torch.tensor(np.asarray(xs), dtype=dtype)
+    if dev.type == "cuda":
+        return t.pin_memory().to(dev, non_blocking=True)
+    return t
+
+
+def _draft_rows(eng: Engine, state: StackedState, ids, commit: bool):
+    """``draft_forward_spec_rows`` of every row, a graph region at the
+    engine's fixed B: returns logits [B, T, V]."""
+    dkv = state.dkv
+
+    def region(ids):
+        logits, _ = llama.draft_forward_spec_rows(
+            eng.draft_cfg, eng.d_params, ids, dkv, eng.spec, commit=commit)
+        return (logits,)
+    return eng.graphs.run("draft_rows", region, (ids,),
+                          caches=graphs_mod.planes(dkv), extra=(commit,))[0]
+
+
+def _spec_rows(eng: Engine, state: StackedState, ids, kv_len):
+    """``forward_spec_rows`` of every row over its retrieval cache, a
+    graph region: returns logits [B, T, V]."""
+    t_cfg, sp, rkv = eng.target_cfg, eng.spec, state.rkv
+
+    def region(ids, kv_len):
+        return (llama.forward_spec_rows(t_cfg, eng.t_params, ids, rkv, kv_len,
+                                        sp.budget,
+                                        act_quant=sp.mid_act_quant),)
+    return eng.graphs.run("spec_rows", region, (ids, kv_len),
+                          caches=graphs_mod.planes(rkv))[0]
+
+
+def _append_rows(eng: Engine, state: StackedState, ids):
+    """``forward_append_rows`` of every row over its full cache (read
+    only), a graph region: returns (logits, new K stack, new V stack)."""
+    kv = state.kv
+
+    def region(ids, seq_len):
+        return llama.forward_append_rows(eng.target_cfg, eng.t_params, ids,
+                                         _kv_at(kv, seq_len))
+    return eng.graphs.run("append_rows", region, (ids, kv.seq_len),
+                          caches=graphs_mod.planes(kv))
 
 
 def _rand_rows(n: int, gens, draws, dev) -> torch.Tensor:
@@ -666,9 +846,8 @@ def _middle_spec_rows(eng: Engine, state: StackedState, force_accept=None):
     trips): a row that is done rides along as a dead trip, with a
     zero-column retrieval read, and draws and counts nothing that its
     batch-1 run would not. One read-back per trip serves all rows."""
-    t_cfg, d_cfg, sp = eng.target_cfg, eng.draft_cfg, eng.spec
-    gamma = sp.gamma
-    k = max(1, min(sp.middle_chain if sp.middle_chain > 0 else gamma, gamma))
+    t_cfg, sp = eng.target_cfg, eng.spec
+    gamma, k = sp.gamma, _chain_len(sp)
     vocab = t_cfg.vocab_size
     dev = state.next_token.device
     gens, rows = state.gens, state.rows
@@ -702,8 +881,7 @@ def _middle_spec_rows(eng: Engine, state: StackedState, force_accept=None):
             act = [n0[b] + i <= gamma - 1 for b in range(rows)]
             if not any(act):
                 break
-            d_logits, _ = llama.draft_forward_spec_rows(
-                d_cfg, eng.d_params, vt, state.dkv, sp, commit=False)
+            d_logits = _draft_rows(eng, state, vt, False)
             at = _on(dev, [min(n0[b] + i, gamma) for b in range(rows)])
             q = sampling.norm_logits(d_logits[ar, at], sp.temperature, -1,
                                      sp.top_p)                   # [B, V]
@@ -717,10 +895,8 @@ def _middle_spec_rows(eng: Engine, state: StackedState, force_accept=None):
 
         # --- ONE middle verify over every row's chain (read-only rkv)
         live_t = _on(dev, live, torch.bool)
-        m_logits = llama.forward_spec_rows(
-            t_cfg, eng.t_params, vt, state.rkv,
-            torch.where(live_t, kv_seq_len, 0), sp.budget,
-            act_quant=sp.mid_act_quant)
+        m_logits = _spec_rows(eng, state, vt,
+                              torch.where(live_t, kv_seq_len, 0))
         rows_idx = (_on(dev, n0)[:, None]
                     + torch.arange(k + 1, device=dev)).clamp(0, gamma)
         p_rows = sampling.norm_logits(m_logits[ar[:, None], rows_idx],
@@ -799,8 +975,7 @@ def _outer_verify_and_commit_rows(eng: Engine, state: StackedState, gamma2,
     ar = torch.arange(rows, device=dev)
 
     verify_in = torch.cat([state.next_token[:, None], gen_tokens], 1)
-    logits, nk, nv = llama.forward_append_rows(t_cfg, eng.t_params,
-                                               verify_in, state.kv)
+    logits, nk, nv = _append_rows(eng, state, verify_in)
     p_all = sampling.norm_logits(logits, sp.temperature, sp.top_k,
                                  sp.top_p)                # [B, gamma+2, V]
 
@@ -869,8 +1044,7 @@ def _outer_verify_and_commit_rows(eng: Engine, state: StackedState, gamma2,
                         torch.where((ppos == count_t[:, None] + 1)
                                     & has_final_t[:, None], pred[:, None],
                                     JUNK_TOKEN)))
-        _, dkv = llama.draft_forward_spec_rows(eng.draft_cfg, eng.d_params,
-                                               pass_tokens, dkv, sp)
+        _draft_rows(eng, state, pass_tokens, True)
         # the reference's count includes the bonus but NOT a resample
         dkv = streaming_evict_for_spec_rows(dkv, sp,
                                             count_t + _on(dev, bonus))
@@ -919,10 +1093,7 @@ def retrieval_spec_step_rows(eng: Engine, state: StackedState,
     gen_probs = torch.zeros((rows, gamma + 1, t_cfg.vocab_size),
                             dtype=torch.float32, device=dev)
     for n in range(gamma):
-        m_logits = llama.forward_spec_rows(t_cfg, eng.t_params,
-                                           verify_tokens, state.rkv,
-                                           state.kv.seq_len, sp.budget,
-                                           act_quant=sp.mid_act_quant)
+        m_logits = _spec_rows(eng, state, verify_tokens, state.kv.seq_len)
         p_n = sampling.norm_logits(m_logits[:, n], sp.temperature, -1,
                                    sp.top_p)
         tok = sampling.sample_rows(p_n, state.gens)

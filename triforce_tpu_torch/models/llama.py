@@ -53,7 +53,8 @@ import torch
 import torch.nn.functional as F
 
 from ..cache import (KVCache, RetrievalCache, StreamingCache, dequantize,
-                     int8_scale, quantize_tokens, slice_at, window)
+                     device_scalar, int8_scale, quantize_tokens, slice_at,
+                     window)
 from ..config import ModelConfig, SpecConfig
 from ..ops import retrieval as retrieval_ops
 from ..ops.attention import (append_attention, append_attention_auto,
@@ -306,7 +307,11 @@ def _embed(params, input_ids):
 
 
 def _positions(start, t: int, device) -> torch.Tensor:
-    return torch.as_tensor(start, device=device).to(torch.int64) \
+    """``start + arange(t)``: filled on the device for a host int start,
+    added on the device to a tensor one (capturable either way)."""
+    if not torch.is_tensor(start):
+        return torch.arange(int(start), int(start) + t, device=device)
+    return start.to(device=device, dtype=torch.int64) \
         + torch.arange(t, device=device)
 
 
@@ -422,7 +427,7 @@ def forward_spec(cfg: ModelConfig, params, input_ids: torch.Tensor,
     b, t = input_ids.shape
     dev = input_ids.device
     cos, sin = rope.cos_sin_tables(cfg, device=dev)
-    kv_seq_len = torch.as_tensor(kv_seq_len, device=dev)
+    kv_seq_len = device_scalar(kv_seq_len, dev, torch.int32)
     positions = _positions(kv_seq_len, t, dev)
     k_len = torch.where(kv_seq_len > 0, budget, 0).to(torch.int32)
     commit_idx = window(budget, t, rkv.real_budget, dev)
@@ -529,12 +534,12 @@ def forward_tree_spec(cfg: ModelConfig, params, input_ids: torch.Tensor,
     dev = input_ids.device
     aq = act_quant
     cos, sin = rope.cos_sin_tables(cfg, device=dev)
-    kv_seq_len = torch.as_tensor(kv_seq_len, device=dev)
+    kv_seq_len = device_scalar(kv_seq_len, dev, torch.int32)
     positions = kv_seq_len.to(torch.int64) + torch.as_tensor(
         depths, device=dev).to(torch.int64)
     amask = torch.as_tensor(ancestor_mask, device=dev).to(torch.bool)
     new_mask = torch.eye(t, dtype=torch.bool, device=dev)
-    budget_len = torch.tensor(budget, dtype=torch.int32, device=dev)
+    budget_len = torch.full((), budget, dtype=torch.int32, device=dev)
     full_len = kv_seq_len.to(torch.int32)
     # where each kind of layer reads its prefix and stages its nodes; a
     # write that would run over the end slides back (JAX's clamp), which

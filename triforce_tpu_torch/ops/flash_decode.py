@@ -291,6 +291,15 @@ def _plan(q, s: int, quant: bool):
     return nsplit, _n_parts(gt, nsplit)
 
 
+def set_programmatic_launch(on: bool) -> bool:
+    """Launch every dependent phase (the reduce, the wide fold and merge)
+    as a programmatic dependent of the launch before it (``on``, the
+    default) or as an ordinary launch; returns the previous setting. A CUDA
+    graph keeps the launches it captured, so set this before a capture.
+    For measuring what the programmatic edge is worth."""
+    return bool(_build.lib(_SOURCE).tf_flash_decode_set_pdl(int(on)))
+
+
 def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 

@@ -11,6 +11,12 @@
   * ``measure_acceptance_vector`` — per-branch acceptance from the real
     (q, p) rows of retrieval-speculation steps: the planner's ``p`` vector.
 
+On a graphed engine (``Engine.graphs``) ``measure_phase_times`` times
+each decode forward as the replay of its captured graph, as the decode
+loop runs it; on an eager one it times the eager forward. The retrieval
+build stays eager either way (it runs once per prefill and is not
+captured).
+
 The caches are updated in place (``cache.py``), so ``measure_phase_times``
 runs only forwards that write nothing the state holds live
 (``commit=False``, or a build into a scratch retrieval cache) and puts the
@@ -30,6 +36,7 @@ import numpy as np
 import torch
 
 from . import engine as engine_mod
+from . import graphs as graphs_mod
 from .models import llama
 from .ops import sampling
 
@@ -127,7 +134,9 @@ def measure_phase_times(engine, state, iters: int = 20) -> Dict[str, float]:
     ``middle_step`` (one retrieval-cache verify of gamma+1 tokens),
     ``ar_step``, ``retrieval_build`` (the 1-token forward that builds the
     retrieval cache) and, with a drafter, ``draft_step``. Each is timed
-    over ``iters`` calls after a warm-up; ``state`` is left as it was."""
+    over ``iters`` calls after a warm-up (on a graphed engine the warm-up
+    captures, and the timed calls are replays); ``state`` is left as it
+    was."""
     cfg, sp = engine.target_cfg, engine.spec
     dev = engine.device
     gamma = sp.gamma
@@ -136,8 +145,14 @@ def measure_phase_times(engine, state, iters: int = 20) -> Dict[str, float]:
            for t in (1, gamma + 1, gamma + 2)}
     out: Dict[str, float] = {}
 
+    def phase(name, region, inputs, cache):
+        return lambda: engine.graphs.run("phase " + name, region, inputs,
+                                         caches=graphs_mod.planes(cache))
+
     def verify(t):
-        return lambda: llama.forward_append(cfg, engine.t_params, ids[t], kv)
+        return phase(f"verify {t}", lambda x, n: llama.forward_append(
+            cfg, engine.t_params, x, engine_mod._kv_at(kv, n))[:1],
+            (ids[t], kv.seq_len), kv)
 
     with _slots_restored(kv, gamma + 2):
         out["target_verify"] = _time_calls(verify(gamma + 2), dev, iters)
@@ -150,17 +165,17 @@ def measure_phase_times(engine, state, iters: int = 20) -> Dict[str, float]:
                 budget=sp.budget),
             dev, max(2, iters // 2))
         del scratch
-    out["middle_step"] = _time_calls(
-        lambda: llama.forward_spec(cfg, engine.t_params, ids[gamma + 1],
-                                   state.rkv, kv.seq_len, sp.budget,
-                                   commit=False, act_quant=sp.mid_act_quant),
-        dev, iters)
+    out["middle_step"] = _time_calls(phase(
+        "middle", lambda x, n: llama.forward_spec(
+            cfg, engine.t_params, x, state.rkv, n, sp.budget, commit=False,
+            act_quant=sp.mid_act_quant)[:1],
+        (ids[gamma + 1], kv.seq_len), state.rkv), dev, iters)
     if engine.draft_cfg is not None:
-        out["draft_step"] = _time_calls(
-            lambda: llama.draft_forward_spec(engine.draft_cfg,
-                                             engine.d_params, ids[gamma + 1],
-                                             state.dkv, sp, commit=False),
-            dev, iters)
+        out["draft_step"] = _time_calls(phase(
+            "draft", lambda x: llama.draft_forward_spec(
+                engine.draft_cfg, engine.d_params, x, state.dkv, sp,
+                commit=False)[:1],
+            (ids[gamma + 1],), state.dkv), dev, iters)
     return out
 
 

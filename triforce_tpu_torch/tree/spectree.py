@@ -17,6 +17,14 @@ left to sample, the sampled token]``. ``TreeStepStats.readbacks`` counts
 them. The caches are updated in place; a state is not reusable after a step
 unless it was cloned first.
 
+On a CUDA device the grow (root forward and every padded level, with
+their Gumbel samples), the tree verify (the forward under the ancestor
+mask and the filtered target rows) and each visited node's child tests
+run as replays of captured CUDA graphs (``graphs.py``): the grow makes no
+host decision, every index in it is an engine constant. The walk, its
+read-backs and the commit stay on the host. ``TreeEngine(graphs=False)``
+runs the same regions eagerly.
+
 Random draws come from the state's ``torch.Generator``, in this order per
 step: per grow level one Gumbel block ``[R, V]`` (R = the widest level's
 root count, every level alike); per visited tree node that has children one
@@ -34,6 +42,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from .. import graphs as graphs_mod
 from ..cache import (KVCache, RetrievalCache, gather_kv_incremental, init_kv,
                      init_tree_retrieval, retrieval_tail_refresh)
 from ..config import ModelConfig, SpecConfig, resolve_device
@@ -116,7 +125,9 @@ class TreeEngine:
     activations (``llama._wmm(aq=True)``), the tree verify keeps the exact
     weight-only path, and the prefill converts them back once per call.
     ``ssl``: during the grow the first ``ssl`` layers attend the FULL cache
-    instead of the tree retrieval cache."""
+    instead of the tree retrieval cache. ``graphs`` as ``Engine``'s: None
+    captures the step's regions on a CUDA device, False runs them eagerly,
+    True on the CPU raises."""
 
     def __init__(self, cfg: ModelConfig, grow_map: GrowMap, params, *,
                  prefill: int, max_cache_len: int, budget: int = 4096,
@@ -124,7 +135,7 @@ class TreeEngine:
                  top_p: float = 0.9, eos_ids=(0, 2), dtype=torch.bfloat16,
                  prefill_chunk: int = 128, kv_quant: bool = False,
                  weight_quant: bool = False, ssl: int = 0, mesh=None,
-                 device=None):
+                 device=None, graphs=None):
         if mesh is not None:
             raise NotImplementedError("sharding over a mesh is not ported "
                                       "yet")
@@ -137,6 +148,7 @@ class TreeEngine:
         if params["embed"].device != self.device:
             raise ValueError(f"params are on {params['embed'].device}, "
                              f"engine on {self.device}")
+        self.graphs = graphs_mod.GraphSet(self.device, graphs)
         self.cfg = cfg
         self.gm = grow_map
         self.prefill = prefill
@@ -222,6 +234,10 @@ class TreeEngine:
             state, kv=kv, rkv=rkv,
             next_token=sampling.sample(probs, state.gen))
 
+    def release_graphs(self) -> None:
+        """Drop this engine's CUDA graphs."""
+        self.graphs.release()
+
     def step(self, state: TreeState, force_accept: Optional[float] = None
              ) -> Tuple[TreeState, TreeStepStats]:
         return _tree_step(self, state, force_accept)
@@ -258,6 +274,20 @@ class TreeEngine:
 
 
 def _grow(eng: TreeEngine, state: TreeState):
+    """``_grow_body`` as one graph region (its key holds ``ssl``, which
+    changes the program). Returns copies of (verify_tokens [size],
+    draft_logits [size, V])."""
+    def region(next_token, seq_len):
+        return _grow_body(eng, dataclasses.replace(
+            state, next_token=next_token,
+            kv=dataclasses.replace(state.kv, seq_len=seq_len)))
+    return eng.graphs.run("grow", region,
+                          (state.next_token, state.kv.seq_len),
+                          caches=graphs_mod.planes(state.kv, state.rkv),
+                          gens=(state.gen,), extra=(eng.ssl,))
+
+
+def _grow_body(eng: TreeEngine, state: TreeState):
     """Build the token tree through the middle model. All levels run at the
     padded width W (``_padded_levels``): per level, per-root Gumbel-top-k
     samples children WITHOUT replacement from softmax(draft_logits / T),
@@ -300,6 +330,46 @@ def _grow(eng: TreeEngine, state: TreeState):
     return verify_tokens[:size], draft_logits[:size]
 
 
+def _verify(eng: TreeEngine, state: TreeState, verify_tokens):
+    """ONE full-cache target forward over all tree nodes under the
+    ancestor mask (their KV lands at ``seq_len + i``, in place) and the
+    filtered target rows, one graph region: returns (p_all [size, V], kv
+    length after the forward)."""
+    kv = state.kv
+
+    def region(verify_tokens, seq_len):
+        logits_t, kv_out, _ = llama.forward_append(
+            eng.cfg, eng.params, verify_tokens[None],
+            dataclasses.replace(kv, seq_len=seq_len),
+            positions=seq_len.to(torch.int64) + eng._depth,
+            tree_mask=eng._mask)
+        # row by row the same function; chunked to bound the top-p
+        # filter's [rows, V, grid] intermediate
+        p_all = torch.cat([sampling.norm_logits(c, eng.temperature, -1,
+                                                eng.top_p)
+                           for c in logits_t[0].split(32)])  # [size, V]
+        return p_all, kv_out.seq_len
+    return eng.graphs.run("tree_verify", region, (verify_tokens, kv.seq_len),
+                          caches=graphs_mod.planes(kv))
+
+
+def _node_region(eng: TreeEngine, gen, force_accept):
+    """One visited node's child tests up to its read-back, a graph region:
+    draws its ``max_children`` uniforms and returns (residual p [V],
+    [chosen child or -1, its token])."""
+    max_c = eng.gm.max_children
+
+    def region(p, dl, kids, verify_tokens):
+        u = torch.rand((max_c,), generator=gen, device=p.device,
+                       dtype=torch.float32)
+        p, chosen = _child_tests(eng, p, dl, kids, verify_tokens, u,
+                                 force_accept)
+        tok_ch = verify_tokens.index_select(0, chosen.clamp_min(0)
+                                            .reshape(1))
+        return p, torch.cat([chosen.reshape(1), tok_ch])
+    return region
+
+
 def _child_tests(eng: TreeEngine, p, dl, kids, verify_tokens, u,
                  force_accept):
     """The accept tests of one node's children, in order, on the device:
@@ -311,16 +381,16 @@ def _child_tests(eng: TreeEngine, p, dl, kids, verify_tokens, u,
     for j in range(kids.shape[0]):
         child = kids[j]
         live = (child >= 0) & (chosen < 0)
-        tok = verify_tokens[child.clamp_min(0)]
+        tok = verify_tokens.index_select(0, child.clamp_min(0).reshape(1))
         q = torch.softmax(dl / eng.temperature, dim=-1)
         if force_accept is None:
-            ok = live & (p[tok] > u[j] * q[tok])
+            ok = live & (p.gather(0, tok)[0] > u[j] * q.gather(0, tok)[0])
         else:
             ok = live & (u[j] < force_accept)
         rej = live & ~ok
         chosen = torch.where(ok, child, chosen)
         p = torch.where(rej, sampling.max_fn(p - q), p)
-        dl = torch.where(rej, dl.index_fill(0, tok.reshape(1), _NEG_INF), dl)
+        dl = torch.where(rej, dl.index_fill(0, tok, _NEG_INF), dl)
     return p, chosen
 
 
@@ -335,17 +405,11 @@ def _tree_step(eng: TreeEngine, state: TreeState,
     cfg, gm, dev = eng.cfg, eng.gm, eng.device
     verify_tokens, draft_logits = _grow(eng, state)
     seq0 = state.kv.seq_len
-    max_path, max_c = eng.max_path, gm.max_children
+    max_path = eng.max_path
 
     # --- ONE full-cache verify over all tree nodes
-    logits_t, kv, _ = llama.forward_append(
-        cfg, eng.params, verify_tokens[None], state.kv,
-        positions=seq0.to(torch.int64) + eng._depth, tree_mask=eng._mask)
-    # row by row the same function; chunked to bound the top-p filter's
-    # [rows, V, grid] intermediate
-    p_all = torch.cat([sampling.norm_logits(c, eng.temperature, -1,
-                                            eng.top_p)
-                       for c in logits_t[0].split(32)])      # [size, V]
+    p_all, seq_len = _verify(eng, state, verify_tokens)
+    kv = dataclasses.replace(state.kv, seq_len=seq_len)
 
     # --- accept walk with residual updates: the host follows the path, the
     # device runs each node's child tests and hands back the chosen child
@@ -353,22 +417,21 @@ def _tree_step(eng: TreeEngine, state: TreeState,
     cur, n_nodes, eos_hit = 0, 1, False
     accept_idx = torch.zeros((max_path,), dtype=torch.int64, device=dev)
     final_p = None
+    node = _node_region(eng, state.gen, force_accept)
     while True:
         if not eng._has_kids[cur]:           # a leaf: nothing to test
             final_p = p_all[cur]
             break
-        u = torch.rand((max_c,), generator=state.gen, device=dev,
-                       dtype=torch.float32)
-        p, chosen = _child_tests(eng, p_all[cur], draft_logits[cur],
-                                 eng._succ[cur], verify_tokens, u,
-                                 force_accept)
-        tok_ch = verify_tokens[chosen.clamp_min(0)]
-        chosen_h, tok_h = torch.stack([chosen, tok_ch]).tolist()
+        p, chosen = eng.graphs.run(
+            "tree_node", node,
+            (p_all[cur], draft_logits[cur], eng._succ[cur], verify_tokens),
+            gens=(state.gen,), extra=(force_accept,))
+        chosen_h, tok_h = chosen.tolist()
         readbacks += 1
         if chosen_h < 0:
             final_p = p
             break
-        accept_idx[n_nodes] = chosen
+        accept_idx[n_nodes] = chosen[0]
         n_nodes += 1
         cur = chosen_h
         if tok_h in eng.eos_ids:
@@ -420,7 +483,7 @@ def tree_decode(engine: TreeEngine, input_ids: torch.Tensor,
     """Host entry point: prefill, then tree steps until ``max_len`` tokens or a
     terminal step. ``device`` defaults to the first CUDA card and must be
     the engine's."""
-    from ..decoding import DecodeResult
+    from ..decoding import DecodeResult, _CaptureClock
 
     dev = resolve_device(device)
     if dev != engine.device:
@@ -429,15 +492,17 @@ def tree_decode(engine: TreeEngine, input_ids: torch.Tensor,
     state = engine.init_state(seed)
     state = engine.prefill_target(state, input_ids)
     first = int(state.next_token[0])   # read-back: prefill is done
+    clock = _CaptureClock(engine.graphs)
     t0 = time.perf_counter()
     state, buf, n, counters, _ = engine.generate(state, max_len)
     out = buf[:n].tolist()             # read-back: generation is done
-    t1 = time.perf_counter()
+    wall = time.perf_counter() - t0 - clock.seconds
     assert out[0] == first
     steps, nodes = int(counters[0]), int(counters[1])
     gen = n - 1
-    return DecodeResult(tokens=out, tokens_per_sec=gen / max(t1 - t0, 1e-9),
+    return DecodeResult(tokens=out, tokens_per_sec=gen / max(wall, 1e-9),
                         acceptance_rate=nodes / max(steps * engine.gm.size,
                                                     1),
                         avg_tokens_per_step=gen / max(steps, 1),
-                        steps=steps, wall_s=t1 - t0)
+                        steps=steps, wall_s=wall, captures=clock.count,
+                        capture_s=clock.seconds)
