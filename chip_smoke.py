@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py                 # full run (one H100)
     python3 chip_smoke.py --skip-e2e      # build + kernel phase only
-    python3 chip_smoke.py --ab TAG        # time the kernels (decode, wide)
+    python3 chip_smoke.py --ab TAG        # time the kernels (B1-B4)
     python3 chip_smoke.py --study         # the kernel study alone
     python3 chip_smoke.py --gqa           # the GQA gates and the CLI alone
 
@@ -27,8 +27,11 @@ Phases, in order (any failure exits non-zero before the last line):
      served rows, B4 at its grow levels and root); then both paths'
      study: per-kernel device times from the profiler at the decode and
      the wide shapes, B1's time against nsplit, registers and CTAs per SM
-     of every kernel; B1 replayed from a graph with its dependent phase
-     as a programmatic dependent and as an ordinary launch (lines "pdl");
+     of every kernel, B2's time against its launch plan at both models'
+     builds and served prefills (lines "b2 plan sweep", each plan
+     bit-equal to the wrapper's output); B1 replayed from a graph with
+     its dependent phase as a programmatic dependent and as an ordinary
+     launch (lines "pdl");
   4. reference: the full-width model at cut depth on a short prompt, the
      card's path (through the kernels) against an fp32 CPU run of the same
      weights: bf16 weights and cache (top-1 may differ only at a near
@@ -74,7 +77,8 @@ Phases, in order (any failure exits non-zero before the last line):
      triforce_tpu_torch.cli --mode ar`` as a process; the card's
      ``measure_phase_times`` table and a profiler trace of two TriForce
      steps (its ten largest device operations), the phase table graphed
-     and eager;
+     and eager, and one retrieval build under the profiler (line "cli
+     build trace": B2's device time and share beside the build's wall);
  11. the ``kernels`` JSON line, then the ``ok`` JSON line.
 
 Exits non-zero (and prints no result) without a CUDA card or outside the
@@ -476,7 +480,7 @@ def kernel_b2(rk, rt, cache_mod, dev, prefill, chunk, budget, s,
     nbytes = 2 * q.numel() + key_bytes + 4 * out.numel()
     flops = 2.0 * hkv * g * prefill * d
     bound_ms, bound_by = _bound(nbytes, flops,
-                                H100_INT8_OPS if quant else H100_FP32_FLOPS)
+                                H100_INT8_OPS if quant else H100_BF16_FLOPS)
     print(f"{name} prefill={prefill} chunk={chunk}: err {err:.3e} (tol "
           f"{tol:.3e}), {n_diff} near-tie selection differences; kernel "
           f"{ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), einsum+mean "
@@ -860,7 +864,56 @@ def _nsplit_sweep(fd, x, key, tol, splits, ref, s, quant):
     return sweep
 
 
-def kernel_study(fd, cache_mod, dev, prefill, s_kv, s_rkv, tree_mask):
+def b2_plan_sweep(rk, cache_mod, dev, prefill, s, quant, hkv, d, g, cpbs,
+                  chunk=8):
+    """B2 (or B2-int8) at one build shape through its C entry point under
+    plans of ``cpbs`` chunks a block and the wrapper's (blocks a head to
+    match), each held bit-equal to the wrapper's output first (a chunk's
+    score does not depend on the block that sums it), with its device
+    ms."""
+    gen = torch.Generator(device=dev).manual_seed(1)
+    q = torch.randn((hkv, g, d), generator=gen, device=dev).to(torch.bfloat16)
+    k = torch.randn((hkv, s, d), generator=gen, device=dev).to(torch.bfloat16)
+    lib = rk._build.lib(rk._SOURCE)
+    n = prefill // chunk
+
+    def stream():     # the graph capture's stream while _device_ms captures
+        return torch.cuda.current_stream(dev).cuda_stream
+    if quant:
+        k, ks = cache_mod.quantize_tokens(k)
+        want = rk.chunk_scores_int8(q, k, ks, chunk=chunk, prefill=prefill)
+
+        def entry(cpb, out):
+            return lib.tf_chunk_scores_int8(
+                q.data_ptr(), 1, k.data_ptr(), k.stride(0), k.stride(1),
+                ks.data_ptr(), ks.stride(0), out.data_ptr(), hkv, g, d,
+                prefill, chunk, cpb, -(-n // cpb), stream())
+    else:
+        want = rk.chunk_scores(q, k, chunk=chunk, prefill=prefill)
+
+        def entry(cpb, out):
+            return lib.tf_chunk_scores_bf16(
+                q.data_ptr(), k.data_ptr(), k.stride(0), k.stride(1),
+                out.data_ptr(), hkv, g, d, prefill, chunk, cpb,
+                -(-n // cpb), stream())
+    key = f"{'int8' if quant else 'bf16'} Hkv {hkv} G {g} D {d} P {prefill}"
+    choice = rk.plan(q, chunk, prefill, quant)
+    sweep = {}
+    for cpb in sorted({*cpbs, choice[0]}, reverse=True):
+        out = torch.empty_like(want)
+        if entry(cpb, out) != 0:
+            _fail(f"B2 {key}: the entry point refused {cpb} chunks a block")
+        torch.cuda.synchronize()
+        if not torch.equal(out, want):
+            _fail(f"B2 {key} at {cpb} chunks a block: not the wrapper's bits")
+        sweep[cpb] = _device_ms(lambda: entry(cpb, out))
+    print(f"b2 plan sweep {key} (device ms by chunks a block; the wrapper's "
+          f"choice {choice}): " + ", ".join(
+              f"{c}: {ms:.4f}" for c, ms in sweep.items()), flush=True)
+    return sweep
+
+
+def kernel_study(fd, rk, cache_mod, dev, prefill, s_kv, s_rkv, tree_mask):
     """Both paths' phases: per-kernel device times from the profiler at
     B1's decode shapes, the B4 root, and the wide shapes (the prefill tile,
     the tree verify under ``tree_mask``, GT 17, B4's grow level over the
@@ -868,7 +921,9 @@ def kernel_study(fd, cache_mod, dev, prefill, s_kv, s_rkv, tree_mask):
     against ``nsplit`` at the AR, middle-verify, prefill-tile and
     tree-verify shapes (each nsplit also held to the plain version); B1's
     device time at the wide shapes and a GQA prefill tile; the ptxas
-    resources of every kernel with its resident CTAs per SM."""
+    resources of every kernel with its resident CTAs per SM; B2's CTAs per
+    SM and its time against its plan at both models' builds and at a
+    served request's prefill (``b2_plan_sweep``)."""
     res = {"profile": {}, "nsplit_sweep": {}, "ptxas": []}
     tile = min(16384, prefill)
     n_tree = len(tree_mask)
@@ -943,7 +998,8 @@ def kernel_study(fd, cache_mod, dev, prefill, s_kv, s_rkv, tree_mask):
             del x, args
     print("wide B1 device ms: " + json.dumps(
         {k: round(v, 4) for k, v in res["wide_ms"].items()}), flush=True)
-    rows = _ptxas_kernels(fd._build.BUILD_LOG.get(fd._SOURCE, ""))
+    rows = [r for src in (fd._SOURCE, rk._SOURCE)
+            for r in _ptxas_kernels(fd._build.BUILD_LOG.get(src, ""))]
     if shutil.which("c++filt"):
         names = subprocess.run(["c++filt"], input="\n".join(r[0] for r in rows),
                                capture_output=True, text=True).stdout.split("\n")
@@ -966,6 +1022,24 @@ def kernel_study(fd, cache_mod, dev, prefill, s_kv, s_rkv, tree_mask):
         for quant in (False, True)}
     print(f"CTAs per SM ({fd._wave(dev, 128, False)[0]} SMs): "
           + json.dumps(res["ctas_per_sm"]), flush=True)
+    res["b2_ctas_per_sm"] = {
+        f"D={d} {'int8' if quant else 'bf16'}":
+            rk._wave(dev, d, quant)[1] for d in (64, 128)
+        for quant in (False, True)}
+    print("B2 CTAs per SM: " + json.dumps(res["b2_ctas_per_sm"]), flush=True)
+    # B2's time against its plan (chunks a block) at the build and at a
+    # served request's prefill: one wave of long runs, the wrapper's runs
+    # of at most 64 KB of keys, and others
+    res["b2_sweep"] = {}
+    for model, hkv, g, d in (("7B", 32, 1, 128), ("GQA", 4, 8, 64)):
+        for quant in (False, True):
+            sms, per_sm = rk._wave(dev, d, quant)
+            for p in sorted({prefill, SERVE_PREFILL}, reverse=True):
+                wave = -(-(p // 8) // max(1, sms * per_sm // hkv))
+                res["b2_sweep"][f"{model} {'int8' if quant else 'bf16'} "
+                                f"{p}"] = b2_plan_sweep(
+                    rk, cache_mod, dev, p, p + 200, quant, hkv, d, g,
+                    sorted({wave, 128, 64, 32, 16, 8}, reverse=True))
     return res
 
 
@@ -1045,23 +1119,35 @@ def _host_probe(fd, cache_mod, dev, quant):
     return out
 
 
-def kernel_ab(fd, att, cache_mod, dev, prefill, tree_mask):
+def kernel_ab(fd, att, rk, rt, cache_mod, dev, prefill, tree_mask):
     """``--ab``: the kernels of the checkout this file runs in, each
     precision, checked and timed as the kernel phase does them: B1 at the
     decode shapes (AR, target and middle verify) and the wide ones (the
     prefill tile, the tree verify under ``tree_mask``, GT 17, the GQA
-    prefill tile: Hkv 4, GT 4096, D 64), B4 at the root and at a grow level
-    (GT 22), B3's 4 rows at the batched AR, the
-    middle verify and GT 17, and ``_host_probe``. To compare two versions on
-    one card, copy this file into the other checkout's root and run both in
-    one call on the card (parent, change, change, parent)."""
+    prefill tile: Hkv 4, GT 4096, D 64), B2 at both models' builds
+    (Llama2-7B: Hkv 32, G 1, D 128; TinyLlama: Hkv 4, G 8, D 64; chunk
+    8) and at a served request's prefill (``SERVE_PREFILL``), B4 at the
+    root and at a grow level (GT 22), B3's 4 rows at the batched AR, the
+    middle verify and GT 17, and ``_host_probe``. To
+    compare two versions on one card, copy this file into the other
+    checkout's root and run both in one call on the card (parent, change,
+    change, parent)."""
     s_kv = prefill + GEN + 4 * (GAMMA + 2)
     n_tree = len(tree_mask)
     keep = ("ms", "ms_one_live_three_dead", "library_ms", "bound_ms",
             "max_abs_err")
-    res = {"b1": {}, "b3": {}, "b4": {}, "host": {}}
+    res = {"b1": {}, "b2": {}, "b3": {}, "b4": {}, "host": {}}
     for quant in (False, True):
         tag = "int8" if quant else "bf16"
+        for model, kw in (("7B", dict(hkv=32, g=1, d=128)),
+                          ("GQA", dict(hkv=4, g=8, d=64))):
+            r = kernel_b2(rk, rt, cache_mod, dev, prefill, 8, 4096, s_kv,
+                          quant, **kw)
+            res["b2"][f"{tag} {model}"] = {k: r[k] for k in keep if k in r}
+            r = kernel_b2(rk, rt, cache_mod, dev, SERVE_PREFILL, 8, 4096,
+                          SERVE_PREFILL + s_kv - prefill, quant, **kw)
+            res["b2"][f"{tag} {model} {SERVE_PREFILL}"] = {
+                k: r[k] for k in keep if k in r}
         for sh in ((1, 1, prefill, s_kv), (GAMMA + 2, GAMMA + 2, prefill,
                                             s_kv),
                    (GAMMA + 1, GAMMA + 1, 4096, 4096 + GAMMA + 1),
@@ -2422,6 +2508,63 @@ def cli_serve_gate(tag, fd, rk, bs, data, eng, sched, done, vocab,
     return out
 
 
+def build_trace(llama, profiling, rk, eng, state, tmp):
+    """One retrieval build of ``eng`` (the 1-token forward that scores and
+    gathers every layer, eager as the engine runs it), timed on the host
+    clock alone and then under the profiler: the device time of its
+    kernels, the span from the first kernel's start to the last one's end,
+    and B2's device time and launches, so B2's share of the build is read
+    beside the build's wall time. The cache slot the forward writes is put
+    back."""
+    sp, kv = eng.spec, state.kv
+    scratch = state.rkv.clone()
+    ids = torch.zeros((1, 1), dtype=torch.int64, device=eng.device)
+
+    def build():
+        llama.forward_append(eng.target_cfg, eng.t_params, ids, kv,
+                             build_rkv=scratch, prefill=eng.prefill,
+                             chunk_size=sp.chunk_size, budget=sp.budget)
+
+    def b2_launches():
+        return rk.chunk_scores.launches + rk.chunk_scores_int8.launches
+
+    with profiling._slots_restored(kv, 1):
+        build()                                  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        build()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        n0 = b2_launches()
+        t0 = time.perf_counter()
+        with profiling.trace(os.path.join(tmp, "trace_build")) as prof:
+            build()
+            torch.cuda.synchronize()
+        wall_prof = (time.perf_counter() - t0) * 1e3
+        n = b2_launches() - n0
+    del scratch
+    kern = [e for e in prof.events()
+            if str(e.device_type).endswith("CUDA") and e.name]
+    if not kern:
+        print("cli build trace: not measured (no device time in the trace)",
+              flush=True)
+        return dict(wall_ms=wall, b2_launches=n)
+    busy = sum(e.time_range.end - e.time_range.start for e in kern) / 1e3
+    b2 = sum(e.time_range.end - e.time_range.start for e in kern
+             if "cs_kernel" in e.name) / 1e3
+    span = (max(e.time_range.end for e in kern)
+            - min(e.time_range.start for e in kern)) / 1e3
+    res = dict(wall_ms=wall, wall_ms_profiled=wall_prof, device_ms=busy,
+               device_span_ms=span, b2_ms=b2, b2_launches=n,
+               device_ops=len(kern))
+    print(f"cli build trace: one retrieval build (eager) {wall:.3f} ms wall "
+          f"({wall_prof:.3f} under the profiler); {len(kern)} device "
+          f"operations, busy {busy:.3f} ms over a {span:.3f} ms span; B2 "
+          f"{b2:.4f} ms in {n} launches: {b2 / max(busy, 1e-9):.2%} of the "
+          f"device time, {b2 / wall:.2%} of the wall", flush=True)
+    return res
+
+
 def cli_phase(tc, llama, Engine, cli, hf, ckpt, data, decoding, profiling,
               planner, spectree, batched_spec, fd, rk, dev, tmp):
     """TinyLlama-1.1B-128K (full width and depth) + Llama-68M through the
@@ -2704,6 +2847,7 @@ def cli_phase(tc, llama, Engine, cli, hf, ckpt, data, decoding, profiling,
         print(f"  {ms:9.3f} ms  x{c:<5d} {n[:110]}", flush=True)
     if not ops:
         print("  (no device time in the trace)", flush=True)
+    res["build_trace"] = build_trace(llama, profiling, rk, eng, state, tmp)
     eng.release_graphs()
     del eng, state, tp, dp
     torch.cuda.empty_cache()
@@ -2767,9 +2911,8 @@ def main() -> int:
               f"{sorted(set(regs))}, {spills} with spills", flush=True)
     gm = _grow_map(planner)
     if args.ab:
-        print(f"AB {args.ab} " + json.dumps(kernel_ab(fd, att, cache, dev,
-                                                      args.prefill, gm.mask)),
-              flush=True)
+        print(f"AB {args.ab} " + json.dumps(kernel_ab(
+            fd, att, rk, rt, cache, dev, args.prefill, gm.mask)), flush=True)
         return 0
 
     def gqa_gates():
@@ -2809,7 +2952,7 @@ def main() -> int:
     s_rkv = 4096 + TREE_SIZE + spectree._padded_levels(gm)[0]
     if args.study:
         print(json.dumps({"kernel_study": kernel_study(
-            fd, cache, dev, prefill, s_kv, s_rkv, gm.mask)}), flush=True)
+            fd, rk, cache, dev, prefill, s_kv, s_rkv, gm.mask)}), flush=True)
         return 0
     shapes = [(1, 1, prefill, s_kv),                     # AR decode
               (GAMMA + 2, GAMMA + 2, prefill, s_kv),     # full-cache verify
@@ -2871,7 +3014,7 @@ def main() -> int:
         b1[quant] += gates[quant]["b1"]
         b3[quant].append(gates[quant]["b3"])
         b4[quant] += gates[quant]["b4"]
-    study = kernel_study(fd, cache, dev, prefill, s_kv, s_rkv, gm.mask)
+    study = kernel_study(fd, rk, cache, dev, prefill, s_kv, s_rkv, gm.mask)
     study["pdl"] = pdl_study(fd, cache, dev, prefill, s_kv, s_tree, gm.mask)
     int8_gemm_probe(llama, dev)
     torch.cuda.empty_cache()

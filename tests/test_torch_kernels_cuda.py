@@ -165,11 +165,18 @@ def test_flash_decode_rejects_fp32_on_cuda(dev):
         tfd.flash_decode_append(q, q, q, q, q, 0, mask)
 
 
-@pytest.mark.parametrize("g,chunk,prefill", [(1, 8, 2048), (2, 4, 1000),
-                                             (4, 16, 512)])
-def test_chunk_scores_matches_plain(dev, g, chunk, prefill):
-    q = _randn(dev, 5, 4, g, 128)
-    k = _randn(dev, 6, 4, 3000, 128)
+# B2's shapes (g, chunk, prefill, d): the first ones, then the wrappers'
+# envelope at its edges: chunk 1 and 256, a chunk that is no power of two,
+# a prefill of one chunk, G 3, 5, 7 and 8, D 64
+B2_CASES = [(1, 8, 2048, 128), (2, 4, 1000, 128), (4, 16, 512, 128),
+            (8, 1, 300, 64), (3, 256, 2560, 128), (8, 256, 256, 64),
+            (5, 8, 8, 128), (7, 12, 2004, 64), (8, 8, 2048, 64)]
+
+
+@pytest.mark.parametrize("g,chunk,prefill,d", B2_CASES)
+def test_chunk_scores_matches_plain(dev, g, chunk, prefill, d):
+    q = _randn(dev, 5, 4, g, d)
+    k = _randn(dev, 6, 4, 3000, d)
     k[:, prefill:] = 50.0    # past the live prefill: never read
     before = trk.chunk_scores.launches
     out = trk.chunk_scores(q, k, chunk=chunk, prefill=prefill)
@@ -205,6 +212,29 @@ def test_chunk_scores_gqa_widths(dev, quant):
     torch.cuda.synchronize()
     assert fn.launches == before + 1
     # chip_smoke.py's bounds, of the score scale
+    assert (out - ref).abs().max().item() <= tol * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_chunk_scores_q_off_16_bytes(dev, quant):
+    """q a contiguous bf16 view one element into its storage (not 16-byte
+    aligned): the bf16 kernel reads q in 16-byte loads, so the wrapper
+    hands it an aligned copy; the int8 kernel widens q element by element.
+    Both give the plain version's scores."""
+    hkv, g, d, prefill = 4, 8, 64, 2048
+    q = _randn(dev, 5, 1 + hkv * g * d)[1:].view(hkv, g, d)
+    assert q.is_contiguous() and q.data_ptr() % 16
+    kb = _randn(dev, 6, hkv, 2100, d)
+    if quant:
+        k, ks = tcache.quantize_tokens(kb)
+        out = trk.chunk_scores_int8(q, k, ks, chunk=8, prefill=prefill)
+        ref = trk.chunk_scores_int8_plain(q, k, ks, chunk=8, prefill=prefill)
+        tol = 1e-6
+    else:
+        out = trk.chunk_scores(q, kb, chunk=8, prefill=prefill)
+        ref = trk.chunk_scores_plain(q, kb, chunk=8, prefill=prefill)
+        tol = 1e-5
+    torch.cuda.synchronize()
     assert (out - ref).abs().max().item() <= tol * ref.abs().max().item()
 
 
@@ -264,11 +294,10 @@ def test_flash_decode_rejects_a_bf16_int8_mix(dev):
         trk.chunk_scores_int8(q, kb, ks, chunk=8, prefill=64)
 
 
-@pytest.mark.parametrize("g,chunk,prefill", [(1, 8, 2048), (2, 4, 1000),
-                                             (4, 16, 512)])
-def test_chunk_scores_int8_matches_plain(dev, g, chunk, prefill):
-    q = _randn(dev, 5, 4, g, 128)
-    k, ks = _int8_cache(dev, 6, 4, 3000, 128)
+@pytest.mark.parametrize("g,chunk,prefill,d", B2_CASES)
+def test_chunk_scores_int8_matches_plain(dev, g, chunk, prefill, d):
+    q = _randn(dev, 5, 4, g, d)
+    k, ks = _int8_cache(dev, 6, 4, 3000, d)
     k[:, prefill:], ks[:, prefill:] = 127, 1e3    # never read
     before = trk.chunk_scores_int8.launches
     out = trk.chunk_scores_int8(q, k, ks, chunk=chunk, prefill=prefill)
@@ -278,6 +307,65 @@ def test_chunk_scores_int8_matches_plain(dev, g, chunk, prefill):
     assert trk.chunk_scores_int8.launches == before + 1
     # exact integer dots: only the scale products and the means round
     assert (out - ref).abs().max().item() <= 1e-6 * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("chunk", [8, 12, 256])
+@pytest.mark.parametrize("quant", [False, True])
+def test_chunk_scores_any_plan_same_bits(dev, quant, chunk):
+    """B2 and B2-int8 through their C entry points under plans other than
+    the wrapper's: one block a head walking all 6144 keys (the kernel's
+    ring of key scores wraps six times), one chunk a block, and 7 blocks a
+    head; on a layer whose key rows are padded (token stride D + 16) and,
+    in int8, whose scale plane has an odd head stride. A key's score and
+    a chunk's sum do not depend on the block, so every plan gives the
+    wrapper's bits, and those match the plain version. In int8 the
+    entry point gets q in fp32 where the wrapper passed it in bf16: the
+    kernel widens the same values. A plan that leaves a chunk out, or a
+    block empty, is refused."""
+    hkv, g, d, prefill = 4, 8, 64, 6144
+    n = prefill // chunk
+    buf = _randn(dev, 7, hkv, 6200, d + 16)
+    q = _randn(dev, 8, hkv, g, d)
+    lib = trk._build.lib(trk._SOURCE)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if quant:
+        codes, scales = tcache.quantize_tokens(buf)
+        k = codes[..., :d]
+        plane = torch.zeros((hkv, 6201), device=dev)
+        plane[:, :6200] = scales
+        ks = plane[:, :6200]
+        qx = q.float().contiguous()
+        got = trk.chunk_scores_int8(q, k, ks, chunk=chunk, prefill=prefill)
+        ref = trk.chunk_scores_int8_plain(q, k, ks, chunk=chunk,
+                                          prefill=prefill)
+        tol = 1e-6
+
+        def entry(cpb, bph, out):
+            return lib.tf_chunk_scores_int8(
+                qx.data_ptr(), 0, k.data_ptr(), k.stride(0), k.stride(1),
+                ks.data_ptr(), ks.stride(0), out.data_ptr(), hkv, g, d,
+                prefill, chunk, cpb, bph, stream)
+    else:
+        k = buf[..., :d]
+        qx = q.contiguous()
+        got = trk.chunk_scores(q, k, chunk=chunk, prefill=prefill)
+        ref = trk.chunk_scores_plain(q, k, chunk=chunk, prefill=prefill)
+        tol = 1e-5
+
+        def entry(cpb, bph, out):
+            return lib.tf_chunk_scores_bf16(
+                qx.data_ptr(), k.data_ptr(), k.stride(0), k.stride(1),
+                out.data_ptr(), hkv, g, d, prefill, chunk, cpb, bph, stream)
+    assert (got - ref).abs().max().item() <= tol * ref.abs().max().item()
+    seven = -(-n // 7)
+    for cpb, bph in ((n, 1), (1, n), (seven, -(-n // seven))):
+        out = torch.full_like(got, float("nan"))
+        assert entry(cpb, bph, out) == 0
+        torch.cuda.synchronize()
+        assert torch.equal(out, got), (cpb, bph)
+    out = torch.empty_like(got)
+    assert entry(1, n - 1, out) != 0      # the last chunk left out
+    assert entry(1, n + 1, out) != 0      # an empty block
 
 
 # ---------------------------------------------------------------------------

@@ -74,10 +74,13 @@ _SIGNATURES = {
                                           _I, _I, _I, _I, _I, _F, _P],
     },
     "chunk_scores.cu": {
+        "tf_chunk_scores_ctas_per_sm": [_I, _I],
+        # ..., prefill, chunk, then the plan: chunks a block, blocks a head
         "tf_chunk_scores_bf16": [_P, _P, _L, _L, _P, _I, _I, _I, _I, _I,
-                                 _P],
-        "tf_chunk_scores_int8": [_P, _P, _L, _L, _P, _L, _P, _I, _I, _I,
                                  _I, _I, _P],
+        # q, then 1 if q is bf16 (0: fp32)
+        "tf_chunk_scores_int8": [_P, _I, _P, _L, _L, _P, _L, _P, _I, _I,
+                                 _I, _I, _I, _I, _I, _P],
     },
 }
 

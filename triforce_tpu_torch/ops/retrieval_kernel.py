@@ -9,8 +9,11 @@ fp32. Only the live prefill is read.
 
 On a CUDA tensor it launches the hand-written kernel in
 ``csrc/chunk_scores.cu`` (bf16 only — anything else raises); on a CPU
-tensor it takes ``chunk_scores_plain``. Top-k and the gather stay torch ops
-(``ops/retrieval.py``), as the JAX package leaves them to XLA.
+tensor it takes ``chunk_scores_plain``. The launch plan (``block_plan``:
+chunks a block, blocks a head) is computed here from the shape, the SM
+count and the kernel's occupancy, and passed in. Top-k and the gather
+stay torch ops (``ops/retrieval.py``), as the JAX package leaves them to
+XLA.
 
 ``chunk_scores_int8`` scores an int8 cache (codes plus fp32 per-token
 scales), the TPU kernel's ``quant`` branch: q is quantized per (head, row)
@@ -22,12 +25,17 @@ path, which dequantizes the keys and keeps q in fp32).
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from .. import _build
 from ..cache import int8_scale
 
 _SOURCE = "chunk_scores.cu"
+# bytes of keys a block scores at most, unless fewer blocks than a wave
+# would be left (the kernel's source note gives the measurements)
+BLOCK_BYTES = 65536
 
 
 def chunk_scores_plain(q, k, *, chunk: int, prefill: int) -> torch.Tensor:
@@ -53,6 +61,46 @@ def chunk_scores_int8_plain(q, k, k_scale, *, chunk: int,
     sc = torch.einsum("hgd,hsd->hgs", q8, k[:, :prefill].float())
     sc = (sc * qs * k_scale[:, None, :prefill].float()).mean(1)
     return sc.reshape(hkv, prefill // chunk, chunk).mean(-1)
+
+
+def block_plan(hkv: int, n_chunks: int, chunk: int, row_bytes: int,
+               sms: int, ctas_per_sm: int):
+    """(chunks a block, blocks a head) of a launch over ``n_chunks`` >= 1
+    chunks of ``chunk`` keys of ``row_bytes`` each, per head: blocks of
+    whole chunks, at most ``BLOCK_BYTES`` of keys (or one chunk) each, but
+    no fewer of them than fill one wave of ``ctas_per_sm`` CTAs on each of
+    ``sms`` SMs (heads that outnumber the wave take one block each). Block
+    b of a head scores chunks [b * cpb, min((b + 1) * cpb, n_chunks));
+    none is empty."""
+    per_head = max(1, sms * ctas_per_sm // hkv)
+    cpb = min(-(-n_chunks // per_head),
+              max(1, BLOCK_BYTES // (row_bytes * chunk)))
+    return cpb, -(-n_chunks // cpb)
+
+
+@functools.lru_cache(maxsize=None)
+def _wave_at(index: int, d: int, quant: bool):
+    """(SMs, CTAs one SM holds at once of the built kernel) of card
+    ``index``: the device's SM count and the CUDA occupancy calculator."""
+    with torch.cuda.device(index):
+        n = _build.lib(_SOURCE).tf_chunk_scores_ctas_per_sm(d, int(quant))
+    if n <= 0:
+        raise RuntimeError(f"chunk_scores occupancy query: cudaError_t {-n}")
+    return torch.cuda.get_device_properties(index).multi_processor_count, n
+
+
+def _wave(device, d: int, quant: bool):
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    return _wave_at(index, d, quant)
+
+
+def plan(q, chunk: int, prefill: int, quant: bool):
+    """(chunks a block, blocks a head) of a launch for q [Hkv, G, D] over
+    ``prefill`` > 0 keys on q's card."""
+    hkv, _, d = q.shape
+    return block_plan(hkv, prefill // chunk, chunk, d * (1 if quant else 2),
+                      *_wave(q.device, d, quant))
 
 
 def _check_prefill(k, chunk, prefill):
@@ -91,11 +139,16 @@ def chunk_scores(q, k, *, chunk: int, prefill: int) -> torch.Tensor:
     _check_cache(q, k, chunk, torch.bfloat16)
     hkv, g, d = q.shape
     qb = q.to(k.dtype).contiguous()
+    if qb.data_ptr() % 16:          # the kernel reads q in 16-byte loads
+        qb = qb.clone()
     out = torch.empty((hkv, prefill // chunk), dtype=torch.float32,
                       device=k.device)
+    if prefill == 0:
+        return out
+    cpb, bph = plan(qb, chunk, prefill, False)
     err = _build.lib(_SOURCE).tf_chunk_scores_bf16(
         qb.data_ptr(), k.data_ptr(), k.stride(0), k.stride(1),
-        out.data_ptr(), hkv, g, d, prefill, chunk,
+        out.data_ptr(), hkv, g, d, prefill, chunk, cpb, bph,
         torch.cuda.current_stream(k.device).cuda_stream)
     _build.check(err, "chunk_scores kernel launch")
     chunk_scores.launches += 1
@@ -121,13 +174,20 @@ def chunk_scores_int8(q, k, k_scale, *, chunk: int,
         raise ValueError("k_scale must be fp32 [Hkv, S] with unit token "
                          "stride on k's device")
     hkv, g, d = q.shape
-    qf = q.float().contiguous()
+    # the kernel widens a bf16 q itself (the same fp32 values as q.float(),
+    # without a launch); any other dtype is widened here
+    qf = (q if q.dtype == torch.bfloat16 else q.float()).contiguous()
     out = torch.empty((hkv, prefill // chunk), dtype=torch.float32,
                       device=k.device)
+    if prefill == 0:
+        return out
+    cpb, bph = plan(qf, chunk, prefill, True)
     err = _build.lib(_SOURCE).tf_chunk_scores_int8(
-        qf.data_ptr(), k.data_ptr(), k.stride(0), k.stride(1),
+        qf.data_ptr(), int(qf.dtype == torch.bfloat16), k.data_ptr(),
+        k.stride(0), k.stride(1),
         k_scale.data_ptr(), k_scale.stride(0), out.data_ptr(), hkv, g, d,
-        prefill, chunk, torch.cuda.current_stream(k.device).cuda_stream)
+        prefill, chunk, cpb, bph,
+        torch.cuda.current_stream(k.device).cuda_stream)
     _build.check(err, "chunk_scores int8 kernel launch")
     chunk_scores_int8.launches += 1
     return out
