@@ -57,7 +57,15 @@ Phases, in order (any failure exits non-zero before the last line):
      tokens (2 steps for the tree and the rows; the whole request set for
      the schedulers), and the graphed run must match it in tokens, step
      counters, ``kv.seq_len`` and launch counts; the timed run's captures
-     must equal the gate's shorter run's (a fixed number per state);
+     must equal the gate's shorter run's (a fixed number per state).
+     The prefills run graphed too (the target's chunk widths, the
+     retrieval build, the drafter's chunks): every graph gate's two runs
+     hold their prefills' caches (kv to its length, the retrieval cache,
+     the drafter window), lengths and first token bit-equal by exact word
+     digests (lines "prefill graphs [...]": prefill seconds graphed and
+     eager, captures and their seconds, pool bytes, replays by region and
+     width, the converted int8 weights' bytes); each decoding call's
+     prefill is timed apart from its captures;
   8. tree end to end, in each precision after its batch-1 runs: Sequoia
      tree speculation (``TreeEngine``, a 128-node tree) through
      ``tree_decode``, then at forced acceptance, then with 4 hybrid
@@ -66,7 +74,11 @@ Phases, in order (any failure exits non-zero before the last line):
      speculate together (``BatchedSpecEngine``), then 6 requests are
      served through 4 slots by ``SpecScheduler`` (chunked admission
      between decode segments) and by the AR ``Scheduler``; launch counts
-     are checked as in 7;
+     are checked as in 7; every admitted row is held bit-equal to the
+     eager witness's (lines "prefill graphs [... admission]": admit
+     seconds graphed and eager, captures, replays; ``SpecScheduler``
+     reuses one admission row, so its build replays from the second
+     request);
  10. cli: TinyLlama-1.1B-128K at full width and depth + Llama-68M, random
      weights written as HF checkpoints (the target in two indexed shards)
      and loaded back bit-equal (streaming, and through the native
@@ -77,8 +89,9 @@ Phases, in order (any failure exits non-zero before the last line):
      triforce_tpu_torch.cli --mode ar`` as a process; the card's
      ``measure_phase_times`` table and a profiler trace of two TriForce
      steps (its ten largest device operations), the phase table graphed
-     and eager, and one retrieval build under the profiler (line "cli
-     build trace": B2's device time and share beside the build's wall);
+     and eager, and one retrieval build replayed and one eager, each
+     under the profiler (lines "cli build trace [...]": B2's device time
+     and share beside the build's wall);
  11. the ``kernels`` JSON line, then the ``ok`` JSON line.
 
 Exits non-zero (and prints no result) without a CUDA card or outside the
@@ -1477,12 +1490,122 @@ def _since(graphs, snap):
                 pool_bytes=now[2] - snap[2])
 
 
+def _decode_since(graphs, snap, r):
+    """``_since`` over a ``decoding`` call, less the graphs its prefill
+    captured (``DecodeResult.prefill_captures``): the decode's share."""
+    d = _since(graphs, snap)
+    d["captures"] -= r.prefill_captures
+    d["capture_s"] -= r.prefill_capture_s
+    return d
+
+
 def _timed(fn):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
     return out, time.perf_counter() - t0
+
+
+def _digest(tensors) -> list:
+    """Exact digests of ``tensors``, to hold two runs' caches bit-equal
+    without keeping both on the card: per tensor its dtype and shape and,
+    per index of its leading axis, two int64 sums (mod 2^64) of its 32-bit
+    words, one plain and one with each word weighted by a 32-bit hash of
+    its position (Knuth's multiplicative one: distinct for every
+    position). Bit-equal tensors give equal digests; a change of one word,
+    or an exchange of two, always changes them; any other difference goes
+    unseen only where it cancels in both sums."""
+    out = []
+    for t in tensors:
+        sums = []
+        for part in (t.unbind(0) if t.dim() > 1 else [t.reshape(-1)]):
+            b = part.contiguous().view(torch.uint8).reshape(-1)
+            if b.numel() % 4:
+                b = torch.cat([b, b.new_zeros(-b.numel() % 4)])
+            a = w = 0
+            for i, piece in enumerate(b.view(torch.int32).split(1 << 25)):
+                x = piece.to(torch.int64)
+                pos = (((torch.arange(x.numel(), device=x.device)
+                         + (i << 25)) * 2654435761) & 0xFFFFFFFF) + 1
+                a += int(x.sum())
+                w += int((x * pos).sum())
+            sums.append((a, w))
+        out.append((str(t.dtype), tuple(t.shape), sums))
+    return out
+
+
+def _planes(c):
+    return [getattr(c, n) for n in ("k", "v", "k_scale", "v_scale")
+            if getattr(c, n, None) is not None]
+
+
+def _prefill_tensors(kv, rkv, dkv, token):
+    """What a prefill leaves in a batch-1 state (or a pool's row): the full
+    cache's planes up to its length, the retrieval cache's and the drafter
+    window's planes whole, the lengths and the first token."""
+    n = int(kv.seq_len)
+    out = [kv.seq_len.reshape(()), token.reshape(-1)]
+    out += [p[:, :, :, :n] for p in _planes(kv)]
+    if rkv is not None:
+        out += _planes(rkv)
+    if dkv is not None:
+        out += [dkv.seq_len.reshape(())] + _planes(dkv)
+    return out
+
+
+def _dense_bytes(eng):
+    """Bytes of the prefill's converted copy of int8 weights that ``eng``
+    holds (0 for bf16 weights or before its first graphed prefill)."""
+    dense = getattr(eng, "_dense", None)
+    params = getattr(eng, "t_params", None) or eng.params
+    if dense is None:
+        return 0
+    pairs = [(dense["lm_head"], params["lm_head"])] + [
+        (dense["layers"][k], params["layers"][k]) for k in dense["layers"]]
+    return sum(d.numel() * d.element_size() for d, p in pairs if d is not p)
+
+
+def _prefill_run(eng, fn):
+    """``fn()``, a prefill on ``eng`` returning its state: the state and
+    its record: seconds (device synchronised at both ends, the graphs'
+    capture seconds left out), the graphs captured and replayed meanwhile
+    (replays by region and width), the pool bytes they added, the
+    converted int8 weights' bytes and the digest of what it left."""
+    g = eng.graphs
+    c0, s0, p0 = g.captures, g.capture_s, g.pool_bytes
+    r0 = dict(g.replays_by)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = fn()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    cap = g.capture_s - s0
+    rep = {k: n - r0.get(k, 0) for k, n in g.replays_by.items()
+           if n != r0.get(k, 0)}
+    return st, dict(prefill_s=dt - cap, captures=g.captures - c0,
+                    capture_s=cap, pool_bytes=g.pool_bytes - p0,
+                    replays=rep, dense_bytes=_dense_bytes(eng),
+                    allocated_gib=torch.cuda.memory_allocated() / 2**30,
+                    digest=_digest(_prefill_tensors(
+                        st.kv, st.rkv, getattr(st, "dkv", None),
+                        st.next_token)))
+
+
+def prefill_line(what, g, e, unit="prefill"):
+    """The line of a prefill graph gate: the graphed run's record ``g``
+    (``_prefill_run``) beside the eager witness's ``e``."""
+    print(f"prefill graphs [{what}]: graphed {unit} {g['prefill_s']:.3f} s "
+          f"(+ {g['captures']} captures in {g['capture_s']:.3f} s, pool "
+          f"+{g['pool_bytes'] / 2**20:.1f} MiB), eager witness "
+          f"{e['prefill_s']:.3f} s; kv to seq_len, rkv, the drafter's "
+          f"window (if any), lengths and first token bit-equal "
+          f"({len(g['digest'])} tensors' word digests); replays "
+          f"{json.dumps(g['replays'])}; converted int8 "
+          f"weights {g['dense_bytes'] / 2**30:.2f} GiB; "
+          f"{g['allocated_gib']:.1f} GiB allocated", flush=True)
+    return {k: v for k, v in g.items() if k != "digest"} | dict(
+        eager_s=e["prefill_s"])
 
 
 def ar_gate_run(llama, eng, ids, seed, n=GATE_TOKENS):
@@ -1507,10 +1630,12 @@ def ar_gate_run(llama, eng, ids, seed, n=GATE_TOKENS):
 def spec_gate_run(eng, ids, mode, seed, alpha=None, n=GATE_TOKENS):
     """The steps of ``decoding.retrieval_spec`` / ``triforce`` (or, with
     ``alpha``, of ``generate_forced``) on ``eng``, for a gate."""
-    def run():
+    def prefill():
         st = eng.prefill_target(eng.init_state(seed), ids)
-        if mode == "triforce":
-            st = eng.prefill_draft(st, ids)
+        return eng.prefill_draft(st, ids) if mode == "triforce" else st
+
+    def run():
+        st, pre = _prefill_run(eng, prefill)
         c0 = eng.graphs.captures
         if alpha is None:
             (st, buf, m, c), dt = _timed(
@@ -1520,7 +1645,7 @@ def spec_gate_run(eng, ids, mode, seed, alpha=None, n=GATE_TOKENS):
                 lambda: eng.generate_forced(st, n, alpha, mode=mode))
         return dict(tokens=buf[:m].tolist(), counters=[int(x) for x in c],
                     seq_len=int(st.kv.seq_len), decode_s=dt, n=m - 1,
-                    captures=eng.graphs.captures - c0)
+                    captures=eng.graphs.captures - c0, prefill=pre)
     return run
 
 
@@ -1528,7 +1653,8 @@ def tree_gate_run(eng, ids, seed, alpha=None, steps=GATE_STEPS):
     """``tree_decode``'s first ``steps`` steps (or forced ones) on
     ``eng``, for a gate."""
     def run():
-        st = eng.prefill_target(eng.init_state(seed), ids)
+        st, pre = _prefill_run(
+            eng, lambda: eng.prefill_target(eng.init_state(seed), ids))
         toks, counters = [int(st.next_token[0])], []
         c0 = eng.graphs.captures
         torch.cuda.synchronize()
@@ -1542,7 +1668,7 @@ def tree_gate_run(eng, ids, seed, alpha=None, steps=GATE_STEPS):
         return dict(tokens=toks, counters=counters,
                     seq_len=int(st.kv.seq_len),
                     decode_s=time.perf_counter() - t0, n=len(toks) - 1,
-                    captures=eng.graphs.captures - c0)
+                    captures=eng.graphs.captures - c0, prefill=pre)
     return run
 
 
@@ -1578,10 +1704,24 @@ def graph_gate(what, fd, rk, graphed, eager):
                   f"differ from the eager witness's {e[key]}")
     if not g["captures"]:
         _fail(f"graph gate [{what}]: the graphed run captured no graph")
-    return dict(tokens=e["tokens"], n_tokens=e["n"],
-                eager_ms_per_token=1e3 * e["decode_s"] / max(e["n"], 1),
-                gate_captures=g["captures"],
-                launches=sum(e["launches"].values()))
+    out = dict(tokens=e["tokens"], n_tokens=e["n"],
+               eager_ms_per_token=1e3 * e["decode_s"] / max(e["n"], 1),
+               gate_captures=g["captures"],
+               launches=sum(e["launches"].values()))
+    if "prefill" in g:
+        # the prefill's own gate: its caches and first token bit-equal
+        gp, ep = g["prefill"], e["prefill"]
+        if gp["digest"] != ep["digest"]:
+            bad = [i for i, (a, b) in enumerate(zip(gp["digest"],
+                                                    ep["digest"])) if a != b]
+            _fail(f"prefill graph gate [{what}]: the graphed prefill left "
+                  f"other bits than the eager witness's (tensors {bad} of "
+                  f"kv length, first token, kv, rkv, dkv planes)")
+        if not gp["captures"] or ep["captures"]:
+            _fail(f"prefill graph gate [{what}]: {gp['captures']} graphed "
+                  f"captures, {ep['captures']} eager")
+        out["prefill"] = prefill_line(what, gp, ep)
+    return out
 
 
 def mode_graphs(what, d, ms_graphed, timed_tokens, gate):
@@ -1637,19 +1777,19 @@ def end_to_end(tc, decoding, llama, eng, fd, rk, dev, prefill, quant):
     # --- AR
     _reset(fd, rk)
     snap = _snap(eng.graphs)
-    t0 = time.perf_counter()
     r = decoding.autoregressive(eng, ids, max_len=GEN, seed=0,
                                 device=dev)
-    total = time.perf_counter() - t0
-    d = _since(eng.graphs, snap)
+    d = _decode_since(eng.graphs, snap, r)
     check_tokens("ar", r.tokens)
     if len(r.tokens) != GEN + 1:
         _fail(f"{tag}ar: wrong token count")
     counts("ar", L * (pre_fwd + GEN), 0)
-    prefill_s = total - r.wall_s - r.capture_s
     res["ar"] = dict(ms_per_token=1e3 / r.tokens_per_sec,
-                     prefill_s=prefill_s, tokens=len(r.tokens))
-    print(f"{tag}AR: prefill {prefill_s:.2f} s, "
+                     prefill_s=r.prefill_s, tokens=len(r.tokens),
+                     prefill_captures=r.prefill_captures,
+                     prefill_capture_s=r.prefill_capture_s)
+    print(f"{tag}AR: prefill {r.prefill_s:.2f} s (+ {r.prefill_captures} "
+          f"captures in {r.prefill_capture_s:.2f} s), "
           f"{1e3 / r.tokens_per_sec:.3f} ms/token", flush=True)
     res["graphs"]["ar"] = mode_graphs(
         tag + "ar", d, 1e3 / r.tokens_per_sec, r.tokens,
@@ -1662,22 +1802,23 @@ def end_to_end(tc, decoding, llama, eng, fd, rk, dev, prefill, quant):
                      ("triforce", decoding.triforce)):
         _reset(fd, rk)
         snap = _snap(eng.graphs)
-        t0 = time.perf_counter()
         r = fn(eng, ids, max_len=GEN, seed=1, device=dev)
-        total = time.perf_counter() - t0
-        d = _since(eng.graphs, snap)
+        d = _decode_since(eng.graphs, snap, r)
         check_tokens(mode, r.tokens)
         if len(r.tokens) < GEN + 1:
             _fail(f"{tag}{mode}: generated too few tokens")
         # every step: its middle verifies + one full-cache verify
         counts(mode, L * (pre_fwd + r.middle_verifies + r.steps), L)
-        prefill_s = total - r.wall_s - r.capture_s
         res[mode] = dict(ms_per_token=1e3 / r.tokens_per_sec,
-                         prefill_s=prefill_s, steps=r.steps,
+                         prefill_s=r.prefill_s, steps=r.steps,
+                         prefill_captures=r.prefill_captures,
+                         prefill_capture_s=r.prefill_capture_s,
                          acceptance_rate=r.acceptance_rate,
                          avg_tokens_per_step=r.avg_tokens_per_step,
                          middle_verifies=r.middle_verifies)
-        print(f"{tag}{mode}: prefill {prefill_s:.2f} s, "
+        print(f"{tag}{mode}: prefill {r.prefill_s:.2f} s (+ "
+              f"{r.prefill_captures} captures in "
+              f"{r.prefill_capture_s:.2f} s), "
               f"{1e3 / r.tokens_per_sec:.3f} ms/token, {r.steps} steps, "
               f"acceptance {r.acceptance_rate:.3f}, "
               f"{r.avg_tokens_per_step:.2f} tokens/step", flush=True)
@@ -1688,18 +1829,17 @@ def end_to_end(tc, decoding, llama, eng, fd, rk, dev, prefill, quant):
         torch.cuda.empty_cache()
 
     # --- TriForce at forced acceptance 0.9 (every forward still runs)
-    state = eng.init_state(2)
-    torch.cuda.synchronize()
     _reset(fd, rk)
-    t0 = time.perf_counter()
-    state = eng.prefill_target(state, ids)
-    torch.cuda.synchronize()
-    t_pt = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    state = eng.prefill_draft(state, ids)
-    torch.cuda.synchronize()
-    t_pd = time.perf_counter() - t0
+    state, pt = _prefill_run(
+        eng, lambda: eng.prefill_target(eng.init_state(2), ids))
+    state, pd = _prefill_run(eng, lambda: eng.prefill_draft(state, ids))
+    t_pt, t_pd = pt["prefill_s"], pd["prefill_s"]
     counts("prefill_target", L * pre_fwd, L)
+    print(f"{tag}graphed prefill (seed 2): target {t_pt:.3f} s (+ "
+          f"{pt['captures']} captures in {pt['capture_s']:.3f} s, replays "
+          f"{json.dumps(pt['replays'])}), drafter {t_pd:.3f} s (+ "
+          f"{pd['captures']} captures in {pd['capture_s']:.3f} s, replays "
+          f"{json.dumps(pd['replays'])})", flush=True)
     _reset(fd, rk)
     snap = _snap(eng.graphs)
     t0 = time.perf_counter()
@@ -1874,23 +2014,25 @@ def tree_end_to_end(tc, planner, spectree, fd, rk, dev, params, prefill,
     # --- tree_decode, the entry point a user calls
     _reset(fd, rk)
     snap = _snap(eng.graphs)
-    t0 = time.perf_counter()
     r = spectree.tree_decode(eng, ids, max_len=TREE_GEN, seed=1, device=dev)
-    total = time.perf_counter() - t0
-    d = _since(eng.graphs, snap)
+    d = _decode_since(eng.graphs, snap, r)
     check_tokens("tree_decode", r.tokens)
     if len(r.tokens) < TREE_GEN + 1:
         _fail(f"{tag}tree_decode: generated too few tokens")
     counts("tree_decode", L * (pre_fwd + r.steps), L, L * fwd * r.steps)
     if not r.steps:
         _fail(f"{tag}tree_decode: the partials kernel was never launched")
-    prefill_s = total - r.wall_s - r.capture_s
+    prefill_s = r.prefill_s
     res["tree_decode"] = dict(
         prefill_s=prefill_s, steps=r.steps,
+        prefill_captures=r.prefill_captures,
+        prefill_capture_s=r.prefill_capture_s,
         tokens=len(r.tokens) - 1, ms_per_step=1e3 * r.wall_s / r.steps,
         tokens_per_step=r.avg_tokens_per_step,
         ms_per_token=1e3 / r.tokens_per_sec)
-    print(f"{tag}tree_decode: prefill {prefill_s:.2f} s, {r.steps} "
+    print(f"{tag}tree_decode: prefill {prefill_s:.2f} s (+ "
+          f"{r.prefill_captures} captures in {r.prefill_capture_s:.2f} s), "
+          f"{r.steps} "
           f"steps, {1e3 * r.wall_s / r.steps:.1f} ms/step, "
           f"{r.avg_tokens_per_step:.2f} tokens/step, "
           f"{1e3 / r.tokens_per_sec:.3f} ms/token", flush=True)
@@ -2098,14 +2240,45 @@ def rows_equal_batch1(tc, llama, Engine, bs, dev, quant, layers=2,
                 logit_drift_of_4_ulps=drift)
 
 
+def _record_admissions(sched, row_view):
+    """Wrap ``sched._admit_one``: as a request's admission completes, the
+    digest of its slot's row (``_prefill_tensors``: kv to its length,
+    retrieval cache, drafter window, lengths, first token; the AR pool's
+    kv and token) lands in ``sched.admitted`` by request id. The digests'
+    seconds are kept in ``sched.digest_s`` (the admission clock holds
+    them); ``sched.replays0`` is the graph set's replays before the run."""
+    sched.admitted, sched.digest_s = {}, 0.0
+    sched.replays0 = dict(sched.graphs.replays_by)
+    admit = sched._admit_one
+
+    def admit_one(slot, req):
+        done = admit(slot, req)
+        if done:
+            t0 = time.perf_counter()
+            st = sched.state
+            rows = [row_view(c, slot) if c is not None else None
+                    for c in (st.kv, getattr(st, "rkv", None),
+                              getattr(st, "dkv", None))]
+            tok = getattr(st, "next_token", getattr(st, "tokens", None))
+            sched.admitted[req.rid] = _digest(_prefill_tensors(
+                *rows, tok[slot]))
+            sched.digest_s += time.perf_counter() - t0
+        return done
+    sched._admit_one = admit_one
+    return sched
+
+
 def serve_gate(what, fd, rk, run_graphed, run_eager):
     """A serving graph gate: ``run_*()`` serve the same requests through a
-    graphed and an eager scheduler and return (scheduler, finished
-    requests); every request's tokens, the steps, the target forwards and
-    the launch counts must be equal. Returns the graphed (scheduler,
-    requests), its launch counts and the gate's numbers; the scheduler's
-    pool is dropped before the witness runs (``drained``: its slots'
-    lengths at the end), so that the two pools never live at once."""
+    graphed and an eager scheduler (their admissions recorded by
+    ``_record_admissions``) and return (scheduler, finished requests);
+    every request's tokens, the steps, the target forwards, the launch
+    counts and every admitted row's digest must be equal (the admission's
+    prefill gate: line "prefill graphs [... admission]"). Returns the
+    graphed (scheduler, requests), its launch counts and the gate's
+    numbers; the scheduler's pool is dropped before the witness runs
+    (``drained``: its slots' lengths at the end), so that the two pools
+    never live at once."""
     out = {}
     for tag, fn in (("graphed", run_graphed), ("eager", run_eager)):
         _reset(fd, rk)
@@ -2113,13 +2286,19 @@ def serve_gate(what, fd, rk, run_graphed, run_eager):
         torch.cuda.synchronize()
         launches = {k: f.launches for k, f in _wrappers(fd, rk).items()}
         st = sched.stats
+        st["admit_s"] -= sched.digest_s
+        sched.admit_replays = {
+            k: n - sched.replays0.get(k, 0)
+            for k, n in sched.graphs.replays_by.items()
+            if n != sched.replays0.get(k, 0) and k.split()[0] in (
+                "prefill", "build", "draft_prefill")}
         out[tag] = (sched, done, launches,
                     dict(tokens=sorted((r.rid, r.out) for r in done),
                          steps=st["steps"],
                          target_forwards=st["target_forwards"],
-                         launches=launches))
+                         launches=launches, admitted=sched.admitted))
         sched.drained = sched.state.kv.seq_len.tolist()
-        sched.state = None
+        sched.state = sched._row = sched._rows = None   # the pool, the row
         sched.graphs.release()
         del sched
         torch.cuda.empty_cache()
@@ -2127,11 +2306,30 @@ def serve_gate(what, fd, rk, run_graphed, run_eager):
     for key in g:
         if g[key] != e[key]:
             _fail(f"graph gate [{what}]: the graphed run's {key} differ "
-                  f"from the eager witness's ({g[key]} != {e[key]})")
-    est = out["eager"][0].stats
+                  f"from the eager witness's"
+                  + ("" if key == "admitted" else f" ({g[key]} != {e[key]})"))
+    gs, es = out["graphed"][0], out["eager"][0]
+    if len(g["admitted"]) != len(g["tokens"]) \
+            or not gs.stats["admit_captures"] or es.stats["admit_captures"]:
+        _fail(f"graph gate [{what}]: {len(g['admitted'])} admissions "
+              f"recorded, {gs.stats['admit_captures']} graphed captures, "
+              f"{es.stats['admit_captures']} eager")
+    st = gs.stats
+    dense = _dense_bytes(gs.engine) if hasattr(gs, "engine") else 0
+    print(f"prefill graphs [{what} admission]: graphed admit "
+          f"{st['admit_s']:.3f} s (+ {st['admit_captures']} captures in "
+          f"{st['admit_capture_s']:.3f} s), eager witness "
+          f"{es.stats['admit_s']:.3f} s; {len(g['admitted'])} admitted "
+          f"rows (each cache of the slot, kv to its length; lengths, first "
+          f"token) bit-equal (word digests), launches equal; replays "
+          f"{json.dumps(gs.admit_replays)}; converted int8 weights "
+          f"{dense / 2**30:.2f} GiB", flush=True)
+    est = es.stats
     decoded = sum(len(r.out) - 1 for r in out["eager"][1])
     gate = dict(eager_tokens_per_s=decoded / est["decode_s"],
                 eager_decode_s=est["decode_s"],
+                eager_admit_s=est["admit_s"],
+                admit_replays=gs.admit_replays,
                 requests=len(out["eager"][1]))
     return out["graphed"][0], out["graphed"][1], out["graphed"][2], gate
 
@@ -2187,13 +2385,17 @@ def batched_end_to_end(tc, llama, Engine, bs, batching, fd, rk, dev, tp, dp,
                    decode_tokens=decoded,
                    tokens_per_s=decoded / st["decode_s"],
                    captures=st["captures"], capture_s=st["capture_s"],
-                   **gate)
+                   admit_captures=st["admit_captures"],
+                   admit_capture_s=st["admit_capture_s"], **gate)
         print(f"{tag}{what}: {SERVE_REQUESTS} requests x {SERVE_NEW} tokens "
               f"through {ROWS} slots: {out['tokens_per_s']:.1f} tokens/s "
               f"over decode segments (eager witness "
               f"{gate['eager_tokens_per_s']:.1f}; every request's tokens, "
               f"the steps and the launch counts equal), admit "
-              f"{st['admit_s']:.2f} s, decode {st['decode_s']:.2f} s, "
+              f"{st['admit_s']:.2f} s (+ {st['admit_captures']} captures in "
+              f"{st['admit_capture_s']:.2f} s; eager witness "
+              f"{gate['eager_admit_s']:.2f} s), decode "
+              f"{st['decode_s']:.2f} s, "
               f"{st['steps']} steps, {st['target_forwards']} batched target "
               f"forwards; {st['captures']} captures in "
               f"{st['capture_s']:.3f} s", flush=True)
@@ -2258,9 +2460,9 @@ def batched_end_to_end(tc, llama, Engine, bs, batching, fd, rk, dev, tp, dp,
     # --- (b) speculative serving: chunked admission between segments
     def spec_serving(e, b):
         def run():
-            sched = bs.SpecScheduler(e, mode="triforce", slots=ROWS,
-                                     segment=SERVE_SEGMENT, bat=b,
-                                     admit_chunks=4)
+            sched = _record_admissions(bs.SpecScheduler(
+                e, mode="triforce", slots=ROWS, segment=SERVE_SEGMENT,
+                bat=b, admit_chunks=4), bs.row_view)
             for i, p in enumerate(prompts):
                 sched.submit(batching.Request(rid=i, prompt=p[0].numpy(),
                                               max_new_tokens=SERVE_NEW))
@@ -2296,12 +2498,11 @@ def batched_end_to_end(tc, llama, Engine, bs, batching, fd, rk, dev, tp, dp,
 
     def ar_serving(graphs):
         def run():
-            ar = batching.Scheduler(tcfg, spec, eng.t_params, batch=ROWS,
-                                    max_len=P + SERVE_NEW + 16,
-                                    prefill_chunk=chunk,
-                                    dtype=torch.bfloat16, segment=16,
-                                    device=dev, eos_token_id=-1,
-                                    graphs=graphs)
+            ar = _record_admissions(batching.Scheduler(
+                tcfg, spec, eng.t_params, batch=ROWS,
+                max_len=P + SERVE_NEW + 16, prefill_chunk=chunk,
+                dtype=torch.bfloat16, segment=16, device=dev,
+                eos_token_id=-1, graphs=graphs), bs.row_view)
             for i, p in enumerate(prompts):
                 ar.submit(batching.Request(rid=i, prompt=p[0].numpy(),
                                            max_new_tokens=SERVE_NEW))
@@ -2508,60 +2709,67 @@ def cli_serve_gate(tag, fd, rk, bs, data, eng, sched, done, vocab,
     return out
 
 
-def build_trace(llama, profiling, rk, eng, state, tmp):
+def build_trace(profiling, rk, eng, state, tmp):
     """One retrieval build of ``eng`` (the 1-token forward that scores and
-    gathers every layer, eager as the engine runs it), timed on the host
-    clock alone and then under the profiler: the device time of its
-    kernels, the span from the first kernel's start to the last one's end,
-    and B2's device time and launches, so B2's share of the build is read
-    beside the build's wall time. The cache slot the forward writes is put
-    back."""
-    sp, kv = eng.spec, state.kv
+    gathers every layer, ``Engine._build``) replayed from its graph, and
+    the same build on the eager witness: each timed on the host clock
+    alone and then under the profiler: the device time of its kernels, the
+    span from the first kernel's start to the last one's end, and B2's
+    device time and launches, so B2's share of the build is read beside
+    the build's wall. The cache slot the forward writes is put back."""
     scratch = state.rkv.clone()
     ids = torch.zeros((1, 1), dtype=torch.int64, device=eng.device)
-
-    def build():
-        llama.forward_append(eng.target_cfg, eng.t_params, ids, kv,
-                             build_rkv=scratch, prefill=eng.prefill,
-                             chunk_size=sp.chunk_size, budget=sp.budget)
 
     def b2_launches():
         return rk.chunk_scores.launches + rk.chunk_scores_int8.launches
 
-    with profiling._slots_restored(kv, 1):
-        build()                                  # warm
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        build()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-        n0 = b2_launches()
-        t0 = time.perf_counter()
-        with profiling.trace(os.path.join(tmp, "trace_build")) as prof:
+    res = {}
+    with profiling._slots_restored(state.kv, 1):
+        for tag, e in (("graphed", eng), ("eager", _eager_twin(eng))):
+            def build():
+                e._build(state.kv, scratch, ids)
+            build()                  # warm: the first call, then the capture
             build()
             torch.cuda.synchronize()
-        wall_prof = (time.perf_counter() - t0) * 1e3
-        n = b2_launches() - n0
+            t0 = time.perf_counter()
+            build()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            n0 = b2_launches()
+            t0 = time.perf_counter()
+            with profiling.trace(os.path.join(tmp, "trace_build_" + tag)) \
+                    as prof:
+                build()
+                torch.cuda.synchronize()
+            wall_prof = (time.perf_counter() - t0) * 1e3
+            n = b2_launches() - n0
+            kern = [ev for ev in prof.events()
+                    if str(ev.device_type).endswith("CUDA") and ev.name]
+            if not kern:
+                print(f"cli build trace [{tag}]: {wall:.3f} ms wall; device "
+                      f"time not measured (none in the trace)", flush=True)
+                res[tag] = dict(wall_ms=wall, b2_launches=n)
+                continue
+            busy = sum(ev.time_range.end - ev.time_range.start
+                       for ev in kern) / 1e3
+            b2 = sum(ev.time_range.end - ev.time_range.start for ev in kern
+                     if "cs_kernel" in ev.name) / 1e3
+            span = (max(ev.time_range.end for ev in kern)
+                    - min(ev.time_range.start for ev in kern)) / 1e3
+            res[tag] = dict(wall_ms=wall, wall_ms_profiled=wall_prof,
+                            device_ms=busy, device_span_ms=span, b2_ms=b2,
+                            b2_launches=n, device_ops=len(kern))
+            print(f"cli build trace [{tag}]: one retrieval build {wall:.3f} "
+                  f"ms wall ({wall_prof:.3f} under the profiler); "
+                  f"{len(kern)} device operations, busy {busy:.3f} ms over a "
+                  f"{span:.3f} ms span; B2 {b2:.4f} ms in {n} launches: "
+                  f"{b2 / max(busy, 1e-9):.2%} of the device time, "
+                  f"{b2 / wall:.2%} of the wall", flush=True)
     del scratch
-    kern = [e for e in prof.events()
-            if str(e.device_type).endswith("CUDA") and e.name]
-    if not kern:
-        print("cli build trace: not measured (no device time in the trace)",
-              flush=True)
-        return dict(wall_ms=wall, b2_launches=n)
-    busy = sum(e.time_range.end - e.time_range.start for e in kern) / 1e3
-    b2 = sum(e.time_range.end - e.time_range.start for e in kern
-             if "cs_kernel" in e.name) / 1e3
-    span = (max(e.time_range.end for e in kern)
-            - min(e.time_range.start for e in kern)) / 1e3
-    res = dict(wall_ms=wall, wall_ms_profiled=wall_prof, device_ms=busy,
-               device_span_ms=span, b2_ms=b2, b2_launches=n,
-               device_ops=len(kern))
-    print(f"cli build trace: one retrieval build (eager) {wall:.3f} ms wall "
-          f"({wall_prof:.3f} under the profiler); {len(kern)} device "
-          f"operations, busy {busy:.3f} ms over a {span:.3f} ms span; B2 "
-          f"{b2:.4f} ms in {n} launches: {b2 / max(busy, 1e-9):.2%} of the "
-          f"device time, {b2 / wall:.2%} of the wall", flush=True)
+    if res["graphed"]["b2_launches"] != res["eager"]["b2_launches"]:
+        _fail("cli build trace: the replayed build launched B2 "
+              f"{res['graphed']['b2_launches']} times, the eager one "
+              f"{res['eager']['b2_launches']}")
     return res
 
 
@@ -2701,15 +2909,18 @@ def cli_phase(tc, llama, Engine, cli, hf, ckpt, data, decoding, profiling,
             st = sched.stats
             decoded = sum(len(r.out) - 1 for r in out)
             row = dict(admit_s=st["admit_s"], decode_s=st["decode_s"],
+                       admit_captures=st["admit_captures"],
+                       admit_capture_s=st["admit_capture_s"],
                        steps=st["steps"], decode_tokens=decoded,
                        tokens_per_s=decoded / st["decode_s"],
                        target_forwards=st["target_forwards"])
             print(f"cli {tag}: {n} requests x <= {CLI_SERVE_GEN} tokens "
                   f"through {CLI_SERVE_ROWS} slots: "
                   f"{row['tokens_per_s']:.1f} tokens/s over decode segments, "
-                  f"admit {st['admit_s']:.2f} s, decode {st['decode_s']:.2f}"
-                  f" s, {st['steps']} steps; load {load_s[0]:.2f} s, call "
-                  f"{total:.1f} s", flush=True)
+                  f"admit {st['admit_s']:.2f} s (+ {st['admit_captures']} "
+                  f"captures in {st['admit_capture_s']:.2f} s), decode "
+                  f"{st['decode_s']:.2f} s, {st['steps']} steps; load "
+                  f"{load_s[0]:.2f} s, call {total:.1f} s", flush=True)
         else:
             r = out
             if not all(0 <= t < cfg.vocab_size for t in r.tokens):
@@ -2765,17 +2976,20 @@ def cli_phase(tc, llama, Engine, cli, hf, ckpt, data, decoding, profiling,
                     got = _check_counts(
                         fd, rk, f"cli {tag}", quant,
                         L * (pre + r.middle_verifies + r.steps), L)
-            prefill_s = total - load_s[0] - setup_s - r.wall_s - r.capture_s
             row = dict(ms_per_token=1e3 / r.tokens_per_sec,
                        tokens_per_step=r.avg_tokens_per_step,
                        acceptance_rate=r.acceptance_rate, steps=r.steps,
-                       tokens=len(r.tokens) - 1, prefill_s=prefill_s,
+                       tokens=len(r.tokens) - 1, prefill_s=r.prefill_s,
+                       prefill_captures=r.prefill_captures,
+                       prefill_capture_s=r.prefill_capture_s,
                        load_s=load_s[0], setup_s=setup_s, call_s=total)
             print(f"cli {tag}: {row['ms_per_token']:.3f} ms/token, "
                   f"{r.avg_tokens_per_step:.2f} tokens/step, acceptance "
                   f"{r.acceptance_rate:.3f}, {r.steps} steps, prefill "
-                  f"{prefill_s:.2f} s (load {load_s[0]:.2f} s, engine set-up "
-                  f"{setup_s:.2f} s, call {total:.1f} s)", flush=True)
+                  f"{r.prefill_s:.2f} s (+ {r.prefill_captures} captures in "
+                  f"{r.prefill_capture_s:.2f} s; load {load_s[0]:.2f} s, "
+                  f"engine set-up {setup_s:.2f} s, call {total:.1f} s)",
+                  flush=True)
         res["launches"][tag] = got
         res["runs"][tag] = row
         outs[tag] = out
@@ -2847,7 +3061,7 @@ def cli_phase(tc, llama, Engine, cli, hf, ckpt, data, decoding, profiling,
         print(f"  {ms:9.3f} ms  x{c:<5d} {n[:110]}", flush=True)
     if not ops:
         print("  (no device time in the trace)", flush=True)
-    res["build_trace"] = build_trace(llama, profiling, rk, eng, state, tmp)
+    res["build_trace"] = build_trace(profiling, rk, eng, state, tmp)
     eng.release_graphs()
     del eng, state, tp, dp
     torch.cuda.empty_cache()

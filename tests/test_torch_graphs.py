@@ -227,20 +227,25 @@ def test_staged_tree_matches_jax_near_greedy(weights):
 @pytest.mark.parametrize("mode", ["retrieval", "triforce"])
 def test_staged_batched_equals_eager(weights, mode):
     """The rows forwards through static buffers: every row's tokens, counts
-    and lengths as the eager batched engine's; the captures are those of
-    one state (middle verify, target verify; with a drafter its chain
-    forward and its replay)."""
+    and lengths as the eager batched engine's; the decode captures are
+    those of one state (middle verify, target verify; with a drafter its
+    chain forward and its replay), the prefill's one drafter chunk graph a
+    row (each row is a new batch-1 state; its target chunk and build run
+    once)."""
     prompts = [torch.from_numpy(_ids(s)) for s in (1, 2, 3)]
     out = []
     for staged in (True, False):
         eng = _t_engine(weights, staged=staged, max_cache_len=PREFILL + 96)
         bat = tbs.BatchedSpecEngine(eng, mode=mode)
         state = bat.prefill_rows(prompts, [7, 8, 9])
+        pre = eng.graphs.captures
         state, toks, ns, c, eos = bat.decode(state, 4)
         out.append((toks.tolist(), ns.tolist(), c.tolist(),
-                    state.kv.seq_len.tolist(), eng.graphs.captures))
+                    state.kv.seq_len.tolist(), eng.graphs.captures - pre,
+                    pre))
     assert out[0][:4] == out[1][:4]
     assert out[0][4] == (4 if mode == "triforce" else 2)
+    assert out[0][5] == (3 if mode == "triforce" else 0)
 
 
 def test_staged_batched_matches_jax_near_greedy(weights):
@@ -280,9 +285,13 @@ def test_staged_ar_scheduler_equals_eager(weights):
                                            max_new_tokens=8))
         done = sched.run()
         out.append((sorted((r.rid, r.out) for r in done),
-                    sched.graphs.captures, sched.stats["captures"]))
+                    sched.graphs.captures, sched.stats["captures"],
+                    sched.stats["admit_captures"]))
     assert out[0][0] == out[1][0]
-    assert out[0][1] == out[0][2] == 1 and out[1][1] == 0
+    # one decode step graph; the third request, admitted into a slot that
+    # was used before, captures that slot's chunk and its last chunk
+    assert out[0][2] == 1 and out[0][3] == 2 and out[1][1] == 0
+    assert out[0][1] == out[0][2] + out[0][3]
 
 
 # ---------------------------------------------------------------------------
@@ -292,18 +301,19 @@ def test_staged_ar_scheduler_equals_eager(weights):
 def test_same_state_reuses_its_graphs_a_clone_gets_new_ones(weights):
     eng = _t_engine(weights, staged=True)
     state = _prefilled(eng, _ids())
+    pre = eng.graphs.captures     # the drafter prefill's chunk
     step = eng._step_fn("triforce", None)
     for _ in range(3):
         state, _ = step(state)
-    caps = eng.graphs.captures
-    assert caps == 4          # drafter, middle verify, verify, replay
+    caps = eng.graphs.captures - pre
+    assert pre == 1 and caps == 4   # drafter, middle verify, verify, replay
     for _ in range(3):
         state, _ = step(state)
-    assert eng.graphs.captures == caps
+    assert eng.graphs.captures == pre + caps
     twin = state.clone()
     for _ in range(2):
         twin, _ = step(twin)
-    assert eng.graphs.captures == 2 * caps
+    assert eng.graphs.captures == pre + 2 * caps
     eng.release_graphs()
     assert eng.graphs.stats()["graphs"] == 0
 

@@ -12,6 +12,7 @@ against the single-row ones row by row, bit for bit, and the partials
 kernels (B4, B4-int8) merged with a new block against B1.
 """
 
+import dataclasses
 import random
 
 import pytest
@@ -775,6 +776,49 @@ def test_graphed_engine_equals_eager(dev, quant, mode, alpha):
 
 
 @pytest.mark.parametrize("quant", [False, True])
+def test_graphed_prefill_equals_eager(dev, quant):
+    """Three prefills (target, build, drafter) into one state of the
+    graphed engine, the second capturing the remainder and the build, the
+    third replaying every region, each leave the eager engine's caches,
+    lengths, first token and generator bit for bit, with its launches."""
+    ge, ee = _card_engines(dev, quant)
+    ids = _prompt(dev, 5)
+
+    def prefill(eng, st):
+        st = eng.prefill_draft(eng.prefill_target(st, ids), ids)
+        torch.cuda.synchronize()
+        return st
+
+    _zero_launches()
+    want = prefill(ee, ee.init_state(3))
+    want_launches = _launches()
+    st = ge.init_state(3)
+    for rnd in range(3):
+        row = dataclasses.replace(
+            st, kv=dataclasses.replace(st.kv, seq_len=torch.zeros_like(
+                st.kv.seq_len)),
+            dkv=dataclasses.replace(st.dkv, seq_len=torch.zeros_like(
+                st.dkv.seq_len)),
+            gen=torch.Generator(device=dev).manual_seed(3))
+        c0 = ge.graphs.captures
+        _zero_launches()
+        got = prefill(ge, row)
+        assert _launches() == want_launches and any(want_launches)
+        n = int(want.kv.seq_len)
+        assert int(got.kv.seq_len) == n
+        for a, b in zip(tgraphs.planes(got.kv), tgraphs.planes(want.kv)):
+            assert torch.equal(a[:, :, :, :n], b[:, :, :, :n])
+        for a, b in zip(tgraphs.planes(got.rkv, got.dkv),
+                        tgraphs.planes(want.rkv, want.dkv)):
+            assert torch.equal(a, b)
+        assert int(got.dkv.seq_len) == int(want.dkv.seq_len)
+        assert torch.equal(got.next_token, want.next_token)
+        assert torch.equal(got.gen.get_state(), want.gen.get_state())
+        if rnd == 2:
+            assert ge.graphs.captures == c0     # every region replayed
+
+
+@pytest.mark.parametrize("quant", [False, True])
 def test_graphed_tree_equals_eager(dev, quant):
     pv = tplanner.modeled_acceptance_vector(0.8, 4)
     gm = tplanner.build_grow_map(*tplanner.plan_tree(pv, 16, 5), 16, 5)
@@ -808,18 +852,20 @@ def test_graphed_batched_equals_eager(dev, quant, mode):
     for eng in (ge, ee):
         bat = tbs.BatchedSpecEngine(eng, mode=mode)
         state = bat.prefill_rows(prompts, [11, 12, 13])
+        pre = eng.graphs.captures
         _zero_launches()
         state, toks, ns, c, _ = bat.decode(state, 4)
         torch.cuda.synchronize()
         out[eng is ge] = (toks.tolist(), ns.tolist(), c.tolist(),
                           state.kv.seq_len.tolist(), _launches(),
-                          [g.get_state() for g in state.gens])
+                          [g.get_state() for g in state.gens],
+                          eng.graphs.captures - pre)
     g, e = out[True], out[False]
     assert g[:5] == e[:5] and any(g[4])
     assert all(torch.equal(a, b) for a, b in zip(g[5], e[5]))
     # rows forwards: middle verify and target verify, with a drafter its
-    # chain forward and its replay
-    assert ge.graphs.captures == (4 if mode == "triforce" else 2)
+    # chain forward and its replay (the rows' prefill graphs apart)
+    assert g[6] == (4 if mode == "triforce" else 2)
 
 
 def test_graphed_ar_scheduler_equals_eager(dev):
@@ -836,9 +882,9 @@ def test_graphed_ar_scheduler_equals_eager(dev):
                 max_new_tokens=10))
         done = sched.run()
         out[graphs] = (sorted((r.rid, r.out) for r in done),
-                       sched.graphs.captures)
+                       sched.stats["captures"], sched.graphs.captures)
     assert out[True][0] == out[False][0]
-    assert out[True][1] == 1 and out[False][1] == 0
+    assert out[True][1] == 1 and out[False][2] == 0
 
 
 def test_graphs_refuse_the_cpu():

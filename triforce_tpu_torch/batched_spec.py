@@ -230,7 +230,10 @@ class SpecScheduler(batching.SchedulerBase):
 
     Admission is CHUNKED: each scheduler cycle advances the pending prefill
     by ``admit_chunks`` prefill chunks, then a decode segment runs, so live
-    slots keep decoding while a long prompt streams in."""
+    slots keep decoding while a long prompt streams in. Every request is
+    prefilled into one reused batch-1 row (``_reset_row``), so the
+    prefill's graphs, the retrieval build's among them, replay from the
+    second request on."""
 
     @staticmethod
     def required_headroom(gen_len: int, segment: int, gamma: int) -> int:
@@ -263,6 +266,10 @@ class SpecScheduler(batching.SchedulerBase):
         self.state = blank_stacked_state(
             engine, slots, [seed * 1000 + i for i in range(slots)])
         self._pending = None   # in-flight chunked admission
+        # the batch-1 row every request is prefilled into: one set of cache
+        # planes, so the prefill's graphs (chunks, build, drafter chunks)
+        # are captured once and replay for every later request
+        self._row = engine.init_state(0)
 
     def _admitting(self) -> bool:
         return self._pending is not None
@@ -275,7 +282,7 @@ class SpecScheduler(batching.SchedulerBase):
             if ids.dim() == 1:
                 ids = ids[None]
             self._pending = {"req": req, "ids": ids, "pos": 0,
-                             "row": eng.init_state(req.rid)}
+                             "row": self._reset_row(req.rid)}
         p = self._pending
         row, pos, done = eng.prefill_target_partial(
             p["row"], p["ids"], p["pos"], self.admit_chunks)
@@ -289,6 +296,25 @@ class SpecScheduler(batching.SchedulerBase):
         self.state = write_state_row(self.state, row, slot)
         self._pending = None
         return True
+
+    def _reset_row(self, rid: int) -> TriForceState:
+        """The admission row, reset for request ``rid``: zero lengths and a
+        fresh generator seeded with ``rid`` (the slot takes this object).
+        The engine fixes the prompt's length, so every request's prefill
+        writes the same slots of each cache (the retrieval budget whole)
+        and the row then holds what a fresh state would: nothing of the
+        request before survives."""
+        row = self._row
+        dkv = row.dkv
+        if dkv is not None:
+            dkv = dataclasses.replace(dkv, seq_len=torch.zeros_like(
+                dkv.seq_len))
+        return TriForceState(
+            kv=dataclasses.replace(row.kv, seq_len=torch.zeros_like(
+                row.kv.seq_len)),
+            rkv=row.rkv, dkv=dkv, next_token=torch.zeros_like(
+                row.next_token),
+            gen=torch.Generator(device=self.engine.device).manual_seed(rid))
 
     def _decode_segment(self):
         before = self.bat.target_forwards

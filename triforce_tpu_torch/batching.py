@@ -35,7 +35,7 @@ import torch
 from . import graphs as graphs_mod
 from .cache import KVCache, init_kv_rows, row_view, set_entry
 from .config import ModelConfig, SpecConfig, resolve_device
-from .engine import _as_eos_tuple
+from .engine import _as_eos_tuple, append_graphed, prefill_chunks
 from .models import llama
 from .ops import sampling
 
@@ -173,13 +173,14 @@ class SchedulerBase:
 
     @staticmethod
     def _blank_stats() -> dict:
-        """Wall seconds in admission and in decode segments (without the
-        seconds of the CUDA graphs captured in them, ``capture_s``), prompt
-        tokens prefilled, batched decode steps and the target forwards they
-        ran, graphs captured."""
+        """Wall seconds in admission and in decode segments, each without
+        the seconds of the CUDA graphs captured in it (``admit_capture_s``
+        / ``capture_s``, counted in ``admit_captures`` / ``captures``),
+        prompt tokens prefilled, batched decode steps and the target
+        forwards they ran."""
         return {"admit_s": 0.0, "decode_s": 0.0, "prefill_tokens": 0,
                 "steps": 0, "target_forwards": 0, "capture_s": 0.0,
-                "captures": 0}
+                "captures": 0, "admit_capture_s": 0.0, "admit_captures": 0}
 
     def submit(self, req: Request) -> None:
         self.queue.append(req)
@@ -218,9 +219,13 @@ class SchedulerBase:
                or any(r is not None for r in self.slot_req)) \
                 and time.perf_counter() - t0 < max_wall_s:
             ta = time.perf_counter()
+            c0, s0 = self.graphs.captures, self.graphs.capture_s
             self._admit()
             self._sync()
-            self.stats["admit_s"] += time.perf_counter() - ta
+            cap = self.graphs.capture_s - s0
+            self.stats["admit_s"] += time.perf_counter() - ta - cap
+            self.stats["admit_capture_s"] += cap
+            self.stats["admit_captures"] += self.graphs.captures - c0
             if not any(r is not None for r in self.slot_req):
                 continue   # nothing live yet (admission still chunking)
             td = time.perf_counter()
@@ -279,6 +284,9 @@ class Scheduler(SchedulerBase):
         self.segment = segment
         self.state = init_batch(cfg, batch, max_len, seed, dtype,
                                 out_cap=out_cap, device=self.device)
+        # each slot's row of the pool as a batch-1 cache, made once: its
+        # planes (views of the pool) key the slot's prefill graphs
+        self._rows = [row_view(self.state.kv, s) for s in range(batch)]
 
     def _admit_one(self, slot: int, req: Request) -> bool:
         ids = torch.as_tensor(np.asarray(req.prompt), dtype=torch.int64,
@@ -286,16 +294,18 @@ class Scheduler(SchedulerBase):
         self.stats["prefill_tokens"] += int(ids.shape[-1])
         st = self.state
         # slot-local prefill: the row's buffers are views of the pool, so
-        # admission writes O(row) bytes in place and copies nothing
+        # admission writes O(row) bytes in place and copies nothing. Every
+        # chunk but the last is a graph region per (slot, width); the last
+        # one, which returns logits, a key of its own
         row = dataclasses.replace(
-            row_view(st.kv, slot),
+            self._rows[slot],
             seq_len=torch.zeros((), dtype=torch.int32, device=self.device))
         c = self.prefill_chunk
-        for start in range(0, ids.shape[1], c):
-            last = start + c >= ids.shape[1]
-            logits, row, _ = llama.forward_append(
-                self.cfg, self.params, ids[:, start:start + c], row,
-                need_logits=last)
+        last = (ids.shape[1] - 1) // c * c
+        row = prefill_chunks(self.graphs, self.cfg, self.params, row,
+                             ids[:, :last], c)
+        logits, row = append_graphed(self.graphs, self.cfg, self.params, row,
+                                     ids[:, last:])
         probs = sampling.norm_logits(logits[:, -1], self.spec.temperature,
                                      self.spec.top_k, self.spec.top_p)
         tok = sampling.sample(probs, st.gen)[0]

@@ -338,17 +338,19 @@ def streaming_evict_prefill(cache: StreamingCache, spec: SpecConfig,
     """Slide the drafter window before a prefill chunk lands, iff it would
     overflow ``start + recent``: keep the last ``recent - incoming`` tokens
     right after the sink and set ``seq_len = start + recent - incoming``.
-    The overflow test reads ``seq_len`` on the host (one sync per chunk)."""
+    Decided on the device, as the JAX package's ``lax.cond``: without an
+    overflow the kept window is copied onto itself (its bits unchanged),
+    so no length is read back and the call can be captured in a graph."""
     start, recent = spec.draft_start_size, spec.draft_recent_size
     cap = start + recent
     size_keep = recent - incoming
-    if not bool(c_overflows(cache.seq_len, incoming, cap)):
-        return cache
-    src0 = cache.seq_len - size_keep
+    over = c_overflows(cache.seq_len, incoming, cap)
+    src0 = torch.where(over, cache.seq_len - size_keep, start)
     write_at(cache.k, slice_at(cache.k, src0, size_keep, 3), start, 3)
     write_at(cache.v, slice_at(cache.v, src0, size_keep, 3), start, 3)
-    return dataclasses.replace(
-        cache, seq_len=torch.full_like(cache.seq_len, cap - incoming))
+    return dataclasses.replace(cache, seq_len=torch.where(
+        over, torch.full_like(cache.seq_len, cap - incoming),
+        cache.seq_len))
 
 
 def streaming_evict_for_spec(cache: StreamingCache, spec: SpecConfig,

@@ -308,7 +308,11 @@ def main(argv=None):
               f"{r.avg_tokens_per_step:.2f} tokens/step, "
               f"{r.steps} steps, wall {r.wall_s:.1f}s"
               + (f" (+ {r.captures} CUDA graphs captured in "
-                 f"{r.capture_s:.2f}s)" if r.captures else ""))
+                 f"{r.capture_s:.2f}s)" if r.captures else "")
+              + f"; prefill {r.prefill_s:.2f}s"
+              + (f" (+ {r.prefill_captures} CUDA graphs captured in "
+                 f"{r.prefill_capture_s:.2f}s)" if r.prefill_captures
+                 else ""))
     if len(runs) > 1:
         # latency averaged per token, acceptance pooled over proposals
         tps = [r.tokens_per_sec for r in runs]

@@ -10,7 +10,10 @@ streamed (``utils.misc.spec_stream``, through ``tokenizer`` when given)
 after the timed loop, so no read-back enters the timed window. On a card
 the engine captures its decode graphs inside the timed loop (the second
 call of each region); ``DecodeResult.capture_s`` holds those seconds and
-``wall_s`` (hence ``tokens_per_sec``) leaves them out.
+``wall_s`` (hence ``tokens_per_sec``) leaves them out. The prefill is
+timed apart (``prefill_s``, from the call's start to the first token's
+read-back), and the graphs it captures are counted apart too
+(``prefill_captures``, ``prefill_capture_s``, not in ``prefill_s``).
 """
 
 from __future__ import annotations
@@ -39,6 +42,9 @@ class DecodeResult:
     middle_verifies: int = 0   # retrieval-cache verify forwards run
     captures: int = 0          # CUDA graphs captured during the run
     capture_s: float = 0.0     # their capture seconds (not in wall_s)
+    prefill_s: float = 0.0     # prefill wall up to the first token
+    prefill_captures: int = 0  # CUDA graphs captured in the prefill
+    prefill_capture_s: float = 0.0   # their seconds (not in prefill_s)
 
 
 class _CaptureClock:
@@ -55,6 +61,24 @@ class _CaptureClock:
     @property
     def count(self) -> int:
         return self.graphs.captures - self.n0
+
+
+class _Prefill:
+    """The prefill's clock: started with the device idle, stopped after
+    the first token's read-back; the graphs captured meanwhile are counted
+    apart and their seconds left out of ``prefill_s``."""
+
+    def __init__(self, engine: Engine):
+        _sync(engine.device)
+        self.clock = _CaptureClock(engine.graphs)
+        self.t0 = time.perf_counter()
+        self.fields = {}
+
+    def stop(self) -> None:
+        wall = time.perf_counter() - self.t0
+        self.fields = dict(prefill_s=wall - self.clock.seconds,
+                           prefill_captures=self.clock.count,
+                           prefill_capture_s=self.clock.seconds)
 
 
 def _check_device(engine: Engine, device) -> None:
@@ -75,12 +99,14 @@ def autoregressive(engine: Engine, input_ids: torch.Tensor,
     """Plain AR decoding baseline: chunked prefill, then ``max_len`` tokens
     with no host read-back until the end."""
     _check_device(engine, device)
+    pre = _Prefill(engine)
     state = engine.init_state(seed)
     kv = engine.prefill_body(state.kv, input_ids[:, :-1])
     logits, kv, _ = llama.forward_append(engine.target_cfg, engine.t_params,
                                          input_ids[:, -1:], kv)
     token = engine._sample_next(logits, state.gen)
     first = int(token[0])     # read-back: prefill is done
+    pre.stop()
     clock = _CaptureClock(engine.graphs)
     t0 = time.perf_counter()
     kv, token, _, buf = engine.generate_ar(kv, token, state.gen, max_len)
@@ -92,13 +118,14 @@ def autoregressive(engine: Engine, input_ids: torch.Tensor,
             spec_stream(t, tokenizer, "cyan")
     return DecodeResult(tokens=out, tokens_per_sec=max_len / wall,
                         steps=max_len, wall_s=wall, captures=clock.count,
-                        capture_s=clock.seconds)
+                        capture_s=clock.seconds, **pre.fields)
 
 
 def _run_spec_loop(engine: Engine, state: TriForceState, mode: str,
                    max_len: int, stop_on_eos: bool, verbose: bool,
-                   tokenizer) -> DecodeResult:
+                   tokenizer, pre: "_Prefill") -> DecodeResult:
     first = int(state.next_token[0])   # read-back: prefill is done
+    pre.stop()
     clock = _CaptureClock(engine.graphs)
     t0 = time.perf_counter()
     state, buf, n, counters = engine.generate(state, max_len, mode=mode,
@@ -118,7 +145,7 @@ def _run_spec_loop(engine: Engine, state: TriForceState, mode: str,
         avg_tokens_per_step=gen / max(steps, 1),
         middle_acceptance_rate=mid_accept / max(mid_draft, 1),
         steps=steps, wall_s=wall, middle_verifies=mid_verify,
-        captures=clock.count, capture_s=clock.seconds)
+        captures=clock.count, capture_s=clock.seconds, **pre.fields)
 
 
 def triforce(engine: Engine, input_ids: torch.Tensor, max_len: int = 256,
@@ -127,12 +154,12 @@ def triforce(engine: Engine, input_ids: torch.Tensor, max_len: int = 256,
              device=None) -> DecodeResult:
     """The full three-level hierarchy."""
     _check_device(engine, device)
+    pre = _Prefill(engine)
     state = engine.init_state(seed)
     state = engine.prefill_target(state, input_ids)
     state = engine.prefill_draft(state, input_ids, mode=draft_prefill_mode)
-    _sync(engine.device)
     return _run_spec_loop(engine, state, "triforce", max_len, stop_on_eos,
-                          verbose, tokenizer)
+                          verbose, tokenizer, pre)
 
 
 def retrieval_spec(engine: Engine, input_ids: torch.Tensor,
@@ -142,8 +169,8 @@ def retrieval_spec(engine: Engine, input_ids: torch.Tensor,
     """Self-speculation: target weights over the retrieval cache draft,
     the full-cache target verifies (lossless; no drafter level)."""
     _check_device(engine, device)
+    pre = _Prefill(engine)
     state = engine.init_state(seed)
     state = engine.prefill_target(state, input_ids)
-    _sync(engine.device)
     return _run_spec_loop(engine, state, "retrieval", max_len, stop_on_eos,
-                          verbose, tokenizer)
+                          verbose, tokenizer, pre)

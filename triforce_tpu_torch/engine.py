@@ -22,8 +22,14 @@ verify up to the outer read-back; in the TriForce step the drafter
 forward, the middle verify, the target verify and the drafter replay. The
 host loops, their read-backs and what follows a read-back (rollback,
 tail refresh, window compaction: they take host counts) stay eager.
-``Engine(graphs=False)`` runs every region eagerly (the witness a graphed
-run is held against); the CPU never captures.
+The prefills are graphed too (``append_graphed``, ``prefill_chunks``):
+each target chunk width is one region, the retrieval build (the last
+prompt token's forward) another, each drafter chunk width (the window
+slide and the forward) a third; so the JAX package's prefill scans and
+its build jit become one graph per width, replayed chunk after chunk.
+The first-token sample stays eager, outside the build, as in the JAX
+package. ``Engine(graphs=False)`` runs every region eagerly (the witness
+a graphed run is held against); the CPU never captures.
 
 The batched steps (``triforce_step_rows``, ``retrieval_spec_step_rows``)
 run the same step for B rows of a ``StackedState`` at once: every forward
@@ -168,8 +174,10 @@ class Engine:
     with per-token scales (the drafter's cache never does).
     ``weight_quant``: the target's and the drafter's matmul weights are
     quantized to int8 per output channel here (``engine.py:141-150``); the
-    prefill converts them back exactly once per call, since its wide
-    chunks would convert every weight per chunk (``engine.py:226-231``).
+    target prefill's chunks run over a bf16 copy converted exactly from
+    the codes (``dense_weights``), since its wide chunks would convert
+    every weight per chunk (``engine.py:226-231``): once per call on an
+    eager engine, once per engine while graphs are on.
     With ``spec.mid_act_quant`` the middle verify then runs int8 weights
     against int8 activations (``llama._wmm(aq=True)``).
 
@@ -177,7 +185,7 @@ class Engine:
     device and runs them eagerly on the CPU; False runs them eagerly on
     the card too (the eager witness); True on the CPU raises. The graphs
     are ``self.graphs`` (``graphs.GraphSet``); ``release_graphs`` drops
-    them."""
+    them, and the prefill's converted weights with them."""
 
     def __init__(self, target_cfg: ModelConfig, spec: SpecConfig,
                  target_params, *, draft_cfg: Optional[ModelConfig] = None,
@@ -219,6 +227,7 @@ class Engine:
                 draft_params = llama.quantize_weights(draft_params)
         self.t_params = target_params
         self.d_params = draft_params
+        self._dense = None     # the prefill's converted weights (graphed)
 
     # ------------------------------------------------------------------
     # state construction / prefill
@@ -241,20 +250,12 @@ class Engine:
 
     def prefill_body(self, kv: KVCache, body: torch.Tensor) -> KVCache:
         """Chunked prefill of ``body`` [1, P] into ``kv``: full
-        ``prefill_chunk`` chunks, then the ragged remainder, over weights
-        converted out of int8 once for the call (bit-identical)."""
-        cfg, c = self.target_cfg, self.prefill_chunk
-        params = llama.dequant_weights(self.t_params, self.dtype)
-        n_full = body.shape[1] // c
-        for i in range(n_full):
-            _, kv, _ = llama.forward_append(cfg, params,
-                                            body[:, i * c:(i + 1) * c], kv,
-                                            need_logits=False)
-        rem = body.shape[1] - n_full * c
-        if rem:
-            _, kv, _ = llama.forward_append(cfg, params, body[:, -rem:], kv,
-                                            need_logits=False)
-        return kv
+        ``prefill_chunk`` chunks, then the ragged remainder
+        (``prefill_chunks``), over weights converted out of int8
+        (``dense_weights``; bit-identical)."""
+        return prefill_chunks(self.graphs, self.target_cfg,
+                              dense_weights(self, self.t_params), kv, body,
+                              self.prefill_chunk)
 
     def _sample_next(self, logits, gen):
         sp = self.spec
@@ -275,14 +276,20 @@ class Engine:
     def _build_and_sample(self, state: TriForceState, kv: KVCache,
                           input_ids: torch.Tensor) -> TriForceState:
         """The last prompt token's forward: builds the retrieval cache and
-        samples the first generated token."""
-        logits, kv, rkv = llama.forward_append(
-            self.target_cfg, self.t_params, input_ids[:, -1:], kv,
-            build_rkv=state.rkv, prefill=self.prefill,
-            chunk_size=self.spec.chunk_size, budget=self.spec.budget)
+        samples the first generated token (eagerly, outside the build's
+        region)."""
+        logits, kv = self._build(kv, state.rkv, input_ids[:, -1:])
         return dataclasses.replace(
-            state, kv=kv, rkv=rkv,
-            next_token=self._sample_next(logits, state.gen))
+            state, kv=kv, next_token=self._sample_next(logits, state.gen))
+
+    def _build(self, kv: KVCache, rkv: RetrievalCache, last: torch.Tensor):
+        """The retrieval build: ``last`` [1, 1] appended to ``kv`` while
+        every layer's budget region of ``rkv`` is built in place; one
+        graph region. Returns (logits [1, 1, V], kv)."""
+        sp = self.spec
+        return append_graphed(self.graphs, self.target_cfg, self.t_params,
+                              kv, last, build_rkv=rkv, prefill=self.prefill,
+                              chunk_size=sp.chunk_size, budget=sp.budget)
 
     def prefill_target_partial(self, state: TriForceState,
                                input_ids: torch.Tensor, pos: int,
@@ -325,27 +332,32 @@ class Engine:
                 input_ids = torch.cat([input_ids[:, :c],
                                        input_ids[:, -(keep - c):]], dim=1)
         dkv = state.dkv
-        n = input_ids.shape[1]
-        n_full = n // c
-        for i in range(n_full):
-            dkv = streaming_evict_prefill(dkv, sp, c)
-            _, dkv = llama.draft_forward(self.draft_cfg, self.d_params,
-                                         input_ids[:, i * c:(i + 1) * c], dkv)
-        if n % c:
-            rem = n % c
-            dkv = streaming_evict_prefill(dkv, sp, c)
-            _, dkv = llama.draft_forward(self.draft_cfg, self.d_params,
-                                         input_ids[:, -rem:], dkv)
-        return dataclasses.replace(state, dkv=dkv)
+        d_cfg, d_params = self.draft_cfg, self.d_params
+
+        def region(ids, seq_len):
+            d = streaming_evict_prefill(_kv_at(dkv, seq_len), sp, c)
+            _, d = llama.draft_forward(d_cfg, d_params, ids, d,
+                                       need_logits=False)
+            return (d.seq_len,)
+
+        caches = graphs_mod.planes(dkv) + param_planes(d_params)
+        seq_len = dkv.seq_len
+        for s in range(0, input_ids.shape[1], c):
+            seq_len, = self.graphs.run("draft_prefill", region,
+                                       (input_ids[:, s:s + c], seq_len),
+                                       caches=caches)
+        return dataclasses.replace(state, dkv=_kv_at(dkv, seq_len))
 
     # ------------------------------------------------------------------
     # decode
     # ------------------------------------------------------------------
 
     def release_graphs(self) -> None:
-        """Drop this engine's CUDA graphs (``torch.cuda.empty_cache`` can
-        then return their pool)."""
+        """Drop this engine's CUDA graphs and the prefill's converted
+        weights (``torch.cuda.empty_cache`` can then return their
+        memory)."""
         self.graphs.release()
+        self._dense = None
 
     def ar_step(self, kv: KVCache, token: torch.Tensor,
                 gen: torch.Generator):
@@ -422,11 +434,75 @@ class Engine:
 
 
 # ---------------------------------------------------------------------------
-# The TriForce step
+# Graphed prefill (every engine's and scheduler's)
 # ---------------------------------------------------------------------------
 
-def _kv_at(kv: KVCache, seq_len: torch.Tensor) -> KVCache:
+def _kv_at(kv, seq_len: torch.Tensor):
     return dataclasses.replace(kv, seq_len=seq_len)
+
+
+def param_planes(params) -> tuple:
+    """Every tensor of ``params``, for a region's key beside its cache
+    planes: a graph then never replays over weights that were freed or
+    replaced (a new converted copy has new addresses, so a new key)."""
+    return tuple(params["layers"].values()) + tuple(
+        v for k, v in params.items() if k != "layers")
+
+
+def dense_weights(eng, params):
+    """``params`` with int8 matmul weights converted to ``eng.dtype``
+    (``llama.dequant_weights``, exact) for the prefill's wide chunks. An
+    eager engine converts per call (the copy is freed after the call); with
+    graphs on, the copy is made once and kept in ``eng._dense`` until
+    ``release_graphs``, because a captured chunk reads its addresses."""
+    if not eng.graphs.enabled:
+        return llama.dequant_weights(params, eng.dtype)
+    if eng._dense is None:
+        eng._dense = llama.dequant_weights(params, eng.dtype)
+    return eng._dense
+
+
+def append_graphed(graphs: graphs_mod.GraphSet, cfg: ModelConfig, params,
+                   kv: KVCache, ids: torch.Tensor, *, need_logits=True,
+                   build_rkv: Optional[RetrievalCache] = None,
+                   prefill: int = 0, chunk_size: int = 8, budget: int = 0):
+    """``llama.forward_append`` of ``ids`` into ``kv`` as one region of
+    ``graphs`` ("build" with ``build_rkv``, else "prefill"): its inputs are
+    ``(ids, kv.seq_len)``, its key holds the planes of ``kv`` and
+    ``build_rkv`` and every tensor of ``params`` (``param_planes``), and
+    ``need_logits`` and the build's sizes are its ``extra``. So one graph
+    serves every chunk of a width (the kernels plan from shapes and read
+    ``k_len`` on the device). Returns (logits or None, kv at its new
+    length)."""
+    def region(ids, seq_len):
+        logits, out, _ = llama.forward_append(
+            cfg, params, ids, _kv_at(kv, seq_len), build_rkv=build_rkv,
+            prefill=prefill, chunk_size=chunk_size, budget=budget,
+            need_logits=need_logits)
+        return (logits, out.seq_len) if need_logits else (out.seq_len,)
+
+    out = graphs.run("build" if build_rkv is not None else "prefill",
+                     region, (ids, kv.seq_len),
+                     caches=graphs_mod.planes(kv, build_rkv)
+                     + param_planes(params),
+                     extra=(need_logits, prefill, chunk_size, budget))
+    return (out[0] if need_logits else None), _kv_at(kv, out[-1])
+
+
+def prefill_chunks(graphs: graphs_mod.GraphSet, cfg: ModelConfig, params,
+                   kv: KVCache, body: torch.Tensor, chunk: int) -> KVCache:
+    """Prefill of ``body`` [1, P] into ``kv`` in ``chunk``-token forwards
+    (the last one ragged), no logits, each through ``append_graphed``: the
+    full chunks replay one graph, the remainder is a key of its own."""
+    for s in range(0, body.shape[1], chunk):
+        _, kv = append_graphed(graphs, cfg, params, kv,
+                               body[:, s:s + chunk], need_logits=False)
+    return kv
+
+
+# ---------------------------------------------------------------------------
+# The TriForce step
+# ---------------------------------------------------------------------------
 
 
 def _chain_len(sp: SpecConfig) -> int:

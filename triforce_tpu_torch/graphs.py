@@ -1,8 +1,10 @@
-"""CUDA-graph capture and replay of the fixed-shape decode programs — the
-counterpart of the ``jax.jit`` programs of ``triforce_tpu/engine.py:160-311``
-(``_ar_step``, ``_triforce_step``, ``_retrieval_spec_step``), of the tree
-engine's (``triforce_tpu/tree/spectree.py:126-223``) and of the batched
-steps' (``triforce_tpu/batched_spec.py:203-221``).
+"""CUDA-graph capture and replay of the fixed-shape decode and prefill
+programs — the counterpart of the ``jax.jit`` programs of
+``triforce_tpu/engine.py:160-311`` (``_ar_step``, ``_triforce_step``,
+``_retrieval_spec_step``) and of its prefill programs (``:175-241``: the
+target's chunk scan, the retrieval build, the drafter's chunk scan), of
+the tree engine's (``triforce_tpu/tree/spectree.py:126-223``) and of the
+batched steps' (``triforce_tpu/batched_spec.py:203-221``).
 
 A JAX engine compiles each of those programs once and runs it with one
 dispatch. Here a *region* is a Python function of device tensors that
@@ -62,6 +64,7 @@ refuses a CUDA device.
 
 from __future__ import annotations
 
+import collections
 import time
 import weakref
 from typing import Optional
@@ -164,7 +167,9 @@ class GraphSet:
     ``captures`` counts the graphs captured, ``capture_s`` the seconds
     their captures took (device synchronised at both edges, so that a
     caller can take them out of a decode time), ``pool_bytes`` the device
-    memory the pool reserved while capturing, ``replays`` the replays."""
+    memory the pool reserved while capturing, ``replays`` the replays and
+    ``replays_by`` them by region name and first input's shape (as
+    ``"prefill 1x512"``)."""
 
     def __init__(self, device, graphs: Optional[bool] = None):
         self.device = torch.device(device)
@@ -178,6 +183,7 @@ class GraphSet:
         self.capture_s = 0.0
         self.pool_bytes = 0
         self.replays = 0
+        self.replays_by = collections.Counter()
 
     @property
     def enabled(self) -> bool:
@@ -186,6 +192,7 @@ class GraphSet:
     def stats(self) -> dict:
         return dict(captures=self.captures, capture_s=self.capture_s,
                     pool_bytes=self.pool_bytes, replays=self.replays,
+                    replays_by=dict(self.replays_by),
                     graphs=sum(isinstance(e, _Graph)
                                for e in self._entries.values()))
 
@@ -217,6 +224,9 @@ class GraphSet:
             self._prune()
             self._entries[key] = _Seen(caches, gens)
             return self._first(fn, inputs)
+        x = inputs[0] if inputs else None
+        self.replays_by[name + (" " + "x".join(map(str, x.shape))
+                                if torch.is_tensor(x) else "")] += 1
         if isinstance(ent, _Graph):
             return self._replay(ent, fn, inputs)
         ent = self._capture(key, ent, fn, inputs, gens)

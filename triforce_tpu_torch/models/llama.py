@@ -608,10 +608,12 @@ def _draft_layers(cfg, params, x, dkv, positions, k_len, commit_at,
 
 
 def draft_forward(cfg: ModelConfig, params, input_ids: torch.Tensor,
-                  dkv: StreamingCache
-                  ) -> Tuple[torch.Tensor, StreamingCache]:
+                  dkv: StreamingCache, need_logits: bool = True,
+                  ) -> Tuple[Optional[torch.Tensor], StreamingCache]:
     """Drafter prefill chunk: append at ``seq_len`` with slot positions (in
-    place). The caller runs ``streaming_evict_prefill`` first."""
+    place). The caller runs ``streaming_evict_prefill`` first.
+    ``need_logits=False`` skips the lm_head projection (the prefill throws
+    the logits away; the JAX scan drops them as dead code)."""
     if not cfg.rope_on_slots:
         raise ValueError("draft_forward needs a rope_on_slots drafter")
     b, t = input_ids.shape
@@ -619,8 +621,8 @@ def draft_forward(cfg: ModelConfig, params, input_ids: torch.Tensor,
     positions = _positions(seq_len0, t, input_ids.device)
     x = _draft_layers(cfg, params, _embed(params, input_ids), dkv,
                       positions, seq_len0, seq_len0)
-    return _logits(cfg, params, x), dataclasses.replace(
-        dkv, seq_len=seq_len0 + t)
+    logits = _logits(cfg, params, x) if need_logits else None
+    return logits, dataclasses.replace(dkv, seq_len=seq_len0 + t)
 
 
 def draft_forward_spec(cfg: ModelConfig, params, input_ids: torch.Tensor,

@@ -133,10 +133,10 @@ def measure_phase_times(engine, state, iters: int = 20) -> Dict[str, float]:
     ``target_verify`` (full-cache forward of gamma+2 tokens),
     ``middle_step`` (one retrieval-cache verify of gamma+1 tokens),
     ``ar_step``, ``retrieval_build`` (the 1-token forward that builds the
-    retrieval cache) and, with a drafter, ``draft_step``. Each is timed
-    over ``iters`` calls after a warm-up (on a graphed engine the warm-up
-    captures, and the timed calls are replays); ``state`` is left as it
-    was."""
+    retrieval cache, into a scratch copy of it) and, with a drafter,
+    ``draft_step``. Each is timed over ``iters`` calls after a warm-up (on
+    a graphed engine the warm-up captures, and the timed calls are
+    replays); ``state`` is left as it was."""
     cfg, sp = engine.target_cfg, engine.spec
     dev = engine.device
     gamma = sp.gamma
@@ -159,11 +159,8 @@ def measure_phase_times(engine, state, iters: int = 20) -> Dict[str, float]:
         out["ar_step"] = _time_calls(verify(1), dev, iters)
         scratch = state.rkv.clone()
         out["retrieval_build"] = _time_calls(
-            lambda: llama.forward_append(
-                cfg, engine.t_params, ids[1], kv, build_rkv=scratch,
-                prefill=engine.prefill, chunk_size=sp.chunk_size,
-                budget=sp.budget),
-            dev, max(2, iters // 2))
+            lambda: engine._build(kv, scratch, ids[1]), dev,
+            max(2, iters // 2))
         del scratch
     out["middle_step"] = _time_calls(phase(
         "middle", lambda x, n: llama.forward_spec(

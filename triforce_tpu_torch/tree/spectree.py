@@ -46,6 +46,7 @@ from .. import graphs as graphs_mod
 from ..cache import (KVCache, RetrievalCache, gather_kv_incremental, init_kv,
                      init_tree_retrieval, retrieval_tail_refresh)
 from ..config import ModelConfig, SpecConfig, resolve_device
+from ..engine import append_graphed, dense_weights, prefill_chunks
 from ..models import llama
 from ..ops import sampling
 from .planner import GrowMap
@@ -123,7 +124,10 @@ class TreeEngine:
     quantized to int8 here (params that already hold int8 codes are taken
     as they are); the grow forwards then run them against int8
     activations (``llama._wmm(aq=True)``), the tree verify keeps the exact
-    weight-only path, and the prefill converts them back once per call.
+    weight-only path, and the prefill's chunks run over an exact bf16 copy
+    (``engine.dense_weights``: once per call eagerly, once per engine with
+    graphs on). The prefill runs through ``Engine``'s graph regions
+    (``engine.prefill_chunks``, ``engine.append_graphed``).
     ``ssl``: during the grow the first ``ssl`` layers attend the FULL cache
     instead of the tree retrieval cache. ``graphs`` as ``Engine``'s: None
     captures the step's regions on a CUDA device, False runs them eagerly,
@@ -171,6 +175,7 @@ class TreeEngine:
         if weight_quant:
             params = llama.quantize_weights(params)    # unless already codes
         self.params = params
+        self._dense = None     # the prefill's converted weights (graphed)
         self.max_path = int(grow_map.depth.max()) + 1
 
         # the static tables as device tensors
@@ -210,33 +215,23 @@ class TreeEngine:
         if input_ids.shape[1] != self.prefill:
             raise ValueError(f"prompt has {input_ids.shape[1]} tokens, the "
                              f"engine was built for {self.prefill}")
-        cfg, c = self.cfg, self.prefill_chunk
-        kv = state.kv
-        body = input_ids[:, :-1]
-        wide = llama.dequant_weights(self.params, self.dtype)
-        n_full = body.shape[1] // c
-        for i in range(n_full):
-            _, kv, _ = llama.forward_append(cfg, wide,
-                                            body[:, i * c:(i + 1) * c], kv,
-                                            need_logits=False)
-        rem = body.shape[1] - n_full * c
-        if rem:
-            _, kv, _ = llama.forward_append(cfg, wide, body[:, -rem:], kv,
-                                            need_logits=False)
-        del wide
-        logits, kv, rkv = llama.forward_append(
-            cfg, self.params, input_ids[:, -1:], kv, build_rkv=state.rkv,
-            prefill=self.prefill, chunk_size=self.chunk_size,
-            budget=self.budget)
+        kv = prefill_chunks(self.graphs, self.cfg,
+                            dense_weights(self, self.params), state.kv,
+                            input_ids[:, :-1], self.prefill_chunk)
+        logits, kv = append_graphed(
+            self.graphs, self.cfg, self.params, kv, input_ids[:, -1:],
+            build_rkv=state.rkv, prefill=self.prefill,
+            chunk_size=self.chunk_size, budget=self.budget)
         probs = sampling.norm_logits(logits[:, -1], self.temperature, -1,
                                      self.top_p)
         return dataclasses.replace(
-            state, kv=kv, rkv=rkv,
-            next_token=sampling.sample(probs, state.gen))
+            state, kv=kv, next_token=sampling.sample(probs, state.gen))
 
     def release_graphs(self) -> None:
-        """Drop this engine's CUDA graphs."""
+        """Drop this engine's CUDA graphs and the prefill's converted
+        weights."""
         self.graphs.release()
+        self._dense = None
 
     def step(self, state: TreeState, force_accept: Optional[float] = None
              ) -> Tuple[TreeState, TreeStepStats]:
@@ -483,15 +478,17 @@ def tree_decode(engine: TreeEngine, input_ids: torch.Tensor,
     """Host entry point: prefill, then tree steps until ``max_len`` tokens or a
     terminal step. ``device`` defaults to the first CUDA card and must be
     the engine's."""
-    from ..decoding import DecodeResult, _CaptureClock
+    from ..decoding import DecodeResult, _CaptureClock, _Prefill
 
     dev = resolve_device(device)
     if dev != engine.device:
         raise ValueError(f"caller asked for {dev}, engine is on "
                          f"{engine.device}")
+    pre = _Prefill(engine)
     state = engine.init_state(seed)
     state = engine.prefill_target(state, input_ids)
     first = int(state.next_token[0])   # read-back: prefill is done
+    pre.stop()
     clock = _CaptureClock(engine.graphs)
     t0 = time.perf_counter()
     state, buf, n, counters, _ = engine.generate(state, max_len)
@@ -505,4 +502,4 @@ def tree_decode(engine: TreeEngine, input_ids: torch.Tensor,
                                                     1),
                         avg_tokens_per_step=gen / max(steps, 1),
                         steps=steps, wall_s=wall, captures=clock.count,
-                        capture_s=clock.seconds)
+                        capture_s=clock.seconds, **pre.fields)
