@@ -54,10 +54,15 @@ Phases, in order (any failure exits non-zero before the last line):
      of phases 7-10 runs from CUDA graphs (the engines' default on a card)
      and has a graph gate (lines "graphs [...]"): an eager witness
      (``graphs=False``) of the same seed and prompt runs its first 32
-     tokens (2 steps for the tree and the rows; the whole request set for
-     the schedulers), and the graphed run must match it in tokens, step
-     counters, ``kv.seq_len`` and launch counts; the timed run's captures
-     must equal the gate's shorter run's (a fixed number per state).
+     tokens (4 for the tree, 2 steps for the rows; the whole request set
+     for the schedulers), and the graphed run must match it in tokens,
+     step counters, ``kv.seq_len`` and launch counts; the timed run's
+     captures must equal the gate's shorter run's (a fixed number per
+     state). The batch-1 and tree generations run on the device (one loop
+     graph with if-nodes): every graphed generation call of theirs must
+     read back once, and each of their gates prints the eager witness's
+     read-backs and the device's busy share over the gate's graphed call
+     (CUDA events around each graph replay, over the wall less captures).
      The prefills run graphed too (the target's chunk widths, the
      retrieval build, the drafter's chunks): every graph gate's two runs
      hold their prefills' caches (kv to its length, the retrieval cache,
@@ -88,7 +93,9 @@ Phases, in order (any failure exits non-zero before the last line):
      equal ``decoding.autoregressive``'s on the same weights; ``python3 -m
      triforce_tpu_torch.cli --mode ar`` as a process; the card's
      ``measure_phase_times`` table and a profiler trace of two TriForce
-     steps (its ten largest device operations), the phase table graphed
+     steps of the eager witness (its ten largest device operations; the
+     profiler cannot trace the graphed step's if-nodes on this card), the
+     phase table graphed
      and eager, and one retrieval build replayed and one eager, each
      under the profiler (lines "cli build trace [...]": B2's device time
      and share beside the build's wall);
@@ -1450,7 +1457,43 @@ def _check_counts(fd, rk, what, quant, want_b1, want_b2, want_b3=0,
 # ---------------------------------------------------------------------------
 
 GATE_TOKENS, GATE_STEPS = 32, 2   # the witness's share of a mode (tokens;
-                                  # steps of the tree and of the rows)
+                                  # steps of the rows)
+TREE_GATE_TOKENS = 4              # the tree gates' generations (>= 1 step)
+
+
+def _busy(fn, graphs):
+    """``fn()``, a generation whose device work is replays of ``graphs``
+    (a ``GraphSet``), and its record: the device's busy ms (the sum over
+    the replays of the device time between CUDA events recorded just
+    before and just after each, so the host's holding back the device
+    shows as the rest), the call's wall ms (device synchronised at both
+    ends, the seconds of graphs captured meanwhile left out) and the busy
+    share of the wall. The profiler does not serve here: on this card's
+    torch CUPTI tracing of a graph with if-nodes crashed the process (a
+    segfault in a replay, an illegal address)."""
+    replay = torch.cuda.CUDAGraph.replay
+    marks = []
+
+    def timed_replay(graph):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        replay(graph)
+        b.record()
+        marks.append((a, b))
+    torch.cuda.CUDAGraph.replay = timed_replay
+    s0 = graphs.capture_s
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0 - (graphs.capture_s - s0))
+    finally:
+        torch.cuda.CUDAGraph.replay = replay
+    busy = sum(a.elapsed_time(b) for a, b in marks)
+    return out, dict(busy_ms=busy, wall_ms=wall, share=busy / wall,
+                     replays=len(marks))
 
 
 def _eager_twin(eng):
@@ -1634,41 +1677,52 @@ def spec_gate_run(eng, ids, mode, seed, alpha=None, n=GATE_TOKENS):
         st = eng.prefill_target(eng.init_state(seed), ids)
         return eng.prefill_draft(st, ids) if mode == "triforce" else st
 
+    def gen(st):
+        if alpha is None:
+            return eng.generate(st, n, mode=mode)
+        return eng.generate_forced(st, n, alpha, mode=mode)
+
     def run():
         st, pre = _prefill_run(eng, prefill)
-        c0 = eng.graphs.captures
-        if alpha is None:
-            (st, buf, m, c), dt = _timed(
-                lambda: eng.generate(st, n, mode=mode))
+        c0, r0 = eng.graphs.captures, eng.graphs.readbacks
+        busy = None
+        if eng.graphs.enabled:
+            (st, buf, m, c), busy = _busy(lambda: gen(st), eng.graphs)
+            dt = busy["wall_ms"] / 1e3
         else:
-            (st, buf, m, c), dt = _timed(
-                lambda: eng.generate_forced(st, n, alpha, mode=mode))
+            (st, buf, m, c), dt = _timed(lambda: gen(st))
         return dict(tokens=buf[:m].tolist(), counters=[int(x) for x in c],
                     seq_len=int(st.kv.seq_len), decode_s=dt, n=m - 1,
-                    captures=eng.graphs.captures - c0, prefill=pre)
+                    captures=eng.graphs.captures - c0, prefill=pre,
+                    readbacks=eng.graphs.readbacks - r0, steps=int(c[0]),
+                    busy=busy)
     return run
 
 
-def tree_gate_run(eng, ids, seed, alpha=None, steps=GATE_STEPS):
-    """``tree_decode``'s first ``steps`` steps (or forced ones) on
-    ``eng``, for a gate."""
+def tree_gate_run(eng, ids, seed, alpha=None, n=TREE_GATE_TOKENS):
+    """``tree_decode``'s generation of ``n`` tokens (or a forced one) on
+    ``eng``, for a gate; the counters held are [steps, nodes, stop] (the
+    third generation counter, the call's read-backs, is reported)."""
+    def gen(st):
+        if alpha is None:
+            return eng.generate(st, n)
+        return eng.generate_forced(st, n, alpha)
+
     def run():
         st, pre = _prefill_run(
             eng, lambda: eng.prefill_target(eng.init_state(seed), ids))
-        toks, counters = [int(st.next_token[0])], []
         c0 = eng.graphs.captures
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            st, a = eng.step(st, force_accept=alpha)
-            toks += a.tokens[:a.n_emitted].tolist()
-            counters.append([a.n_emitted, a.n_nodes, a.readbacks,
-                             int(a.terminal)])
-        torch.cuda.synchronize()
-        return dict(tokens=toks, counters=counters,
-                    seq_len=int(st.kv.seq_len),
-                    decode_s=time.perf_counter() - t0, n=len(toks) - 1,
-                    captures=eng.graphs.captures - c0, prefill=pre)
+        busy = None
+        if eng.graphs.enabled:
+            (st, buf, m, c, stop), busy = _busy(lambda: gen(st), eng.graphs)
+            dt = busy["wall_ms"] / 1e3
+        else:
+            (st, buf, m, c, stop), dt = _timed(lambda: gen(st))
+        return dict(tokens=buf[:m].tolist(),
+                    counters=[int(c[0]), int(c[1]), bool(stop)],
+                    seq_len=int(st.kv.seq_len), decode_s=dt, n=m - 1,
+                    captures=eng.graphs.captures - c0, prefill=pre,
+                    readbacks=int(c[2]), steps=int(c[0]), busy=busy)
     return run
 
 
@@ -1704,10 +1758,16 @@ def graph_gate(what, fd, rk, graphed, eager):
                   f"differ from the eager witness's {e[key]}")
     if not g["captures"]:
         _fail(f"graph gate [{what}]: the graphed run captured no graph")
+    if "readbacks" in g and g["readbacks"] != 1:
+        _fail(f"graph gate [{what}]: the graphed generation read back "
+              f"{g['readbacks']} times, not once")
     out = dict(tokens=e["tokens"], n_tokens=e["n"],
                eager_ms_per_token=1e3 * e["decode_s"] / max(e["n"], 1),
                gate_captures=g["captures"],
                launches=sum(e["launches"].values()))
+    if "readbacks" in g:
+        out.update(readbacks=g["readbacks"], steps=g["steps"],
+                   eager_readbacks=e["readbacks"], busy=g.get("busy"))
     if "prefill" in g:
         # the prefill's own gate: its caches and first token bit-equal
         gp, ep = g["prefill"], e["prefill"]
@@ -1739,12 +1799,23 @@ def mode_graphs(what, d, ms_graphed, timed_tokens, gate):
     out = dict(ms_per_token_graphed=ms_graphed,
                ms_per_token_eager=gate["eager_ms_per_token"],
                gate_tokens=gate["n_tokens"], **d)
+    loop = ""
+    if "readbacks" in gate:
+        b = gate["busy"]
+        out.update(readbacks=gate["readbacks"], busy=b,
+                   eager_readbacks=gate["eager_readbacks"])
+        loop = (f"; device loop: {gate['readbacks']} read-back a call "
+                f"({gate['steps']} steps; the eager witness "
+                f"{gate['eager_readbacks']}), device busy {b['busy_ms']:.1f} "
+                f"of {b['wall_ms']:.1f} ms ({100 * b['share']:.1f}%) over "
+                f"the gate's call ({b['replays']} graph replays, captures "
+                f"left out)")
     print(f"graphs [{what}]: graphed {ms_graphed:.3f} ms/token, eager "
           f"witness {gate['eager_ms_per_token']:.3f} ms/token; gate: "
           f"{gate['n_tokens']} tokens, counters, kv.seq_len and "
           f"{gate['launches']} kernel launches equal; {d['captures']} "
           f"captures in {d['capture_s']:.3f} s (as many as the gate's "
-          f"run), pool {d['pool_bytes'] / 2**20:.1f} MiB", flush=True)
+          f"run), pool {d['pool_bytes'] / 2**20:.1f} MiB{loop}", flush=True)
     return out
 
 
@@ -1809,19 +1880,24 @@ def end_to_end(tc, decoding, llama, eng, fd, rk, dev, prefill, quant):
             _fail(f"{tag}{mode}: generated too few tokens")
         # every step: its middle verifies + one full-cache verify
         counts(mode, L * (pre_fwd + r.middle_verifies + r.steps), L)
+        if r.readbacks != 1:
+            _fail(f"{tag}{mode}: the generation read back {r.readbacks} "
+                  f"times, not once")
         res[mode] = dict(ms_per_token=1e3 / r.tokens_per_sec,
                          prefill_s=r.prefill_s, steps=r.steps,
                          prefill_captures=r.prefill_captures,
                          prefill_capture_s=r.prefill_capture_s,
                          acceptance_rate=r.acceptance_rate,
                          avg_tokens_per_step=r.avg_tokens_per_step,
-                         middle_verifies=r.middle_verifies)
+                         middle_verifies=r.middle_verifies,
+                         readbacks=r.readbacks)
         print(f"{tag}{mode}: prefill {r.prefill_s:.2f} s (+ "
               f"{r.prefill_captures} captures in "
               f"{r.prefill_capture_s:.2f} s), "
               f"{1e3 / r.tokens_per_sec:.3f} ms/token, {r.steps} steps, "
               f"acceptance {r.acceptance_rate:.3f}, "
-              f"{r.avg_tokens_per_step:.2f} tokens/step", flush=True)
+              f"{r.avg_tokens_per_step:.2f} tokens/step, {r.readbacks} "
+              f"read-back", flush=True)
         res["graphs"][mode] = mode_graphs(
             tag + mode, d, 1e3 / r.tokens_per_sec, r.tokens,
             graph_gate(tag + mode, fd, rk, spec_gate_run(eng, ids, mode, 1),
@@ -1842,11 +1918,15 @@ def end_to_end(tc, decoding, llama, eng, fd, rk, dev, prefill, quant):
           f"{json.dumps(pd['replays'])})", flush=True)
     _reset(fd, rk)
     snap = _snap(eng.graphs)
+    r0 = eng.graphs.readbacks
     t0 = time.perf_counter()
     state, buf, n, counters = eng.generate_forced(state, GEN, 0.9,
                                                   mode="triforce")
     toks = buf[:n].tolist()
+    readbacks = eng.graphs.readbacks - r0
     d = _since(eng.graphs, snap)
+    if readbacks != 1:
+        _fail(f"{tag}forced: the generation read back {readbacks} times")
     dt = time.perf_counter() - t0 - d["capture_s"]
     check_tokens("forced", toks)
     steps, accepted, proposed = (int(x) for x in counters[:3])
@@ -1860,7 +1940,7 @@ def end_to_end(tc, decoding, llama, eng, fd, rk, dev, prefill, quant):
     res["forced"] = dict(alpha=0.9, ms_per_token=dt * 1e3 / (n - 1),
                          prefill_target_s=t_pt, prefill_draft_s=t_pd,
                          counters=[int(x) for x in counters],
-                         tokens=n - 1)
+                         tokens=n - 1, readbacks=readbacks)
     print(f"{tag}forced triforce a=0.9: prefill_target {t_pt:.2f} s, "
           f"prefill_draft {t_pd:.2f} s, {dt * 1e3 / (n - 1):.3f} ms/token, "
           f"counters [steps, accepted, proposed, resampled, bonus, "
@@ -2022,9 +2102,12 @@ def tree_end_to_end(tc, planner, spectree, fd, rk, dev, params, prefill,
     counts("tree_decode", L * (pre_fwd + r.steps), L, L * fwd * r.steps)
     if not r.steps:
         _fail(f"{tag}tree_decode: the partials kernel was never launched")
+    if r.readbacks != 1:
+        _fail(f"{tag}tree_decode: the generation read back {r.readbacks} "
+              f"times, not once")
     prefill_s = r.prefill_s
     res["tree_decode"] = dict(
-        prefill_s=prefill_s, steps=r.steps,
+        prefill_s=prefill_s, steps=r.steps, readbacks=r.readbacks,
         prefill_captures=r.prefill_captures,
         prefill_capture_s=r.prefill_capture_s,
         tokens=len(r.tokens) - 1, ms_per_step=1e3 * r.wall_s / r.steps,
@@ -2059,6 +2142,9 @@ def tree_end_to_end(tc, planner, spectree, fd, rk, dev, params, prefill,
     dt = time.perf_counter() - t0 - d["capture_s"]
     check_tokens("tree forced", toks)
     steps, nodes, readbacks = (int(x) for x in counters)
+    if readbacks != 1:
+        _fail(f"{tag}tree forced: the generation read back {readbacks} "
+              f"times, not once")
     counts("tree forced", L * steps, 0, L * fwd * steps)
     if int(state.kv.seq_len) != prefill + nodes:
         _fail(f"{tag}tree forced: kv.seq_len {int(state.kv.seq_len)} != "
@@ -2070,7 +2156,7 @@ def tree_end_to_end(tc, planner, spectree, fd, rk, dev, params, prefill,
     print(f"{tag}tree forced a=0.9: {steps} steps, {1e3 * dt / steps:.1f} "
           f"ms/step, {(n - 1) / steps:.2f} tokens/step, "
           f"{1e3 * dt / (n - 1):.3f} ms/token, {nodes} nodes accepted, "
-          f"{readbacks / steps:.1f} host read-backs/step", flush=True)
+          f"{readbacks / steps:.3f} host read-backs/step", flush=True)
     res["graphs"]["tree forced"] = mode_graphs(
         tag + "tree forced", d, 1e3 * dt / (n - 1), toks, forced_gate)
 
@@ -2976,9 +3062,13 @@ def cli_phase(tc, llama, Engine, cli, hf, ckpt, data, decoding, profiling,
                     got = _check_counts(
                         fd, rk, f"cli {tag}", quant,
                         L * (pre + r.middle_verifies + r.steps), L)
+            if mode != "ar" and r.readbacks != 1:
+                _fail(f"cli {tag}: the generation read back {r.readbacks} "
+                      f"times, not once")
             row = dict(ms_per_token=1e3 / r.tokens_per_sec,
                        tokens_per_step=r.avg_tokens_per_step,
                        acceptance_rate=r.acceptance_rate, steps=r.steps,
+                       readbacks=r.readbacks,
                        tokens=len(r.tokens) - 1, prefill_s=r.prefill_s,
                        prefill_captures=r.prefill_captures,
                        prefill_capture_s=r.prefill_capture_s,
@@ -3042,9 +3132,10 @@ def cli_phase(tc, llama, Engine, cli, hf, ckpt, data, decoding, profiling,
     res["phase_ms_eager"] = {k: v * 1e3 for k, v in times.items()}
     print("cli measure_phase_times, eager (ms): "
           + json.dumps(res["phase_ms_eager"]), flush=True)
-    step = eng._step_fn("triforce", None)
-    for _ in range(2):            # warm: the second step captures
-        state, _ = step(state)
+    # the eager witness's steps: CUPTI cannot trace the graphed step's
+    # if-nodes on this card (``_busy``); the kernels are the same
+    step = _eager_twin(eng)._step_fn("triforce", None)
+    state, _ = step(state)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profiling.trace(os.path.join(tmp, "trace")) as prof:
@@ -3054,7 +3145,7 @@ def cli_phase(tc, llama, Engine, cli, hf, ckpt, data, decoding, profiling,
     res["trace_wall_ms"] = (time.perf_counter() - t0) * 1e3
     ops = _device_ops(prof)
     res["trace_top_ops"] = [dict(name=n, calls=c, ms=ms) for n, c, ms in ops]
-    print(f"cli trace: two graphed TriForce steps, "
+    print(f"cli trace: two TriForce steps of the eager witness, "
           f"{res['trace_wall_ms']:.1f} ms wall under the profiler; ten "
           f"largest device operations by total time:", flush=True)
     for n, c, ms in ops:

@@ -188,8 +188,10 @@ def _tree_engine(weights, temperature, staged=False, **kw):
 @pytest.mark.parametrize("kw", [{}, dict(kv_quant=True, weight_quant=True),
                                 dict(ssl=1)], ids=["fp32", "int8", "ssl1"])
 def test_staged_tree_equals_eager(weights, kw):
-    """The tree grow, the tree verify and the per-node child tests through
-    static buffers: the eager engine's steps, tokens and generator."""
+    """The tree's generation loops (grow, verify, the walk's conditional
+    node bodies, commit) through the staged set: the eager engine's steps,
+    nodes, tokens and generator; one read-back a call where the eager
+    engine reads every walk and loop predicate back."""
     ids = torch.from_numpy(_ids(5))
     out = []
     for staged in (True, False):
@@ -197,12 +199,13 @@ def test_staged_tree_equals_eager(weights, kw):
         st = eng.prefill_target(eng.init_state(7), ids)
         st, buf, n, c, _ = eng.generate(st, 12)
         st, buf2, n2, c2, _ = eng.generate_forced(st, 8, 0.8)
-        out.append((buf[:n].tolist(), c.tolist(), buf2[:n2].tolist(),
-                    c2.tolist(), int(st.kv.seq_len), st.gen.get_state(),
-                    eng.graphs.captures))
+        out.append((buf[:n].tolist(), c[:2].tolist(), buf2[:n2].tolist(),
+                    c2[:2].tolist(), int(st.kv.seq_len), st.gen.get_state(),
+                    eng.graphs.captures, (c[2], c2[2])))
     (g, e) = out
     assert g[:5] == e[:5] and torch.equal(g[5], e[5])
-    assert g[6] == 4 and e[6] == 0   # grow, verify, node, node (forced)
+    assert g[6] == 2 and e[6] == 0   # the loop, the forced loop
+    assert g[7] == (1, 1) and min(e[7]) > 1
 
 
 def test_staged_tree_matches_jax_near_greedy(weights):
@@ -306,7 +309,7 @@ def test_same_state_reuses_its_graphs_a_clone_gets_new_ones(weights):
     for _ in range(3):
         state, _ = step(state)
     caps = eng.graphs.captures - pre
-    assert pre == 1 and caps == 4   # drafter, middle verify, verify, replay
+    assert pre == 1 and caps == 1   # the step, one region
     for _ in range(3):
         state, _ = step(state)
     assert eng.graphs.captures == pre + caps

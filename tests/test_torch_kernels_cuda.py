@@ -733,11 +733,13 @@ def test_graphed_engine_equals_eager(dev, quant, mode, alpha):
     """The graphed engine emits the eager engine's tokens bit for bit, with
     the same counters, the same kv length, the same kernel launches and
     the generator in the same state; its captures do not grow with the
-    steps (a capture that raises fails the test)."""
+    steps (a capture that raises fails the test); its generation loop
+    (a graph with if-nodes) reads back once a call."""
     ge, ee = _card_engines(dev, quant)
     ids = _prompt(dev)
-    out = {}
+    out, readbacks = {}, {}
     for eng in (ge, ee):
+        r0 = eng.graphs.readbacks
         state = eng.init_state(7)
         state = eng.prefill_target(state, ids)
         if mode != "ar":
@@ -754,12 +756,15 @@ def test_graphed_engine_equals_eager(dev, quant, mode, alpha):
             state, buf, n, c = eng.generate_forced(state, 24, alpha, mode=mode)
             res = (buf[:n].tolist(), int(state.kv.seq_len), c.tolist())
         torch.cuda.synchronize()
+        readbacks[eng is ge] = eng.graphs.readbacks - r0
         gen = state.gen if mode != "ar" else gen
         out[eng is ge] = res + (_launches(), gen.get_state())
     (gt, gl, gc, gla, gs), (et, el, ec, ela, es) = out[True], out[False]
     assert gt == et and gl == el and gc == ec
     assert gla == ela and any(gla)
     assert torch.equal(gs, es)
+    if mode != "ar":
+        assert readbacks[True] == 1 and readbacks[False] > 1
     assert ge.graphs.captures >= 1 and ge.graphs.replays >= 1
     assert ee.graphs.captures == 0
     caps = ge.graphs.captures
@@ -835,12 +840,15 @@ def test_graphed_tree_equals_eager(dev, quant):
         state, buf, n, c, _ = eng.generate(state, 16)
         state, buf2, n2, c2, _ = eng.generate_forced(state, 8, 0.9)
         torch.cuda.synchronize()
-        out[graphs] = (buf[:n].tolist(), c.tolist(), buf2[:n2].tolist(),
-                       c2.tolist(), int(state.kv.seq_len), _launches(),
-                       state.gen.get_state(), eng.graphs.captures)
+        out[graphs] = (buf[:n].tolist(), c[:2].tolist(), buf2[:n2].tolist(),
+                       c2[:2].tolist(), int(state.kv.seq_len), _launches(),
+                       state.gen.get_state(), eng.graphs.captures,
+                       (int(c[2]), int(c2[2])))
     g, e = out[True], out[False]
     assert g[:6] == e[:6] and torch.equal(g[6], e[6])
-    assert g[7] >= 3 and e[7] == 0
+    # the loop and the forced loop, one read-back a call
+    assert g[7] == 2 and e[7] == 0
+    assert g[8] == (1, 1) and min(e[8]) > 1
 
 
 @pytest.mark.parametrize("quant", [False, True])
@@ -885,6 +893,99 @@ def test_graphed_ar_scheduler_equals_eager(dev):
                        sched.stats["captures"], sched.graphs.captures)
     assert out[True][0] == out[False][0]
     assert out[True][1] == 1 and out[False][2] == 0
+
+
+@pytest.mark.parametrize("pdl", [True, False])
+def test_if_node_runs_its_body_where_the_predicate_holds(dev, pdl):
+    """``GraphSet.cond`` captured as if-nodes (``csrc/graph_cond.cu``),
+    nested two deep, holding a cuBLAS product, a B1 launch (its reduce a
+    programmatic dependent where ``pdl``) and allocations, in a loop
+    region (captured at its first call): every replay runs exactly the
+    bodies whose predicates hold, reads nothing back, and ``read`` counts
+    the B1 launch once per run of its body."""
+    gs = tgraphs.GraphSet(dev, True)
+    x, w = _randn(dev, 1, 256, 256), _randn(dev, 2, 256, 256)
+    hkv, gt, d, s, klen = 8, 7, 128, 4200, 4100
+    q, k, v = (_randn(dev, 3, hkv, gt, d), _randn(dev, 4, hkv, s, d),
+               _randn(dev, 5, hkv, s, d))
+    kn, vn = _randn(dev, 6, hkv, gt, d), _randn(dev, 7, hkv, gt, d)
+    mask = tfd.causal_mask(gt, gt, 1, dev)
+    k_len = torch.full((), klen, dtype=torch.int32, device=dev)
+    prev = tfd.set_programmatic_launch(pdl)
+    try:
+        ref_mm = x @ w
+        ref_b1 = tfd.flash_decode_append(q, k, v, kn, vn, k_len, mask)
+        pred = torch.zeros((), dtype=torch.bool, device=dev)
+        pred2 = torch.zeros((), dtype=torch.bool, device=dev)
+        mm, b1 = torch.zeros_like(ref_mm), torch.zeros_like(ref_b1)
+        cnt = torch.zeros(2, dtype=torch.int64, device=dev)
+
+        def region():
+            def inner():
+                cnt[1:2].add_(torch.ones(1, dtype=torch.int64, device=dev))
+
+            def outer():
+                mm.copy_(x @ w)
+                b1.copy_(tfd.flash_decode_append(q, k, v, kn, vn, k_len,
+                                                 mask))
+                cnt[0:1].add_(1)
+                gs.cond(pred2, inner)
+            gs.cond(pred, outer)
+            return ()
+
+        for p1 in (True, False, True):
+            for p2 in (True, False):
+                pred.fill_(p1)
+                pred2.fill_(p2)
+                mm.zero_()
+                b1.zero_()
+                c0 = cnt.clone()
+                l0 = tfd.flash_decode_append.launches
+                gs.run("cond", region, (), caches=(mm, b1, cnt),
+                       capture_first=True)
+                r0 = gs.readbacks
+                gs.read(torch.zeros(0, dtype=torch.int64, device=dev))
+                torch.cuda.synchronize()
+                assert gs.readbacks == r0 + 1
+                assert torch.equal(mm, ref_mm) == p1 and bool(mm.any()) == p1
+                assert torch.equal(b1, ref_b1) == p1
+                assert (cnt - c0).tolist() == [int(p1), int(p1 and p2)]
+                assert tfd.flash_decode_append.launches - l0 == int(p1)
+        assert gs.captures == 1 and gs.stats()["bodies"] == 2
+    finally:
+        tfd.set_programmatic_launch(prev)
+
+
+def test_dead_graphs_give_back_their_body_counters(dev):
+    """A graph that dies with its caches gives its if-node bodies'
+    counters back: a new state's loop reuses them, and the launches a
+    replay's bodies make are still counted once each."""
+    gs = tgraphs.GraphSet(dev, True)
+    q, k, v = (_randn(dev, 3, 8, 1, 128), _randn(dev, 4, 8, 512, 128),
+               _randn(dev, 5, 8, 512, 128))
+    kn, vn = _randn(dev, 6, 8, 1, 128), _randn(dev, 7, 8, 1, 128)
+    mask = tfd.causal_mask(1, 1, 1, dev)
+    k_len = torch.full((), 500, dtype=torch.int32, device=dev)
+    tfd.flash_decode_append(q, k, v, kn, vn, k_len, mask)
+    pred = torch.ones((), dtype=torch.bool, device=dev)
+    for state in range(3):
+        out = torch.zeros_like(q)
+
+        def region():
+            def body():
+                out.copy_(tfd.flash_decode_append(q, k, v, kn, vn, k_len,
+                                                  mask))
+            gs.cond(pred, body)
+            gs.cond(pred, body)
+            return ()
+        l0 = tfd.flash_decode_append.launches
+        for _ in range(2):
+            gs.run("loop", region, (), caches=(out,), capture_first=True)
+        gs.read(torch.zeros(0, dtype=torch.int64, device=dev))
+        torch.cuda.synchronize()
+        assert tfd.flash_decode_append.launches - l0 == 4
+        assert gs.captures == state + 1 and len(gs._bodies) == 2
+        del out, region
 
 
 def test_graphs_refuse_the_cpu():

@@ -167,12 +167,14 @@ def test_measure_acceptance_vector_deterministic():
         return profiling.measure_acceptance_vector(
             eng, torch.from_numpy(_ids()), max_branch=3, steps=12,
             seed=seed)
-    p1, p2, p3 = run(5), run(5), run(6)
+    p1, p2 = run(5), run(5)
     np.testing.assert_array_equal(p1, p2)
     assert p1.shape == (4,) and p1[0] == 0.0
     assert (p1 >= 0).all() and p1.sum() <= 1.0 + 1e-6
     assert p1[1] > 0                   # the first candidate accepts
-    assert not np.array_equal(p1, p3)  # another seed, other draws
+    # other seeds, other draws: ~97% of the 36 positions accept the first
+    # candidate, so one other seed may give the same vector (seed 6 does)
+    assert not all(np.array_equal(p1, run(s)) for s in (6, 7))
 
 
 def test_accept_walk_matches_a_loop():

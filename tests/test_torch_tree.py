@@ -602,7 +602,7 @@ def test_tree_engine_near_greedy_identity(target, case):
         assert at.tokens.tolist() == _np(aj.tokens).tolist()
         assert int(st.kv.seq_len) == int(sj.kv.seq_len)
         assert int(st.next_token[0]) == int(sj.next_token[0])
-        assert 1 <= at.readbacks <= te.max_path + 1
+        assert at.readbacks == 1      # the step's counts, read once
         if at.terminal:
             break
     rj = jtree.tree_decode(je, jnp.asarray(ids), max_len=20, seed=1)

@@ -1,4 +1,5 @@
-"""Build and load the port's CUDA kernels (``csrc/*.cu``).
+"""Build and load the port's CUDA kernels (``csrc/*.cu``) and its
+conditional graph nodes (``csrc/graph_cond.cu``).
 
 Each source is compiled by ``nvcc`` for ``sm_90a`` into its own shared
 library with a plain C interface, all sources at once (one ``nvcc`` process
@@ -25,7 +26,7 @@ from pathlib import Path
 _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
 BUILD_ROOT = _HERE / "_build"
-SOURCES = ("flash_decode.cu", "chunk_scores.cu")
+SOURCES = ("flash_decode.cu", "chunk_scores.cu", "graph_cond.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
               "-Xptxas", "-v")
@@ -81,6 +82,11 @@ _SIGNATURES = {
         # q, then 1 if q is bf16 (0: fp32)
         "tf_chunk_scores_int8": [_P, _I, _P, _L, _L, _P, _L, _P, _I, _I,
                                  _I, _I, _I, _I, _I, _P],
+    },
+    "graph_cond.cu": {
+        # parent (capturing) stream, the bool predicate, child stream
+        "tf_cond_begin": [_P, _P, _P],
+        "tf_cond_end": [_P],
     },
 }
 

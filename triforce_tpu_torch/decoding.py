@@ -10,7 +10,10 @@ streamed (``utils.misc.spec_stream``, through ``tokenizer`` when given)
 after the timed loop, so no read-back enters the timed window. On a card
 the engine captures its decode graphs inside the timed loop (the second
 call of each region); ``DecodeResult.capture_s`` holds those seconds and
-``wall_s`` (hence ``tokens_per_sec``) leaves them out. The prefill is
+``wall_s`` (hence ``tokens_per_sec``) leaves them out. ``readbacks``
+counts the host read-backs of the generation call: one (the tokens, at
+the end) where the engine's loop replays graphs, more on an eager engine,
+which reads every loop predicate back. The prefill is
 timed apart (``prefill_s``, from the call's start to the first token's
 read-back), and the graphs it captures are counted apart too
 (``prefill_captures``, ``prefill_capture_s``, not in ``prefill_s``).
@@ -45,6 +48,7 @@ class DecodeResult:
     prefill_s: float = 0.0     # prefill wall up to the first token
     prefill_captures: int = 0  # CUDA graphs captured in the prefill
     prefill_capture_s: float = 0.0   # their seconds (not in prefill_s)
+    readbacks: int = 0         # host read-backs of the generation call
 
 
 class _CaptureClock:
@@ -118,7 +122,7 @@ def autoregressive(engine: Engine, input_ids: torch.Tensor,
             spec_stream(t, tokenizer, "cyan")
     return DecodeResult(tokens=out, tokens_per_sec=max_len / wall,
                         steps=max_len, wall_s=wall, captures=clock.count,
-                        capture_s=clock.seconds, **pre.fields)
+                        capture_s=clock.seconds, readbacks=1, **pre.fields)
 
 
 def _run_spec_loop(engine: Engine, state: TriForceState, mode: str,
@@ -127,10 +131,11 @@ def _run_spec_loop(engine: Engine, state: TriForceState, mode: str,
     first = int(state.next_token[0])   # read-back: prefill is done
     pre.stop()
     clock = _CaptureClock(engine.graphs)
+    r0 = engine.graphs.readbacks
     t0 = time.perf_counter()
     state, buf, n, counters = engine.generate(state, max_len, mode=mode,
                                               stop_on_eos=stop_on_eos)
-    out = buf[:n].tolist()
+    out = buf[:n].tolist()             # the buffer is on the host
     wall = time.perf_counter() - t0 - clock.seconds
     assert out[0] == first
     (steps, accepted, proposed, resampled, bonus, mid_draft, mid_accept,
@@ -145,7 +150,8 @@ def _run_spec_loop(engine: Engine, state: TriForceState, mode: str,
         avg_tokens_per_step=gen / max(steps, 1),
         middle_acceptance_rate=mid_accept / max(mid_draft, 1),
         steps=steps, wall_s=wall, middle_verifies=mid_verify,
-        captures=clock.count, capture_s=clock.seconds, **pre.fields)
+        captures=clock.count, capture_s=clock.seconds,
+        readbacks=engine.graphs.readbacks - r0, **pre.fields)
 
 
 def triforce(engine: Engine, input_ids: torch.Tensor, max_len: int = 256,

@@ -1,49 +1,57 @@
 """Execution engine — the port of ``triforce_tpu/engine.py``.
 
-The JAX engine compiles each whole speculation round (and whole
-generations) into one XLA program with ``lax.while_loop``s. In eager
-PyTorch those loops are host loops that launch device work and read back
-only what the control flow needs:
+The JAX engine compiles each whole speculation round, and whole
+generations, into one XLA program with ``lax.while_loop``s. Here a step is
+a function of device tensors that makes no host decision: its
+data-dependent loops are conditional bodies (``GraphSet.cond``: the
+middle trips, each trip's drafter forwards) and the rest is
+``torch.where`` and writes at device offsets, down to the commit
+(rollback, retrieval tail refresh, drafter replay and window compaction
+take device counts). ``Engine.generate`` runs the whole generation as
+``max_len`` calls of one loop region that holds the step as a
+conditional body, with the token buffer, ``n``, the counters, the kv
+length and the next token kept in place; it reads back once, at its end.
 
-  * the middle (drafter <-> retrieval-cache) loop reads its accept outcome
-    once per trip (``middle_trips=0`` loops until gamma proposals);
-  * the outer verify reads its accept outcome once per step;
-  * the autoregressive loop reads nothing until the end.
+On a CUDA device the loop region is captured as one CUDA graph at its
+first call (``graphs.py``; the bodies become if-nodes) and replayed, so a
+generation is ``max_len`` graph launches and one read-back, as the JAX
+engine's is one dispatch. ``Engine(graphs=False)`` runs the same code
+eagerly (the witness a graphed run is held against: its conditions are
+read back), and so does the CPU. ``_step_fn`` runs one step at a time
+(one region, one read-back of its counts); the AR loop replays its
+one-token graph with no read-back until the end.
 
-Random draws come from the state's ``torch.Generator``. The caches are
-updated in place (see ``cache.py``); a state is not reusable after a step
-unless it was cloned first (``TriForceState.clone``).
+Random draws come from the state's ``torch.Generator``: each step draws
+all its uniforms in one call of fixed shape at its top (``_draws``), and
+its samples and coins take their shares, so that which bodies run never
+changes what is drawn (the JAX engine splits its key at fixed points).
+The caches are updated in place (see ``cache.py``); a state is not
+reusable after a step unless it was cloned first
+(``TriForceState.clone``).
 
-On a CUDA device every forward of the decode path, with the sampling
-that needs no host decision, runs as the replay of a captured CUDA graph
-(``graphs.py``, where the JAX engine runs its jitted programs): the AR
-step whole; the retrieval step's gamma middle forwards with the target
-verify up to the outer read-back; in the TriForce step the drafter
-forward, the middle verify, the target verify and the drafter replay. The
-host loops, their read-backs and what follows a read-back (rollback,
-tail refresh, window compaction: they take host counts) stay eager.
 The prefills are graphed too (``append_graphed``, ``prefill_chunks``):
 each target chunk width is one region, the retrieval build (the last
 prompt token's forward) another, each drafter chunk width (the window
 slide and the forward) a third; so the JAX package's prefill scans and
 its build jit become one graph per width, replayed chunk after chunk.
 The first-token sample stays eager, outside the build, as in the JAX
-package. ``Engine(graphs=False)`` runs every region eagerly (the witness
-a graphed run is held against); the CPU never captures.
+package.
 
 The batched steps (``triforce_step_rows``, ``retrieval_spec_step_rows``)
 run the same step for B rows of a ``StackedState`` at once: every forward
 runs once for all rows, where the JAX package vmaps its batch-1 step. The
 control flow stays on the host, per row, but one read-back serves all rows:
 one vector per middle trip and one per outer verify. Each row owns a
-generator and draws from it exactly what the batch-1 step would draw, in
-the same order, so a batched row emits what its batch-1 run with the same
-seed emits.
+generator and draws from it the block of uniforms the batch-1 step draws,
+and takes the same shares, so a batched row emits what its batch-1 run
+with the same seed emits.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
+import math
 from typing import Optional
 
 import numpy as np
@@ -51,13 +59,14 @@ import torch
 
 from . import graphs as graphs_mod
 from .cache import (KVCache, RetrievalCache, StreamingCache,
-                    batched_commit_and_refresh, init_kv, init_retrieval,
-                    init_streaming, retrieval_tail_refresh,
+                    batched_commit_and_refresh, device_scalar, init_kv,
+                    init_retrieval, init_streaming, retrieval_tail_refresh,
                     streaming_evict_for_spec, streaming_evict_for_spec_rows,
-                    streaming_evict_prefill)
+                    streaming_evict_prefill, write_at)
 from .config import ModelConfig, SpecConfig, resolve_device
 from .models import llama
 from .ops import sampling
+from .ops.flash_decode import causal_mask
 
 JUNK_TOKEN = 100  # the reference pads spec buffers with token id 100
 
@@ -107,8 +116,9 @@ class TriForceState:
 
 @dataclasses.dataclass
 class StepStats:
-    """Per-step outputs: ``tokens`` stays on the device; the counts are
-    host ints (the step read them back to drive its control flow)."""
+    """Per-step outputs of ``Engine._step_fn``: ``tokens`` and ``eos``
+    stay on the device; the counts are host ints (the step's one
+    read-back)."""
     tokens: torch.Tensor      # [gamma + 2] emitted tokens, junk-padded
     n_emitted: int            # count_acc + resampled + bonus
     gamma2: int               # middle tokens proposed to the target
@@ -228,6 +238,15 @@ class Engine:
         self.t_params = target_params
         self.d_params = draft_params
         self._dense = None     # the prefill's converted weights (graphed)
+        if self.device.type == "cuda":
+            # the decode forwards' causal masks (the target's kernel rows:
+            # AR, middle verify, target verify; the drafter's chain and
+            # replay), built before a loop region captures them
+            g = target_cfg.num_heads // target_cfg.num_kv_heads
+            for t, groups in ((1, g), (spec.gamma + 1, g),
+                              (spec.gamma + 2, g), (spec.gamma + 1, 1),
+                              (spec.gamma + 3, 1)):
+                causal_mask(t, t, groups, self.device)
 
     # ------------------------------------------------------------------
     # state construction / prefill
@@ -385,33 +404,83 @@ class Engine:
             buf[i] = token[0]
         return kv, token, gen, buf
 
-    def _gen(self, step_fn, max_len: int, stop_on_eos: bool,
-             state: TriForceState):
+    def _gen(self, mode: str, force_accept, max_len: int,
+             stop_on_eos: bool, state: TriForceState):
+        """The generation loop on the device, as the JAX engine's
+        ``while_loop`` (``triforce_tpu/engine.py:247-271``): ``max_len``
+        calls of one region (a loop region of ``graphs``: captured at its
+        first call, then replayed) that draws the step's uniforms and runs
+        the step as a conditional body while ``n < max_len + 1`` and no
+        stop; the step writes the token buffer at the device offset ``n``,
+        adds the counters and leaves the kv length and the next token in
+        place. A step emits at least one token, so ``max_len`` calls
+        suffice, and the host reads nothing back until the end: once,
+        the buffer, ``n`` and the counters (with the bodies' launch
+        counts, ``GraphSet.read``)."""
+        if mode not in _BODIES:
+            raise ValueError(mode)
+        if mode == "triforce" and self.draft_cfg is None:
+            raise ValueError("triforce mode needs a drafter")
+        dev, g = self.device, self.graphs
         slack = self.spec.gamma + 2
-        buf = torch.full((max_len + slack,), JUNK_TOKEN, dtype=torch.int64,
-                         device=self.device)
-        buf[0] = state.next_token[0]
-        n = 1
-        counters = np.zeros(9, np.int64)
-        while n < max_len + 1:
-            state, st = step_fn(state)
-            buf[n:n + slack] = st.tokens
-            n += st.n_emitted
-            counters += [1, st.accepted, st.gamma2, st.resampled, st.bonus,
-                         st.mid_draft, st.mid_accept, st.mid_verify,
-                         st.mid_live]
-            if stop_on_eos and bool(st.eos):
-                break
-        return state, buf, n, counters
+        caches = graphs_mod.planes(state.kv, state.rkv, state.dkv)
+        i64 = dict(dtype=torch.int64, device=dev)
+        lb = g.buffers("gen " + mode, caches, lambda: dict(
+            buf=torch.empty((max_len + slack,), **i64),
+            n=torch.empty((), **i64),
+            stop=torch.empty((), dtype=torch.bool, device=dev),
+            counters=torch.empty((9,), **i64),
+            seq_len=torch.empty_like(state.kv.seq_len),
+            next_token=torch.empty_like(state.next_token)), extra=(max_len,))
+        lb["buf"].fill_(JUNK_TOKEN)
+        lb["buf"][:1] = state.next_token[:1]
+        lb["n"].fill_(1)
+        lb["stop"].fill_(False)
+        lb["counters"].zero_()
+        lb["seq_len"].copy_(state.kv.seq_len)
+        lb["next_token"].copy_(state.next_token)
+        body = _BODIES[mode]
+        parts = _draw_parts(self.spec, self.target_cfg.vocab_size, mode)
+        gen = state.gen
+        st = dataclasses.replace(state, kv=_kv_at(state.kv, lb["seq_len"]),
+                                 next_token=lb["next_token"])
+        one = torch.ones((1,), **i64)
+
+        def region():
+            u = _draws(parts, gen, dev)
+
+            def step():
+                o = body(self, st, u, force_accept)
+                write_at(lb["buf"], o["tokens"], lb["n"], 0)
+                lb["n"].add_(o["n_emitted"])
+                lb["counters"].add_(torch.cat([one, _counts_of(o)[1:9]]))
+                lb["seq_len"].copy_(o["seq_len"])
+                lb["next_token"].copy_(o["next_token"])
+                if stop_on_eos:
+                    lb["stop"].copy_(o["eos"])
+            g.cond((lb["n"] < max_len + 1) & ~lb["stop"], step)
+            return ()
+
+        for _ in range(max_len):
+            g.run("gen " + mode, region, (), caches=caches + tuple(
+                lb.values()), gens=(gen,),
+                extra=(force_accept, stop_on_eos, max_len),
+                capture_first=True)
+        host = g.read(torch.cat([lb["buf"], lb["n"].reshape(1),
+                                 lb["counters"]]))       # the read-back
+        size = max_len + slack
+        state = dataclasses.replace(
+            state, kv=_kv_at(state.kv, lb["seq_len"].clone()),
+            next_token=lb["next_token"].clone())
+        return state, host[:size], int(host[size]), host[size + 1:].numpy()
 
     def generate(self, state: TriForceState, max_len: int,
                  mode: str = "triforce", stop_on_eos: bool = False):
-        """Speculative generation until ``max_len`` tokens past the first.
-        Returns (state, token_buf, n, counters) with counters = [steps,
-        accepted, proposed, resampled, bonus, mid_draft, mid_accept,
-        mid_verify, mid_live]."""
-        return self._gen(self._step_fn(mode, None), max_len, stop_on_eos,
-                         state)
+        """Speculative generation until ``max_len`` tokens past the first
+        (``_gen``). Returns (state, token_buf (host), n, counters) with
+        counters = [steps, accepted, proposed, resampled, bonus, mid_draft,
+        mid_accept, mid_verify, mid_live]."""
+        return self._gen(mode, None, max_len, stop_on_eos, state)
 
     def generate_forced(self, state: TriForceState, max_len: int,
                         alpha: float, mode: str = "retrieval",
@@ -420,17 +489,16 @@ class Engine:
         coin flip at rate ``alpha`` while all real compute runs (drafter
         forwards, middle verifies, full-cache verify, rollback, tail
         refresh). The output is NOT target-distributed."""
-        return self._gen(self._step_fn(mode, alpha), max_len, stop_on_eos,
-                         state)
+        return self._gen(mode, alpha, max_len, stop_on_eos, state)
 
     def _step_fn(self, mode: str, force_accept):
-        if mode == "triforce":
-            if self.draft_cfg is None:
-                raise ValueError("triforce mode needs a drafter")
-            return lambda s: _triforce_step(self, s, force_accept)
-        if mode == "retrieval":
-            return lambda s: _retrieval_spec_step(self, s, force_accept)
-        raise ValueError(mode)
+        """One step of ``mode`` at a time, each reading its counts back:
+        ``state -> (state, StepStats)``."""
+        if mode not in _BODIES:
+            raise ValueError(mode)
+        if mode == "triforce" and self.draft_cfg is None:
+            raise ValueError("triforce mode needs a drafter")
+        return lambda s: _step(self, s, mode, force_accept)
 
 
 # ---------------------------------------------------------------------------
@@ -501,7 +569,7 @@ def prefill_chunks(graphs: graphs_mod.GraphSet, cfg: ModelConfig, params,
 
 
 # ---------------------------------------------------------------------------
-# The TriForce step
+# The step's random draws
 # ---------------------------------------------------------------------------
 
 
@@ -511,55 +579,67 @@ def _chain_len(sp: SpecConfig) -> int:
                       gamma))
 
 
-def _draft_region(eng: Engine, state: TriForceState):
-    """The middle loop's drafter forward at its fixed width gamma+1 over
-    ``vt`` [1, gamma+1], then the proposal sampled from row ``at``:
-    returns (token [1], its drafter probability [1])."""
-    d_cfg, sp, dkv, gen = eng.draft_cfg, eng.spec, state.dkv, state.gen
-
-    def region(vt, at):
-        d_logits, _ = llama.draft_forward_spec(d_cfg, eng.d_params, vt, dkv,
-                                               sp, commit=False)
-        q = sampling.norm_logits(d_logits[0].index_select(0, at.reshape(1)),
-                                 sp.temperature, -1, sp.top_p)[0]
-        tok = sampling.sample(q, gen).reshape(1)
-        return tok, q.gather(0, tok)
-    return region
+def _trip_slots(sp: SpecConfig) -> int:
+    """The middle trips a TriForce step can take: ``middle_trips``, else
+    gamma (a live trip consumes at least one proposal)."""
+    return sp.middle_trips if sp.middle_trips > 0 else sp.gamma
 
 
-def _mid_verify_region(eng: Engine, state: TriForceState, force_accept):
-    """ONE middle verify (target weights over the read-only retrieval
-    cache) of the chain in ``vt``, its filtered rows from ``n0`` and the
-    chain's accept tests up to the trip's read-back: returns (p_rows
-    [k+1, V], [any rejection, first rejection])."""
-    t_cfg, sp = eng.target_cfg, eng.spec
-    gamma, k, vocab = sp.gamma, _chain_len(sp), t_cfg.vocab_size
-    rkv, gen = state.rkv, state.gen
-
-    def region(vt, kv_len, n0, chain_toks, chain_q, i_fin):
-        dev = vt.device
-        m_logits, _ = llama.forward_spec(
-            t_cfg, eng.t_params, vt, rkv, kv_len, sp.budget, commit=False,
-            act_quant=sp.mid_act_quant)
-        rows_idx = (n0 + torch.arange(k + 1, device=dev)).clamp(0, gamma)
-        p_rows = sampling.norm_logits(m_logits[0].index_select(0, rows_idx),
-                                      sp.temperature, -1, sp.top_p)
-        # all per-proposal coins at once
-        rs = torch.rand((k,), generator=gen, device=dev)
-        js = torch.arange(k, device=dev)
-        if force_accept is None:
-            ratios = p_rows[js, chain_toks.clamp(0, vocab - 1)] \
-                / chain_q.clamp_min(1e-37)
-            ok_v = rs < ratios.clamp(max=1.0)
-        else:
-            ok_v = rs < force_accept
-        rej_v = (js < i_fin) & ~ok_v
-        return p_rows, torch.stack([rej_v.any().long(),
-                                    torch.argmax(rej_v.to(torch.int32))])
-    return region
+def _draw_parts(sp: SpecConfig, vocab: int, mode: str) -> tuple:
+    """The named blocks of one step's uniforms (``_draws``): per middle
+    trip the drafter samples, the chain's coins, the reject sample and the
+    bonus sample (TriForce), or the gamma middle samples (retrieval); then
+    the outer verify's coins, its residual sample and its bonus sample."""
+    gamma = sp.gamma
+    if mode == "triforce":
+        t, k = _trip_slots(sp), _chain_len(sp)
+        mid = (("drafts", (t, k, vocab)), ("mid_coins", (t, k)),
+               ("mid_res", (t, vocab)), ("mid_bonus", (t, vocab)))
+    else:
+        mid = (("mid", (gamma, vocab)),)
+    return mid + (("coins", (gamma + 1,)), ("res", (vocab,)),
+                  ("bonus", (vocab,)))
 
 
-def _middle_spec(eng: Engine, state: TriForceState, force_accept=None):
+def _draws(parts, gens, dev) -> dict:
+    """A step's uniforms: one ``torch.rand`` of fixed shape from a
+    generator (from each of a list of generators: one per row, stacked on
+    a leading axis), cut into ``parts``. Every step draws all of them,
+    whichever samples and coins it uses (the JAX engine splits its key at
+    fixed points alike), so that a graph whose conditional bodies were
+    skipped has drawn what an eager run draws."""
+    n = sum(math.prod(shape) for _, shape in parts)
+    if isinstance(gens, torch.Generator):
+        u = torch.rand((n,), generator=gens, device=dev)
+    else:
+        u = torch.stack([torch.rand((n,), generator=g, device=dev)
+                         for g in gens])
+    out, o = {}, 0
+    for name, shape in parts:
+        size = math.prod(shape)
+        out[name] = u[..., o:o + size].reshape(u.shape[:-1] + shape)
+        o += size
+    return out
+
+
+def _row(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """``x[i]`` for a 0-d device index (a 0-d tensor as an index would be
+    read back)."""
+    return x.index_select(0, i.reshape(1))[0]
+
+
+# ---------------------------------------------------------------------------
+# The batch-1 steps, on the device
+# ---------------------------------------------------------------------------
+#
+# A step is a function of the state's caches (updated in place) and of its
+# uniforms; it makes no host decision. Its counts are 0-d device tensors
+# and its data-dependent branches are ``GraphSet.cond`` bodies or
+# ``torch.where``, as the JAX engine's are ``while_loop``s and
+# ``jnp.where`` (``triforce_tpu/engine.py:567-603``, ``:757-818``).
+
+
+def _middle_spec(eng: Engine, state: TriForceState, u, force_accept=None):
     """Drafter <-> middle speculation loop, generalized to drafter CHAINS
     of ``middle_chain`` tokens per middle verify: k drafter forwards propose
     a chain, ONE middle verify (target weights over the retrieval cache)
@@ -567,290 +647,292 @@ def _middle_spec(eng: Engine, state: TriForceState, force_accept=None):
     test in order; the first reject samples from that position's middle
     distribution and stops; a fully accepted chain earns a bonus token.
 
-    ``middle_trips=0`` loops until gamma proposals; ``middle_trips>0`` runs
-    that many trips, dead ones (n >= gamma) with a zero-column retrieval
-    read. Each trip reads its outcome back once. The drafter forwards and
-    the middle verify are graph regions; the rest is eager."""
-    t_cfg, sp = eng.target_cfg, eng.spec
-    gamma, k = sp.gamma, _chain_len(sp)
+    The trips are ``_trip_slots`` bodies: with ``middle_trips == 0`` trip
+    t runs while n < gamma (a conditional body); with ``middle_trips > 0``
+    every trip runs, a dead one (n >= gamma) drafting nothing and reading
+    zero retrieval columns. Each of a trip's k drafter forwards is a
+    conditional body that runs while n0 + i <= gamma - 1. The rest is
+    masked on the device; the counts are 0-d int64 tensors."""
+    t_cfg, d_cfg, sp = eng.target_cfg, eng.draft_cfg, eng.spec
+    gamma, k, vocab = sp.gamma, _chain_len(sp), t_cfg.vocab_size
     dev = state.next_token.device
-    gen = state.gen
-    kv_seq_len = state.kv.seq_len
-    gen_tokens = torch.full((gamma + 1,), JUNK_TOKEN, dtype=torch.int64,
+    cond = eng.graphs.cond
+    kv_len = state.kv.seq_len
+    i64 = dict(dtype=torch.int64, device=dev)
+    gen_tokens = torch.full((gamma + 1,), JUNK_TOKEN, **i64)
+    gen_probs = torch.zeros((gamma + 1, vocab), dtype=torch.float32,
                             device=dev)
-    gen_probs = torch.zeros((gamma + 1, t_cfg.vocab_size),
-                            dtype=torch.float32, device=dev)
-    draft = _draft_region(eng, state)
-    verify = _mid_verify_region(eng, state, force_accept)
-    d_planes = graphs_mod.planes(state.dkv)
-    r_planes = graphs_mod.planes(state.rkv)
-    n = mid_draft = mid_accept = trips = live_trips = 0
+    c = {name: torch.zeros((), **i64)
+         for name in ("n", "mid_draft", "mid_accept", "trips", "live_trips")}
+    pos = torch.arange(gamma + 1, device=dev)
+    js = torch.arange(k, device=dev)
 
-    while (trips < sp.middle_trips) if sp.middle_trips > 0 else (n < gamma):
-        n0 = n
+    def trip(t):
+        n0 = c["n"].clone()
         live = n0 < gamma
-        # --- chain drafting: up to k drafter forwards, stopping at the
-        # gamma-1 proposal cap
         vt = torch.cat([state.next_token[:1], gen_tokens[:gamma]])[None]
-        chain_toks = torch.full((k,), JUNK_TOKEN, dtype=torch.int64,
-                                device=dev)
+        chain_toks = torch.full((k,), JUNK_TOKEN, **i64)
         chain_q = torch.zeros((k,), dtype=torch.float32, device=dev)
-        i_fin = 0
-        while i_fin < k and n0 + i_fin <= gamma - 1:
-            i = i_fin
-            tok, q_tok = eng.graphs.run("draft", draft, (vt, n0 + i),
-                                        caches=d_planes, gens=(gen,))
+
+        def draft(i):
+            # the drafter at its fixed width gamma+1, the proposal sampled
+            # from row n0 + i
+            d_logits, _ = llama.draft_forward_spec(
+                d_cfg, eng.d_params, vt, state.dkv, sp, commit=False)
+            q = sampling.norm_logits(
+                d_logits[0].index_select(0, (n0 + i).reshape(1)),
+                sp.temperature, -1, sp.top_p)[0]
+            tok = sampling.sample_u(q, u["drafts"][t, i]).reshape(1)
             chain_toks[i:i + 1] = tok
-            chain_q[i:i + 1] = q_tok
-            vt[0, n0 + i + 1:n0 + i + 2] = tok
-            i_fin += 1
+            chain_q[i:i + 1] = q.gather(0, tok)
+            vt[0].index_copy_(0, (n0 + i + 1).reshape(1), tok)
 
-        # --- ONE middle verify over the whole chain (read-only rkv) and
-        # its accept tests
-        p_rows, outcome = eng.graphs.run(
-            "mid_verify", verify,
-            (vt, kv_seq_len if live else torch.zeros_like(kv_seq_len), n0,
-             chain_toks, chain_q, i_fin),
-            caches=r_planes, gens=(gen,), extra=(force_accept,))
-        any_rej, j_rej = outcome.tolist()          # the trip's read-back
-        used = j_rej + 1 if any_rej else i_fin          # proposals consumed
-
-        final_toks = chain_toks
-        if any_rej:
-            # reject: sample from that position's middle distribution
-            res = sampling.sample(p_rows[j_rej], gen)
-            final_toks = chain_toks.clone()
-            final_toks[j_rej] = res
-        # commit consumed positions: tokens and their middle rows (the q
-        # the OUTER test consumes, accepted and rejected positions alike)
-        gen_tokens[n0:n0 + used] = final_toks[:used]
-        gen_probs[n0:n0 + used] = p_rows[:used]
+        for i in range(k):
+            cond(n0 + i <= gamma - 1, functools.partial(draft, i))
+        i_fin = (gamma - n0).clamp(0, k)       # the drafter forwards run
+        # --- ONE middle verify over the whole chain (read-only rkv)
+        m_logits, _ = llama.forward_spec(
+            t_cfg, eng.t_params, vt, state.rkv,
+            torch.where(live, kv_len, torch.zeros_like(kv_len)), sp.budget,
+            commit=False, act_quant=sp.mid_act_quant)
+        rows_idx = (n0 + torch.arange(k + 1, device=dev)).clamp(0, gamma)
+        p_rows = sampling.norm_logits(m_logits[0].index_select(0, rows_idx),
+                                      sp.temperature, -1, sp.top_p)
+        # --- the chain's accept tests, all coins at once
+        rs = u["mid_coins"][t]
+        if force_accept is None:
+            ratios = p_rows[js, chain_toks.clamp(0, vocab - 1)] \
+                / chain_q.clamp_min(1e-37)
+            ok_v = rs < ratios.clamp(max=1.0)
+        else:
+            ok_v = rs < force_accept
+        rej_v = (js < i_fin) & ~ok_v
+        any_rej = rej_v.any()
+        j_rej = torch.argmax(rej_v.to(torch.int32))
+        used = torch.where(any_rej, j_rej + 1, i_fin)     # proposals taken
+        # reject: sample from that position's middle distribution
+        res = sampling.sample_u(_row(p_rows, j_rej), u["mid_res"][t])
+        final = torch.where((js == j_rej) & any_rej, res, chain_toks)
+        # commit positions [n0, n0 + used): tokens and their middle rows
+        # (the q the OUTER test consumes, accepted and rejected alike)
+        jj = pos - n0
+        sel = (jj >= 0) & (jj < used)
+        jc = jj.clamp(0, k - 1)
+        gen_tokens.copy_(torch.where(sel, final[jc], gen_tokens))
+        gen_probs.copy_(torch.where(sel[:, None], p_rows[jc], gen_probs))
         n = n0 + used
-        mid_accept += used - any_rej
-        mid_draft += used
-
         # --- bonus on a fully accepted chain: sample from the middle row
         # after the last accepted token
-        if not any_rej and n <= gamma and n0 < gamma:
-            b_row = p_rows[min(max(n - n0, 0), k)]
-            gen_tokens[n] = sampling.sample(b_row, gen)
-            gen_probs[n] = b_row
-            n += 1
-        trips += 1
-        live_trips += int(live)
+        bonus = ~any_rej & (n <= gamma) & live
+        b_row = _row(p_rows, used.clamp(0, k))
+        b_tok = sampling.sample_u(b_row, u["mid_bonus"][t])
+        at = (pos == n) & bonus
+        gen_tokens.copy_(torch.where(at, b_tok, gen_tokens))
+        gen_probs.copy_(torch.where(at[:, None], b_row, gen_probs))
+        c["n"].copy_(n + bonus.long())
+        c["mid_accept"].add_(used - any_rej.long())
+        c["mid_draft"].add_(used)
+        c["trips"].add_(1)
+        c["live_trips"].add_(live.long())
 
-    return {"n": n, "gen_tokens": gen_tokens, "gen_probs": gen_probs,
-            "mid_draft": mid_draft, "mid_accept": mid_accept,
-            "trips": trips, "live_trips": live_trips}
+    for t in range(_trip_slots(sp)):
+        if sp.middle_trips > 0:
+            trip(t)
+        else:
+            cond(c["n"] < gamma, functools.partial(trip, t))
+    return dict(c, gen_tokens=gen_tokens, gen_probs=gen_probs)
 
 
-def _verify_body(eng: Engine, kv: KVCache, gen, next_token, gen_tokens,
-                 gen_probs, gamma2, force_accept):
-    """The target's full-cache verify of ``[next_token] + gen_tokens``
-    (gamma+2 tokens, written into ``kv`` in place), the filtered target
-    rows and every accept test, up to the outer read-back: returns (p_all
-    [gamma+2, V], [any stop, first stop, accepted at it], kv length after
-    the forward). ``gamma2`` (int or 0-d tensor) counts the proposals."""
+def _verify_and_commit(eng: Engine, state: TriForceState, u, gamma2,
+                       gen_tokens, gen_probs, has_draft: bool,
+                       force_accept=None) -> dict:
+    """Target full-cache verify + exact rejection sampling + cache commit,
+    on the device: one gamma+2-token forward over ``[next_token] +
+    gen_tokens`` (written into kv in place), every accept test at once,
+    the residual and the bonus both sampled and chosen between, then the
+    rollback (a new length), the retrieval tail refresh and, with a
+    drafter, its replay at the fixed width gamma+3 and the window
+    compaction, all at device offsets. ``gamma2`` (int or 0-d tensor)
+    counts the proposals. Returns the emitted tokens [gamma+2], the
+    step's counts (0-d tensors), the new kv length and next token, and
+    ``gen_tokens``, ``gen_probs`` and the filtered target rows ``p_all``
+    [gamma+2, V] (``return_probs``)."""
     t_cfg, sp = eng.target_cfg, eng.spec
-    gamma = sp.gamma
+    gamma, vocab = sp.gamma, t_cfg.vocab_size
     dev = gen_tokens.device
-    verify_in = torch.cat([next_token[:1], gen_tokens[:gamma + 1]])[None]
-    logits, kv_out, _ = llama.forward_append(t_cfg, eng.t_params, verify_in,
-                                             kv)
+    eos = eng.eos_token_id
+    gamma2 = device_scalar(gamma2, dev)
+    old = state.kv.seq_len
+    verify_in = torch.cat([state.next_token[:1], gen_tokens[:gamma + 1]])[None]
+    logits, _, _ = llama.forward_append(t_cfg, eng.t_params, verify_in,
+                                        state.kv)
     p_all = sampling.norm_logits(logits[0], sp.temperature, sp.top_k,
                                  sp.top_p)                    # [gamma+2, V]
     pos = torch.arange(gamma + 1, device=dev)
     toks = gen_tokens[:gamma + 1]
-    tok_c = toks.clamp(0, t_cfg.vocab_size - 1)
+    tok_c = toks.clamp(0, vocab - 1)
     q_sel = gen_probs[pos, tok_c]
     p_sel = p_all[pos, tok_c]
-    rs = torch.rand((gamma + 1,), generator=gen, device=dev)
     if force_accept is None:
-        accept_v = rs < (p_sel / q_sel.clamp_min(1e-37)).clamp(max=1.0)
+        accept_v = u["coins"] < (p_sel / q_sel.clamp_min(1e-37)).clamp(max=1.0)
     else:
-        accept_v = rs < force_accept
-    live = pos < gamma2
+        accept_v = u["coins"] < force_accept
     # the walk stops at the first rejection OR the first ACCEPTED EOS
-    stop_v = live & (~accept_v | (accept_v & _is_eos(toks, eng.eos_token_id)))
-    j_stop_t = torch.argmax(stop_v.to(torch.int32)).reshape(1)
-    outcome = torch.cat([stop_v.any().long().reshape(1), j_stop_t,
-                         accept_v.gather(0, j_stop_t).long()])
-    return p_all, outcome, kv_out.seq_len
-
-
-def _verify_region(eng: Engine, state: TriForceState, force_accept):
-    kv, gen = state.kv, state.gen
-
-    def region(next_token, seq_len, gen_tokens, gen_probs, gamma2):
-        return _verify_body(eng, _kv_at(kv, seq_len), gen, next_token,
-                            gen_tokens, gen_probs, gamma2, force_accept)
-    return region
-
-
-def _outer_verify_and_commit(eng: Engine, state: TriForceState, gamma2: int,
-                             gen_tokens, gen_probs, has_draft: bool,
-                             force_accept=None, return_probs=False):
-    """Target full-cache verify + exact rejection sampling + cache commit:
-    one gamma+2-token forward, all accept tests at once (one graph region),
-    one read-back of the outcome, then rollback, retrieval tail refresh and
-    (with a drafter) the drafter replay and window compaction.
-
-    ``return_probs``: also return ``(gen_tokens, gen_probs, p_all)``, the
-    step's real middle (q) and target (p) distribution rows, for
-    acceptance measurement (``profiling.measure_acceptance_vector``). The
-    batched steps (``*_step_rows``) return no such payload."""
-    p_all, outcome, seq_len = eng.graphs.run(
-        "verify", _verify_region(eng, state, force_accept),
-        (state.next_token, state.kv.seq_len, gen_tokens, gen_probs, gamma2),
-        caches=graphs_mod.planes(state.kv), gens=(state.gen,),
-        extra=(force_accept,))
-    return _commit(eng, state, _kv_at(state.kv, seq_len), p_all, outcome,
-                   gamma2, gen_tokens, gen_probs, has_draft, return_probs)
-
-
-def _commit(eng: Engine, state: TriForceState, kv: KVCache, p_all, outcome,
-            gamma2: int, gen_tokens, gen_probs, has_draft: bool,
-            return_probs: bool):
-    """What follows the outer read-back (eager: it takes host counts):
-    the resample or bonus, rollback, retrieval tail refresh, emitted
-    tokens and, with a drafter, its replay (a graph region) and window
-    compaction."""
-    sp = eng.spec
-    gamma = sp.gamma
-    dev = gen_tokens.device
-    gen = state.gen
-    old_seq_len = state.kv.seq_len
-    toks = gen_tokens[:gamma + 1]
-    any_stop, j_stop, stop_acc = outcome.tolist()      # the step's read-back
-    count = j_stop + stop_acc if any_stop else gamma2
-    rejected = bool(any_stop and not stop_acc)
+    stop_v = (pos < gamma2) & (~accept_v | (accept_v & _is_eos(toks, eos)))
+    any_stop = stop_v.any()
+    j_stop = torch.argmax(stop_v.to(torch.int32)).to(torch.int64)
+    stop_acc = _row(accept_v, j_stop)
+    count = torch.where(any_stop, j_stop + stop_acc.long(), gamma2)
+    rejected = any_stop & ~stop_acc
     bonus = count == gamma2
-
-    if bonus:
-        pred = sampling.sample(p_all[gamma2], gen)
-    elif rejected:
-        pred = sampling.sample(sampling.max_fn(p_all[j_stop]
-                                               - gen_probs[j_stop]), gen)
-    else:
-        pred = toks[j_stop]
-    has_final = rejected or bonus
+    res = sampling.sample_u(sampling.max_fn(_row(p_all, j_stop)
+                                            - _row(gen_probs, j_stop)),
+                            u["res"])
+    bonus_tok = sampling.sample_u(_row(p_all, gamma2), u["bonus"])
+    pred = torch.where(bonus, bonus_tok,
+                       torch.where(rejected, res, _row(toks, j_stop)))
+    has_final = rejected | bonus
     # EOS on any emitting path: accepted proposal, residual, bonus
-    eos_acc = bool(any_stop and stop_acc)
-    eos_hit = torch.full((), eos_acc, dtype=torch.bool, device=dev)
-    if has_final:
-        eos_hit = eos_hit | _is_eos(pred, eng.eos_token_id)
+    eos_acc = any_stop & stop_acc
+    eos_hit = eos_acc | (has_final & _is_eos(pred, eos))
 
     # --- rollback + retrieval tail refresh: keep old + count + 1 slots.
     # An accepted EOS with no resample/bonus stays the next token, so it
-    # rolls back one more slot (next_token is never in kv).
-    eos_is_pred = int(eos_acc and not has_final)
-    kv = kv.rollback(gamma + 1 - count + eos_is_pred)
-    rkv = retrieval_tail_refresh(state.rkv, kv, sp, eng.prefill,
-                                 old_seq_len)
+    # keeps one slot fewer (next_token is never in kv).
+    keep = count + 1 - (eos_acc & ~has_final).long()
+    seq_len = (old + keep).to(old.dtype)
+    retrieval_tail_refresh(state.rkv, _kv_at(state.kv, seq_len), sp,
+                           eng.prefill, old)
 
-    emitted = torch.full((gamma + 2,), JUNK_TOKEN, dtype=torch.int64,
-                         device=dev)
-    emitted[:count] = gen_tokens[:count]
-    if has_final:
-        emitted[count] = pred
-
-    dkv = state.dkv
+    pos2 = torch.arange(gamma + 2, device=dev)
+    emitted = torch.where(
+        pos2 < count, gen_tokens[pos2.clamp(max=gamma)],
+        torch.where((pos2 == count) & has_final, pred, JUNK_TOKEN))
     if has_draft:
-        pass_tokens = torch.full((gamma + 3,), JUNK_TOKEN, dtype=torch.int64,
-                                 device=dev)
-        pass_tokens[0] = state.next_token[0]
-        pass_tokens[1:count + 1] = gen_tokens[:count]
-        if has_final:
-            pass_tokens[count + 1] = pred
-
-        def replay(pass_tokens):
-            llama.draft_forward_spec(eng.draft_cfg, eng.d_params,
-                                     pass_tokens[None], dkv, sp)
-            return ()
-        eng.graphs.run("draft_replay", replay, (pass_tokens,),
-                       caches=graphs_mod.planes(dkv))
+        ppos = torch.arange(gamma + 3, device=dev)
+        pass_tokens = torch.where(
+            ppos == 0, state.next_token[:1],
+            torch.where(ppos <= count, gen_tokens[(ppos - 1).clamp(0, gamma)],
+                        torch.where((ppos == count + 1) & has_final, pred,
+                                    JUNK_TOKEN)))
+        llama.draft_forward_spec(eng.draft_cfg, eng.d_params,
+                                 pass_tokens[None], state.dkv, sp)
         # the reference's count includes the bonus but NOT a resample — it
         # drops the last accepted token from the window on rejection
-        dkv = streaming_evict_for_spec(dkv, sp, count + int(bonus))
+        streaming_evict_for_spec(state.dkv, sp, count + bonus.long())
+    return dict(tokens=emitted, n_emitted=count + has_final.long(),
+                accepted=count, gamma2=gamma2, resampled=rejected.long(),
+                bonus=bonus.long(), eos=eos_hit, seq_len=seq_len,
+                next_token=pred.reshape(1), gen_tokens=gen_tokens,
+                gen_probs=gen_probs, p_all=p_all)
 
-    new_state = dataclasses.replace(state, kv=kv, rkv=rkv, dkv=dkv,
-                                    next_token=pred.reshape(1))
-    stats = StepStats(tokens=emitted, n_emitted=count + int(has_final),
-                      gamma2=gamma2, accepted=count,
-                      resampled=int(rejected), bonus=int(bonus), eos=eos_hit)
+
+def _triforce_body(eng: Engine, state: TriForceState, u,
+                   force_accept=None) -> dict:
+    """One full TriForce outer iteration: middle loop, then the outer
+    verify and commit."""
+    mid = _middle_spec(eng, state, u, force_accept)
+    out = _verify_and_commit(eng, state, u, mid["n"], mid["gen_tokens"],
+                             mid["gen_probs"], True, force_accept)
+    out.update(mid_draft=mid["mid_draft"], mid_accept=mid["mid_accept"],
+               mid_verify=mid["trips"], mid_live=mid["live_trips"])
+    return out
+
+
+def _retrieval_body(eng: Engine, state: TriForceState, u,
+                    force_accept=None) -> dict:
+    """Self-speculation step: the middle model (target weights over the
+    retrieval cache) drafts gamma tokens autoregressively, then the
+    full-cache target verifies them."""
+    t_cfg, sp = eng.target_cfg, eng.spec
+    gamma = sp.gamma
+    dev = state.next_token.device
+    verify_tokens = torch.full((1, gamma + 1), JUNK_TOKEN, dtype=torch.int64,
+                               device=dev)
+    verify_tokens[0, :1] = state.next_token[:1]
+    gen_tokens = torch.full((gamma + 1,), JUNK_TOKEN, dtype=torch.int64,
+                            device=dev)
+    gen_probs = torch.zeros((gamma + 1, t_cfg.vocab_size),
+                            dtype=torch.float32, device=dev)
+    for n in range(gamma):
+        m_logits, _ = llama.forward_spec(t_cfg, eng.t_params, verify_tokens,
+                                         state.rkv, state.kv.seq_len,
+                                         sp.budget, commit=False,
+                                         act_quant=sp.mid_act_quant)
+        p_n = sampling.norm_logits(m_logits[0, n][None], sp.temperature,
+                                   -1, sp.top_p)[0]
+        tok = sampling.sample_u(p_n, u["mid"][n])
+        gen_tokens[n] = tok
+        gen_probs[n] = p_n
+        verify_tokens[0, n + 1] = tok
+    out = _verify_and_commit(eng, state, u, gamma, gen_tokens, gen_probs,
+                             False, force_accept)
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    out.update(mid_draft=zero, mid_accept=zero, mid_verify=zero + gamma,
+               mid_live=zero + gamma)
+    return out
+
+
+_BODIES = {"triforce": _triforce_body, "retrieval": _retrieval_body}
+# a step's counts, in ``Engine.generate``'s counter order after the steps
+_COUNTS = ("accepted", "gamma2", "resampled", "bonus", "mid_draft",
+           "mid_accept", "mid_verify", "mid_live")
+
+
+def _counts_of(out: dict) -> torch.Tensor:
+    """[n_emitted, the ``_COUNTS``, eos] of a step, one int64 vector."""
+    return torch.stack([out["n_emitted"]] + [out[k] for k in _COUNTS]
+                       + [out["eos"]]).to(torch.int64)
+
+
+def _step(eng: Engine, state: TriForceState, mode: str, force_accept=None,
+          return_probs=False):
+    """One step of ``mode`` as one graph region (its conditional bodies
+    if-nodes once captured), then one read-back of its counts: the single
+    step a caller drives itself (``Engine._step_fn``). ``return_probs``:
+    also return ``(gen_tokens, gen_probs, p_all)``, the step's real middle
+    (q) and target (p) distribution rows, for acceptance measurement
+    (``profiling.measure_acceptance_vector``)."""
+    body = _BODIES[mode]
+    parts = _draw_parts(eng.spec, eng.target_cfg.vocab_size, mode)
+    gen = state.gen
+
+    def region(next_token, seq_len):
+        u = _draws(parts, gen, next_token.device)
+        o = body(eng, dataclasses.replace(
+            state, kv=_kv_at(state.kv, seq_len), next_token=next_token),
+            u, force_accept)
+        out = (o["tokens"], _counts_of(o), o["seq_len"], o["next_token"])
+        if return_probs:
+            out += (o["gen_tokens"], o["gen_probs"], o["p_all"])
+        return out
+
+    out = eng.graphs.run(mode, region, (state.next_token, state.kv.seq_len),
+                         caches=graphs_mod.planes(state.kv, state.rkv,
+                                                  state.dkv),
+                         gens=(gen,), extra=(force_accept, return_probs))
+    c = eng.graphs.read(out[1]).tolist()          # the step's read-back
+    new_state = dataclasses.replace(state, kv=_kv_at(state.kv, out[2]),
+                                    next_token=out[3])
+    stats = StepStats(tokens=out[0], n_emitted=c[0], accepted=c[1],
+                      gamma2=c[2], resampled=c[3], bonus=c[4],
+                      eos=out[1][9] != 0, mid_draft=c[5], mid_accept=c[6],
+                      mid_verify=c[7], mid_live=c[8])
     if return_probs:
-        return new_state, stats, (gen_tokens, gen_probs, p_all)
+        return new_state, stats, tuple(out[4:])
     return new_state, stats
 
 
 def _triforce_step(eng: Engine, state: TriForceState, force_accept=None):
-    """One full TriForce outer iteration: middle loop, then the outer
-    verify and commit."""
-    mid = _middle_spec(eng, state, force_accept=force_accept)
-    new_state, stats = _outer_verify_and_commit(
-        eng, state, mid["n"], mid["gen_tokens"], mid["gen_probs"], True,
-        force_accept=force_accept)
-    stats.mid_draft = mid["mid_draft"]
-    stats.mid_accept = mid["mid_accept"]
-    stats.mid_verify = mid["trips"]
-    stats.mid_live = mid["live_trips"]
-    return new_state, stats
-
-
-def _retrieval_region(eng: Engine, state: TriForceState, force_accept):
-    """The self-speculation step up to its read-back, one graph region:
-    the middle model (target weights over the retrieval cache) drafts
-    gamma tokens autoregressively, then the full-cache target verifies
-    them. Returns (gen_tokens, gen_probs) + ``_verify_body``'s outputs."""
-    t_cfg, sp = eng.target_cfg, eng.spec
-    gamma = sp.gamma
-    kv, rkv, gen = state.kv, state.rkv, state.gen
-
-    def region(next_token, seq_len):
-        dev = next_token.device
-        verify_tokens = torch.full((1, gamma + 1), JUNK_TOKEN,
-                                   dtype=torch.int64, device=dev)
-        verify_tokens[0, 0] = next_token[0]
-        gen_tokens = torch.full((gamma + 1,), JUNK_TOKEN, dtype=torch.int64,
-                                device=dev)
-        gen_probs = torch.zeros((gamma + 1, t_cfg.vocab_size),
-                                dtype=torch.float32, device=dev)
-        for n in range(gamma):
-            m_logits, _ = llama.forward_spec(t_cfg, eng.t_params,
-                                             verify_tokens, rkv, seq_len,
-                                             sp.budget, commit=False,
-                                             act_quant=sp.mid_act_quant)
-            p_n = sampling.norm_logits(m_logits[0, n][None], sp.temperature,
-                                       -1, sp.top_p)[0]
-            tok = sampling.sample(p_n, gen)
-            gen_tokens[n] = tok
-            gen_probs[n] = p_n
-            verify_tokens[0, n + 1] = tok
-        return (gen_tokens, gen_probs) + _verify_body(
-            eng, _kv_at(kv, seq_len), gen, next_token, gen_tokens,
-            gen_probs, gamma, force_accept)
-    return region
+    """One TriForce step (``_step``)."""
+    return _step(eng, state, "triforce", force_accept)
 
 
 def _retrieval_spec_step(eng: Engine, state: TriForceState,
                          force_accept=None, return_probs=False):
-    """Self-speculation step: the middle model (target weights over the
-    retrieval cache) drafts gamma tokens autoregressively with no host
-    read-back, then the full-cache target verifies them, all one graph
-    region up to the outer read-back. ``return_probs`` as in
-    ``_outer_verify_and_commit``: (state, stats, (tokens, q, p))."""
-    gamma = eng.spec.gamma
-    gen_tokens, gen_probs, p_all, outcome, seq_len = eng.graphs.run(
-        "retrieval", _retrieval_region(eng, state, force_accept),
-        (state.next_token, state.kv.seq_len),
-        caches=graphs_mod.planes(state.kv, state.rkv), gens=(state.gen,),
-        extra=(force_accept,))
-    out = _commit(eng, state, _kv_at(state.kv, seq_len), p_all, outcome,
-                  gamma, gen_tokens, gen_probs, False, return_probs)
-    stats = out[1]
-    stats.mid_verify = gamma
-    stats.mid_live = gamma
-    return out
+    """One self-speculation step (``_step``); with ``return_probs`` it
+    returns (state, stats, (tokens, q, p))."""
+    return _step(eng, state, "retrieval", force_accept, return_probs)
 
 
 # ---------------------------------------------------------------------------
@@ -906,27 +988,20 @@ def _append_rows(eng: Engine, state: StackedState, ids):
                           caches=graphs_mod.planes(kv))
 
 
-def _rand_rows(n: int, gens, draws, dev) -> torch.Tensor:
-    """[B, n] uniforms, row b from its own generator where ``draws[b]``
-    (0.5 elsewhere: the caller ignores those rows)."""
-    out = torch.full((len(gens), n), 0.5, dtype=torch.float32, device=dev)
-    for b, gen in enumerate(gens):
-        if draws[b]:
-            out[b] = torch.rand((n,), generator=gen, device=dev)
-    return out
-
-
-def _middle_spec_rows(eng: Engine, state: StackedState, force_accept=None):
+def _middle_spec_rows(eng: Engine, state: StackedState, u,
+                      force_accept=None):
     """``_middle_spec`` for every row at once. The trips run in lockstep
     until every row has its gamma proposals (or for ``middle_trips``
     trips): a row that is done rides along as a dead trip, with a
-    zero-column retrieval read, and draws and counts nothing that its
-    batch-1 run would not. One read-back per trip serves all rows."""
+    zero-column retrieval read, and counts nothing that its batch-1 run
+    would not. Lockstep trip t uses each row's trip-t uniforms of ``u``
+    (``_draws`` of every row's generator), as the row's batch-1 trip t
+    does. One read-back per trip serves all rows."""
     t_cfg, sp = eng.target_cfg, eng.spec
     gamma, k = sp.gamma, _chain_len(sp)
     vocab = t_cfg.vocab_size
     dev = state.next_token.device
-    gens, rows = state.gens, state.rows
+    rows = state.rows
     fixed = sp.middle_trips > 0
     kv_seq_len = state.kv.seq_len
     gen_tokens = torch.full((rows, gamma + 1), JUNK_TOKEN, dtype=torch.int64,
@@ -961,7 +1036,7 @@ def _middle_spec_rows(eng: Engine, state: StackedState, force_accept=None):
             at = _on(dev, [min(n0[b] + i, gamma) for b in range(rows)])
             q = sampling.norm_logits(d_logits[ar, at], sp.temperature, -1,
                                      sp.top_p)                   # [B, V]
-            tok = sampling.sample_rows(q, gens, act)
+            tok = sampling.sample_u(q, u["drafts"][:, trips, i])
             rb = [b for b in range(rows) if act[b]]
             chain_toks[rb, i] = tok[rb]
             chain_q[rb, i] = q[rb, tok[rb]]
@@ -980,7 +1055,7 @@ def _middle_spec_rows(eng: Engine, state: StackedState, force_accept=None):
                                       sp.top_p)              # [B, k+1, V]
 
         # --- accept walk, all rows' coins at once
-        rs = _rand_rows(k, gens, takes_part, dev)
+        rs = u["mid_coins"][:, trips]
         if force_accept is None:
             p_tok = p_rows[:, :k].gather(
                 2, chain_toks.clamp(0, vocab - 1)[..., None])[..., 0]
@@ -999,8 +1074,8 @@ def _middle_spec_rows(eng: Engine, state: StackedState, force_accept=None):
         # reject: sample from that position's middle distribution
         final_toks = chain_toks
         if any(any_rej):
-            res = sampling.sample_rows(p_rows[ar, _on(dev, j_rej)], gens,
-                                       any_rej)
+            res = sampling.sample_u(p_rows[ar, _on(dev, j_rej)],
+                                    u["mid_res"][:, trips])
             rb = [b for b in range(rows) if any_rej[b]]
             final_toks = chain_toks.clone()
             final_toks[rb, [j_rej[b] for b in rb]] = res[rb]
@@ -1019,7 +1094,7 @@ def _middle_spec_rows(eng: Engine, state: StackedState, force_accept=None):
         if any(bonus):
             b_rows = p_rows[ar, _on(dev, [min(max(n[b] - n0[b], 0), k)
                                         for b in range(rows)])]
-            b_tok = sampling.sample_rows(b_rows, gens, bonus)
+            b_tok = sampling.sample_u(b_rows, u["mid_bonus"][:, trips])
             for b in range(rows):
                 if bonus[b]:
                     gen_tokens[b, n[b]] = b_tok[b]
@@ -1034,10 +1109,10 @@ def _middle_spec_rows(eng: Engine, state: StackedState, force_accept=None):
             "row_trips": row_trips, "live_trips": live_trips, "trips": trips}
 
 
-def _outer_verify_and_commit_rows(eng: Engine, state: StackedState, gamma2,
-                                  gen_tokens, gen_probs, has_draft: bool,
-                                  force_accept=None):
-    """``_outer_verify_and_commit`` for every row at once: one gamma+2-token
+def _outer_verify_and_commit_rows(eng: Engine, state: StackedState, u,
+                                  gamma2, gen_tokens, gen_probs,
+                                  has_draft: bool, force_accept=None):
+    """``_verify_and_commit`` for every row at once: one gamma+2-token
     forward over all rows' full caches, every row's accept tests, ONE
     read-back of the outcomes, then per row the rollback, the commit and
     retrieval tail refresh (``batched_commit_and_refresh``) and, with a
@@ -1046,7 +1121,7 @@ def _outer_verify_and_commit_rows(eng: Engine, state: StackedState, gamma2,
     t_cfg, sp = eng.target_cfg, eng.spec
     gamma = sp.gamma
     dev = gen_tokens.device
-    gens, rows = state.gens, state.rows
+    rows = state.rows
     old = state.kv.seq_len
     ar = torch.arange(rows, device=dev)
 
@@ -1059,7 +1134,7 @@ def _outer_verify_and_commit_rows(eng: Engine, state: StackedState, gamma2,
     tok_c = gen_tokens.clamp(0, t_cfg.vocab_size - 1)[..., None]
     q_sel = gen_probs.gather(2, tok_c)[..., 0]
     p_sel = p_all[:, :gamma + 1].gather(2, tok_c)[..., 0]
-    rs = _rand_rows(gamma + 1, gens, [True] * rows, dev)
+    rs = u["coins"]
     if force_accept is None:
         accept_v = rs < (p_sel / q_sel.clamp_min(1e-37)).clamp(max=1.0)
     else:
@@ -1079,16 +1154,17 @@ def _outer_verify_and_commit_rows(eng: Engine, state: StackedState, gamma2,
     bonus = count == np.array(gamma2)
     has_final = rejected | bonus
 
-    # bonus rows sample the target row after their last proposal, rejected
-    # rows the residual at the stop; the rest keep the accepted EOS
-    at = torch.where(_on(dev, bonus, torch.bool), _on(dev, gamma2), j_stop_t)
-    base = p_all[ar, at]
-    resid = sampling.max_fn(base - gen_probs[ar, j_stop_t])
-    probs = torch.where(_on(dev, bonus, torch.bool)[:, None], base, resid)
+    # every row samples the residual at its stop and the target row after
+    # its last proposal; bonus rows take the second, rejected rows the
+    # first, the rest keep the accepted EOS (as the batch-1 step)
+    res = sampling.sample_u(sampling.max_fn(p_all[ar, j_stop_t]
+                                            - gen_probs[ar, j_stop_t]),
+                            u["res"])
+    b_tok = sampling.sample_u(p_all[ar, _on(dev, gamma2)], u["bonus"])
     has_final_t = _on(dev, has_final, torch.bool)
-    pred = torch.where(has_final_t,
-                       sampling.sample_rows(probs, gens, has_final),
-                       gen_tokens[ar, j_stop_t])
+    pred = torch.where(_on(dev, bonus, torch.bool), b_tok,
+                       torch.where(_on(dev, rejected, torch.bool), res,
+                                   gen_tokens[ar, j_stop_t]))
     eos_hit = _on(dev, eos_acc, torch.bool) \
         | (has_final_t & _is_eos(pred, eng.eos_token_id))
 
@@ -1140,9 +1216,11 @@ def triforce_step_rows(eng: Engine, state: StackedState, force_accept=None):
     """One full TriForce outer iteration for every row of ``state``."""
     if eng.draft_cfg is None:
         raise ValueError("triforce mode needs a drafter")
-    mid = _middle_spec_rows(eng, state, force_accept=force_accept)
+    u = _draws(_draw_parts(eng.spec, eng.target_cfg.vocab_size, "triforce"),
+               state.gens, state.next_token.device)
+    mid = _middle_spec_rows(eng, state, u, force_accept=force_accept)
     new_state, stats = _outer_verify_and_commit_rows(
-        eng, state, mid["n"], mid["gen_tokens"], mid["gen_probs"], True,
+        eng, state, u, mid["n"], mid["gen_tokens"], mid["gen_probs"], True,
         force_accept=force_accept)
     stats.mid_draft = mid["mid_draft"]
     stats.mid_accept = mid["mid_accept"]
@@ -1168,16 +1246,18 @@ def retrieval_spec_step_rows(eng: Engine, state: StackedState,
                             device=dev)
     gen_probs = torch.zeros((rows, gamma + 1, t_cfg.vocab_size),
                             dtype=torch.float32, device=dev)
+    u = _draws(_draw_parts(sp, t_cfg.vocab_size, "retrieval"), state.gens,
+               dev)
     for n in range(gamma):
         m_logits = _spec_rows(eng, state, verify_tokens, state.kv.seq_len)
         p_n = sampling.norm_logits(m_logits[:, n], sp.temperature, -1,
                                    sp.top_p)
-        tok = sampling.sample_rows(p_n, state.gens)
+        tok = sampling.sample_u(p_n, u["mid"][:, n])
         gen_tokens[:, n] = tok
         gen_probs[:, n] = p_n
         verify_tokens[:, n + 1] = tok
     new_state, stats = _outer_verify_and_commit_rows(
-        eng, state, [gamma] * rows, gen_tokens, gen_probs, False,
+        eng, state, u, [gamma] * rows, gen_tokens, gen_probs, False,
         force_accept=force_accept)
     stats.mid_verify = np.full(rows, gamma)
     stats.mid_live = np.full(rows, gamma)

@@ -674,7 +674,14 @@ flash_decode_append_batched_int8.launches = 0
 @functools.lru_cache(maxsize=64)
 def causal_mask(t: int, tn: int, groups: int, device) -> torch.Tensor:
     """[G*T, Tn] bool: query row i of each group attends new token j <= i
-    (cached per shape and device; callers never write to it)."""
+    (cached per shape and device; callers never write to it). A mask
+    first built under a CUDA graph capture raises: its bits would exist
+    only once the graph replays (``Engine.__init__`` builds the decode
+    widths' masks before any capture)."""
+    if torch.device(device).type == "cuda" \
+            and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(f"causal_mask({t}, {tn}, {groups}) first built "
+                           f"under a CUDA graph capture")
     rows = torch.arange(t, device=device)[:, None]
     cols = torch.arange(tn, device=device)[None, :]
     return (cols <= rows).repeat(groups, 1).contiguous()

@@ -1,7 +1,8 @@
 """Sampling ops — the port of ``triforce_tpu/ops/sampling.py``: temperature /
 top-k / top-p filtering, categorical sampling from an explicit
-``torch.Generator``, and the residual distribution of exact rejection
-sampling. No op reads a value back to the host.
+``torch.Generator`` or from uniforms drawn beforehand (``sample_u``, as a
+step's fixed draws give them), and the residual distribution of exact
+rejection sampling. No op reads a value back to the host.
 
 ``sample`` is Gumbel-max, like the JAX package's, but a torch Generator
 never yields JAX's threefry stream: the two packages agree on
@@ -103,19 +104,11 @@ def sample(probs: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
     return _gumbel_argmax(probs, u)
 
 
-def sample_rows(probs: torch.Tensor, generators, active=None
-                ) -> torch.Tensor:
-    """``sample`` for B rows that each own a generator: row b of ``probs``
-    [B, V] draws its V uniforms from ``generators[b]``, exactly the draw
-    ``sample(probs[b], generators[b])`` makes, and the Gumbel-max runs once
-    for all rows. Rows whose ``active[b]`` is false draw nothing (their
-    generator does not advance) and their result is meaningless."""
-    u = torch.full(probs.shape, 0.5, dtype=torch.float32,
-                   device=probs.device)
-    for b, gen in enumerate(generators):
-        if active is None or active[b]:
-            u[b] = torch.rand(probs.shape[1:], generator=gen,
-                              device=probs.device, dtype=torch.float32)
+def sample_u(probs: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """``sample`` from uniforms ``u`` of probs' shape drawn beforehand: a
+    step draws all its numbers in one call of fixed shape and hands each
+    sample its share, so that which samples are used never changes what
+    is drawn (``engine._draws``)."""
     return _gumbel_argmax(probs, u)
 
 
@@ -142,6 +135,11 @@ def topk_small(x: torch.Tensor, k: int) -> torch.Tensor:
         idxs.append(i)
         x = x.scatter(-1, i, float("-inf"))
     return torch.cat(idxs, dim=-1)
+
+
+def gumbel_u(u: torch.Tensor) -> torch.Tensor:
+    """Standard Gumbel noise from uniforms ``u`` drawn beforehand (fp32)."""
+    return _gumbel(u)
 
 
 def gumbel_noise(shape, generator: torch.Generator, device) -> torch.Tensor:

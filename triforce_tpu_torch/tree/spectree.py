@@ -9,33 +9,30 @@ path into the KV cache, refresh the retrieval tail. The grow map (tree shape,
 masks, depths, successor table) is static data, turned into device tensors
 once per engine.
 
-The JAX package compiles a whole round into one program; here a round is a
-host loop that launches device work and reads back only what the control
-flow needs: the outcome of one tree node's child tests per visited node that
-has children (``[chosen child, its token]``), and once per step ``[nothing
-left to sample, the sampled token]``. ``TreeStepStats.readbacks`` counts
-them. The caches are updated in place; a state is not reusable after a step
-unless it was cloned first.
+As in the JAX package, a round makes no host decision: the walk is one
+conditional body per depth (``GraphSet.cond``) that runs while the walk
+goes on, the final sample is chosen with ``torch.where`` and the commit
+takes device counts. ``TreeEngine.generate`` runs the whole generation as
+``max_len`` calls of one loop region holding the round as a conditional
+body (``engine.Engine._gen``'s scheme), reading back once at its end; on
+a CUDA device the region is captured as one CUDA graph and replayed
+(``graphs.py``). ``TreeEngine.step`` runs one round as one region and
+reads its counts back once. ``TreeEngine(graphs=False)`` runs the same
+code eagerly, reading each condition back. The caches are updated in
+place; a state is not reusable after a step unless it was cloned first.
 
-On a CUDA device the grow (root forward and every padded level, with
-their Gumbel samples), the tree verify (the forward under the ancestor
-mask and the filtered target rows) and each visited node's child tests
-run as replays of captured CUDA graphs (``graphs.py``): the grow makes no
-host decision, every index in it is an engine constant. The walk, its
-read-backs and the commit stay on the host. ``TreeEngine(graphs=False)``
-runs the same regions eagerly.
-
-Random draws come from the state's ``torch.Generator``, in this order per
-step: per grow level one Gumbel block ``[R, V]`` (R = the widest level's
-root count, every level alike); per visited tree node that has children one
-block of ``max_children`` uniforms, the j-th for the test of its j-th child
-(drawn whether or not that test is reached); then the ``V`` uniforms of the
-residual / bonus sample (drawn even when nothing is left to sample).
+Random draws come from the state's ``torch.Generator``: each round draws
+its uniforms in one call at its top (``_draw_parts``): per grow level a
+Gumbel block ``[R, V]`` (R = the widest level's root count, every level
+alike), per walk depth ``max_children`` coins, the j-th for the test of
+the node's j-th child, then the ``V`` of the residual / bonus sample;
+every round draws all of them, used or not.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import Optional, Tuple
 
@@ -44,9 +41,10 @@ import torch
 
 from .. import graphs as graphs_mod
 from ..cache import (KVCache, RetrievalCache, gather_kv_incremental, init_kv,
-                     init_tree_retrieval, retrieval_tail_refresh)
+                     init_tree_retrieval, retrieval_tail_refresh, write_at)
 from ..config import ModelConfig, SpecConfig, resolve_device
-from ..engine import append_graphed, dense_weights, prefill_chunks
+from ..engine import _draws, _row, append_graphed, dense_weights, \
+    prefill_chunks
 from ..models import llama
 from ..ops import sampling
 from .planner import GrowMap
@@ -71,8 +69,8 @@ class TreeState:
 
 @dataclasses.dataclass
 class TreeStepStats:
-    """``tokens`` stays on the device; the rest are host values (the step
-    read them back to drive its control flow)."""
+    """``tokens`` stays on the device; the rest are host values (the
+    round's one read-back)."""
     tokens: torch.Tensor   # [max_path + 1] emitted, junk-padded
     n_emitted: int
     n_nodes: int           # accepted path length incl. root
@@ -192,7 +190,6 @@ class TreeEngine:
         self._depth = on(grow_map.depth)
         self._mask = on(grow_map.mask, torch.bool)
         self._succ = on(grow_map.successors)
-        self._has_kids = (np.asarray(grow_map.successors) >= 0).any(1)
 
     # ------------------------------------------------------------------
 
@@ -235,24 +232,94 @@ class TreeEngine:
 
     def step(self, state: TreeState, force_accept: Optional[float] = None
              ) -> Tuple[TreeState, TreeStepStats]:
-        return _tree_step(self, state, force_accept)
+        """One tree round as one graph region (its walk's bodies if-nodes
+        once captured), then one read-back of its counts."""
+        parts = _draw_parts(self)
+        gen = state.gen
+
+        def region(next_token, seq_len):
+            u = _draws(parts, gen, next_token.device)
+            o = _tree_body(self, dataclasses.replace(
+                state, next_token=next_token,
+                kv=dataclasses.replace(state.kv, seq_len=seq_len)), u,
+                force_accept)
+            return o["tokens"], _counts_of(o), o["seq_len"], o["next_token"]
+
+        tokens, c, seq_len, next_token = self.graphs.run(
+            "tree", region, (state.next_token, state.kv.seq_len),
+            caches=graphs_mod.planes(state.kv, state.rkv), gens=(gen,),
+            extra=(force_accept, self.ssl))
+        n_emitted, n_nodes, terminal, eos = self.graphs.read(c).tolist()
+        new_state = dataclasses.replace(
+            state, kv=dataclasses.replace(state.kv, seq_len=seq_len),
+            next_token=next_token)
+        return new_state, TreeStepStats(
+            tokens=tokens, n_emitted=n_emitted, n_nodes=n_nodes,
+            terminal=bool(terminal), eos=bool(eos), readbacks=1)
 
     def _gen(self, state: TreeState, max_len: int, force_accept):
-        buf = torch.full((max_len + self.max_path + 1,), JUNK_TOKEN,
-                         dtype=torch.int64, device=self.device)
-        buf[0] = state.next_token[0]
-        n, stop = 1, False
-        counters = np.zeros(3, np.int64)
-        while n < max_len + 1 and not stop:
-            state, stats = _tree_step(self, state, force_accept)
-            buf[n:n + self.max_path + 1] = stats.tokens
-            n += stats.n_emitted
-            counters += [1, stats.n_nodes, stats.readbacks]
-            # forced runs never stop on the terminal flag: the coin walk
-            # can zero the residual by chance, which would end a timing
-            # run early
-            stop = stats.terminal and force_accept is None
-        return state, buf, n, counters, stop
+        """The generation loop on the device, as ``Engine._gen``: ``max_len``
+        calls of one loop region whose step runs as a conditional body
+        while ``n < max_len + 1`` and no terminal step (forced runs never
+        stop on the terminal flag: the coin walk can zero the residual by
+        chance, which would end a timing run early); one read-back at the
+        end. Counters: [steps, nodes, host read-backs of the call]."""
+        g, dev = self.graphs, self.device
+        slack = self.max_path + 1
+        caches = graphs_mod.planes(state.kv, state.rkv)
+        i64 = dict(dtype=torch.int64, device=dev)
+        lb = g.buffers("tree gen", caches, lambda: dict(
+            buf=torch.empty((max_len + slack,), **i64),
+            n=torch.empty((), **i64),
+            stop=torch.empty((), dtype=torch.bool, device=dev),
+            counters=torch.empty((2,), **i64),
+            seq_len=torch.empty_like(state.kv.seq_len),
+            next_token=torch.empty_like(state.next_token)), extra=(max_len,))
+        r0 = g.readbacks
+        lb["buf"].fill_(JUNK_TOKEN)
+        lb["buf"][:1] = state.next_token[:1]
+        lb["n"].fill_(1)
+        lb["stop"].fill_(False)
+        lb["counters"].zero_()
+        lb["seq_len"].copy_(state.kv.seq_len)
+        lb["next_token"].copy_(state.next_token)
+        parts = _draw_parts(self)
+        gen = state.gen
+        st = dataclasses.replace(
+            state, next_token=lb["next_token"],
+            kv=dataclasses.replace(state.kv, seq_len=lb["seq_len"]))
+
+        def region():
+            u = _draws(parts, gen, dev)
+
+            def step():
+                o = _tree_body(self, st, u, force_accept)
+                write_at(lb["buf"], o["tokens"], lb["n"], 0)
+                lb["n"].add_(o["n_emitted"])
+                lb["counters"].add_(torch.stack([torch.ones_like(
+                    o["n_nodes"]), o["n_nodes"]]))
+                lb["seq_len"].copy_(o["seq_len"])
+                lb["next_token"].copy_(o["next_token"])
+                if force_accept is None:
+                    lb["stop"].copy_(o["terminal"])
+            g.cond((lb["n"] < max_len + 1) & ~lb["stop"], step)
+            return ()
+
+        for _ in range(max_len):
+            g.run("tree gen", region, (), caches=caches + tuple(lb.values()),
+                  gens=(gen,), extra=(force_accept, self.ssl, max_len),
+                  capture_first=True)
+        host = g.read(torch.cat([lb["buf"], lb["n"].reshape(1),
+                                 lb["counters"],
+                                 lb["stop"].long().reshape(1)]))
+        size = max_len + slack
+        steps, nodes = host[size + 1:size + 3].tolist()
+        state = dataclasses.replace(
+            state, next_token=lb["next_token"].clone(),
+            kv=dataclasses.replace(state.kv, seq_len=lb["seq_len"].clone()))
+        counters = np.array([steps, nodes, g.readbacks - r0], np.int64)
+        return state, host[:size], int(host[size]), counters, \
+            bool(host[size + 3])
 
     def generate(self, state: TreeState, max_len: int):
         """Tree steps until ``max_len`` tokens past the first or a terminal
@@ -268,25 +335,41 @@ class TreeEngine:
         return self._gen(state, max_len, float(alpha))
 
 
+def _is_eos(tok: torch.Tensor, eos_ids: tuple) -> torch.Tensor:
+    """Elementwise membership of ``tok`` in ``eos_ids`` (which may be
+    empty)."""
+    m = torch.zeros_like(tok, dtype=torch.bool)
+    for e in eos_ids:
+        m = m | (tok == e)
+    return m
+
+
+def _draw_parts(eng: TreeEngine) -> tuple:
+    """The named blocks of one tree step's uniforms (``engine._draws``):
+    per grow level a Gumbel block [R, V] (R = the widest level's root
+    count, every level alike), per walk depth the ``max_children`` coins
+    of that node's child tests, the V of the residual / bonus sample."""
+    vocab = eng.cfg.vocab_size
+    return (("grow", (eng.gm.num_levels, eng._roots.shape[1], vocab)),
+            ("walk", (eng.max_path, eng.gm.max_children)),
+            ("final", (vocab,)))
+
+
 def _grow(eng: TreeEngine, state: TreeState):
-    """``_grow_body`` as one graph region (its key holds ``ssl``, which
-    changes the program). Returns copies of (verify_tokens [size],
-    draft_logits [size, V])."""
-    def region(next_token, seq_len):
-        return _grow_body(eng, dataclasses.replace(
-            state, next_token=next_token,
-            kv=dataclasses.replace(state.kv, seq_len=seq_len)))
-    return eng.graphs.run("grow", region,
-                          (state.next_token, state.kv.seq_len),
-                          caches=graphs_mod.planes(state.kv, state.rkv),
-                          gens=(state.gen,), extra=(eng.ssl,))
+    """The grow of a step from ``state`` alone (for checks): draws the
+    step's uniforms from the state's generator, as the step does first,
+    and returns ``_grow_body``'s (verify_tokens [size], draft_logits
+    [size, V])."""
+    u = _draws(_draw_parts(eng), state.gen, eng.device)
+    return _grow_body(eng, state, u["grow"])
 
 
-def _grow_body(eng: TreeEngine, state: TreeState):
+def _grow_body(eng: TreeEngine, state: TreeState, u):
     """Build the token tree through the middle model. All levels run at the
     padded width W (``_padded_levels``): per level, per-root Gumbel-top-k
-    samples children WITHOUT replacement from softmax(draft_logits / T),
-    then one middle forward of the padded frontier. Padded slots carry junk
+    (the Gumbel noise from the level's uniforms ``u[lvl]`` [R, V]) samples
+    children WITHOUT replacement from softmax(draft_logits / T), then one
+    middle forward of the padded frontier. Padded slots carry junk
     tokens whose KV lands in slots that later REAL levels overwrite and
     whose attention columns stay masked (col < slot_start). The caches are
     written in place. Returns (verify_tokens [size], draft_logits
@@ -300,7 +383,7 @@ def _grow_body(eng: TreeEngine, state: TreeState):
     # [size, size + W) and is sliced off
     verify_tokens = torch.full((size + W,), JUNK_TOKEN, dtype=torch.int64,
                                device=dev)
-    verify_tokens[0] = state.next_token[0]
+    verify_tokens[:1] = state.next_token[:1]
     draft_logits = torch.zeros((size + W, cfg.vocab_size),
                                dtype=torch.float32, device=dev)
 
@@ -315,7 +398,7 @@ def _grow_body(eng: TreeEngine, state: TreeState):
                               eng._mask[0:1], 0, 0)[0]
     for lvl, start in enumerate(eng._starts):
         root_logits = draft_logits[eng._roots[lvl]] / eng.temperature
-        g = sampling.gumbel_noise(root_logits.shape, state.gen, dev)
+        g = sampling.gumbel_u(u[lvl])
         cand = sampling.topk_small(root_logits + g, eng.K)       # [R, K]
         toks = cand[eng._tok_root[lvl], eng._tok_rank[lvl]]      # [W]
         toks = torch.where(eng._live[lvl], toks, JUNK_TOKEN)
@@ -325,44 +408,21 @@ def _grow_body(eng: TreeEngine, state: TreeState):
     return verify_tokens[:size], draft_logits[:size]
 
 
-def _verify(eng: TreeEngine, state: TreeState, verify_tokens):
+def _verify(eng: TreeEngine, kv: KVCache, verify_tokens):
     """ONE full-cache target forward over all tree nodes under the
     ancestor mask (their KV lands at ``seq_len + i``, in place) and the
-    filtered target rows, one graph region: returns (p_all [size, V], kv
-    length after the forward)."""
-    kv = state.kv
-
-    def region(verify_tokens, seq_len):
-        logits_t, kv_out, _ = llama.forward_append(
-            eng.cfg, eng.params, verify_tokens[None],
-            dataclasses.replace(kv, seq_len=seq_len),
-            positions=seq_len.to(torch.int64) + eng._depth,
-            tree_mask=eng._mask)
-        # row by row the same function; chunked to bound the top-p
-        # filter's [rows, V, grid] intermediate
-        p_all = torch.cat([sampling.norm_logits(c, eng.temperature, -1,
-                                                eng.top_p)
-                           for c in logits_t[0].split(32)])  # [size, V]
-        return p_all, kv_out.seq_len
-    return eng.graphs.run("tree_verify", region, (verify_tokens, kv.seq_len),
-                          caches=graphs_mod.planes(kv))
-
-
-def _node_region(eng: TreeEngine, gen, force_accept):
-    """One visited node's child tests up to its read-back, a graph region:
-    draws its ``max_children`` uniforms and returns (residual p [V],
-    [chosen child or -1, its token])."""
-    max_c = eng.gm.max_children
-
-    def region(p, dl, kids, verify_tokens):
-        u = torch.rand((max_c,), generator=gen, device=p.device,
-                       dtype=torch.float32)
-        p, chosen = _child_tests(eng, p, dl, kids, verify_tokens, u,
-                                 force_accept)
-        tok_ch = verify_tokens.index_select(0, chosen.clamp_min(0)
-                                            .reshape(1))
-        return p, torch.cat([chosen.reshape(1), tok_ch])
-    return region
+    filtered target rows: returns (p_all [size, V], kv length after the
+    forward)."""
+    logits_t, kv_out, _ = llama.forward_append(
+        eng.cfg, eng.params, verify_tokens[None], kv,
+        positions=kv.seq_len.to(torch.int64) + eng._depth,
+        tree_mask=eng._mask)
+    # row by row the same function; chunked to bound the top-p filter's
+    # [rows, V, grid] intermediate
+    p_all = torch.cat([sampling.norm_logits(c, eng.temperature, -1,
+                                            eng.top_p)
+                       for c in logits_t[0].split(32)])      # [size, V]
+    return p_all, kv_out.seq_len
 
 
 def _child_tests(eng: TreeEngine, p, dl, kids, verify_tokens, u,
@@ -389,72 +449,71 @@ def _child_tests(eng: TreeEngine, p, dl, kids, verify_tokens, u,
     return p, chosen
 
 
-def _tree_step(eng: TreeEngine, state: TreeState,
-               force_accept: Optional[float] = None):
-    """One full tree round: grow -> verify -> accept walk -> commit.
+def _tree_body(eng: TreeEngine, state: TreeState, u,
+               force_accept: Optional[float] = None) -> dict:
+    """One full tree round on the device: grow -> verify -> accept walk ->
+    commit, as the JAX round (``triforce_tpu/tree/spectree.py:165-221``,
+    its walk a ``while_loop`` over child tests, ``:445-500``).
+
+    The walk is ``max_path`` conditional bodies (``GraphSet.cond``), one
+    per depth, each running while the walk goes on: the node's child
+    tests on its coins ``u["walk"][d]``, then, where a child is chosen, its
+    id written at the device offset ``n_nodes`` of ``accept_idx``. The
+    residual / bonus is sampled whether or not it is used and chosen with
+    ``torch.where``; the commit takes device counts. Nothing is read back.
 
     ``force_accept``: controlled-acceptance validation. Every per-child
     accept test in the walk becomes a coin flip at that rate while ALL real
     compute runs (grow levels, full-cache tree verify, residual updates,
     path compaction, tail refresh). The output is NOT lossless."""
     cfg, gm, dev = eng.cfg, eng.gm, eng.device
-    verify_tokens, draft_logits = _grow(eng, state)
-    seq0 = state.kv.seq_len
     max_path = eng.max_path
-
+    seq0 = state.kv.seq_len
+    verify_tokens, draft_logits = _grow_body(eng, state, u["grow"])
     # --- ONE full-cache verify over all tree nodes
-    p_all, seq_len = _verify(eng, state, verify_tokens)
-    kv = dataclasses.replace(state.kv, seq_len=seq_len)
+    p_all, seq_len = _verify(eng, state.kv, verify_tokens)
 
-    # --- accept walk with residual updates: the host follows the path, the
-    # device runs each node's child tests and hands back the chosen child
-    readbacks = 0
-    cur, n_nodes, eos_hit = 0, 1, False
-    accept_idx = torch.zeros((max_path,), dtype=torch.int64, device=dev)
-    final_p = None
-    node = _node_region(eng, state.gen, force_accept)
-    while True:
-        if not eng._has_kids[cur]:           # a leaf: nothing to test
-            final_p = p_all[cur]
-            break
-        p, chosen = eng.graphs.run(
-            "tree_node", node,
-            (p_all[cur], draft_logits[cur], eng._succ[cur], verify_tokens),
-            gens=(state.gen,), extra=(force_accept,))
-        chosen_h, tok_h = chosen.tolist()
-        readbacks += 1
-        if chosen_h < 0:
-            final_p = p
-            break
-        accept_idx[n_nodes] = chosen[0]
-        n_nodes += 1
-        cur = chosen_h
-        if tok_h in eng.eos_ids:
-            eos_hit = True
-            break
+    # --- accept walk with residual updates, one body per depth
+    i64 = dict(dtype=torch.int64, device=dev)
+    cur = torch.zeros((), **i64)
+    n_nodes = torch.ones((), **i64)
+    done = torch.zeros((), dtype=torch.bool, device=dev)
+    eos_hit = torch.zeros((), dtype=torch.bool, device=dev)
+    accept_idx = torch.zeros((max_path,), **i64)
+    final_p = torch.zeros((cfg.vocab_size,), dtype=torch.float32, device=dev)
 
-    # --- residual / bonus sample; the draw is made even when unused
-    if final_p is None:
-        final_p = torch.zeros((cfg.vocab_size,), dtype=torch.float32,
-                              device=dev)
-    zero_res = final_p.sum() <= 0
-    sampled = sampling.sample(final_p, state.gen)
-    zero_h, next_h = torch.stack([zero_res.to(torch.int64),
-                                  sampled]).tolist()
-    readbacks += 1
-    no_final = eos_hit or bool(zero_h)
-    next_tok = torch.full((1,), JUNK_TOKEN, dtype=torch.int64, device=dev) \
-        if no_final else sampled[None]
+    def node(d):
+        p, chosen = _child_tests(eng, _row(p_all, cur), _row(draft_logits, cur),
+                                 _row(eng._succ, cur), verify_tokens,
+                                 u["walk"][d], force_accept)
+        stop = chosen < 0          # a leaf, or every child rejected
+        final_p.copy_(torch.where(stop, p, final_p))
+        at = n_nodes.clamp(max=max_path - 1).reshape(1)
+        accept_idx.index_copy_(0, at, torch.where(
+            stop, accept_idx.index_select(0, at), chosen))
+        hit = ~stop & _is_eos(_row(verify_tokens, chosen.clamp_min(0)),
+                              eng.eos_ids)
+        n_nodes.add_((~stop).long())
+        cur.copy_(torch.where(stop, cur, chosen))
+        eos_hit.logical_or_(hit)
+        done.copy_(stop | hit)
+
+    for d in range(max_path):
+        eng.graphs.cond(~done, functools.partial(node, d))
+
+    # --- residual / bonus sample; drawn even when unused
+    no_final = eos_hit | (final_p.sum() <= 0)
+    sampled = sampling.sample_u(final_p, u["final"])
+    next_tok = torch.where(no_final, JUNK_TOKEN, sampled).reshape(1)
     # the residual / bonus sample can itself be EOS: it is still emitted,
     # but the loop must stop on it
-    res_eos = (not no_final) and next_h in eng.eos_ids
-    eos_hit = eos_hit or res_eos
-    terminal = no_final or res_eos
+    res_eos = ~no_final & _is_eos(sampled, eng.eos_ids)
 
     # --- commit: compact the accepted path, refresh the retrieval tail
-    kv = gather_kv_incremental(kv, accept_idx, n_nodes, seq0, max_path,
+    kv = gather_kv_incremental(dataclasses.replace(state.kv, seq_len=seq_len),
+                               accept_idx, n_nodes, seq0, max_path,
                                max_span=gm.size)
-    rkv = retrieval_tail_refresh(
+    retrieval_tail_refresh(
         state.rkv, kv, SpecConfig(budget=eng.budget, chunk_size=1),
         eng.prefill, seq0, max_new=max_path)
 
@@ -462,15 +521,17 @@ def _tree_step(eng: TreeEngine, state: TreeState,
     pos = torch.arange(max_path + 1, device=dev)
     acc_toks = verify_tokens[accept_idx[(pos + 1).clamp_max(max_path - 1)]]
     emitted = torch.where(pos < n_nodes - 1, acc_toks, JUNK_TOKEN)
-    emitted[n_nodes - 1] = next_tok[0]       # junk when nothing was sampled
-    n_emitted = n_nodes - 1 + (0 if no_final else 1)
+    emitted = torch.where(pos == n_nodes - 1, next_tok, emitted)
+    return dict(tokens=emitted, n_emitted=n_nodes - 1 + (~no_final).long(),
+                n_nodes=n_nodes, terminal=no_final | res_eos,
+                eos=eos_hit | res_eos, seq_len=kv.seq_len,
+                next_token=next_tok)
 
-    new_state = dataclasses.replace(state, kv=kv, rkv=rkv,
-                                    next_token=next_tok)
-    stats = TreeStepStats(tokens=emitted, n_emitted=n_emitted,
-                          n_nodes=n_nodes, terminal=terminal, eos=eos_hit,
-                          readbacks=readbacks)
-    return new_state, stats
+
+def _counts_of(out: dict) -> torch.Tensor:
+    """[n_emitted, n_nodes, terminal, eos] of a tree step (int64)."""
+    return torch.stack([out["n_emitted"], out["n_nodes"], out["terminal"],
+                        out["eos"]]).to(torch.int64)
 
 
 def tree_decode(engine: TreeEngine, input_ids: torch.Tensor,
@@ -492,7 +553,7 @@ def tree_decode(engine: TreeEngine, input_ids: torch.Tensor,
     clock = _CaptureClock(engine.graphs)
     t0 = time.perf_counter()
     state, buf, n, counters, _ = engine.generate(state, max_len)
-    out = buf[:n].tolist()             # read-back: generation is done
+    out = buf[:n].tolist()             # the buffer is on the host
     wall = time.perf_counter() - t0 - clock.seconds
     assert out[0] == first
     steps, nodes = int(counters[0]), int(counters[1])
@@ -502,4 +563,5 @@ def tree_decode(engine: TreeEngine, input_ids: torch.Tensor,
                                                     1),
                         avg_tokens_per_step=gen / max(steps, 1),
                         steps=steps, wall_s=wall, captures=clock.count,
-                        capture_s=clock.seconds, **pre.fields)
+                        capture_s=clock.seconds,
+                        readbacks=int(counters[2]), **pre.fields)
