@@ -58,8 +58,8 @@ Phases, in order (any failure exits non-zero before the last line):
      for the schedulers), and the graphed run must match it in tokens,
      step counters, ``kv.seq_len`` and launch counts; the timed run's
      captures must equal the gate's shorter run's (a fixed number per
-     state). The batch-1 and tree generations run on the device (one loop
-     graph with if-nodes): every graphed generation call of theirs must
+     state). The batch-1, tree and batched generations run on the device
+     (one loop graph with if-nodes): every graphed generation call must
      read back once, and each of their gates prints the eager witness's
      read-backs and the device's busy share over the gate's graphed call
      (CUDA events around each graph replay, over the wall less captures).
@@ -83,7 +83,16 @@ Phases, in order (any failure exits non-zero before the last line):
      eager witness's (lines "prefill graphs [... admission]": admit
      seconds graphed and eager, captures, replays; ``SpecScheduler``
      reuses one admission row, so its build replays from the second
-     request);
+     request). The batched steps run on the device too (one loop graph
+     a pool, ``BatchedSpecEngine.decode``): their gates also hold eos,
+     the target forwards, the dkv lengths and every row's generator
+     state; every graphed ``decode`` call and serving segment must read
+     back once, the spec-serving pool must capture its loop once, at its
+     first segment, and lines "graphs [... segments]" give each
+     scheduler's read-backs, its first segment against the rest and the
+     device's busy share over the segments, beside the witness's; the
+     timed batched run makes two ``decode`` calls (the first captures)
+     and reports both;
  10. cli: TinyLlama-1.1B-128K at full width and depth + Llama-68M, random
      weights written as HF checkpoints (the target in two indexed shards)
      and loaded back bit-equal (streaming, and through the native
@@ -1727,15 +1736,33 @@ def tree_gate_run(eng, ids, seed, alpha=None, n=TREE_GATE_TOKENS):
 
 
 def rows_gate_run(bs, eng, mode, prompts, seeds, alpha, steps=GATE_STEPS):
-    """``steps`` batched steps of ``BatchedSpecEngine`` on ``eng``."""
+    """One ``BatchedSpecEngine.decode`` call of ``steps`` batched steps on
+    ``eng`` (a loop graph's replays where it is graphed), for a gate: the
+    counters held are n_emitted, the per-row counters, eos, the target
+    forwards and every row's generator state; the lengths kv's and dkv's."""
     def run():
         bat = bs.BatchedSpecEngine(eng, mode=mode, force_accept=alpha)
         state = bat.prefill_rows(prompts, seeds)
-        c0 = eng.graphs.captures
-        (state, toks, ns, c, _), dt = _timed(lambda: bat.decode(state, steps))
-        return dict(tokens=toks.tolist(), counters=[ns.tolist(), c.tolist()],
-                    seq_len=state.kv.seq_len.tolist(), decode_s=dt,
-                    n=int(ns.sum()), captures=eng.graphs.captures - c0)
+        c0, r0 = eng.graphs.captures, eng.graphs.readbacks
+        busy = None
+        if eng.graphs.enabled:
+            (state, toks, ns, c, eos), busy = _busy(
+                lambda: bat.decode(state, steps), eng.graphs)
+            dt = busy["wall_ms"] / 1e3
+        else:
+            (state, toks, ns, c, eos), dt = _timed(
+                lambda: bat.decode(state, steps))
+        return dict(tokens=toks.tolist(),
+                    counters=[ns.tolist(), c.tolist(), eos.tolist(),
+                              bat.target_forwards,
+                              [g.get_state().tolist() for g in state.gens]],
+                    seq_len=[state.kv.seq_len.tolist(),
+                             None if state.dkv is None
+                             else state.dkv.seq_len.tolist()],
+                    decode_s=dt, n=int(ns.sum()),
+                    captures=eng.graphs.captures - c0,
+                    readbacks=eng.graphs.readbacks - r0, steps=steps,
+                    busy=busy)
     return run
 
 
@@ -2354,13 +2381,57 @@ def _record_admissions(sched, row_view):
     return sched
 
 
+def _record_segments(sched):
+    """Wrap ``sched._decode_segment``: each segment's wall ms (device
+    synchronised at both ends, capture seconds left out), its captures
+    and, on a graphed scheduler, the device's busy ms over its graph
+    replays (``_busy``) land in ``sched.segments``."""
+    sched.segments = []
+    decode = sched._decode_segment
+
+    def segment():
+        c0 = sched.graphs.captures
+        if sched.graphs.enabled:
+            out, b = _busy(decode, sched.graphs)
+        else:
+            (out, s) = _timed(decode)
+            b = dict(busy_ms=None, wall_ms=1e3 * s)
+        sched.segments.append(dict(b, captures=sched.graphs.captures - c0))
+        return out
+    sched._decode_segment = segment
+    return sched
+
+
+def _segments_line(sched):
+    """(text, numbers): the first segment's wall against the others', the
+    device's busy share over all of them, the read-backs a segment."""
+    segs = sched.segments
+    rest = [x["wall_ms"] for x in segs[1:]]
+    out = dict(segments=len(segs), first_segment_ms=segs[0]["wall_ms"],
+               rest_segment_ms=sum(rest) / max(len(rest), 1),
+               readbacks=sched.stats["readbacks"])
+    text = (f"{len(segs)} segments, {sched.stats['readbacks']} read-backs; "
+            f"first segment {out['first_segment_ms']:.1f} ms, the other "
+            f"{len(rest)} {out['rest_segment_ms']:.1f} ms each")
+    if segs[0]["busy_ms"] is not None:
+        busy = sum(x["busy_ms"] for x in segs)
+        wall = sum(x["wall_ms"] for x in segs)
+        out.update(busy_ms=busy, wall_ms=wall, share=busy / wall)
+        text += (f"; device busy {busy:.1f} of {wall:.1f} ms "
+                 f"({100 * busy / wall:.1f}%) over the segments' graph "
+                 f"replays")
+    return text, out
+
+
 def serve_gate(what, fd, rk, run_graphed, run_eager):
     """A serving graph gate: ``run_*()`` serve the same requests through a
     graphed and an eager scheduler (their admissions recorded by
-    ``_record_admissions``) and return (scheduler, finished requests);
-    every request's tokens, the steps, the target forwards, the launch
-    counts and every admitted row's digest must be equal (the admission's
-    prefill gate: line "prefill graphs [... admission]"). Returns the
+    ``_record_admissions``, their segments by ``_record_segments``) and
+    return (scheduler, finished requests); every request's tokens, the
+    steps, the target forwards, the launch counts, the pool's generator
+    states and every admitted row's digest must be equal (the admission's
+    prefill gate: line "prefill graphs [... admission]"), and the graphed
+    scheduler must read back once a segment. Returns the
     graphed (scheduler, requests), its launch counts and the gate's
     numbers; the scheduler's pool is dropped before the witness runs
     (``drained``: its slots' lengths at the end), so that the two pools
@@ -2382,7 +2453,10 @@ def serve_gate(what, fd, rk, run_graphed, run_eager):
                     dict(tokens=sorted((r.rid, r.out) for r in done),
                          steps=st["steps"],
                          target_forwards=st["target_forwards"],
-                         launches=launches, admitted=sched.admitted))
+                         launches=launches, admitted=sched.admitted,
+                         gens=[g.get_state().tolist() for g in getattr(
+                             sched.state, "gens", [getattr(sched.state,
+                                                           "gen", None)])]))
         sched.drained = sched.state.kv.seq_len.tolist()
         sched.state = sched._row = sched._rows = None   # the pool, the row
         sched.graphs.release()
@@ -2395,6 +2469,12 @@ def serve_gate(what, fd, rk, run_graphed, run_eager):
                   f"from the eager witness's"
                   + ("" if key == "admitted" else f" ({g[key]} != {e[key]})"))
     gs, es = out["graphed"][0], out["eager"][0]
+    if gs.stats["readbacks"] != len(gs.segments):
+        _fail(f"graph gate [{what}]: {gs.stats['readbacks']} read-backs "
+              f"over {len(gs.segments)} decode segments, not one each")
+    seg_text, seg = _segments_line(gs)
+    print(f"graphs [{what} segments]: graphed {seg_text}; eager witness "
+          f"{_segments_line(es)[0]}", flush=True)
     if len(g["admitted"]) != len(g["tokens"]) \
             or not gs.stats["admit_captures"] or es.stats["admit_captures"]:
         _fail(f"graph gate [{what}]: {len(g['admitted'])} admissions "
@@ -2416,7 +2496,8 @@ def serve_gate(what, fd, rk, run_graphed, run_eager):
                 eager_decode_s=est["decode_s"],
                 eager_admit_s=est["admit_s"],
                 admit_replays=gs.admit_replays,
-                requests=len(out["eager"][1]))
+                requests=len(out["eager"][1]), segments=seg,
+                eager_readbacks=est["readbacks"])
     return out["graphed"][0], out["graphed"][1], out["graphed"][2], gate
 
 
@@ -2504,41 +2585,66 @@ def batched_end_to_end(tc, llama, Engine, bs, batching, fd, rk, dev, tp, dp,
                                L * pre_fwd * ROWS, L * ROWS)
     res["launches"]["prefill_rows"] = counts_pre
     _reset(fd, rk)
-    steps = 8
+    # two decode calls on the pool: the first captures its loop graph and
+    # pays a fresh graph's first-call cost, the second replays it
+    steps, calls = 8, []
     snap = _snap(eng.graphs)
-    t0 = time.perf_counter()
-    state, toks, ns, counters, _eos = bat.decode(state, steps)
-    torch.cuda.synchronize()
+    for _ in range(2):
+        f0, r0, sn = bat.target_forwards, eng.graphs.readbacks, \
+            _snap(eng.graphs)
+        t0 = time.perf_counter()
+        state, toks, ns, counters, _eos = bat.decode(state, steps)
+        torch.cuda.synchronize()
+        dk = _since(eng.graphs, sn)
+        calls.append(dict(s=time.perf_counter() - t0 - dk["capture_s"],
+                          toks=toks, ns=ns, counters=counters,
+                          forwards=bat.target_forwards - f0,
+                          readbacks=eng.graphs.readbacks - r0,
+                          captures=dk["captures"]))
     d = _since(eng.graphs, snap)
-    dt = time.perf_counter() - t0 - d["capture_s"]
     counts("batched triforce", 0, 0, L * bat.target_forwards)
-    if toks.shape != (ROWS, steps, GAMMA + 2) or not (ns >= 1).all():
-        _fail(f"{tag}batched triforce: wrong outputs")
-    for r in range(ROWS):
-        for i in range(steps):
-            if not all(0 <= t < tcfg.vocab_size
-                       for t in toks[r, i, :ns[r, i]]):
-                _fail(f"{tag}batched triforce: token out of range")
+    for c in calls:
+        toks, ns = c["toks"], c["ns"]
+        if toks.shape != (ROWS, steps, GAMMA + 2) or not (ns >= 1).all():
+            _fail(f"{tag}batched triforce: wrong outputs")
+        for r in range(ROWS):
+            for i in range(steps):
+                if not all(0 <= t < tcfg.vocab_size
+                           for t in toks[r, i, :ns[r, i]]):
+                    _fail(f"{tag}batched triforce: token out of range")
+        if c["readbacks"] != 1:
+            _fail(f"{tag}batched triforce: a decode call read back "
+                  f"{c['readbacks']} times, not once")
     # every emitted token but the last of each row is committed
-    want_len = P + ns.sum(1)
+    want_len = P + sum(c["ns"].sum(1) for c in calls)
     if state.kv.seq_len.tolist() != want_len.tolist():
         _fail(f"{tag}batched triforce: kv.seq_len "
               f"{state.kv.seq_len.tolist()} != {want_len.tolist()}")
-    emitted = int(ns.sum())
+    first, steady = calls
+    emitted, dt = int(steady["ns"].sum()), steady["s"]
     res["batched_triforce"] = dict(
         alpha=0.9, rows=ROWS, steps=steps, prefill_rows_s=t_prefill,
         decode_s=dt, tokens=emitted, tokens_per_s=emitted / dt,
-        accepted=int(counters[:, 0].sum()), proposed=int(counters[:, 1].sum()),
+        ms_per_step=1e3 * dt / steps,
+        first_call_s=first["s"], first_call_tokens=int(first["ns"].sum()),
+        first_call_tokens_per_s=int(first["ns"].sum()) / first["s"],
+        readbacks_per_call=[c["readbacks"] for c in calls],
+        accepted=int(steady["counters"][:, 0].sum()),
+        proposed=int(steady["counters"][:, 1].sum()),
         target_forwards=bat.target_forwards)
+    b = res["batched_triforce"]
     print(f"{tag}batched triforce a=0.9: {ROWS} rows, prefill_rows "
-          f"{t_prefill:.2f} s, {steps} steps in {dt:.2f} s = "
-          f"{emitted / dt:.1f} tokens/s ({emitted} tokens, accepted "
-          f"{res['batched_triforce']['accepted']} of "
-          f"{res['batched_triforce']['proposed']}), "
+          f"{t_prefill:.2f} s; two decode calls of {steps} steps, one "
+          f"read-back each: the first (it captures the loop graph; capture "
+          f"seconds left out) {first['s']:.3f} s = "
+          f"{b['first_call_tokens_per_s']:.1f} tokens/s, the second "
+          f"{dt:.3f} s = {emitted / dt:.1f} tokens/s, "
+          f"{b['ms_per_step']:.2f} ms/step ({emitted} tokens, accepted "
+          f"{b['accepted']} of {b['proposed']}); "
           f"{bat.target_forwards} batched target forwards", flush=True)
     res["graphs"]["batched triforce"] = mode_graphs(
         tag + "batched triforce", d, 1e3 * dt / emitted, None, rows_gate)
-    if toks[:, :GATE_STEPS].tolist() != rows_gate["tokens"]:
+    if first["toks"][:, :GATE_STEPS].tolist() != rows_gate["tokens"]:
         _fail(f"{tag}batched triforce: the timed run's first steps differ "
               f"from the eager witness's")
     del state
@@ -2546,9 +2652,9 @@ def batched_end_to_end(tc, llama, Engine, bs, batching, fd, rk, dev, tp, dp,
     # --- (b) speculative serving: chunked admission between segments
     def spec_serving(e, b):
         def run():
-            sched = _record_admissions(bs.SpecScheduler(
+            sched = _record_segments(_record_admissions(bs.SpecScheduler(
                 e, mode="triforce", slots=ROWS, segment=SERVE_SEGMENT,
-                bat=b, admit_chunks=4), bs.row_view)
+                bat=b, admit_chunks=4), bs.row_view))
             for i, p in enumerate(prompts):
                 sched.submit(batching.Request(rid=i, prompt=p[0].numpy(),
                                               max_new_tokens=SERVE_NEW))
@@ -2568,9 +2674,12 @@ def batched_end_to_end(tc, llama, Engine, bs, batching, fd, rk, dev, tp, dp,
            L * (bat.target_forwards - before))
     if sched.drained != [0] * ROWS:
         _fail(f"{tag}spec serving: a drained slot is not gated")
-    if sched.stats["captures"] != rows_gate["gate_captures"]:
-        _fail(f"{tag}spec serving: {sched.stats['captures']} captures, not "
-              f"one set of rows graphs ({rows_gate['gate_captures']})")
+    if sched.stats["captures"] != 1 \
+            or [x["captures"] for x in sched.segments][1:] != \
+            [0] * (len(sched.segments) - 1):
+        _fail(f"{tag}spec serving: {sched.stats['captures']} captures "
+              f"(by segment {[x['captures'] for x in sched.segments]}), "
+              f"not one loop graph for the pool at its first segment")
     res["spec_serving"] = serve_line("spec serving (triforce a=0.9)", sched,
                                      done, gate)
     res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
@@ -2584,11 +2693,11 @@ def batched_end_to_end(tc, llama, Engine, bs, batching, fd, rk, dev, tp, dp,
 
     def ar_serving(graphs):
         def run():
-            ar = _record_admissions(batching.Scheduler(
+            ar = _record_segments(_record_admissions(batching.Scheduler(
                 tcfg, spec, eng.t_params, batch=ROWS,
                 max_len=P + SERVE_NEW + 16, prefill_chunk=chunk,
                 dtype=torch.bfloat16, segment=16, device=dev,
-                eos_token_id=-1, graphs=graphs), bs.row_view)
+                eos_token_id=-1, graphs=graphs), bs.row_view))
             for i, p in enumerate(prompts):
                 ar.submit(batching.Request(rid=i, prompt=p[0].numpy(),
                                            max_new_tokens=SERVE_NEW))
@@ -2748,8 +2857,9 @@ def cli_serve_gate(tag, fd, rk, bs, data, eng, sched, done, vocab,
     through a ``SpecScheduler`` on the eager witness of the command
     line's engine; every request's tokens, the steps, the target forwards
     and the launch counts (``launches``, the command line's) must be
-    equal, and the command line's run must have captured one set of rows
-    graphs. Leaves the counters at ``launches``."""
+    equal, and the command line's run must have captured one loop graph
+    for its pool and read back once a segment. Leaves the counters at
+    ``launches``."""
     wit = _eager_twin(eng)
     prompts = data.synthetic_prompts(CLI_SERVE_PROMPTS, CLI_SERVE_PREFILL,
                                      vocab, 0)
@@ -2773,10 +2883,13 @@ def cli_serve_gate(tag, fd, rk, bs, data, eng, sched, done, vocab,
         if a != b:
             _fail(f"graph gate [cli {tag}]: the graphed run's {name} differ "
                   f"from the eager witness's ({a} != {b})")
-    want = 4 if sched.mode == "triforce" else 2
-    if sched.stats["captures"] != want:
-        _fail(f"cli {tag}: {sched.stats['captures']} captures, not one set "
-              f"of rows graphs ({want})")
+    segments = sched.stats["steps"] // sched.segment
+    if sched.stats["captures"] != 1:
+        _fail(f"cli {tag}: {sched.stats['captures']} captures, not one loop "
+              f"graph for the pool")
+    if sched.stats["readbacks"] != segments:
+        _fail(f"cli {tag}: {sched.stats['readbacks']} read-backs over "
+              f"{segments} decode segments, not one each")
     for k, f in _wrappers(fd, rk).items():
         f.launches = launches[k]
     st = sched.stats
@@ -2784,13 +2897,16 @@ def cli_serve_gate(tag, fd, rk, bs, data, eng, sched, done, vocab,
     out = dict(tokens_per_s_graphed=dec / st["decode_s"],
                tokens_per_s_eager=dec / w.stats["decode_s"],
                captures=st["captures"], capture_s=st["capture_s"],
-               pool_bytes=eng.graphs.pool_bytes)
+               pool_bytes=eng.graphs.pool_bytes, segments=segments,
+               readbacks=st["readbacks"], eager_readbacks=w.stats["readbacks"])
     print(f"graphs [cli {tag}]: graphed {out['tokens_per_s_graphed']:.1f} "
           f"tokens/s over decode segments, eager witness "
           f"{out['tokens_per_s_eager']:.1f}; gate: every request's tokens, "
           f"the steps and the launch counts equal; {st['captures']} "
-          f"captures in {st['capture_s']:.3f} s, pool "
-          f"{out['pool_bytes'] / 2**20:.1f} MiB", flush=True)
+          f"capture in {st['capture_s']:.3f} s, pool "
+          f"{out['pool_bytes'] / 2**20:.1f} MiB; device loop: "
+          f"{st['readbacks']} read-backs over {segments} segments (the eager "
+          f"witness {w.stats['readbacks']})", flush=True)
     eng.release_graphs()
     return out
 

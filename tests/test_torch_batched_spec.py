@@ -174,8 +174,8 @@ def test_decode_equals_stepped(weights, mode):
     for _ in range(3):
         st, stats = bat.step(st)
         toks.append(stats.tokens.numpy())
-        ns.append(stats.n_emitted)
-        acc += stats.accepted
+        ns.append(stats.n_emitted.numpy())
+        acc += stats.accepted.numpy()
     st2 = bat.prefill_rows(prompts, [7, 8, 9])
     _, toks2, ns2, counters, eos = bat.decode(st2, steps=3)
     np.testing.assert_array_equal(toks2, np.stack(toks, 1))

@@ -229,12 +229,11 @@ def test_staged_tree_matches_jax_near_greedy(weights):
 
 @pytest.mark.parametrize("mode", ["retrieval", "triforce"])
 def test_staged_batched_equals_eager(weights, mode):
-    """The rows forwards through static buffers: every row's tokens, counts
-    and lengths as the eager batched engine's; the decode captures are
-    those of one state (middle verify, target verify; with a drafter its
-    chain forward and its replay), the prefill's one drafter chunk graph a
-    row (each row is a new batch-1 state; its target chunk and build run
-    once)."""
+    """The batched decode through static buffers: every row's tokens,
+    counts and lengths as the eager batched engine's; the decode captures
+    one graph, its loop region (the rows forwards run inside it), the
+    prefill's one drafter chunk graph a row (each row is a new batch-1
+    state; its target chunk and build run once)."""
     prompts = [torch.from_numpy(_ids(s)) for s in (1, 2, 3)]
     out = []
     for staged in (True, False):
@@ -247,7 +246,7 @@ def test_staged_batched_equals_eager(weights, mode):
                     state.kv.seq_len.tolist(), eng.graphs.captures - pre,
                     pre))
     assert out[0][:4] == out[1][:4]
-    assert out[0][4] == (4 if mode == "triforce" else 2)
+    assert out[0][4] == 1
     assert out[0][5] == (3 if mode == "triforce" else 0)
 
 

@@ -852,28 +852,68 @@ def test_graphed_tree_equals_eager(dev, quant):
 
 
 @pytest.mark.parametrize("quant", [False, True])
-@pytest.mark.parametrize("mode", ["retrieval", "triforce"])
-def test_graphed_batched_equals_eager(dev, quant, mode):
+@pytest.mark.parametrize("mode,alpha", [("retrieval", None),
+                                        ("triforce", None),
+                                        ("triforce", 0.9)])
+def test_graphed_batched_equals_eager(dev, quant, mode, alpha):
+    """Two ``decode`` calls of the batched loop (one loop graph with
+    if-nodes, replayed) against the eager engine: tokens, counters, eos,
+    lengths, launches and every row's generator state bit for bit; one
+    capture and one read-back a call (the eager engine reads each
+    condition back)."""
     ge, ee = _card_engines(dev, quant)
     prompts = [_prompt(dev, s) for s in (1, 2, 3)]
     out = {}
     for eng in (ge, ee):
-        bat = tbs.BatchedSpecEngine(eng, mode=mode)
+        bat = tbs.BatchedSpecEngine(eng, mode=mode, force_accept=alpha)
         state = bat.prefill_rows(prompts, [11, 12, 13])
         pre = eng.graphs.captures
-        _zero_launches()
-        state, toks, ns, c, _ = bat.decode(state, 4)
-        torch.cuda.synchronize()
-        out[eng is ge] = (toks.tolist(), ns.tolist(), c.tolist(),
-                          state.kv.seq_len.tolist(), _launches(),
+        got = []
+        for _ in range(2):
+            _zero_launches()
+            r0 = eng.graphs.readbacks
+            state, toks, ns, c, eos = bat.decode(state, 4)
+            torch.cuda.synchronize()
+            got.append((toks.tolist(), ns.tolist(), c.tolist(),
+                        eos.tolist(), state.kv.seq_len.tolist(),
+                        _launches(), eng.graphs.readbacks - r0))
+        out[eng is ge] = ([x[:6] for x in got], [x[6] for x in got],
                           [g.get_state() for g in state.gens],
-                          eng.graphs.captures - pre)
+                          eng.graphs.captures - pre, bat.target_forwards)
     g, e = out[True], out[False]
-    assert g[:5] == e[:5] and any(g[4])
-    assert all(torch.equal(a, b) for a, b in zip(g[5], e[5]))
-    # rows forwards: middle verify and target verify, with a drafter its
-    # chain forward and its replay (the rows' prefill graphs apart)
-    assert g[6] == (4 if mode == "triforce" else 2)
+    assert g[0] == e[0] and all(any(x[5]) for x in g[0]) and g[4] == e[4]
+    assert all(torch.equal(a, b) for a, b in zip(g[2], e[2]))
+    assert g[3] == 1 and g[1] == [1, 1]
+    if mode == "triforce":
+        assert min(e[1]) > 4
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_graphed_spec_scheduler_equals_eager(dev, quant):
+    """5 requests through 2 speculative slots: the graphed scheduler serves
+    the eager one's tokens with its steps, target forwards and launches,
+    captures its loop once for the pool and reads back once a segment."""
+    ge, ee = _card_engines(dev, quant)
+    out = {}
+    for eng in (ge, ee):
+        sched = tbs.SpecScheduler(eng, mode="triforce", slots=2, segment=3,
+                                  admit_chunks=1)
+        for i in range(5):
+            sched.submit(tbatching.Request(
+                rid=i, prompt=_prompt(dev, 20 + i)[0].cpu().numpy(),
+                max_new_tokens=12))
+        _zero_launches()
+        done = sched.run()
+        torch.cuda.synchronize()
+        st = sched.stats
+        out[eng is ge] = (sorted((r.rid, r.out) for r in done), st["steps"],
+                          st["target_forwards"], _launches(),
+                          st["captures"], st["readbacks"],
+                          st["steps"] // sched.segment)
+    g, e = out[True], out[False]
+    assert g[:4] == e[:4] and len(g[0]) == 5
+    assert g[4] == 1 and e[4] == 0
+    assert g[5] == g[6] and e[5] > e[6]
 
 
 def test_graphed_ar_scheduler_equals_eager(dev):

@@ -17,12 +17,16 @@ dead slots gated by ``kv.seq_len == 0`` (their attention reads no cache).
 The control loop is ``batching.SchedulerBase``, shared with the AR
 scheduler.
 
-On a CUDA device the rows forwards (drafter, middle verify, target
-verify, drafter replay) replay CUDA graphs captured at the pool's fixed B
-on the batch-1 engine's graph set (``graphs.py``); the per-row sampling,
-gated by host flags, and the per-row commit stay eager. ``write_row``
-fills a slot in place, so the graphs captured on the pool stay valid when
-a slot is refilled.
+``BatchedSpecEngine.decode`` is the JAX package's ``_decode_fused``:
+``steps`` calls of one loop region (``engine.decode_rows``) on the batch-1
+engine's graph set (``graphs.py``), captured at its first call as one CUDA
+graph on a card (the lockstep middle trips and their drafter forwards are
+if-nodes) and replayed, and ONE host read-back at the end of the call. A
+``SpecScheduler`` decode segment is one such call. Admission writes a slot
+in place (``write_row``), copies the row's generator state into the
+slot's generator and replaces the length vectors, so the loop graph
+captured on the pool replays for every request: its key holds the pool's
+caches and generators, which live as long as the pool.
 """
 
 from __future__ import annotations
@@ -35,8 +39,14 @@ from . import batching
 from .cache import (KVCache, RetrievalCache, StreamingCache, init_kv_rows,
                     init_retrieval_rows, init_streaming_rows, row_view,
                     set_entry, stack_rows, write_row)
-from .engine import (Engine, StackedState, TriForceState,
-                     retrieval_spec_step_rows, triforce_step_rows)
+from .engine import (_COUNTS, BatchedStepStats, Engine, StackedState,
+                     TriForceState, decode_rows)
+
+# the columns of a batched step's counts (``engine._counts_of``)
+_COLS = ("n_emitted",) + _COUNTS + ("eos",)
+# ``decode``'s counters: per row (accepted, proposed, mid_verify, mid_live)
+_COUNTERS = [_COLS.index(k) for k in ("accepted", "gamma2", "mid_verify",
+                                      "mid_live")]
 
 
 def stack_states(states) -> StackedState:
@@ -78,15 +88,16 @@ def write_state_row(full: StackedState, row: TriForceState,
                     slot: int) -> StackedState:
     """Overwrite row ``slot`` of the pool with a batch-1 state, in place on
     the pool's buffers (one row's bytes; the pool is never copied). The
-    slot takes the row's generator."""
-    next_token = set_entry(full.next_token, slot, row.next_token[0])
-    gens = list(full.gens)
-    gens[slot] = row.gen
+    slot's generator takes the row's generator state and stays the pool's
+    object (a loop graph captured on the pool has registered it); the
+    length vectors and the next tokens are replaced, not mutated."""
+    full.gens[slot].set_state(row.gen.get_state())
     return StackedState(
         kv=write_row(full.kv, slot, row.kv),
         rkv=write_row(full.rkv, slot, row.rkv),
         dkv=None if full.dkv is None else write_row(full.dkv, slot, row.dkv),
-        next_token=next_token, gens=gens)
+        next_token=set_entry(full.next_token, slot, row.next_token[0]),
+        gens=full.gens)
 
 
 def unstack_state(batched: StackedState):
@@ -150,19 +161,16 @@ class BatchedSpecEngine:
         if mesh is not None:
             raise NotImplementedError("data-parallel rows over a mesh are "
                                       "not ported yet")
-        if mode == "triforce":
-            if engine.draft_cfg is None:
-                raise ValueError("triforce mode needs a drafter")
-            self._step_rows = triforce_step_rows
-        elif mode == "retrieval":
-            self._step_rows = retrieval_spec_step_rows
-        else:
+        if mode not in ("triforce", "retrieval"):
             raise ValueError(mode)
+        if mode == "triforce" and engine.draft_cfg is None:
+            raise ValueError("triforce mode needs a drafter")
         self.engine = engine
         self.mode = mode
         self.force_accept = force_accept
         self.steps = 0             # batched steps run so far
-        self.target_forwards = 0   # batched target forwards they ran
+        self.target_forwards = 0   # batched target forwards they ran (the
+        #                            device's count, read back per call)
 
     def prefill_rows(self, prompts, seeds) -> StackedState:
         """Prefill each row through the batch-1 engine and write it into a
@@ -180,34 +188,34 @@ class BatchedSpecEngine:
             del st
         return state
 
+    def _decode(self, state: StackedState, steps: int):
+        state, toks, counts, forwards = decode_rows(
+            self.engine, state, self.mode, steps, self.force_accept)
+        self.steps += steps
+        self.target_forwards += forwards
+        return state, toks, counts, forwards
+
     def step(self, state: StackedState):
-        """One speculation step for EVERY row. Returns (state, stats) with
-        a leading row axis on every stats field. The caches of ``state``
-        are updated in place."""
-        state, stats = self._step_rows(self.engine, state,
-                                       force_accept=self.force_accept)
-        self.steps += 1
-        self.target_forwards += stats.target_forwards
-        return state, stats
+        """One speculation step for EVERY row (a ``decode`` call of one
+        step: one read-back). Returns (state, ``BatchedStepStats``). The
+        caches of ``state`` are updated in place."""
+        state, toks, counts, forwards = self._decode(state, 1)
+        c = dict(zip(_COLS, counts[:, 0].unbind(-1)))
+        eos = c.pop("eos") != 0
+        return state, BatchedStepStats(tokens=toks[:, 0], eos=eos,
+                                       target_forwards=forwards, **c)
 
     def decode(self, state: StackedState, steps: int):
-        """Run ``steps`` steps; returns (state, tokens [B, steps, gamma+2],
-        n_emitted [B, steps], counters [B, 4] = per-row (accepted,
-        proposed, mid_verify, mid_live), eos [B, steps]). The JAX package
-        compiles this into one program; here it is a host loop over
-        ``step`` (each step reads its outcomes back), and the results are
-        collected on the host at the end."""
-        toks, ns, eos = [], [], []
-        counters = np.zeros((state.rows, 4), np.int64)
-        for _ in range(steps):
-            state, st = self.step(state)
-            toks.append(st.tokens)
-            ns.append(st.n_emitted)
-            eos.append(st.eos)
-            counters += np.stack([st.accepted, st.gamma2, st.mid_verify,
-                                  st.mid_live], -1)
-        return (state, torch.stack(toks, 1).cpu().numpy(), np.stack(ns, 1),
-                counters, torch.stack(eos, 1).cpu().numpy())
+        """Run ``steps`` steps as the JAX package's ``_decode_fused``:
+        ``steps`` replays of one loop graph on a card and ONE host
+        read-back (``engine.decode_rows``). Returns (state, tokens [B,
+        steps, gamma+2], n_emitted [B, steps], counters [B, 4] = per-row
+        (accepted, proposed, mid_verify, mid_live), eos [B, steps]), the
+        last four as numpy arrays."""
+        state, toks, counts, _ = self._decode(state, steps)
+        counts = counts.numpy()
+        return (state, toks.numpy(), counts[..., 0],
+                counts[..., _COUNTERS].sum(1), counts[..., -1] != 0)
 
 
 class SpecScheduler(batching.SchedulerBase):
@@ -233,7 +241,9 @@ class SpecScheduler(batching.SchedulerBase):
     slots keep decoding while a long prompt streams in. Every request is
     prefilled into one reused batch-1 row (``_reset_row``), so the
     prefill's graphs, the retrieval build's among them, replay from the
-    second request on."""
+    second request on. A decode segment is one ``BatchedSpecEngine.decode``
+    call: one loop graph per pool, captured at the first segment and
+    replayed after every admission, and one read-back a segment."""
 
     @staticmethod
     def required_headroom(gen_len: int, segment: int, gamma: int) -> int:
@@ -298,8 +308,8 @@ class SpecScheduler(batching.SchedulerBase):
         return True
 
     def _reset_row(self, rid: int) -> TriForceState:
-        """The admission row, reset for request ``rid``: zero lengths and a
-        fresh generator seeded with ``rid`` (the slot takes this object).
+        """The admission row, reset for request ``rid``: zero lengths and
+        its generator seeded with ``rid`` (the slot takes its state).
         The engine fixes the prompt's length, so every request's prefill
         writes the same slots of each cache (the retrieval budget whole)
         and the row then holds what a fresh state would: nothing of the
@@ -314,7 +324,7 @@ class SpecScheduler(batching.SchedulerBase):
                 row.kv.seq_len)),
             rkv=row.rkv, dkv=dkv, next_token=torch.zeros_like(
                 row.next_token),
-            gen=torch.Generator(device=self.engine.device).manual_seed(rid))
+            gen=row.gen.manual_seed(rid))
 
     def _decode_segment(self):
         before = self.bat.target_forwards

@@ -16,11 +16,11 @@ per-row sequence lengths and rolling admission — the port of
 
 ``SchedulerBase`` is the control loop shared with the speculative
 scheduler (``batched_spec.SpecScheduler``). Where the JAX package runs a
-decode segment as one compiled program, the port runs it as a host loop
-over ``batched_ar_step`` with one read-back of the output buffer per
-segment; on a CUDA device each step (forward, commit, sample, output
-append: no host decision) is the replay of one captured CUDA graph
-(``graphs.py``).
+decode segment as one compiled program (``_seg``), the port runs it as a
+host loop over ``batched_ar_step`` with one read-back of the output buffer
+per segment (``GraphSet.read``, counted in ``stats["readbacks"]``); on a
+CUDA device each step (forward, commit, sample, output append: no host
+decision) is the replay of one captured CUDA graph (``graphs.py``).
 """
 
 from __future__ import annotations
@@ -176,11 +176,14 @@ class SchedulerBase:
         """Wall seconds in admission and in decode segments, each without
         the seconds of the CUDA graphs captured in it (``admit_capture_s``
         / ``capture_s``, counted in ``admit_captures`` / ``captures``),
-        prompt tokens prefilled, batched decode steps and the target
-        forwards they ran."""
+        prompt tokens prefilled, batched decode steps, the target
+        forwards they ran and the host read-backs of the decode segments
+        (``GraphSet.readbacks``: one a segment where they replay graphs;
+        an eager speculative segment reads each condition back too)."""
         return {"admit_s": 0.0, "decode_s": 0.0, "prefill_tokens": 0,
                 "steps": 0, "target_forwards": 0, "capture_s": 0.0,
-                "captures": 0, "admit_capture_s": 0.0, "admit_captures": 0}
+                "captures": 0, "admit_capture_s": 0.0, "admit_captures": 0,
+                "readbacks": 0}
 
     def submit(self, req: Request) -> None:
         self.queue.append(req)
@@ -230,11 +233,13 @@ class SchedulerBase:
                 continue   # nothing live yet (admission still chunking)
             td = time.perf_counter()
             c0, s0 = self.graphs.captures, self.graphs.capture_s
+            r0 = self.graphs.readbacks
             new_tokens, force = self._decode_segment()
             cap = self.graphs.capture_s - s0
             self.stats["decode_s"] += time.perf_counter() - td - cap
             self.stats["capture_s"] += cap
             self.stats["captures"] += self.graphs.captures - c0
+            self.stats["readbacks"] += self.graphs.readbacks - r0
             for slot, req in enumerate(self.slot_req):
                 if req is None:
                     continue
@@ -324,9 +329,11 @@ class Scheduler(SchedulerBase):
                                          self.state, graphs=self.graphs)
         self.stats["steps"] += self.segment
         self.stats["target_forwards"] += self.segment
-        out = self.state.out_buf.cpu().numpy()     # the segment's read-back
-        n_out = self.state.n_out.cpu().numpy()
-        cap = self.state.out_buf.shape[1]
+        st = self.state
+        cap = st.out_buf.shape[1]
+        host = self.graphs.read(torch.cat(
+            [st.out_buf, st.n_out[:, None]], 1)).numpy()  # the one read-back
+        out, n_out = host[:, :cap], host[:, cap]
         new_tokens, force = [], []
         for slot, req in enumerate(self.slot_req):
             if req is None:

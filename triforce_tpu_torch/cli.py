@@ -369,6 +369,7 @@ def _run_batched(engine, args, prompts):
     # a fixed step count: ~gen_len tokens a row at >= 1 token a step
     steps = args.gen_len
     clock = _CaptureClock(engine.graphs)
+    r0 = engine.graphs.readbacks
     t0 = time.perf_counter()
     state, toks, ns, counters, _eos = bat.decode(state, steps)
     wall = time.perf_counter() - t0 - clock.seconds
@@ -382,7 +383,7 @@ def _run_batched(engine, args, prompts):
         max(int(counters[:, 1].sum()), 1),
         avg_tokens_per_step=total / (b * steps),
         steps=steps, wall_s=wall, captures=clock.count,
-        capture_s=clock.seconds)
+        capture_s=clock.seconds, readbacks=engine.graphs.readbacks - r0)
 
 
 def _run_serve(engine, args, prompt_ids):

@@ -40,11 +40,13 @@ package.
 The batched steps (``triforce_step_rows``, ``retrieval_spec_step_rows``)
 run the same step for B rows of a ``StackedState`` at once: every forward
 runs once for all rows, where the JAX package vmaps its batch-1 step. The
-control flow stays on the host, per row, but one read-back serves all rows:
-one vector per middle trip and one per outer verify. Each row owns a
-generator and draws from it the block of uniforms the batch-1 step draws,
-and takes the same shares, so a batched row emits what its batch-1 run
-with the same seed emits.
+counts are [B] device tensors and the per-row choices ``torch.where``; the
+lockstep middle trips and their drafter forwards are conditional bodies
+while any row needs them. ``decode_rows`` runs ``steps`` of them as
+``steps`` calls of one loop region with one read-back, as the JAX
+package's ``_decode_fused``. Each row owns a generator and draws from it
+the block of uniforms the batch-1 step draws, and takes the same shares,
+so a batched row emits what its batch-1 run with the same seed emits.
 """
 
 from __future__ import annotations
@@ -54,7 +56,6 @@ import functools
 import math
 from typing import Optional
 
-import numpy as np
 import torch
 
 from . import graphs as graphs_mod
@@ -158,20 +159,20 @@ class StackedState:
 
 @dataclasses.dataclass
 class BatchedStepStats:
-    """Per-step outputs of a batched step, a leading row axis on each:
-    ``tokens`` and ``eos`` stay on the device, the counts are host arrays
-    (the step read them back to drive its control flow)."""
+    """Per-step outputs of a batched step, a leading row axis on each
+    field, read back once at the end of the step's call
+    (``BatchedSpecEngine.step``)."""
     tokens: torch.Tensor      # [B, gamma + 2] emitted tokens, junk-padded
-    n_emitted: np.ndarray     # [B]
-    gamma2: np.ndarray
-    accepted: np.ndarray
-    resampled: np.ndarray
-    bonus: np.ndarray
-    eos: torch.Tensor         # [B] bool (device)
-    mid_draft: np.ndarray
-    mid_accept: np.ndarray
-    mid_verify: np.ndarray    # middle verifies each row took part in
-    mid_live: np.ndarray      # ... that read its retrieval cache
+    n_emitted: torch.Tensor   # [B]
+    gamma2: torch.Tensor
+    accepted: torch.Tensor
+    resampled: torch.Tensor
+    bonus: torch.Tensor
+    eos: torch.Tensor         # [B] bool
+    mid_draft: torch.Tensor
+    mid_accept: torch.Tensor
+    mid_verify: torch.Tensor  # middle verifies each row took part in
+    mid_live: torch.Tensor    # ... that read its retrieval cache
     target_forwards: int = 0  # batched target forwards the step ran
 
 
@@ -880,9 +881,10 @@ _COUNTS = ("accepted", "gamma2", "resampled", "bonus", "mid_draft",
 
 
 def _counts_of(out: dict) -> torch.Tensor:
-    """[n_emitted, the ``_COUNTS``, eos] of a step, one int64 vector."""
+    """[n_emitted, the ``_COUNTS``, eos] of a step, one int64 vector (a
+    batched step's: one per row, [B, 10])."""
     return torch.stack([out["n_emitted"]] + [out[k] for k in _COUNTS]
-                       + [out["eos"]]).to(torch.int64)
+                       + [out["eos"]], -1).to(torch.int64)
 
 
 def _step(eng: Engine, state: TriForceState, mode: str, force_accept=None,
@@ -938,195 +940,152 @@ def _retrieval_spec_step(eng: Engine, state: TriForceState,
 # ---------------------------------------------------------------------------
 # The batched steps: B rows of a StackedState at once
 # ---------------------------------------------------------------------------
-
-def _on(dev, xs, dtype=torch.int64) -> torch.Tensor:
-    """Host-side per-row values (a list or numpy array) as a tensor on
-    ``dev``: on a card through pinned memory, queued on the stream without
-    waiting for the device (a plain copy from pageable memory would
-    synchronise it)."""
-    t = torch.tensor(np.asarray(xs), dtype=dtype)
-    if dev.type == "cuda":
-        return t.pin_memory().to(dev, non_blocking=True)
-    return t
-
-
-def _draft_rows(eng: Engine, state: StackedState, ids, commit: bool):
-    """``draft_forward_spec_rows`` of every row, a graph region at the
-    engine's fixed B: returns logits [B, T, V]."""
-    dkv = state.dkv
-
-    def region(ids):
-        logits, _ = llama.draft_forward_spec_rows(
-            eng.draft_cfg, eng.d_params, ids, dkv, eng.spec, commit=commit)
-        return (logits,)
-    return eng.graphs.run("draft_rows", region, (ids,),
-                          caches=graphs_mod.planes(dkv), extra=(commit,))[0]
-
-
-def _spec_rows(eng: Engine, state: StackedState, ids, kv_len):
-    """``forward_spec_rows`` of every row over its retrieval cache, a
-    graph region: returns logits [B, T, V]."""
-    t_cfg, sp, rkv = eng.target_cfg, eng.spec, state.rkv
-
-    def region(ids, kv_len):
-        return (llama.forward_spec_rows(t_cfg, eng.t_params, ids, rkv, kv_len,
-                                        sp.budget,
-                                        act_quant=sp.mid_act_quant),)
-    return eng.graphs.run("spec_rows", region, (ids, kv_len),
-                          caches=graphs_mod.planes(rkv))[0]
-
-
-def _append_rows(eng: Engine, state: StackedState, ids):
-    """``forward_append_rows`` of every row over its full cache (read
-    only), a graph region: returns (logits, new K stack, new V stack)."""
-    kv = state.kv
-
-    def region(ids, seq_len):
-        return llama.forward_append_rows(eng.target_cfg, eng.t_params, ids,
-                                         _kv_at(kv, seq_len))
-    return eng.graphs.run("append_rows", region, (ids, kv.seq_len),
-                          caches=graphs_mod.planes(kv))
+#
+# The batch-1 step with a leading row axis, as the JAX package vmaps it
+# (``triforce_tpu/batched_spec.py``): every count is a [B] device tensor,
+# every per-row choice a ``torch.where``, and the lockstep middle trips and
+# their drafter forwards are conditional bodies on "any row still needs
+# it". A row that does not need a trip or a forward rides along masked, as
+# a vmapped ``while_loop`` runs a finished row's body and keeps its state.
 
 
 def _middle_spec_rows(eng: Engine, state: StackedState, u,
-                      force_accept=None):
-    """``_middle_spec`` for every row at once. The trips run in lockstep
-    until every row has its gamma proposals (or for ``middle_trips``
-    trips): a row that is done rides along as a dead trip, with a
-    zero-column retrieval read, and counts nothing that its batch-1 run
-    would not. Lockstep trip t uses each row's trip-t uniforms of ``u``
-    (``_draws`` of every row's generator), as the row's batch-1 trip t
-    does. One read-back per trip serves all rows."""
-    t_cfg, sp = eng.target_cfg, eng.spec
-    gamma, k = sp.gamma, _chain_len(sp)
-    vocab = t_cfg.vocab_size
+                      force_accept=None) -> dict:
+    """``_middle_spec`` for every row at once. The trips run in lockstep:
+    trip t is a conditional body while any row has fewer than gamma
+    proposals (or runs for each of ``middle_trips`` trips); a row that is
+    done rides along drafting nothing, with a zero-column retrieval read,
+    and counts nothing that its batch-1 run would not (in the open-ended
+    loop a finished row takes no part: no count). Drafter forward i of a
+    trip is a conditional body while any row takes proposal i. Lockstep
+    trip t uses each row's trip-t uniforms of ``u`` (``_draws`` of every
+    row's generator), as the row's batch-1 trip t does. Returns [B] device
+    counts (``trips``, the lockstep trips run, 0-d)."""
+    t_cfg, d_cfg, sp = eng.target_cfg, eng.draft_cfg, eng.spec
+    gamma, k, vocab = sp.gamma, _chain_len(sp), t_cfg.vocab_size
     dev = state.next_token.device
+    cond = eng.graphs.cond
     rows = state.rows
     fixed = sp.middle_trips > 0
-    kv_seq_len = state.kv.seq_len
-    gen_tokens = torch.full((rows, gamma + 1), JUNK_TOKEN, dtype=torch.int64,
-                            device=dev)
+    kv_len = state.kv.seq_len
+    i64 = dict(dtype=torch.int64, device=dev)
+    gen_tokens = torch.full((rows, gamma + 1), JUNK_TOKEN, **i64)
     gen_probs = torch.zeros((rows, gamma + 1, vocab), dtype=torch.float32,
                             device=dev)
+    c = {name: torch.zeros((rows,), **i64)
+         for name in ("n", "mid_draft", "mid_accept", "row_trips",
+                      "live_trips")}
+    c["trips"] = torch.zeros((), **i64)
+    pos = torch.arange(gamma + 1, device=dev)
     js = torch.arange(k, device=dev)
     ar = torch.arange(rows, device=dev)
-    n = [0] * rows
-    mid_draft, mid_accept = np.zeros(rows, int), np.zeros(rows, int)
-    row_trips, live_trips = np.zeros(rows, int), np.zeros(rows, int)
-    trips = 0
 
-    while (trips < sp.middle_trips) if fixed else (min(n) < gamma):
-        n0 = list(n)
-        live = [x < gamma for x in n0]
-        # a batch-1 loop that has ended runs no trip: in the open-ended
-        # loop a finished row takes no part (no draw, no count)
-        takes_part = [fixed or lv for lv in live]
-        # --- chain drafting: up to k drafter forwards for all rows; row b
-        # takes proposal i while n0[b] + i stays under the gamma-1 cap
+    def trip(t):
+        n0 = c["n"].clone()
+        live = n0 < gamma
         vt = torch.cat([state.next_token[:, None], gen_tokens[:, :gamma]], 1)
-        chain_toks = torch.full((rows, k), JUNK_TOKEN, dtype=torch.int64,
-                                device=dev)
+        chain_toks = torch.full((rows, k), JUNK_TOKEN, **i64)
         chain_q = torch.zeros((rows, k), dtype=torch.float32, device=dev)
-        i_fin = [0] * rows
-        for i in range(k):
-            act = [n0[b] + i <= gamma - 1 for b in range(rows)]
-            if not any(act):
-                break
-            d_logits = _draft_rows(eng, state, vt, False)
-            at = _on(dev, [min(n0[b] + i, gamma) for b in range(rows)])
-            q = sampling.norm_logits(d_logits[ar, at], sp.temperature, -1,
-                                     sp.top_p)                   # [B, V]
-            tok = sampling.sample_u(q, u["drafts"][:, trips, i])
-            rb = [b for b in range(rows) if act[b]]
-            chain_toks[rb, i] = tok[rb]
-            chain_q[rb, i] = q[rb, tok[rb]]
-            vt[rb, [n0[b] + i + 1 for b in rb]] = tok[rb]
-            for b in rb:
-                i_fin[b] += 1
 
+        def draft(i):
+            # the drafter at its fixed width gamma+1 for every row; row b
+            # takes proposal i, sampled from its row n0[b] + i, while
+            # n0[b] + i stays under the gamma-1 cap
+            d_logits, _ = llama.draft_forward_spec_rows(
+                d_cfg, eng.d_params, vt, state.dkv, sp, commit=False)
+            q = sampling.norm_logits(d_logits[ar, (n0 + i).clamp(max=gamma)],
+                                     sp.temperature, -1, sp.top_p)  # [B, V]
+            tok = sampling.sample_u(q, u["drafts"][:, t, i])
+            act = n0 + i <= gamma - 1
+            chain_toks[:, i] = torch.where(act, tok, chain_toks[:, i])
+            chain_q[:, i] = torch.where(act, q.gather(1, tok[:, None])[:, 0],
+                                        chain_q[:, i])
+            at = (n0 + i + 1).clamp(max=gamma)[:, None]
+            vt.scatter_(1, at, torch.where(act[:, None], tok[:, None],
+                                           vt.gather(1, at)))
+
+        for i in range(k):
+            cond((n0 + i <= gamma - 1).any(), functools.partial(draft, i))
+        i_fin = (gamma - n0).clamp(0, k)       # the proposals each row took
         # --- ONE middle verify over every row's chain (read-only rkv)
-        live_t = _on(dev, live, torch.bool)
-        m_logits = _spec_rows(eng, state, vt,
-                              torch.where(live_t, kv_seq_len, 0))
-        rows_idx = (_on(dev, n0)[:, None]
-                    + torch.arange(k + 1, device=dev)).clamp(0, gamma)
+        m_logits = llama.forward_spec_rows(
+            t_cfg, eng.t_params, vt, state.rkv,
+            torch.where(live, kv_len, torch.zeros_like(kv_len)), sp.budget,
+            act_quant=sp.mid_act_quant)
+        rows_idx = (n0[:, None] + torch.arange(k + 1, device=dev)).clamp(
+            0, gamma)
         p_rows = sampling.norm_logits(m_logits[ar[:, None], rows_idx],
                                       sp.temperature, -1,
                                       sp.top_p)              # [B, k+1, V]
-
         # --- accept walk, all rows' coins at once
-        rs = u["mid_coins"][:, trips]
+        rs = u["mid_coins"][:, t]
         if force_accept is None:
             p_tok = p_rows[:, :k].gather(
                 2, chain_toks.clamp(0, vocab - 1)[..., None])[..., 0]
             ok_v = rs < (p_tok / chain_q.clamp_min(1e-37)).clamp(max=1.0)
         else:
             ok_v = rs < force_accept
-        rej_v = (js[None, :] < _on(dev, i_fin)[:, None]) & ~ok_v
-        outcome = torch.stack([rej_v.any(1).long(),
-                               torch.argmax(rej_v.to(torch.int32), 1)],
-                              1).tolist()             # the trip's read-back
-        any_rej = [bool(o[0]) for o in outcome]
-        j_rej = [o[1] for o in outcome]
-        used = [j_rej[b] + 1 if any_rej[b] else i_fin[b]
-                for b in range(rows)]
-
+        rej_v = (js[None, :] < i_fin[:, None]) & ~ok_v
+        any_rej = rej_v.any(1)
+        j_rej = torch.argmax(rej_v.to(torch.int32), 1)
+        used = torch.where(any_rej, j_rej + 1, i_fin)     # proposals taken
         # reject: sample from that position's middle distribution
-        final_toks = chain_toks
-        if any(any_rej):
-            res = sampling.sample_u(p_rows[ar, _on(dev, j_rej)],
-                                    u["mid_res"][:, trips])
-            rb = [b for b in range(rows) if any_rej[b]]
-            final_toks = chain_toks.clone()
-            final_toks[rb, [j_rej[b] for b in rb]] = res[rb]
-        # commit consumed positions: tokens and their middle rows
-        for b in range(rows):
-            if used[b]:
-                gen_tokens[b, n0[b]:n0[b] + used[b]] = final_toks[b, :used[b]]
-                gen_probs[b, n0[b]:n0[b] + used[b]] = p_rows[b, :used[b]]
-            n[b] = n0[b] + used[b]
-        mid_accept += np.array(used) - np.array(any_rej, int)
-        mid_draft += np.array(used)
+        res = sampling.sample_u(p_rows[ar, j_rej], u["mid_res"][:, t])
+        final = torch.where((js[None, :] == j_rej[:, None])
+                            & any_rej[:, None], res[:, None], chain_toks)
+        # commit positions [n0, n0 + used) of each row: tokens and their
+        # middle rows (the q the OUTER test consumes)
+        jj = pos[None, :] - n0[:, None]
+        sel = (jj >= 0) & (jj < used[:, None])
+        jc = jj.clamp(0, k - 1)
+        gen_tokens.copy_(torch.where(sel, final.gather(1, jc), gen_tokens))
+        gen_probs.copy_(torch.where(sel[..., None], p_rows[ar[:, None], jc],
+                                    gen_probs))
+        n = n0 + used
+        # --- bonus on a fully accepted chain: sample from the middle row
+        # after the last accepted token
+        bonus = ~any_rej & (n <= gamma) & live
+        b_row = p_rows[ar, used.clamp(0, k)]
+        b_tok = sampling.sample_u(b_row, u["mid_bonus"][:, t])
+        at = (pos[None, :] == n[:, None]) & bonus[:, None]
+        gen_tokens.copy_(torch.where(at, b_tok[:, None], gen_tokens))
+        gen_probs.copy_(torch.where(at[..., None], b_row[:, None], gen_probs))
+        c["n"].copy_(n + bonus.long())
+        c["mid_accept"].add_(used - any_rej.long())
+        c["mid_draft"].add_(used)
+        c["row_trips"].add_(torch.ones_like(n0) if fixed else live.long())
+        c["live_trips"].add_(live.long())
+        c["trips"].add_(1)
 
-        # --- bonus on a fully accepted chain
-        bonus = [not any_rej[b] and n[b] <= gamma and n0[b] < gamma
-                 for b in range(rows)]
-        if any(bonus):
-            b_rows = p_rows[ar, _on(dev, [min(max(n[b] - n0[b], 0), k)
-                                        for b in range(rows)])]
-            b_tok = sampling.sample_u(b_rows, u["mid_bonus"][:, trips])
-            for b in range(rows):
-                if bonus[b]:
-                    gen_tokens[b, n[b]] = b_tok[b]
-                    gen_probs[b, n[b]] = b_rows[b]
-                    n[b] += 1
-        trips += 1
-        row_trips += np.array(takes_part, int)
-        live_trips += np.array(live, int)
-
-    return {"n": n, "gen_tokens": gen_tokens, "gen_probs": gen_probs,
-            "mid_draft": mid_draft, "mid_accept": mid_accept,
-            "row_trips": row_trips, "live_trips": live_trips, "trips": trips}
+    for t in range(_trip_slots(sp)):
+        if fixed:
+            trip(t)
+        else:
+            cond((c["n"] < gamma).any(), functools.partial(trip, t))
+    return dict(c, gen_tokens=gen_tokens, gen_probs=gen_probs)
 
 
 def _outer_verify_and_commit_rows(eng: Engine, state: StackedState, u,
                                   gamma2, gen_tokens, gen_probs,
-                                  has_draft: bool, force_accept=None):
-    """``_verify_and_commit`` for every row at once: one gamma+2-token
-    forward over all rows' full caches, every row's accept tests, ONE
-    read-back of the outcomes, then per row the rollback, the commit and
-    retrieval tail refresh (``batched_commit_and_refresh``) and, with a
-    drafter, the replay and window compaction. ``gamma2`` is a list of the
-    rows' proposal counts. A row whose pre-step length is 0 stays at 0."""
+                                  has_draft: bool, force_accept=None) -> dict:
+    """``_verify_and_commit`` for every row at once, on the device: one
+    gamma+2-token forward over all rows' full caches (read only), every
+    row's accept tests, the residual and the bonus both sampled and chosen
+    between per row, then the rollback, the commit and retrieval tail
+    refresh (``batched_commit_and_refresh``) and, with a drafter, the
+    replay and window compaction, all at device offsets. ``gamma2`` [B]
+    counts each row's proposals. A row whose pre-step length is 0 stays at
+    0. Returns the emitted tokens [B, gamma+2], [B] counts, the new kv
+    length and next token."""
     t_cfg, sp = eng.target_cfg, eng.spec
     gamma = sp.gamma
     dev = gen_tokens.device
-    rows = state.rows
     old = state.kv.seq_len
-    ar = torch.arange(rows, device=dev)
+    ar = torch.arange(state.rows, device=dev)
 
     verify_in = torch.cat([state.next_token[:, None], gen_tokens], 1)
-    logits, nk, nv = _append_rows(eng, state, verify_in)
+    logits, nk, nv = llama.forward_append_rows(t_cfg, eng.t_params,
+                                               verify_in, state.kv)
     p_all = sampling.norm_logits(logits, sp.temperature, sp.top_k,
                                  sp.top_p)                # [B, gamma+2, V]
 
@@ -1139,127 +1098,178 @@ def _outer_verify_and_commit_rows(eng: Engine, state: StackedState, u,
         accept_v = rs < (p_sel / q_sel.clamp_min(1e-37)).clamp(max=1.0)
     else:
         accept_v = rs < force_accept
-    live = pos[None, :] < _on(dev, gamma2)[:, None]
     # the walk stops at the first rejection OR the first ACCEPTED EOS
-    stop_v = live & (~accept_v
-                     | (accept_v & _is_eos(gen_tokens, eng.eos_token_id)))
-    j_stop_t = torch.argmax(stop_v.to(torch.int32), 1)
-    outcome = torch.stack([stop_v.any(1).long(), j_stop_t,
-                           accept_v[ar, j_stop_t].long()],
-                          1).tolist()                 # the step's read-back
-    count = np.array([o[1] + o[2] if o[0] else g2
-                      for o, g2 in zip(outcome, gamma2)])
-    rejected = np.array([bool(o[0] and not o[2]) for o in outcome])
-    eos_acc = np.array([bool(o[0] and o[2]) for o in outcome])
-    bonus = count == np.array(gamma2)
+    stop_v = (pos[None, :] < gamma2[:, None]) & (
+        ~accept_v | (accept_v & _is_eos(gen_tokens, eng.eos_token_id)))
+    any_stop = stop_v.any(1)
+    j_stop = torch.argmax(stop_v.to(torch.int32), 1)
+    stop_acc = accept_v[ar, j_stop]
+    count = torch.where(any_stop, j_stop + stop_acc.long(), gamma2)
+    rejected = any_stop & ~stop_acc
+    eos_acc = any_stop & stop_acc
+    bonus = count == gamma2
     has_final = rejected | bonus
 
     # every row samples the residual at its stop and the target row after
     # its last proposal; bonus rows take the second, rejected rows the
     # first, the rest keep the accepted EOS (as the batch-1 step)
-    res = sampling.sample_u(sampling.max_fn(p_all[ar, j_stop_t]
-                                            - gen_probs[ar, j_stop_t]),
+    res = sampling.sample_u(sampling.max_fn(p_all[ar, j_stop]
+                                            - gen_probs[ar, j_stop]),
                             u["res"])
-    b_tok = sampling.sample_u(p_all[ar, _on(dev, gamma2)], u["bonus"])
-    has_final_t = _on(dev, has_final, torch.bool)
-    pred = torch.where(_on(dev, bonus, torch.bool), b_tok,
-                       torch.where(_on(dev, rejected, torch.bool), res,
-                                   gen_tokens[ar, j_stop_t]))
-    eos_hit = _on(dev, eos_acc, torch.bool) \
-        | (has_final_t & _is_eos(pred, eng.eos_token_id))
+    b_tok = sampling.sample_u(p_all[ar, gamma2], u["bonus"])
+    pred = torch.where(bonus, b_tok,
+                       torch.where(rejected, res, gen_tokens[ar, j_stop]))
+    eos_hit = eos_acc | (has_final & _is_eos(pred, eng.eos_token_id))
 
     # --- rollback + commit + retrieval tail refresh: row b keeps old +
     # count + 1 slots, one fewer when an accepted EOS stays its next token
-    count_t = _on(dev, count)
-    keep = count_t + 1 - _on(dev, eos_acc & ~has_final)
-    kv = dataclasses.replace(state.kv, seq_len=(old + keep).to(old.dtype))
-    kv, rkv = batched_commit_and_refresh(kv, state.rkv, nk, nv, old, sp,
-                                         eng.prefill)
+    keep = count + 1 - (eos_acc & ~has_final).long()
+    kv = _kv_at(state.kv, (old + keep).to(old.dtype))
+    kv, _ = batched_commit_and_refresh(kv, state.rkv, nk, nv, old, sp,
+                                       eng.prefill)
     # dead-slot freeze: a row that started the step empty stays empty
-    kv = dataclasses.replace(
-        kv, seq_len=torch.where(old == 0, torch.zeros_like(old),
-                                kv.seq_len))
+    seq_len = torch.where(old == 0, torch.zeros_like(old), kv.seq_len)
 
     pos2 = torch.arange(gamma + 2, device=dev)[None, :]
     emitted = torch.where(
-        pos2 < count_t[:, None], gen_tokens[:, pos2[0].clamp(max=gamma)],
-        torch.where((pos2 == count_t[:, None]) & has_final_t[:, None],
+        pos2 < count[:, None], gen_tokens[:, pos2[0].clamp(max=gamma)],
+        torch.where((pos2 == count[:, None]) & has_final[:, None],
                     pred[:, None], JUNK_TOKEN))
 
-    dkv = state.dkv
     if has_draft:
         ppos = torch.arange(gamma + 3, device=dev)[None, :]
         pass_tokens = torch.where(
             ppos == 0, state.next_token[:, None],
-            torch.where(ppos <= count_t[:, None],
+            torch.where(ppos <= count[:, None],
                         gen_tokens[:, (ppos[0] - 1).clamp(0, gamma)],
-                        torch.where((ppos == count_t[:, None] + 1)
-                                    & has_final_t[:, None], pred[:, None],
+                        torch.where((ppos == count[:, None] + 1)
+                                    & has_final[:, None], pred[:, None],
                                     JUNK_TOKEN)))
-        _draft_rows(eng, state, pass_tokens, True)
+        llama.draft_forward_spec_rows(eng.draft_cfg, eng.d_params,
+                                      pass_tokens, state.dkv, sp)
         # the reference's count includes the bonus but NOT a resample
-        dkv = streaming_evict_for_spec_rows(dkv, sp,
-                                            count_t + _on(dev, bonus))
-
-    new_state = dataclasses.replace(state, kv=kv, rkv=rkv, dkv=dkv,
-                                    next_token=pred)
-    zeros = np.zeros(rows, int)
-    stats = BatchedStepStats(
-        tokens=emitted, n_emitted=count + has_final, gamma2=np.array(gamma2),
-        accepted=count, resampled=rejected.astype(int),
-        bonus=bonus.astype(int), eos=eos_hit, mid_draft=zeros,
-        mid_accept=zeros, mid_verify=zeros, mid_live=zeros)
-    return new_state, stats
+        streaming_evict_for_spec_rows(state.dkv, sp, count + bonus.long())
+    return dict(tokens=emitted, n_emitted=count + has_final.long(),
+                accepted=count, gamma2=gamma2, resampled=rejected.long(),
+                bonus=bonus.long(), eos=eos_hit, seq_len=seq_len,
+                next_token=pred)
 
 
-def triforce_step_rows(eng: Engine, state: StackedState, force_accept=None):
-    """One full TriForce outer iteration for every row of ``state``."""
-    if eng.draft_cfg is None:
-        raise ValueError("triforce mode needs a drafter")
-    u = _draws(_draw_parts(eng.spec, eng.target_cfg.vocab_size, "triforce"),
-               state.gens, state.next_token.device)
-    mid = _middle_spec_rows(eng, state, u, force_accept=force_accept)
-    new_state, stats = _outer_verify_and_commit_rows(
-        eng, state, u, mid["n"], mid["gen_tokens"], mid["gen_probs"], True,
-        force_accept=force_accept)
-    stats.mid_draft = mid["mid_draft"]
-    stats.mid_accept = mid["mid_accept"]
-    stats.mid_verify = mid["row_trips"]
-    stats.mid_live = mid["live_trips"]
-    stats.target_forwards = mid["trips"] + 1
-    return new_state, stats
+def triforce_step_rows(eng: Engine, state: StackedState, u,
+                       force_accept=None) -> dict:
+    """One full TriForce outer iteration for every row of ``state`` on the
+    rows' uniforms ``u`` (``_draws`` of ``state.gens``): the lockstep
+    middle loop, then the outer verify and commit. Returns [B] device
+    counts (``_counts_of``), the emitted tokens, the new kv length and next
+    token, and ``target_forwards`` (0-d: the lockstep trips + 1)."""
+    mid = _middle_spec_rows(eng, state, u, force_accept)
+    out = _outer_verify_and_commit_rows(eng, state, u, mid["n"],
+                                        mid["gen_tokens"], mid["gen_probs"],
+                                        True, force_accept)
+    out.update(mid_draft=mid["mid_draft"], mid_accept=mid["mid_accept"],
+               mid_verify=mid["row_trips"], mid_live=mid["live_trips"],
+               target_forwards=mid["trips"] + 1)
+    return out
 
 
-def retrieval_spec_step_rows(eng: Engine, state: StackedState,
-                             force_accept=None):
+def retrieval_spec_step_rows(eng: Engine, state: StackedState, u,
+                             force_accept=None) -> dict:
     """Self-speculation step for every row of ``state``: gamma middle
-    forwards over all rows' retrieval caches with no host read-back, then
-    the full-cache verify."""
+    forwards over all rows' retrieval caches, then the full-cache verify
+    (``triforce_step_rows``' outputs)."""
     t_cfg, sp = eng.target_cfg, eng.spec
     gamma = sp.gamma
     dev = state.next_token.device
     rows = state.rows
-    verify_tokens = torch.full((rows, gamma + 1), JUNK_TOKEN,
-                               dtype=torch.int64, device=dev)
+    i64 = dict(dtype=torch.int64, device=dev)
+    verify_tokens = torch.full((rows, gamma + 1), JUNK_TOKEN, **i64)
     verify_tokens[:, 0] = state.next_token
-    gen_tokens = torch.full((rows, gamma + 1), JUNK_TOKEN, dtype=torch.int64,
-                            device=dev)
+    gen_tokens = torch.full((rows, gamma + 1), JUNK_TOKEN, **i64)
     gen_probs = torch.zeros((rows, gamma + 1, t_cfg.vocab_size),
                             dtype=torch.float32, device=dev)
-    u = _draws(_draw_parts(sp, t_cfg.vocab_size, "retrieval"), state.gens,
-               dev)
     for n in range(gamma):
-        m_logits = _spec_rows(eng, state, verify_tokens, state.kv.seq_len)
+        m_logits = llama.forward_spec_rows(
+            t_cfg, eng.t_params, verify_tokens, state.rkv, state.kv.seq_len,
+            sp.budget, act_quant=sp.mid_act_quant)
         p_n = sampling.norm_logits(m_logits[:, n], sp.temperature, -1,
                                    sp.top_p)
         tok = sampling.sample_u(p_n, u["mid"][:, n])
         gen_tokens[:, n] = tok
         gen_probs[:, n] = p_n
         verify_tokens[:, n + 1] = tok
-    new_state, stats = _outer_verify_and_commit_rows(
-        eng, state, u, [gamma] * rows, gen_tokens, gen_probs, False,
-        force_accept=force_accept)
-    stats.mid_verify = np.full(rows, gamma)
-    stats.mid_live = np.full(rows, gamma)
-    stats.target_forwards = gamma + 1
-    return new_state, stats
+    out = _outer_verify_and_commit_rows(
+        eng, state, u, torch.full((rows,), gamma, **i64), gen_tokens,
+        gen_probs, False, force_accept)
+    zero = torch.zeros((rows,), **i64)
+    out.update(mid_draft=zero, mid_accept=zero, mid_verify=zero + gamma,
+               mid_live=zero + gamma,
+               target_forwards=torch.full((), gamma + 1, **i64))
+    return out
+
+
+_ROWS_BODIES = {"triforce": triforce_step_rows,
+                "retrieval": retrieval_spec_step_rows}
+
+
+def decode_rows(eng: Engine, state: StackedState, mode: str, steps: int,
+                force_accept=None):
+    """``steps`` batched steps of ``mode`` on the device, as the JAX
+    package's ``_decode_fused`` (``triforce_tpu/batched_spec.py:37-64``, a
+    ``fori_loop`` over the vmapped step): ``steps`` calls of one loop
+    region of ``eng.graphs`` (captured at its first call, then replayed)
+    that draws every row's uniforms and runs the step, writing its tokens
+    and per-row counts at the device step index ``at`` and leaving the kv
+    length and the next token in place (``GraphSet.buffers``: the pool's
+    are copied in at the top of the call, so a slot written or gated
+    between calls lands, and out at its end). A batched step always runs,
+    as a ``fori_loop``'s body does. One read-back, at the end: the
+    tokens, the counts and the target forwards (with the bodies' launch
+    counts, ``GraphSet.read``). Returns (state, tokens [B, steps, gamma+2],
+    counts [B, steps, 10] in ``_counts_of``'s order, target forwards),
+    the last three on the host (``BatchedSpecEngine`` checks ``mode``)."""
+    dev, g = eng.device, eng.graphs
+    rows, gamma = state.rows, eng.spec.gamma
+    ncount = len(_COUNTS) + 2
+    name = "rows " + mode
+    caches = graphs_mod.planes(state.kv, state.rkv, state.dkv)
+    i64 = dict(dtype=torch.int64, device=dev)
+    lb = g.buffers(name, caches, lambda: dict(
+        tokens=torch.empty((rows, steps, gamma + 2), **i64),
+        counts=torch.empty((rows, steps, ncount), **i64),
+        at=torch.empty((1,), **i64),
+        forwards=torch.empty((1,), **i64),
+        seq_len=torch.empty_like(state.kv.seq_len),
+        next_token=torch.empty_like(state.next_token)), extra=(steps,))
+    lb["tokens"].fill_(JUNK_TOKEN)
+    lb["counts"].zero_()
+    lb["at"].zero_()
+    lb["forwards"].zero_()
+    lb["seq_len"].copy_(state.kv.seq_len)
+    lb["next_token"].copy_(state.next_token)
+    body = _ROWS_BODIES[mode]
+    parts = _draw_parts(eng.spec, eng.target_cfg.vocab_size, mode)
+    gens = tuple(state.gens)
+    st = dataclasses.replace(state, kv=_kv_at(state.kv, lb["seq_len"]),
+                             next_token=lb["next_token"])
+
+    def region():
+        o = body(eng, st, _draws(parts, gens, dev), force_accept)
+        lb["tokens"].index_copy_(1, lb["at"], o["tokens"][:, None])
+        lb["counts"].index_copy_(1, lb["at"], _counts_of(o)[:, None])
+        lb["forwards"].add_(o["target_forwards"])
+        lb["seq_len"].copy_(o["seq_len"])
+        lb["next_token"].copy_(o["next_token"])
+        lb["at"].add_(1)
+        return ()
+
+    for _ in range(steps):
+        g.run(name, region, (), caches=caches + tuple(lb.values()),
+              gens=gens, extra=(force_accept, steps), capture_first=True)
+    host = g.read(torch.cat([lb["tokens"].reshape(-1),
+                             lb["counts"].reshape(-1), lb["forwards"]]))
+    nt = rows * steps * (gamma + 2)
+    state = dataclasses.replace(
+        state, kv=_kv_at(state.kv, lb["seq_len"].clone()),
+        next_token=lb["next_token"].clone())
+    return (state, host[:nt].reshape(rows, steps, gamma + 2),
+            host[nt:-1].reshape(rows, steps, ncount), int(host[-1]))
