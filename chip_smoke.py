@@ -108,7 +108,24 @@ Phases, in order (any failure exits non-zero before the last line):
      and eager, and one retrieval build replayed and one eager, each
      under the profiler (lines "cli build trace [...]": B2's device time
      and share beside the build's wall);
- 11. the ``kernels`` JSON line, then the ``ok`` JSON line.
+ 11. sharded (``parallel/``, the batch-1 engine over a mesh): B4 and
+     B4-int8 at a rank's shard shapes (the verify, GT 8 over 16 heads; a
+     prefill chunk, GT 512, and TinyLlama's G 8 x 512 = 4096 at D 64; an
+     empty shard) and B2 over P / 2, in the kernel phase; after each
+     precision's end-to-end run, world size 1 over NCCL on this card
+     (``Engine(mesh=single_device_mesh(), shard_seq=True)``, graphed, the
+     collectives captured in the prefill, step and loop graphs and their
+     if-node bodies): its logits on a fixed verify-width input held to the
+     meshless engine's by the near-tie rule; from one prefill, 8 tokens
+     each of TriForce, forced TriForce and AR held bit for bit against
+     the mesh engine's eager witness (one read-back a generation), B4 and
+     B2 the only kernels launched (exact counts), ms/token and prefill
+     seconds printed beside the meshless gates'; then two gloo ranks on
+     the card (child processes of this script, ``--shard-rank``), tp = 2
+     and sp = 2 at full width, prefill 4096, 8 TriForce tokens eagerly
+     (cut from 8192 and 32 for the time limit): the same tokens on both
+     ranks, logits held as above, per-rank peak memory;
+ 12. the ``kernels`` JSON line, then the ``ok`` JSON line.
 
 Exits non-zero (and prints no result) without a CUDA card or outside the
 repository.
@@ -135,7 +152,9 @@ H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 H100_BF16_FLOPS = 989e12        # dense bf16 tensor cores
 H100_INT8_OPS = 1979e12         # dense int8 tensor cores
 H100_FP32_FLOPS = 67e12         # fp32 outside the tensor cores
-GEN = 128                       # generated tokens per end-to-end mode
+GEN = 64                        # generated tokens per end-to-end mode
+                                # (128 until PR 13; cut for the time
+                                # limit when the sharded phase came)
 GAMMA = 6
 TREE_SIZE, TREE_DEPTH = 128, 12  # planned tree: 128 nodes, 11 levels, W 22
 TREE_GEN, TREE_FORCED_GEN = 32, 64
@@ -151,6 +170,15 @@ INT8_REF_COSINE = 0.995
 INT8_REF_TOP1 = 0.8
 INT8_REF_MAX_REL = 0.08         # tests/test_kv_quant.py's own limit
 INT8_REF_SCORES_COSINE = 0.99
+
+
+_T0 = time.perf_counter()
+
+
+def _stamp(what: str) -> None:
+    """The script's elapsed seconds at a phase's start (the time limit
+    is the whole script's)."""
+    print(f"[{time.perf_counter() - _T0:.0f} s] {what}", flush=True)
 
 
 def _fail(msg: str) -> None:
@@ -1527,7 +1555,8 @@ def _eager_twin(eng):
                   eos_token_id=eng.eos_token_id, dtype=eng.dtype,
                   prefill_chunk=eng.prefill_chunk,
                   draft_prefill_chunk=eng.draft_prefill_chunk,
-                  kv_quant=eng.kv_quant, device=eng.device, graphs=False)
+                  kv_quant=eng.kv_quant, device=eng.device, graphs=False,
+                  mesh=eng.mesh, shard_seq=eng.shard_seq)
 
 
 def _snap(graphs):
@@ -1667,7 +1696,7 @@ def ar_gate_run(llama, eng, ids, seed, n=GATE_TOKENS):
         state = eng.init_state(seed)
         kv = eng.prefill_body(state.kv, ids[:, :-1])
         logits, kv, _ = llama.forward_append(eng.target_cfg, eng.t_params,
-                                             ids[:, -1:], kv)
+                                             ids[:, -1:], kv, **eng.fwd)
         tok = eng._sample_next(logits, state.gen)
         first = int(tok[0])
         c0 = eng.graphs.captures
@@ -1790,8 +1819,11 @@ def graph_gate(what, fd, rk, graphed, eager):
               f"{g['readbacks']} times, not once")
     out = dict(tokens=e["tokens"], n_tokens=e["n"],
                eager_ms_per_token=1e3 * e["decode_s"] / max(e["n"], 1),
+               graphed_ms_per_token=1e3 * g["decode_s"] / max(g["n"], 1),
                gate_captures=g["captures"],
-               launches=sum(e["launches"].values()))
+               launches=sum(e["launches"].values()),
+               launches_by_kernel=e["launches"],
+               counters=e["counters"])
     if "readbacks" in g:
         out.update(readbacks=g["readbacks"], steps=g["steps"],
                    eager_readbacks=e["readbacks"], busy=g.get("busy"))
@@ -1825,7 +1857,10 @@ def mode_graphs(what, d, ms_graphed, timed_tokens, gate):
               f"the eager witness's")
     out = dict(ms_per_token_graphed=ms_graphed,
                ms_per_token_eager=gate["eager_ms_per_token"],
-               gate_tokens=gate["n_tokens"], **d)
+               gate_tokens=gate["n_tokens"],
+               gate_ms_per_token_graphed=gate["graphed_ms_per_token"],
+               gate_token_ids=gate["tokens"],
+               gate_prefill_s=gate.get("prefill", {}).get("prefill_s"), **d)
     loop = ""
     if "readbacks" in gate:
         b = gate["busy"]
@@ -3275,6 +3310,480 @@ def cli_phase(tc, llama, Engine, cli, hf, ckpt, data, decoding, profiling,
     return res
 
 
+# ---------------------------------------------------------------------------
+# Sharded phase: the batch-1 engine over a mesh (parallel/)
+# ---------------------------------------------------------------------------
+
+# the two-rank runs' prompt and tokens, cut from 8192 and 32 for the time
+# limit
+SHARD_PREFILL, SHARD_GEN = 4096, 8
+SHARD_RUNS = ((2, 1), (1, 2))         # (tp, sp) of the two-rank runs
+SHARD_TIMEOUT_S = 600
+
+
+def _probe_tokens(vocab, n, dev):
+    return torch.randint(0, vocab, (1, n),
+                         generator=torch.Generator().manual_seed(9)).to(dev)
+
+
+def teacher_logits(llama, eng, ids, probe, kv=None):
+    """fp32 logits [T, V] of the prompt's last token and ``probe`` (a
+    verify's width of fixed tokens) appended to ``eng``'s prefill of the
+    rest of ``ids``: the same input on any engine, meshed or not. ``kv``:
+    a cache this engine prefilled with ``ids`` (and maybe decoded on),
+    read back to the prompt less its last token, instead of a new
+    prefill (its slots below that length are the prefill's)."""
+    if kv is None:
+        kv = eng.prefill_body(eng.init_state(3).kv, ids[:, :-1])
+    else:
+        kv = kv.rollback(kv.seq_len - (ids.shape[1] - 1))
+    toks = torch.cat([ids[:, -1:], probe], dim=1)
+    out, _, _ = llama.forward_append(eng.target_cfg, eng.t_params, toks, kv,
+                                     **eng.fwd)
+    return out[0].float().cpu()
+
+
+def hold_logits(what, got, ref):
+    """The near-tie rule of the reference phase: ``got``'s top-1 may differ
+    from ``ref``'s only where ref's two candidates are closer than twice
+    the row's largest logit difference."""
+    err = (got - ref).abs().max().item()
+    flips = _flips(got, ref)
+    hard = _near_tie_misses(got, ref, flips)
+    if hard or not torch.isfinite(got).all():
+        _fail(f"{what}: top-1 differs from the meshless run's at rows "
+              f"{hard} that are no near tie (max |logit diff| {err:.3e})")
+    cos = torch.nn.functional.cosine_similarity(got, ref, dim=-1).min()
+    return dict(max_abs_logit_err=err, rel_err=err / ref.abs().max().item(),
+                cosine=cos.item(), top1_flips=len(flips),
+                rows=int(got.shape[0]))
+
+
+def _common_prefix(a, b) -> int:
+    n = 0
+    for x, y in zip(a, b):
+        if x != y:
+            break
+        n += 1
+    return n
+
+
+def _path_counts(what, fd, rk, got, quant, L, pre_fwd, forwards, builds):
+    """A meshed run's launches: every attention is B4's (the cache
+    partials on each rank's shard), B2 once a layer per retrieval build,
+    B1 and B3 never."""
+    want = dict.fromkeys(COUNTERS, 0)
+    want["b4_int8" if quant else "b4"] = L * (pre_fwd + forwards)
+    want["b2_int8" if quant else "b2"] = L * builds
+    print(f"  launches [{what}]: {got} (path implies {want})", flush=True)
+    if got != want:
+        _fail(f"{what}: kernel launch counts {got} != {want}")
+
+
+MESH_GATE_TOKENS = 8      # tokens a mode in the world-1 gate's two runs
+
+
+def mesh_gate_run(eng, ids, n=MESH_GATE_TOKENS):
+    """The world-1 gate's run on ``eng``: one prefill (target and drafter,
+    seed 1), then from the state it leaves, in turn, ``n`` TriForce tokens
+    (``generate``), ``n`` forced TriForce tokens at alpha 0.9
+    (``generate_forced``) and ``n`` AR tokens (``generate_ar`` from the kv
+    and next token where the forced run stopped): one prompt's prefill
+    serves the three modes. Each mode's ms/token (graphed: CUDA-event
+    busy time around the replays, captures left out)."""
+    def gen_spec(mode):
+        def call(st):
+            if mode == "triforce":
+                return eng.generate(st, n, mode="triforce")
+            return eng.generate_forced(st, n, 0.9, mode="triforce")
+        return call
+
+    def run():
+        st, pre = _prefill_run(eng, lambda: eng.prefill_draft(
+            eng.prefill_target(eng.init_state(1), ids), ids))
+        c0 = eng.graphs.captures
+        out = dict(prefill=pre, tokens=[], counters=[], readbacks=[],
+                   ms={}, steps={})
+        for mode in ("triforce", "forced"):
+            r0 = eng.graphs.readbacks
+            if eng.graphs.enabled:
+                (st, buf, m, c), b = _busy(lambda: gen_spec(mode)(st),
+                                           eng.graphs)
+                dt = b["wall_ms"] / 1e3
+            else:
+                (st, buf, m, c), dt = _timed(lambda: gen_spec(mode)(st))
+            out["tokens"].append(buf[:m].tolist())
+            out["counters"].append([int(x) for x in c])
+            out["readbacks"].append(eng.graphs.readbacks - r0)
+            out["ms"][mode] = 1e3 * dt / (m - 1)
+            out["steps"][mode] = (int(c[0]), int(c[7]))  # steps, mid verifies
+        if eng.graphs.enabled:
+            (kv, _, _, buf), b = _busy(lambda: eng.generate_ar(
+                st.kv, st.next_token, st.gen, n), eng.graphs)
+            dt = b["wall_ms"] / 1e3
+        else:
+            (kv, _, _, buf), dt = _timed(lambda: eng.generate_ar(
+                st.kv, st.next_token, st.gen, n))
+        out["tokens"].append(buf.tolist())
+        out["ms"]["ar"] = 1e3 * dt / n
+        out["seq_len"] = int(kv.seq_len)
+        out["captures"] = eng.graphs.captures - c0
+        out["kv"] = kv
+        return out
+    return run
+
+
+def sharded_world1(tc, llama, Engine, mesh, fd, rk, dev, prefill, quant,
+                   tp, dp, meshless):
+    """World size 1 over ``mesh`` (NCCL, one rank) at full width: the
+    meshless engine's weights ``tp`` / ``dp`` in ``Engine(mesh=,
+    shard_seq=True)``, graphed. Its logits on a fixed verify-width input
+    are held to the meshless engine's by the near-tie rule; TriForce,
+    forced TriForce and AR from one prefill (``mesh_gate_run``) are held
+    bit for bit against the mesh engine's eager witness (tokens, counters,
+    kv length, launches, the prefill's caches; one read-back a
+    generation), with B4 and B2 the only kernels launched (exact counts);
+    then each mode is timed alone, with the seed, prompt and length of
+    the meshless engine's gate (``meshless``: ``end_to_end``'s
+    ``graphs``), and printed beside it. This is B4 + the merge against B1's fold, and the
+    collectives, at world size 1."""
+    tag = "int8 " if quant else ""
+    tcfg, dcfg = tc.LLAMA2_7B_128K, tc.LLAMA_68M
+    L = tcfg.num_layers
+    spec = tc.SpecConfig(gamma=GAMMA, budget=4096, chunk_size=8)
+    kw = dict(draft_cfg=dcfg, draft_params=dp, prefill=prefill,
+              max_cache_len=prefill + GEN + 4 * (GAMMA + 2),
+              dtype=tp["embed"].dtype, device=dev, kv_quant=quant,
+              weight_quant=quant)
+    ids = torch.randint(0, tcfg.vocab_size, (1, prefill),
+                        generator=torch.Generator().manual_seed(5)).to(dev)
+    probe = _probe_tokens(tcfg.vocab_size, GAMMA + 1, dev)
+    plain = Engine(tcfg, spec, tp, **kw)
+    ref = teacher_logits(llama, plain, ids, probe)
+    plain.release_graphs()
+    del plain
+    torch.cuda.empty_cache()
+    eng = Engine(tcfg, spec, tp, mesh=mesh, shard_seq=True, **kw)
+    witness = _eager_twin(eng)
+    runs = {}
+    for name, e in (("graphed", eng), ("eager", witness)):
+        mesh.collectives.clear()
+        _reset(fd, rk)
+        r = mesh_gate_run(e, ids)()
+        r["launches"] = {k: f.launches for k, f in _wrappers(fd, rk).items()}
+        r["collectives"] = dict(mesh.collectives)
+        kv = r.pop("kv")
+        if name == "graphed":    # the logits over the gate's own prefill
+            res = {"logits": hold_logits(
+                f"{tag}mesh world 1 logits",
+                teacher_logits(llama, eng, ids, probe, kv), ref)}
+        del kv
+        runs[name] = r
+    lg = res["logits"]
+    print(f"{tag}mesh world 1 [{mesh.backend}]: logits of a {GAMMA + 2}-token "
+          f"verify after the {prefill}-token prefill against the meshless "
+          f"engine's: max |diff| {lg['max_abs_logit_err']:.3e} "
+          f"({lg['rel_err']:.4f} of the largest), cosine "
+          f"{lg['cosine']:.6f}, {lg['top1_flips']} top-1 flips (near ties)",
+          flush=True)
+    g, w = runs["graphed"], runs["eager"]
+    for key in ("tokens", "counters", "seq_len", "launches"):
+        if g[key] != w[key]:
+            _fail(f"{tag}mesh world 1 gate: the graphed run's {key} {g[key]} "
+                  f"differ from the eager witness's {w[key]}")
+    if g["prefill"]["digest"] != w["prefill"]["digest"]:
+        _fail(f"{tag}mesh world 1 gate: the graphed prefill left other bits "
+              f"than the eager witness's")
+    if not g["captures"] or g["readbacks"] != [1, 1]:
+        _fail(f"{tag}mesh world 1 gate: {g['captures']} captures, "
+              f"read-backs {g['readbacks']} (one a generation)")
+    body = prefill - 1
+    pre_fwd = -(-body // eng.prefill_chunk) + 1
+    fwd = sum(sum(x) for x in g["steps"].values()) + MESH_GATE_TOKENS
+    _path_counts(f"{tag}mesh world 1", fd, rk, g["launches"], quant, L,
+                 pre_fwd, fwd, 1)
+    # the timed runs: each mode from its own prefill, with the seed, prompt
+    # and length of the meshless engine's gate, so the two windows match
+    timed = {}
+    for mode, run in (("triforce", spec_gate_run(eng, ids, "triforce", 1)),
+                      ("forced", spec_gate_run(eng, ids, "triforce", 2,
+                                               0.9)),
+                      ("ar", ar_gate_run(llama, eng, ids, 0))):
+        r = run()
+        timed[mode] = dict(
+            ms_per_token=1e3 * r["decode_s"] / max(r["n"], 1),
+            tokens=len(r["tokens"]),
+            tokens_equal_meshless=_common_prefix(
+                r["tokens"], meshless[mode]["gate_token_ids"]))
+        if "prefill" in r:
+            timed[mode]["prefill_s"] = r["prefill"]["prefill_s"]
+    same = timed["triforce"]["tokens_equal_meshless"]
+    res.update(timed=timed,
+        prefill=prefill_line(f"{tag}mesh world 1", g["prefill"],
+                             w["prefill"]),
+        meshless_prefill_s=meshless["triforce"]["gate_prefill_s"],
+        ms_per_token={m: g["ms"][m] for m in g["ms"]},
+        eager_ms_per_token=w["ms"],
+        meshless_ms_per_token={
+            m: meshless[m]["gate_ms_per_token_graphed"]
+            for m in ("triforce", "forced", "ar")},
+        steps=g["steps"], readbacks=g["readbacks"], captures=g["captures"],
+        triforce_tokens_equal_meshless=same,
+        # counted in Python: the eager witness's are the run's (a graph
+        # counts what it captured, once)
+        collectives=w["collectives"], launches=g["launches"],
+        tokens=[len(t) for t in g["tokens"]])
+    ms0 = res["meshless_ms_per_token"]
+    print(f"{tag}mesh world 1: graphed = eager witness over the prefill and "
+          f"{MESH_GATE_TOKENS} tokens each of TriForce, forced TriForce and "
+          f"AR (tokens, counters, kv length, launches, caches; one "
+          f"read-back a generation); timed as the meshless gates (same "
+          f"seeds, prompt and length), ms/token graphed TriForce "
+          f"{timed['triforce']['ms_per_token']:.3f} (meshless "
+          f"{ms0['triforce']:.3f}), forced "
+          f"{timed['forced']['ms_per_token']:.3f} ({ms0['forced']:.3f}), "
+          f"AR {timed['ar']['ms_per_token']:.3f} ({ms0['ar']:.3f}); "
+          f"prefill {timed['triforce']['prefill_s']:.3f} s (meshless "
+          f"{res['meshless_prefill_s']:.3f}); the first {same} of "
+          f"{timed['triforce']['tokens']} TriForce tokens equal the "
+          f"meshless run's; collectives (the eager witness's, over the "
+          f"gate) {w['collectives']}", flush=True)
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    eng.release_graphs()
+    return res
+
+
+def _rank_env(rank, world, port):
+    return dict(os.environ, RANK=str(rank), WORLD_SIZE=str(world),
+                LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                MASTER_PORT=str(port), GLOO_SOCKET_IFNAME="lo")
+
+
+def shard_rank_main(job_path: str) -> int:
+    """One rank of a two-rank run (``sharded_two_ranks``): joins the gloo
+    group on the parent's card, makes its shards of the same random
+    weights, prefills, runs TriForce eagerly and writes what it saw."""
+    from triforce_tpu_torch import config as tc
+    from triforce_tpu_torch.engine import Engine
+    from triforce_tpu_torch.models import llama
+    from triforce_tpu_torch.ops import flash_decode as fd
+    from triforce_tpu_torch.ops import retrieval_kernel as rk
+    from triforce_tpu_torch.parallel import mesh as mesh_mod
+    from triforce_tpu_torch.parallel import sharding
+    import torch.distributed as dist
+    with open(job_path) as f:
+        job = json.load(f)
+    dev = mesh_mod.init_distributed(backend="gloo", device=job["device"],
+                                    timeout_s=SHARD_TIMEOUT_S)
+    rank = dist.get_rank()
+    mesh = mesh_mod.make_mesh(tp=job["tp"], sp=job["sp"], device=dev)
+    tcfg, dcfg = getattr(tc, job["target"]), getattr(tc, job["draft"])
+    if job["layers"]:
+        tcfg = tcfg.with_(num_layers=job["layers"])
+    spec = tc.SpecConfig(**job["spec"])
+    prefill = job["prefill"]
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    tp = llama.init_params(tcfg, device=dev, dtype=getattr(torch,
+                                                           job["dtype"]),
+                           seed=0, shardings=sharding.param_shardings(
+                               mesh, tcfg))
+    dp = llama.init_params(dcfg, device=dev, dtype=getattr(torch,
+                                                           job["dtype"]),
+                           seed=1)
+    eng = Engine(tcfg, spec, tp, draft_cfg=dcfg, draft_params=dp,
+                 prefill=prefill, max_cache_len=job["max_cache_len"],
+                 dtype=getattr(torch, job["dtype"]), device=dev, mesh=mesh,
+                 shard_seq=job["sp"] > 1, graphs=False)
+    ids = torch.tensor(job["ids"], dtype=torch.int64, device=dev)
+    _reset(fd, rk)
+    t0 = time.perf_counter()
+    st = eng.prefill_draft(eng.prefill_target(eng.init_state(1), ids), ids)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    pre_coll = dict(mesh.collectives)
+    mesh.collectives.clear()
+    mesh.collective_bytes.clear()
+    t0 = time.perf_counter()
+    st, buf, n, counters = eng.generate(st, job["gen"], mode="triforce")
+    decode_s = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in _wrappers(fd, rk).items()}
+    steps = int(counters[0])
+    out = dict(tokens=buf[:n].tolist(), counters=[int(x) for x in counters],
+               prefill_s=prefill_s, ms_per_token=1e3 * decode_s / (n - 1),
+               launches=launches, steps=steps,
+               prefill_collectives=pre_coll,
+               decode_collectives=dict(mesh.collectives),
+               decode_collective_bytes=dict(mesh.collective_bytes),
+               collectives_per_step={k: v / max(steps, 1) for k, v in
+                                     mesh.collectives.items()})
+    probe = torch.tensor(job["probe"], dtype=torch.int64, device=dev)
+    out["logits"] = teacher_logits(llama, eng, ids, probe, st.kv).tolist()
+    del st
+    if dev.type == "cuda":
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        out["weights_gib"] = sum(x.numel() * x.element_size() for x in
+                                 list(tp["layers"].values())
+                                 + [tp["embed"], tp["lm_head"]]) / 2**30
+    with open(f"{job['out']}.{rank}.json", "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def sharded_two_ranks(tc, llama, Engine, fd, rk, dev, tmp,
+                      target="LLAMA2_7B_128K", draft="LLAMA_68M",
+                      prefill=SHARD_PREFILL, gen=SHARD_GEN, dtype="bfloat16",
+                      rank_device="cuda:0", layers=None):
+    """Two ranks on the one card over gloo, eagerly, at full width: for
+    each (tp, sp) of ``SHARD_RUNS`` two child processes (this script with
+    ``--shard-rank``) each hold their shards of the same random weights,
+    prefill ``prefill`` tokens and run ``gen`` TriForce tokens. Every rank
+    must emit the same tokens and launch B4 and B2 (never B1); their
+    logits on a fixed verify-width input are held to the meshless
+    engine's by the near-tie rule, and their tokens printed beside its.
+    The meshless reference runs first, graphed, and is freed (its engine,
+    graphs and weights) before the children start. ``layers``: cut the
+    target's depth (a rehearsal)."""
+    tcfg, dcfg = getattr(tc, target), getattr(tc, draft)
+    if layers:
+        tcfg = tcfg.with_(num_layers=layers)
+    spec_kw = dict(gamma=GAMMA, budget=4096, chunk_size=8)
+    if prefill < 2 * spec_kw["budget"]:
+        spec_kw["budget"] = prefill // 4
+    spec = tc.SpecConfig(**spec_kw)
+    dt = getattr(torch, dtype)
+    max_len = prefill + gen + 4 * (GAMMA + 2)
+    ids = torch.randint(0, tcfg.vocab_size, (1, prefill),
+                        generator=torch.Generator().manual_seed(6))
+    probe = _probe_tokens(tcfg.vocab_size, GAMMA + 1, "cpu")
+    tp = llama.init_params(tcfg, device=dev, dtype=dt, seed=0)
+    dp = llama.init_params(dcfg, device=dev, dtype=dt, seed=1)
+    eng = Engine(tcfg, spec, tp, draft_cfg=dcfg, draft_params=dp,
+                 prefill=prefill, max_cache_len=max_len, dtype=dt, device=dev)
+    st = eng.prefill_draft(eng.prefill_target(eng.init_state(1),
+                                              ids.to(dev)), ids.to(dev))
+    st, buf, n, _ = eng.generate(st, gen, mode="triforce")
+    ref_tokens = buf[:n].tolist()
+    ref = teacher_logits(llama, eng, ids.to(dev), probe.to(dev), st.kv)
+    del st
+    eng.release_graphs()
+    del eng, tp, dp
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        print(f"two ranks: the parent holds "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB before the "
+              f"ranks start", flush=True)
+    res = {}
+    for tp_, sp_ in SHARD_RUNS:
+        name = f"tp{tp_} sp{sp_}"
+        job = dict(tp=tp_, sp=sp_, target=target, draft=draft,
+                   spec=spec_kw, prefill=prefill, gen=gen, dtype=dtype,
+                   max_cache_len=max_len, ids=ids.tolist(),
+                   probe=probe.tolist(), device=rank_device, layers=layers,
+                   out=os.path.join(tmp, name.replace(" ", "_")))
+        path = job["out"] + ".job.json"
+        with open(path, "w") as f:
+            json.dump(job, f)
+        port = _free_port()
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--shard-rank", path],
+            env=_rank_env(r, 2, port), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for r in range(2)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=SHARD_TIMEOUT_S)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - t0
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            if p.returncode != 0:
+                _fail(f"two ranks [{name}]: rank {r} exited "
+                      f"{p.returncode}:\n{log[-3000:]}")
+        ranks = []
+        for r in range(2):
+            with open(f"{job['out']}.{r}.json") as f:
+                ranks.append(json.load(f))
+        if ranks[0]["tokens"] != ranks[1]["tokens"]:
+            _fail(f"two ranks [{name}]: the ranks emitted different tokens")
+        if ranks[0]["logits"] != ranks[1]["logits"]:
+            _fail(f"two ranks [{name}]: the ranks' logits differ")
+        for r, x in enumerate(ranks):
+            lc = x["launches"]
+            # (ranks on the CPU, a rehearsal, take the plain versions)
+            if torch.device(rank_device).type == "cuda" and (
+                    not (lc["b4"] > 0 and lc["b2"] > 0) or any(
+                        lc[k] for k in COUNTERS if k not in ("b4", "b2"))):
+                _fail(f"two ranks [{name}] rank {r}: launches {lc} (the "
+                      f"mesh path runs B4 and B2 alone)")
+        held = hold_logits(f"two ranks [{name}] logits",
+                           torch.tensor(ranks[0]["logits"]), ref)
+        same = _common_prefix(ranks[0]["tokens"], ref_tokens)
+        out = dict(tokens=len(ranks[0]["tokens"]),
+                   tokens_equal_meshless=same, logits=held,
+                   prefill_s=ranks[0]["prefill_s"],
+                   ms_per_token=ranks[0]["ms_per_token"],
+                   steps=ranks[0]["steps"],
+                   launches=ranks[0]["launches"],
+                   prefill_collectives=ranks[0]["prefill_collectives"],
+                   decode_collectives=ranks[0]["decode_collectives"],
+                   decode_collective_bytes=ranks[0]["decode_collective_bytes"],
+                   collectives_per_step=ranks[0]["collectives_per_step"],
+                   peak_gib=[x.get("peak_gib") for x in ranks],
+                   weights_gib=[x.get("weights_gib") for x in ranks],
+                   wall_s=wall)
+        res[name] = out
+        print(f"two ranks [{name}, gloo on {rank_device}, eager]: both "
+              f"ranks emitted the same {out['tokens']} tokens, {same} of "
+              f"them equal to the meshless run's; logits max |diff| "
+              f"{held['max_abs_logit_err']:.3e} ({held['rel_err']:.4f} of "
+              f"the largest, cosine {held['cosine']:.6f}, "
+              f"{held['top1_flips']} top-1 flips, near ties); prefill {out['prefill_s']:.2f} s, "
+              f"{out['ms_per_token']:.1f} ms/token ({out['steps']} steps); "
+              f"per rank peak {out['peak_gib']} GiB, weights "
+              f"{out['weights_gib']} GiB; collectives per step "
+              f"{out['collectives_per_step']}, decode bytes "
+              f"{out['decode_collective_bytes']}; launches {out['launches']}; "
+              f"{wall:.1f} s with start-up", flush=True)
+    return res
+
+
+def kernel_shards(fd, att, rk, rt, cache_mod, dev, prefill):
+    """B4 and B2 alone at the shapes a rank's shard gives them (sp = 2 of a
+    ``prefill`` cache; tp = 2 of Llama2-7B's 32 heads): B4 at the verify
+    (GT 8), at the prefill chunk (GT 512; TinyLlama's G 8 x 512 = 4096 at
+    D = 64) and over an empty shard (local k_len 0), B2 over P / sp,
+    each against its plain version with device time and bound."""
+    s_loc = prefill // 2
+    out = {}
+    for quant in (False, True):
+        out[quant] = dict(
+            b4=[kernel_b4(fd, att, cache_mod, dev, GAMMA + 2, s_loc,
+                          s_loc + 64, quant=quant, hkv=16),
+                kernel_b4(fd, att, cache_mod, dev, 512, s_loc, s_loc + 512,
+                          quant=quant),
+                kernel_b4(fd, att, cache_mod, dev, 4096, s_loc, s_loc + 512,
+                          quant=quant, hkv=4, d=64, tn=512),
+                kernel_b4(fd, att, cache_mod, dev, GAMMA + 2, 0, s_loc,
+                          quant=quant, hkv=16)],
+            b2=kernel_b2(rk, rt, cache_mod, dev, s_loc, 8, 4096, s_loc + 64,
+                         quant=quant))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--prefill", type=int, default=32768)
@@ -3291,8 +3800,13 @@ def main() -> int:
                     help="only the GQA phase: the kernels at "
                     "tinyllama-1.1b-128k's shapes, its reference check and "
                     "the command line end to end")
+    ap.add_argument("--shard-rank", metavar="JOB",
+                    help="run one rank of the sharded phase's two-rank runs "
+                    "(started by this script)")
     args = ap.parse_args()
 
+    if args.shard_rank:
+        return shard_rank_main(args.shard_rank)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -3307,6 +3821,7 @@ def main() -> int:
         from triforce_tpu_torch.ops import flash_decode as fd
         from triforce_tpu_torch.ops import retrieval as rt
         from triforce_tpu_torch.ops import retrieval_kernel as rk
+        from triforce_tpu_torch.parallel import mesh as mesh_mod
     except ImportError as e:
         print(f"chip_smoke: run from the repository root ({e})",
               file=sys.stderr)
@@ -3375,6 +3890,7 @@ def main() -> int:
         print(json.dumps({"kernel_study": kernel_study(
             fd, rk, cache, dev, prefill, s_kv, s_rkv, gm.mask)}), flush=True)
         return 0
+    _stamp("kernel phase")
     shapes = [(1, 1, prefill, s_kv),                     # AR decode
               (GAMMA + 2, GAMMA + 2, prefill, s_kv),     # full-cache verify
               (GAMMA + 1, GAMMA + 1, 4096, 4096 + GAMMA + 1),  # middle
@@ -3429,33 +3945,43 @@ def main() -> int:
                (w_pad, prefill, s_tree), (w_pad, 0, s_rkv)]
     b4 = {quant: [kernel_b4(fd, att, cache, dev, *sh, quant=quant)
                   for sh in shapes4] for quant in (False, True)}
+    # B4 and B2 at a rank's shard of the sharded phase
+    _stamp("kernel shards")
+    shards = kernel_shards(fd, att, rk, rt, cache, dev, prefill)
+    for quant in (False, True):
+        b4[quant] += shards[quant]["b4"]
     # every kernel at the GQA model's shapes (the cli phase's run)
+    _stamp("GQA kernel gates")
     gates = gqa_gates()
     for quant in (False, True):
         b1[quant] += gates[quant]["b1"]
         b3[quant].append(gates[quant]["b3"])
         b4[quant] += gates[quant]["b4"]
+    _stamp("kernel study")
     study = kernel_study(fd, rk, cache, dev, prefill, s_kv, s_rkv, gm.mask)
     study["pdl"] = pdl_study(fd, cache, dev, prefill, s_kv, s_tree, gm.mask)
     int8_gemm_probe(llama, dev)
     torch.cuda.empty_cache()
+    _stamp("reference phase")
     ref = {model: references(model) for model in ("llama2-7b-128k",
                                                   GQA_MODEL)}
 
     # launches of each kernel in its own path's decoding.triforce run
     main_path = dict.fromkeys(COUNTERS)
     by_phase = {}
+    _stamp("tree gate")
     gate = {name: tree_gate(tc, llama, planner, spectree, dev, quant)
             for name, quant in (("bf16", False), ("int8", True))}
     print(json.dumps({"tree_gate": gate}), flush=True)
     torch.cuda.empty_cache()
     if not args.skip_e2e:
+        _stamp("rows equal batch 1")
         rows_eq = {name: rows_equal_batch1(tc, llama, Engine, batched_spec,
                                            dev, quant)
                    for name, quant in (("bf16", False), ("int8", True))}
         print(json.dumps({"rows_equal_batch1": rows_eq}), flush=True)
         torch.cuda.empty_cache()
-        e2e, bat_e2e, tree_e2e = {}, {}, {}
+        e2e, bat_e2e, tree_e2e, mesh1 = {}, {}, {}, {}
         tcfg, dcfg = tc.LLAMA2_7B_128K, tc.LLAMA_68M
         spec = tc.SpecConfig(gamma=GAMMA, budget=4096, chunk_size=8)
         for name, quant in (("bf16", False), ("int8", True)):
@@ -3476,6 +4002,7 @@ def main() -> int:
                   f"{time.perf_counter() - t0:.1f} s to make random weights "
                   f"on the card{' and quantize them' if quant else ''}",
                   flush=True)
+            _stamp(f"end to end [{name}]")
             e2e[name] = end_to_end(tc, decoding, llama, eng, fd, rk, dev,
                                    prefill, quant)
             del eng
@@ -3487,11 +4014,23 @@ def main() -> int:
                 main_path[k] = e2e[name]["launches"]["triforce"][k]
             print(f"end to end [{name}]: " + json.dumps(e2e[name]),
                   flush=True)
+            _stamp(f"sharded world 1 [{name}]")
+            # a world of one rank, NCCL on this card, for this phase alone
+            mesh = mesh_mod.single_device_mesh(dev)
+            mesh1[name] = sharded_world1(tc, llama, Engine, mesh, fd, rk,
+                                         dev, prefill, quant, tp, dp,
+                                         e2e[name]["graphs"])
+            torch.distributed.destroy_process_group()
+            torch.cuda.empty_cache()
+            print(f"sharded world 1 [{name}]: " + json.dumps(mesh1[name]),
+                  flush=True)
+            _stamp(f"tree end to end [{name}]")
             tree_e2e[name] = tree_end_to_end(tc, planner, spectree, fd, rk,
                                              dev, tp, prefill, quant)
             torch.cuda.empty_cache()
             print(f"tree end to end [{name}]: " + json.dumps(tree_e2e[name]),
                   flush=True)
+            _stamp(f"batched end to end [{name}]")
             bat_e2e[name] = batched_end_to_end(
                 tc, llama, Engine, batched_spec, batching, fd, rk, dev, tp,
                 dp, quant)
@@ -3507,10 +4046,24 @@ def main() -> int:
             for k in b12 + (k3, k4):
                 by_phase[k] = {ph: v[k] for ph, v in
                                {**e2e[name]["launches"], **lt, **lb}.items()}
+            for k in (k4, b12[1]):
+                by_phase[k]["mesh world 1 (triforce, forced, ar)"] = \
+                    mesh1[name]["launches"][k]
             print(f"batched end to end [{name}]: " + json.dumps(bat_e2e[name]),
                   flush=True)
         by_phase["b3"]["ar_serving_int8_weights"] = \
             bat_e2e["int8"]["launches"]["ar_serving"]["b3"]
+        _stamp("sharded two ranks")
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory(prefix="triforce_ranks_") as tmp:
+            two = sharded_two_ranks(tc, llama, Engine, fd, rk, dev, tmp)
+        print(f"sharded two ranks: {time.perf_counter() - t0:.1f} s; "
+              + json.dumps(two), flush=True)
+        for run, r in two.items():
+            for k in ("b4", "b2"):
+                by_phase[k][f"two ranks {run} (rank 0)"] = r["launches"][k]
+        torch.cuda.empty_cache()
+        _stamp("cli phase")
         for tag, got in cli_run()["launches"].items():
             for k, n in got.items():
                 if n:
@@ -3538,11 +4091,12 @@ def main() -> int:
                     launches=main_path[key],
                     launches_by_phase=by_phase.get(key),
                     max_abs_err=max(r["max_abs_err"],
-                                    gates[quant]["b2"]["max_abs_err"]),
+                                    gates[quant]["b2"]["max_abs_err"],
+                                    shards[quant]["b2"]["max_abs_err"]),
                     ms=r["ms"], plain_ms=r["plain_ms"],
                     bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                     library_ms=r["library_ms"],
-                    shapes=[r, gates[quant]["b2"]])
+                    shapes=[r, gates[quant]["b2"], shards[quant]["b2"]])
 
     def b3_entry(name, source_fn, quant):
         main = b3[quant][1]   # the outer verify: one per speculation step
@@ -3594,6 +4148,7 @@ def main() -> int:
         b4_entry("flash_decode_partials_int8",
                  "tf_flash_decode_partials_int8", True),
     ]
+    _stamp("end")
     print(json.dumps({"reference": ref}), flush=True)
     print(json.dumps({"kernel_study": study}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -107,11 +107,14 @@ def test_cli_pg19_fixture_with_stub_tokenizer(monkeypatch):
 
 
 def test_cli_multi_gpu_flags_exit_nonzero():
-    for flag in ("--tp", "--sp", "--dp"):
+    """Outside a process group of their size, --tp and --sp exit naming
+    the torchrun launch; --dp above 1 waits for ROADMAP A11b."""
+    for flag, why in (("--tp", "torchrun"), ("--sp", "torchrun"),
+                      ("--dp", "A11b")):
         with pytest.raises(SystemExit) as e:
             tcli.main(["--mode", "ar", *COMMON, flag, "2"])
         assert e.value.code not in (0, None)
-        assert "A11" in str(e.value.code)
+        assert why in str(e.value.code)
 
 
 def test_cli_without_device_and_card_raises(monkeypatch):
@@ -247,3 +250,36 @@ def test_cli_runs_an_int8_native_checkpoint(hf_pair, tmp_path):
     c = tcli.main(_hf_argv("ar", target, None,
                            ["--device", "cpu", "--weight_dtype", "int8"]))
     assert a.tokens == b.tokens == c.tokens
+
+
+# ---------------------------------------------------------------------------
+# --tp / --sp: one gloo process per rank, launched torchrun's way
+# ---------------------------------------------------------------------------
+
+MESH_RUNS = {
+    "triforce": ["--mode", "triforce", *COMMON, *DRAFT],
+    "retrieval int8": ["--mode", "retrieval", *COMMON, "--kv_dtype", "int8",
+                       "--weight_dtype", "int8"],
+}
+
+
+@pytest.mark.parametrize("name", list(MESH_RUNS))
+def test_cli_tp_sp_over_four_ranks_gives_the_tp1_tokens(name, tmp_path):
+    """``cli.main([... "--tp", "2", "--sp", "2"])`` on 4 gloo ranks emits
+    the one-process tokens on every rank, and only rank 0 prints."""
+    from torch_mesh_worker import launch
+    argv = MESH_RUNS[name]
+    want = tcli.main(argv).tokens
+    res = launch(dict(kind="cli", argv=argv + ["--tp", "2", "--sp", "2"]),
+                 4, tmp_path)
+    assert all(r["tokens"] == want for r in res)
+    assert "prompt 0:" in res[0]["stdout"]
+    assert all(r["stdout"] == "" for r in res[1:])
+
+
+@pytest.mark.parametrize("extra", [["--mode", "tree"], ["--batch", "2"]],
+                         ids=["tree", "batch"])
+def test_cli_mesh_refuses_what_waits_for_a11b(extra):
+    with pytest.raises(SystemExit) as e:
+        tcli.main(["--mode", "retrieval", *COMMON, "--tp", "2", *extra])
+    assert "A11b" in str(e.value.code)

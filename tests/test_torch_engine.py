@@ -213,10 +213,12 @@ def test_constructors_without_device_raise(build, monkeypatch):
     (dict(weight_quant=True), dict(mid_act_quant=True), True),
 ], ids=["mesh", "mid_act_quant"])
 def test_unported_options_raise(pair, option, spec_kw, ported):
-    """The mesh is not ported: the Engine raises rather than quietly
-    running something else. Int8 activations in the middle verify are
-    ported: the Engine takes the option and quantizes its weights for it
-    (``test_mid_act_quant_token_identity`` holds what it then computes)."""
+    """A mesh that is not a ``parallel.mesh.Mesh`` is refused rather than
+    quietly run as something else (the mesh itself is ported:
+    ``test_torch_sharded_engine.py``). Int8 activations in the middle
+    verify are ported: the Engine takes the option and quantizes its
+    weights for it (``test_mid_act_quant_token_identity`` holds what it
+    then computes)."""
     _, te, _, _, _ = pair
 
     def build():
@@ -230,7 +232,7 @@ def test_unported_options_raise(pair, option, spec_kw, ported):
         assert eng.spec.mid_act_quant
         assert eng.t_params["lm_head"].dtype == torch.int8
     else:
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(TypeError, match="Mesh"):
             build()
 
 

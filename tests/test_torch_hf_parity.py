@@ -250,10 +250,15 @@ def test_bin_fallback_and_tied_head(hf_checkpoint, tmp_path):
 
 def test_unported_and_missing_raise(hf_checkpoint, tmp_path, monkeypatch):
     path, _ = hf_checkpoint
-    with pytest.raises(NotImplementedError):
+    # a shardings tree without the checkpoint's leaves (sharded loading
+    # itself: test_torch_sharding.py)
+    with pytest.raises(ValueError, match="no entry"):
         thf.load_params_streaming(path, device="cpu", shardings={})
-    with pytest.raises(NotImplementedError):
-        tckpt.load_checkpoint(path, device="cpu", shardings={})
+    native = str(tmp_path / "native")
+    tckpt.save_checkpoint(native, *thf.load_params(path, dtype="float32",
+                                                   device="cpu"))
+    with pytest.raises(ValueError, match="no entry"):
+        tckpt.load_checkpoint(native, device="cpu", shardings={})
     monkeypatch.setenv("HF_HOME", str(tmp_path))
     with pytest.raises(FileNotFoundError, match="not found locally"):
         thf.resolve_checkpoint("llama-68m")

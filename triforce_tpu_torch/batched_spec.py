@@ -154,13 +154,13 @@ class BatchedSpecEngine:
     ``mode`` is 'retrieval' (self-speculation) or 'triforce' (3-level with
     drafter). ``force_accept``: the controlled-acceptance coin of
     ``Engine.generate_forced``, applied per row. Rows over a device mesh
-    (``mesh``) are not ported."""
+    (``mesh``, or an engine over one) are not ported (ROADMAP A11b)."""
 
     def __init__(self, engine: Engine, mode: str = "retrieval",
                  force_accept=None, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError("data-parallel rows over a mesh are "
-                                      "not ported yet")
+        if mesh is not None or engine.mesh is not None:
+            raise NotImplementedError("batched rows over a mesh are not "
+                                      "ported yet (ROADMAP A11b)")
         if mode not in ("triforce", "retrieval"):
             raise ValueError(mode)
         if mode == "triforce" and engine.draft_cfg is None:

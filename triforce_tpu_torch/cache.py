@@ -27,6 +27,13 @@ speculation step.
 JAX clamps the start of ``dynamic_slice`` / ``dynamic_update_slice`` into
 range; torch raises instead. ``slice_at`` and ``write_at`` reproduce the
 clamp with device-side indices (no host sync).
+
+Over a mesh (``parallel/``) a full cache may hold only this rank's slots,
+``[sp_index * S_loc, (sp_index + 1) * S_loc)`` of the global cache
+(``shard_seq``), while its ``seq_len`` stays global. ``write_window_sharded``
+and ``slice_sharded`` are ``write_at`` and ``slice_at`` of the global cache
+on such a shard: each rank writes the slots it owns, and a read sums every
+rank's owned slots (zeros elsewhere) with one ``all_reduce`` over ``sp``.
 """
 
 from __future__ import annotations
@@ -325,6 +332,49 @@ def write_at(x: torch.Tensor, new: torch.Tensor, start, dim: int) -> None:
     x.index_copy_(dim, idx, new.to(x.dtype))
 
 
+def write_window_sharded(x: torch.Tensor, new: torch.Tensor, start, mesh,
+                         dim: int) -> None:
+    """``write_at(global, new, start, dim)`` on this rank's shard ``x`` of
+    a cache whose ``dim`` is split over ``sp``: the window's global start
+    is clamped into the global cache, and the rank writes the window's
+    slots that fall in its own; the others keep their values. One block of
+    distinct slots is read, blended and written back, so a window that
+    straddles two shards, or misses this one, needs no host decision."""
+    s_loc, t = x.shape[dim], new.shape[dim]
+    dev = x.device
+    g0 = window(start, t, s_loc * mesh.shape["sp"], dev)[0]
+    lo = g0 - mesh.index("sp") * s_loc          # the window, local frame
+    wb = min(t, s_loc)
+    slots = lo.clamp(0, s_loc - wb) + torch.arange(wb, device=dev)
+    src = slots - lo
+    own = (src >= 0) & (src < t)
+    shape = [1] * x.dim()
+    shape[dim] = wb
+    vals = torch.where(own.reshape(shape),
+                       new.index_select(dim, src.clamp(0, t - 1)).to(x.dtype),
+                       x.index_select(dim, slots))
+    x.index_copy_(dim, slots, vals)
+
+
+def slice_sharded(x: torch.Tensor, start, size: int, mesh,
+                  dim: int) -> torch.Tensor:
+    """``slice_at(global, start, size, dim)`` read from the shards of a
+    cache whose ``dim`` is split over ``sp``: each rank takes the window's
+    slots it owns and zeros for the rest, and one ``all_reduce(SUM)`` over
+    ``sp`` gives every rank the whole window (adding zeros is exact)."""
+    s_loc = x.shape[dim]
+    dev = x.device
+    idx = window(start, size, s_loc * mesh.shape["sp"], dev) \
+        - mesh.index("sp") * s_loc
+    own = (idx >= 0) & (idx < s_loc)
+    shape = [1] * x.dim()
+    shape[dim] = size
+    vals = torch.where(own.reshape(shape),
+                       x.index_select(dim, idx.clamp(0, s_loc - 1)),
+                       torch.zeros((), dtype=x.dtype, device=dev))
+    return mesh.all_reduce(vals.contiguous(), "sp")
+
+
 # ---------------------------------------------------------------------------
 # Cache choreography (all in place on the cache buffers)
 # ---------------------------------------------------------------------------
@@ -425,13 +475,16 @@ def _rolling_window_blocks(base, budget: int, t_new: int, n_new,
 
 def retrieval_tail_refresh(rkv: RetrievalCache, kv: KVCache,
                            spec: SpecConfig, prefill: int, new_from,
-                           max_new: int | None = None) -> RetrievalCache:
+                           max_new: int | None = None,
+                           mesh=None) -> RetrievalCache:
     """Write tokens ``[new_from, kv.seq_len)`` of the full cache into the
     retrieval budget region at descending slots from
     ``budget - 1 - (new_from - prefill)`` (mod budget), in place. Mirrors
     the JAX function down to its clamped slices: the source window starts
     at ``clamp(new_from, 0, S - max_new)``. An int8 cache moves its codes
-    and their scales alike (``triforce_tpu/cache.py:394-398``)."""
+    and their scales alike (``triforce_tpu/cache.py:394-398``). ``mesh``:
+    the full cache's slots are split over its ``sp`` axis
+    (``slice_sharded`` reads the window; ``S`` is the global length)."""
     if max_new is None:
         max_new = spec.gamma + 2
     budget = spec.budget
@@ -442,7 +495,8 @@ def retrieval_tail_refresh(rkv: RetrievalCache, kv: KVCache,
                                     rkv.k.shape[3])
 
     def one(rc, fc):
-        toks = slice_at(fc, new_from, max_new, 3).flip(3)
+        toks = (slice_at(fc, new_from, max_new, 3) if mesh is None
+                else slice_sharded(fc, new_from, max_new, mesh, 3)).flip(3)
         for lo_c, valid, qc in blocks:
             toks_c = toks.index_select(3, qc)
             old = slice_at(rc, lo_c, max_new, 3)

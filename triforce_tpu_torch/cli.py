@@ -13,13 +13,26 @@ nothing else does (without a card and without ``--device cpu`` it exits
 with an error). Models are preset names (random weights from
 ``llama.init_params(seed=0)``, which differ from the JAX package's), local
 HF checkpoint directories (read by the port's own safetensors reader), or
-native checkpoint directories (``models/ckpt.py``). ``--tp``, ``--sp`` and
-``--dp`` above 1 wait for the multi-GPU port and exit with an error.
+native checkpoint directories (``models/ckpt.py``).
+
+``--tp`` / ``--sp`` run one process per rank, launched as the reference
+launches its tensor parallelism::
+
+    torchrun --nproc-per-node=4 -m triforce_tpu_torch.cli --tp 2 --sp 2 ...
+
+Each rank joins the process group from ``torchrun``'s environment (NCCL on
+the cards, rank r on ``cuda:<LOCAL_RANK>``; gloo with ``--device cpu``),
+loads its own shards of the target (``parallel/sharding.py``) and runs the
+same batch-1 engine as every other rank (``Engine(mesh=, shard_seq=--sp >
+1)``); rank 0 prints. ``--dp`` above 1, ``--batch`` with a mesh and the
+tree and serve modes with a mesh are not ported yet (ROADMAP A11b) and exit
+with an error.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import math
 import os
@@ -34,6 +47,8 @@ from .config import PRESETS, SpecConfig, resolve_device
 from .engine import Engine
 from .models import ckpt as ckpt_mod
 from .models import hf, llama
+from .parallel import mesh as mesh_mod
+from .parallel import sharding
 from .utils.misc import log_csv, print_config
 
 _CSV_HEADER = ("mode,model,prefill,gen_len,gamma,budget,chunk_size,temp,"
@@ -115,9 +130,11 @@ def parse_args(argv=None):
     p.add_argument("--dp", type=int, default=1,
                    help="data-parallel devices (not ported yet)")
     p.add_argument("--tp", type=int, default=1,
-                   help="tensor-parallel size (not ported yet)")
+                   help="tensor-parallel size (one torchrun process per "
+                        "rank)")
     p.add_argument("--sp", type=int, default=1,
-                   help="sequence-parallel size (not ported yet)")
+                   help="sequence-parallel size: shards the KV cache's "
+                        "slots (one torchrun process per rank)")
     p.add_argument("--tree_size", type=int, default=64,
                    help="speculation-tree nodes (mode=tree)")
     p.add_argument("--tree_depth", type=int, default=8)
@@ -156,18 +173,32 @@ def _tokenizer(path: str):
         return None
 
 
-def load_model(spec: str, dtype, drafter: bool = False, device=None):
+def load_model(spec: str, dtype, drafter: bool = False, device=None,
+               mesh=None):
     """A preset name -> random params (seed 0); a native checkpoint or an
     HF checkpoint directory (or zoo name) -> its params. Returns (cfg,
-    params, tokenizer or None)."""
+    params, tokenizer or None). ``mesh``: only this rank's shards are
+    made or loaded (``parallel.sharding.param_shardings``)."""
     dev = resolve_device(device)
+
+    def shardings(cfg):
+        if mesh is None:
+            return None
+        if cfg.num_kv_heads % mesh.shape["tp"]:
+            raise SystemExit(f"--tp {mesh.shape['tp']} does not divide "
+                             f"num_kv_heads {cfg.num_kv_heads}; put the "
+                             f"surplus on --sp instead")
+        return sharding.param_shardings(mesh, cfg, weight_quant=True)
+
     if spec in PRESETS:
         cfg = PRESETS[spec]
-        return cfg, llama.init_params(cfg, device=dev, dtype=dtype,
-                                      seed=0), None
+        return cfg, llama.init_params(cfg, device=dev, dtype=dtype, seed=0,
+                                      shardings=shardings(cfg)), None
     path = hf.resolve_checkpoint(spec)
     if ckpt_mod.is_native_checkpoint(path):
-        cfg, params = ckpt_mod.load_checkpoint(path, dtype=dtype, device=dev)
+        cfg, params = ckpt_mod.load_checkpoint(
+            path, dtype=dtype, device=dev,
+            shardings=shardings(ckpt_mod.read_config(path)))
         # drafter semantics (StreamingLLM un-rotated key storage) are a
         # load-time choice, as on the HF path: --draft sets rope_on_slots
         if cfg.rope_on_slots != drafter:
@@ -176,25 +207,65 @@ def load_model(spec: str, dtype, drafter: bool = False, device=None):
     try:
         # safetensors checkpoints stream tensor by tensor; torch .bin
         # checkpoints fall back to the whole read
-        cfg, params = hf.load_params_streaming(path, dtype=dtype,
-                                               rope_on_slots=drafter,
-                                               device=dev)
+        cfg, params = hf.load_params_streaming(
+            path, dtype=dtype, rope_on_slots=drafter, device=dev,
+            shardings=shardings(hf.read_config(path, drafter)))
     except FileNotFoundError as e:
         if "no safetensors shards" not in str(e):
             raise
+        # the whole read; the engine cuts the full params to the shards
         cfg, params = hf.load_params(path, dtype=dtype,
                                      rope_on_slots=drafter, device=dev)
     return cfg, params, _tokenizer(path)
 
 
+def _mesh(args):
+    """The mesh of a ``--tp`` / ``--sp`` run (None for one process): this
+    process joins the process group from ``torchrun``'s environment."""
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if args.dp > 1:
+        raise SystemExit(f"--dp {args.dp}: data-parallel rows are not "
+                         f"ported yet (ROADMAP A11b); use 1")
+    n = args.tp * args.sp
+    if n == 1 and world == 1:
+        return None
+    if args.save_ckpt:
+        raise SystemExit("--save_ckpt writes the whole model: run it "
+                         "without --tp / --sp")
+    if args.batch > 1 or args.mode in ("tree", "serve"):
+        raise SystemExit(f"--tp {args.tp} --sp {args.sp} with --mode "
+                         f"{args.mode} --batch {args.batch}: over a mesh "
+                         f"only the batch-1 engine is ported (tree, serve "
+                         f"and --batch wait for ROADMAP A11b)")
+    if world != n:
+        raise SystemExit(f"--tp {args.tp} --sp {args.sp} runs {n} ranks, "
+                         f"one process each: launch it as torchrun "
+                         f"--nproc-per-node={n} -m triforce_tpu_torch.cli "
+                         f"... (this process group has {world})")
+    dev = mesh_mod.init_distributed(
+        device="cpu" if args.device == "cpu" else None)
+    return mesh_mod.make_mesh(tp=args.tp, sp=args.sp, device=dev)
+
+
 def main(argv=None):
     args = parse_args(argv)
-    if args.tp * args.sp * args.dp > 1:
-        raise SystemExit(
-            f"--tp {args.tp} --sp {args.sp} --dp {args.dp}: multi-GPU "
-            f"runs are not ported yet (ROADMAP.md, A11); use 1")
+    mesh = _mesh(args)
+    try:
+        with contextlib.ExitStack() as stack:
+            if mesh is not None and torch.distributed.get_rank() != 0:
+                # every rank computes the same tokens: rank 0 prints them
+                devnull = stack.enter_context(open(os.devnull, "w"))
+                stack.enter_context(contextlib.redirect_stdout(devnull))
+            return _main(args, mesh)
+    finally:
+        if mesh is not None:
+            torch.distributed.destroy_process_group()
+
+
+def _main(args, mesh):
     # the default raises without a card: nothing falls back to the CPU
-    dev = resolve_device(None if args.device == "cuda" else args.device)
+    dev = mesh.device if mesh is not None else \
+        resolve_device(None if args.device == "cuda" else args.device)
     if args.dtype is None:
         dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
     else:
@@ -219,7 +290,10 @@ def main(argv=None):
               f"rotate out of the middle model's view (losslessness "
               f"unaffected — the full-cache verify sees everything)")
 
-    t_cfg, t_params, tokenizer = load_model(args.model, dtype, device=dev)
+    # the target's shards alone over a mesh (the drafter is whole)
+    t_cfg, t_params, tokenizer = load_model(
+        args.model, dtype, device=dev, **({} if mesh is None
+                                          else {"mesh": mesh}))
     if args.save_ckpt:
         ckpt_mod.save_checkpoint(args.save_ckpt, t_cfg, t_params)
         print(f"[ckpt] saved native checkpoint to {args.save_ckpt}")
@@ -283,7 +357,8 @@ def main(argv=None):
             t_cfg, spec, t_params, draft_cfg=d_cfg, draft_params=d_params,
             prefill=args.prefill, max_cache_len=args.prefill + headroom,
             dtype=dtype, kv_quant=args.kv_dtype == "int8",
-            weight_quant=weight_quant, eos_token_id=eos_ids, device=dev)
+            weight_quant=weight_quant, eos_token_id=eos_ids, device=dev,
+            mesh=mesh, shard_seq=args.sp > 1)
         if args.mode == "serve":
             return _run_serve(engine, args, prompt_ids)
         if args.batch > 1 and args.mode in ("retrieval", "triforce"):

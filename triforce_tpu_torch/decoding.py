@@ -107,7 +107,7 @@ def autoregressive(engine: Engine, input_ids: torch.Tensor,
     state = engine.init_state(seed)
     kv = engine.prefill_body(state.kv, input_ids[:, :-1])
     logits, kv, _ = llama.forward_append(engine.target_cfg, engine.t_params,
-                                         input_ids[:, -1:], kv)
+                                         input_ids[:, -1:], kv, **engine.fwd)
     token = engine._sample_next(logits, state.gen)
     first = int(token[0])     # read-back: prefill is done
     pre.stop()

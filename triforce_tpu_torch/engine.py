@@ -47,6 +47,14 @@ while any row needs them. ``decode_rows`` runs ``steps`` of them as
 package's ``_decode_fused``. Each row owns a generator and draws from it
 the block of uniforms the batch-1 step draws, and takes the same shares,
 so a batched row emits what its batch-1 run with the same seed emits.
+
+``Engine(mesh=, shard_seq=)`` runs the batch-1 engine as one rank of a
+``parallel.mesh.Mesh``, as the JAX engine runs under a device mesh: its
+params are this rank's shards (``parallel/sharding.py``), its caches hold
+this rank's KV heads and, with ``shard_seq``, its slots of the full cache,
+and the forwards issue the collectives (``models/llama.py``,
+``ops/sp_attention.py``). Every rank runs the same steps with the same
+generator, so every rank emits the same tokens and nothing is broadcast.
 """
 
 from __future__ import annotations
@@ -68,6 +76,8 @@ from .config import ModelConfig, SpecConfig, resolve_device
 from .models import llama
 from .ops import sampling
 from .ops.flash_decode import causal_mask
+from .parallel import sharding
+from .parallel.mesh import Mesh
 
 JUNK_TOKEN = 100  # the reference pads spec buffers with token id 100
 
@@ -196,7 +206,16 @@ class Engine:
     device and runs them eagerly on the CPU; False runs them eagerly on
     the card too (the eager witness); True on the CPU raises. The graphs
     are ``self.graphs`` (``graphs.GraphSet``); ``release_graphs`` drops
-    them, and the prefill's converted weights with them."""
+    them, and the prefill's converted weights with them.
+
+    ``mesh`` (a ``parallel.mesh.Mesh``; its ``dp`` must be 1): this
+    process is one rank of it, on ``mesh.device``. The target params may be
+    the full weights (cut here, ``sharding.shard_params``) or this rank's
+    shards (loaded with ``shardings=``); the drafter is replicated.
+    ``shard_seq`` splits the full cache's slots over ``sp``; its length is
+    then padded to a multiple of ``sp * chunk_size``, so that every shard
+    holds whole retrieval chunks. A mesh whose collectives cannot be
+    captured (gloo on a card) needs ``graphs=False``."""
 
     def __init__(self, target_cfg: ModelConfig, spec: SpecConfig,
                  target_params, *, draft_cfg: Optional[ModelConfig] = None,
@@ -204,14 +223,33 @@ class Engine:
                  eos_token_id: int = 2, dtype=torch.bfloat16,
                  prefill_chunk: int = 512, draft_prefill_chunk: int = 64,
                  kv_quant: bool = False, weight_quant: bool = False,
-                 mesh=None, device=None, graphs=None):
-        if mesh is not None:
-            raise NotImplementedError("sharding over a mesh is not ported "
-                                      "yet")
+                 mesh=None, shard_seq: bool = False, device=None,
+                 graphs=None):
         if prefill % spec.chunk_size:
             raise ValueError("prefill must be a multiple of chunk_size")
+        if mesh is not None:
+            if not isinstance(mesh, Mesh):
+                raise TypeError(f"mesh must be a parallel.mesh.Mesh, got "
+                                f"{type(mesh).__name__}")
+            if mesh.shape["dp"] != 1:
+                raise NotImplementedError(
+                    "data-parallel rows over a mesh are not ported yet "
+                    "(ROADMAP A11b)")
+            device = mesh.device if device is None else device
+            if shard_seq:
+                unit = mesh.shape["sp"] * spec.chunk_size
+                max_cache_len = -(-max_cache_len // unit) * unit
         self.device = resolve_device(device)
+        if mesh is not None and self.device != mesh.device:
+            raise ValueError(f"the engine is on {self.device}, its mesh on "
+                             f"{mesh.device}")
+        self.mesh = mesh
+        self.shard_seq = bool(shard_seq) and mesh is not None
         self.graphs = graphs_mod.GraphSet(self.device, graphs)
+        if mesh is not None and self.graphs.mode == "graph" \
+                and not mesh.capturable:
+            raise ValueError(f"{mesh.backend} collectives cannot be captured "
+                             f"in a CUDA graph: pass graphs=False")
         if target_params["embed"].device != self.device:
             raise ValueError(f"target params are on "
                              f"{target_params['embed'].device}, engine on "
@@ -232,8 +270,13 @@ class Engine:
         self.draft_prefill_chunk = min(draft_prefill_chunk,
                                        spec.draft_recent_size)
         self.kv_quant = kv_quant
+        if mesh is not None and not sharding.is_local(target_params, mesh,
+                                                      target_cfg):
+            target_params = sharding.shard_params(target_params, mesh,
+                                                  target_cfg)
         if weight_quant:
-            target_params = llama.quantize_weights(target_params)
+            target_params = llama.quantize_weights(target_params, mesh,
+                                                   target_cfg)
             if draft_params is not None:
                 draft_params = llama.quantize_weights(draft_params)
         self.t_params = target_params
@@ -253,12 +296,26 @@ class Engine:
     # state construction / prefill
     # ------------------------------------------------------------------
 
+    @property
+    def fwd(self) -> dict:
+        """The mesh arguments of the target's full-cache forwards."""
+        return dict(mesh=self.mesh, shard_seq=self.shard_seq)
+
     def init_state(self, seed: int) -> TriForceState:
+        """A fresh state; over a mesh its target caches have this rank's
+        local shapes (``sharding.state_shardings``)."""
         dev = self.device
-        kv = init_kv(self.target_cfg, self.max_cache_len, 1, self.dtype,
-                     device=dev, quant=self.kv_quant)
-        rkv = init_retrieval(self.target_cfg, self.spec, 1, self.dtype,
-                             device=dev, quant=self.kv_quant)
+        cfg, slots = self.target_cfg, self.max_cache_len
+        if self.mesh is not None:
+            sh = sharding.state_shardings(self.mesh, cfg, self.draft_cfg,
+                                          self.shard_seq)
+            _, _, hkv, slots, _ = sh.kv["k"].local_shape(
+                (cfg.num_layers, 1, cfg.num_kv_heads, slots, cfg.head_dim))
+            cfg = cfg.with_(num_kv_heads=hkv)
+        kv = init_kv(cfg, slots, 1, self.dtype, device=dev,
+                     quant=self.kv_quant)
+        rkv = init_retrieval(cfg, self.spec, 1, self.dtype, device=dev,
+                             quant=self.kv_quant)
         dkv = None
         if self.draft_cfg is not None:
             dkv = init_streaming(self.draft_cfg, self.spec, 1, self.dtype,
@@ -275,7 +332,7 @@ class Engine:
         (``dense_weights``; bit-identical)."""
         return prefill_chunks(self.graphs, self.target_cfg,
                               dense_weights(self, self.t_params), kv, body,
-                              self.prefill_chunk)
+                              self.prefill_chunk, **self.fwd)
 
     def _sample_next(self, logits, gen):
         sp = self.spec
@@ -309,7 +366,8 @@ class Engine:
         sp = self.spec
         return append_graphed(self.graphs, self.target_cfg, self.t_params,
                               kv, last, build_rkv=rkv, prefill=self.prefill,
-                              chunk_size=sp.chunk_size, budget=sp.budget)
+                              chunk_size=sp.chunk_size, budget=sp.budget,
+                              **self.fwd)
 
     def prefill_target_partial(self, state: TriForceState,
                                input_ids: torch.Tensor, pos: int,
@@ -386,7 +444,7 @@ class Engine:
         def region(token, seq_len):
             logits, kv_out, _ = llama.forward_append(
                 self.target_cfg, self.t_params, token[:, None],
-                dataclasses.replace(kv, seq_len=seq_len))
+                dataclasses.replace(kv, seq_len=seq_len), **self.fwd)
             return self._sample_next(logits, gen), kv_out.seq_len
 
         tok, seq_len = self.graphs.run("ar", region, (token, kv.seq_len),
@@ -534,20 +592,22 @@ def dense_weights(eng, params):
 def append_graphed(graphs: graphs_mod.GraphSet, cfg: ModelConfig, params,
                    kv: KVCache, ids: torch.Tensor, *, need_logits=True,
                    build_rkv: Optional[RetrievalCache] = None,
-                   prefill: int = 0, chunk_size: int = 8, budget: int = 0):
+                   prefill: int = 0, chunk_size: int = 8, budget: int = 0,
+                   mesh=None, shard_seq: bool = False):
     """``llama.forward_append`` of ``ids`` into ``kv`` as one region of
     ``graphs`` ("build" with ``build_rkv``, else "prefill"): its inputs are
     ``(ids, kv.seq_len)``, its key holds the planes of ``kv`` and
     ``build_rkv`` and every tensor of ``params`` (``param_planes``), and
     ``need_logits`` and the build's sizes are its ``extra``. So one graph
     serves every chunk of a width (the kernels plan from shapes and read
-    ``k_len`` on the device). Returns (logits or None, kv at its new
-    length)."""
+    ``k_len`` on the device). ``mesh``/``shard_seq``: the forward runs over
+    the mesh (a set of one mesh: it belongs to one engine). Returns (logits
+    or None, kv at its new length)."""
     def region(ids, seq_len):
         logits, out, _ = llama.forward_append(
             cfg, params, ids, _kv_at(kv, seq_len), build_rkv=build_rkv,
             prefill=prefill, chunk_size=chunk_size, budget=budget,
-            need_logits=need_logits)
+            need_logits=need_logits, mesh=mesh, shard_seq=shard_seq)
         return (logits, out.seq_len) if need_logits else (out.seq_len,)
 
     out = graphs.run("build" if build_rkv is not None else "prefill",
@@ -559,13 +619,16 @@ def append_graphed(graphs: graphs_mod.GraphSet, cfg: ModelConfig, params,
 
 
 def prefill_chunks(graphs: graphs_mod.GraphSet, cfg: ModelConfig, params,
-                   kv: KVCache, body: torch.Tensor, chunk: int) -> KVCache:
+                   kv: KVCache, body: torch.Tensor, chunk: int,
+                   **fwd) -> KVCache:
     """Prefill of ``body`` [1, P] into ``kv`` in ``chunk``-token forwards
-    (the last one ragged), no logits, each through ``append_graphed``: the
-    full chunks replay one graph, the remainder is a key of its own."""
+    (the last one ragged), no logits, each through ``append_graphed``
+    (``fwd``: its mesh arguments): the full chunks replay one graph, the
+    remainder is a key of its own."""
     for s in range(0, body.shape[1], chunk):
         _, kv = append_graphed(graphs, cfg, params, kv,
-                               body[:, s:s + chunk], need_logits=False)
+                               body[:, s:s + chunk], need_logits=False,
+                               **fwd)
     return kv
 
 
@@ -695,7 +758,7 @@ def _middle_spec(eng: Engine, state: TriForceState, u, force_accept=None):
         m_logits, _ = llama.forward_spec(
             t_cfg, eng.t_params, vt, state.rkv,
             torch.where(live, kv_len, torch.zeros_like(kv_len)), sp.budget,
-            commit=False, act_quant=sp.mid_act_quant)
+            commit=False, act_quant=sp.mid_act_quant, mesh=eng.mesh)
         rows_idx = (n0 + torch.arange(k + 1, device=dev)).clamp(0, gamma)
         p_rows = sampling.norm_logits(m_logits[0].index_select(0, rows_idx),
                                       sp.temperature, -1, sp.top_p)
@@ -766,7 +829,7 @@ def _verify_and_commit(eng: Engine, state: TriForceState, u, gamma2,
     old = state.kv.seq_len
     verify_in = torch.cat([state.next_token[:1], gen_tokens[:gamma + 1]])[None]
     logits, _, _ = llama.forward_append(t_cfg, eng.t_params, verify_in,
-                                        state.kv)
+                                        state.kv, **eng.fwd)
     p_all = sampling.norm_logits(logits[0], sp.temperature, sp.top_k,
                                  sp.top_p)                    # [gamma+2, V]
     pos = torch.arange(gamma + 1, device=dev)
@@ -803,7 +866,8 @@ def _verify_and_commit(eng: Engine, state: TriForceState, u, gamma2,
     keep = count + 1 - (eos_acc & ~has_final).long()
     seq_len = (old + keep).to(old.dtype)
     retrieval_tail_refresh(state.rkv, _kv_at(state.kv, seq_len), sp,
-                           eng.prefill, old)
+                           eng.prefill, old,
+                           mesh=eng.mesh if eng.shard_seq else None)
 
     pos2 = torch.arange(gamma + 2, device=dev)
     emitted = torch.where(
@@ -859,7 +923,8 @@ def _retrieval_body(eng: Engine, state: TriForceState, u,
         m_logits, _ = llama.forward_spec(t_cfg, eng.t_params, verify_tokens,
                                          state.rkv, state.kv.seq_len,
                                          sp.budget, commit=False,
-                                         act_quant=sp.mid_act_quant)
+                                         act_quant=sp.mid_act_quant,
+                                         mesh=eng.mesh)
         p_n = sampling.norm_logits(m_logits[0, n][None], sp.temperature,
                                    -1, sp.top_p)[0]
         tok = sampling.sample_u(p_n, u["mid"][n])

@@ -20,6 +20,7 @@ import os
 from typing import Optional, Tuple
 
 from ..config import ModelConfig, RopeConfig, resolve_device
+from ..parallel.sharding import lookup
 from . import hf
 from .safetensors_io import SafeFile, save_file
 
@@ -61,24 +62,32 @@ def save_checkpoint(path: str, cfg: ModelConfig, params) -> None:
         json.dump(dataclasses.asdict(cfg), f, indent=1)
 
 
+def read_config(path: str) -> ModelConfig:
+    """The ModelConfig of a native checkpoint."""
+    with open(os.path.join(os.path.abspath(path), _CFG_FILE)) as f:
+        return _cfg_from_dict(json.load(f))
+
+
 def load_checkpoint(path: str, dtype=None, shardings=None, device=None,
                     ) -> Tuple[ModelConfig, dict]:
     """Read (ModelConfig, params) onto the device one tensor at a time.
     ``dtype``: the compute dtype the caller runs in — every floating leaf
     but the fp32 ``_scale`` planes is converted to it (None keeps what was
-    saved); int8 codes stay int8."""
-    if shardings is not None:
-        raise NotImplementedError("sharded loading is not ported yet (it "
-                                  "comes with the multi-GPU port)")
+    saved); int8 codes stay int8. ``shardings`` (a tree from
+    ``parallel.sharding.param_shardings``, ``weight_quant=True`` for a
+    checkpoint of int8 codes): each tensor is cut to this rank's slice on
+    the host before it moves to the device."""
     dev = resolve_device(device)
     path = os.path.abspath(path)
-    with open(os.path.join(path, _CFG_FILE)) as f:
-        cfg = _cfg_from_dict(json.load(f))
+    cfg = read_config(path)
     dt = None if dtype is None else hf.torch_dtype(dtype)
     params = {"layers": {}}
     with SafeFile(os.path.join(path, _PARAMS_FILE)) as sf:
         for name in sf.keys():
-            t = sf.get(name).to(dev)
+            t = sf.get(name)
+            if shardings is not None:
+                t = lookup(shardings, name).take(t).contiguous()
+            t = t.to(dev)
             if dt is not None and t.is_floating_point() \
                     and not name.endswith("_scale"):
                 t = t.to(dt)

@@ -10,8 +10,11 @@ the forwards use (``x @ w``), and stacked ``[L, ...]`` per layer: the dict
 that ``llama.init_params`` and ``llama.params_from_numpy`` build.
 
 Every loader runs on the card unless the caller passes ``device="cpu"``.
-Sharded placement (``shardings=``) waits for the multi-GPU port and
-raises ``NotImplementedError``.
+``load_params_streaming(shardings=)`` (a tree from
+``parallel.sharding.param_shardings``, made from ``read_config``) keeps
+only this rank's slice of each tensor: cut on the host as it is read, so
+the device holds the rank's shards alone and the host one tensor at a
+time.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..config import ModelConfig, RopeConfig, resolve_device
+from ..parallel.sharding import lookup
 from .safetensors_io import SafeFile, save_file
 
 _LAYER = "model.layers.{}."
@@ -95,6 +99,11 @@ def _read_config(model_dir: str, cfg: Optional[ModelConfig],
                  rope_on_slots: bool) -> ModelConfig:
     if cfg is not None:
         return cfg
+    return read_config(model_dir, rope_on_slots)
+
+
+def read_config(model_dir: str, rope_on_slots: bool = False) -> ModelConfig:
+    """The ModelConfig of an HF checkpoint directory (``config.json``)."""
     with open(os.path.join(model_dir, "config.json")) as f:
         return config_from_hf(json.load(f), rope_on_slots=rope_on_slots)
 
@@ -197,33 +206,36 @@ def load_params_streaming(model_dir: str, dtype="bfloat16",
     without the whole state dict on the host: each stacked leaf is
     allocated once on the device and filled one layer at a time, each
     tensor read, moved to the device, then transposed and converted there.
-    The host holds one tensor at a time."""
-    if shardings is not None:
-        raise NotImplementedError("sharded loading is not ported yet (it "
-                                  "comes with the multi-GPU port)")
+    The host holds one tensor at a time. ``shardings``: each tensor is cut
+    to this rank's slice on the host before it moves (module docstring)."""
     dev = resolve_device(device)
     dt = torch_dtype(dtype)
     cfg = _read_config(model_dir, cfg, rope_on_slots)
     fmap = _tensor_file_map(model_dir)
     files = {}
 
-    def read(name: str) -> torch.Tensor:
+    def read(name: str, tr: bool = False, key=None,
+             layer: bool = False) -> torch.Tensor:
         name = _lookup(fmap, name)
         path = fmap[name]
         if path not in files:
             files[path] = SafeFile(path)
-        return files[path].get(name).to(dev)
+        t = files[path].get(name)
+        t = t.T if tr else t
+        if shardings is not None:
+            sh = lookup(shardings, "layers." + key if layer else key)
+            t = (sh.row() if layer else sh).take(t).contiguous()
+        return t.to(dev)
 
     def put(t: torch.Tensor) -> torch.Tensor:
         out = torch.empty(t.shape, dtype=dt, device=dev)
         out.copy_(t)
         return out
 
-    def stream_stack(fmt: str, tr: bool) -> torch.Tensor:
+    def stream_stack(key: str, fmt: str, tr: bool) -> torch.Tensor:
         buf = None
         for i in range(cfg.num_layers):
-            row = read(fmt.format(i))
-            row = row.T if tr else row
+            row = read(fmt.format(i), tr, key, True)
             if buf is None:
                 buf = torch.empty((cfg.num_layers,) + tuple(row.shape),
                                   dtype=dt, device=dev)
@@ -233,15 +245,18 @@ def load_params_streaming(model_dir: str, dtype="bfloat16",
 
     try:
         params = {
-            "embed": put(read("model.embed_tokens.weight")),
-            "layers": {k: stream_stack(fmt, tr)
+            "embed": put(read("model.embed_tokens.weight", key="embed")),
+            "layers": {k: stream_stack(k, fmt, tr)
                        for k, (fmt, tr) in _LAYER_SPECS.items()},
-            "final_norm": put(read("model.norm.weight")),
+            "final_norm": put(read("model.norm.weight", key="final_norm")),
         }
         if cfg.tie_word_embeddings or "lm_head.weight" not in fmap:
             params["lm_head"] = params["embed"].T
+            if shardings is not None:
+                params["lm_head"] = lookup(shardings, "lm_head").take(
+                    params["lm_head"]).contiguous()
         else:
-            params["lm_head"] = put(read("lm_head.weight").T)
+            params["lm_head"] = put(read("lm_head.weight", True, "lm_head"))
     finally:
         for f in files.values():
             f.close()

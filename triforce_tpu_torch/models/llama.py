@@ -33,6 +33,18 @@ Forward modes:
   draft_forward_spec  — drafter speculation at the fixed spec slots with
                         un-rotated key storage + whole-window re-rotation
 
+Over a mesh (``mesh=``, ``parallel/mesh.py``; ``forward_append`` and
+``forward_spec``) every rank runs the same forward on its own shards
+(``parallel/sharding.py``): its heads, its MLP columns and its slice of the
+vocabulary. The row-parallel products (``wo``, ``w_down``) are summed over
+``tp`` with one ``all_reduce`` each, the vocabulary-split logits gathered
+with a zero-padded ``all_reduce``, and with ``aq`` the per-token maximum of
+a row-parallel input is taken over ``tp`` first, as GSPMD reduces it over
+the whole row in the JAX package. Attention goes through
+``ops/sp_attention.append_attention_sharded``; with ``shard_seq`` the full
+cache's slots are split over ``sp`` and each rank commits only the slots it
+owns.
+
 ``forward_append_rows``, ``forward_spec_rows`` and ``draft_forward_spec_rows``
 are the same forwards for B rows in ONE pass over the weights, over
 row-stacked caches (``[B, L, Hkv, S, D]``, ``seq_len`` [B]; see
@@ -54,12 +66,14 @@ import torch.nn.functional as F
 
 from ..cache import (KVCache, RetrievalCache, StreamingCache, dequantize,
                      device_scalar, int8_scale, quantize_tokens, slice_at,
-                     window)
+                     window, write_window_sharded)
 from ..config import ModelConfig, SpecConfig
 from ..ops import retrieval as retrieval_ops
 from ..ops.attention import (append_attention, append_attention_auto,
                              append_attention_rows, attention_partials_auto,
                              finalize, merge_partials, new_block_partials)
+from ..ops.sp_attention import append_attention_sharded
+from ..parallel import sharding
 from . import rope
 
 _MATMUL_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
@@ -71,42 +85,60 @@ _LAYER_KEYS = _MATMUL_KEYS + ("ln_attn", "ln_mlp")
 # ---------------------------------------------------------------------------
 
 def init_params(cfg: ModelConfig, *, device, dtype=torch.bfloat16,
-                seed: int = 0):
+                seed: int = 0, shardings=None):
     """Random-init params (normal * 0.02, norms 1) made on ``device`` from
-    ``seed``, one layer at a time so no full-size fp32 copy exists."""
+    ``seed``, one layer at a time so no full-size fp32 copy exists.
+    ``shardings`` (``parallel.sharding.param_shardings``): keep only this
+    rank's slice of each leaf, cut from the same full draws, so a rank
+    holds exactly its shard of the unsharded init and at most one full
+    layer more."""
     gen = torch.Generator(device=device).manual_seed(seed)
     h, i, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
     hq = cfg.num_heads * cfg.head_dim
     hkv = cfg.num_kv_heads * cfg.head_dim
 
+    def cut(x, name, stacked=False):
+        if shardings is None:
+            return x
+        if stacked:    # one layer of the stacked weight
+            sh = sharding.lookup(shardings, "layers." + name).row()
+        else:
+            sh = sharding.lookup(shardings, name)
+        return sh.take(x).contiguous()
+
     def rnd(shape):
         return (torch.randn(shape, generator=gen, device=device)
                 * 0.02).to(dtype)
 
-    def stacked(shape):
-        out = torch.empty((L,) + shape, dtype=dtype, device=device)
+    def stacked(name, shape):
+        out = None
         for li in range(L):
-            out[li] = rnd(shape)
+            x = cut(rnd(shape), name, True)
+            if out is None:
+                out = torch.empty((L,) + tuple(x.shape), dtype=dtype,
+                                  device=device)
+            out[li] = x
         return out
 
     params = {
-        "embed": rnd((cfg.vocab_size, h)),
+        "embed": cut(rnd((cfg.vocab_size, h)), "embed"),
         "layers": {
-            "wq": stacked((h, hq)),
-            "wk": stacked((h, hkv)),
-            "wv": stacked((h, hkv)),
-            "wo": stacked((hq, h)),
-            "w_gate": stacked((h, i)),
-            "w_up": stacked((h, i)),
-            "w_down": stacked((i, h)),
+            "wq": stacked("wq", (h, hq)),
+            "wk": stacked("wk", (h, hkv)),
+            "wv": stacked("wv", (h, hkv)),
+            "wo": stacked("wo", (hq, h)),
+            "w_gate": stacked("w_gate", (h, i)),
+            "w_up": stacked("w_up", (h, i)),
+            "w_down": stacked("w_down", (i, h)),
             "ln_attn": torch.ones((L, h), dtype=dtype, device=device),
             "ln_mlp": torch.ones((L, h), dtype=dtype, device=device),
         },
         "final_norm": torch.ones((h,), dtype=dtype, device=device),
-        "lm_head": rnd((h, cfg.vocab_size)),
     }
     if cfg.tie_word_embeddings:
-        params["lm_head"] = params["embed"].T
+        params["lm_head"] = cut(params["embed"].T, "lm_head")
+    else:
+        params["lm_head"] = cut(rnd((h, cfg.vocab_size)), "lm_head")
     return params
 
 
@@ -149,33 +181,47 @@ def params_from_numpy(tree, cfg: ModelConfig, device, dtype=torch.float32):
     return out
 
 
-def quantize_weights(params):
+def quantize_weights(params, mesh=None, cfg: Optional[ModelConfig] = None):
     """Symmetric per-output-channel INT8 quantization of every matmul
     weight, layers and lm_head (``llama.py:167-188``): scale = max|w| / 127
     over the input axis (at least 1e-8), codes rounded half to even. The
     embedding and the norms stay as they are. One layer at a time, so no
     fp32 copy of a whole stacked weight exists. Params that already hold
     int8 codes (a native checkpoint saved after quantization) are
-    returned as they are."""
+    returned as they are.
+
+    ``mesh`` (with ``cfg``): ``params`` are this rank's shards; a
+    row-parallel weight's maximum is taken over ``tp`` (its input axis is
+    split), so every rank holds the slice of what quantizing the whole
+    weights gives."""
     if params["lm_head"].dtype == torch.int8:
         return params
-    def q(w):
+    rows = ()
+    if mesh is not None:
+        sh = sharding.param_shardings(mesh, cfg)["layers"]
+        rows = tuple(n for n in ("wo", "w_down") if sharding.is_split(sh[n]))
+
+    def q(w, row=False):
         wf = w.float()
-        s = int8_scale(wf.abs().amax(-2), 1e-8)
+        amax = wf.abs().amax(-2)
+        if row:
+            mesh.all_reduce(amax, "tp", "max")
+        s = int8_scale(amax, 1e-8)
         codes = torch.round(wf / s[..., None, :]).clamp(-127, 127)
         return codes.to(torch.int8), s
 
-    def q_stacked(w):
+    def q_stacked(w, row):
         codes = torch.empty(w.shape, dtype=torch.int8, device=w.device)
         s = torch.empty((w.shape[0], w.shape[-1]), dtype=torch.float32,
                         device=w.device)
         for li in range(w.shape[0]):
-            codes[li], s[li] = q(w[li])
+            codes[li], s[li] = q(w[li], row)
         return codes, s
 
     layers = dict(params["layers"])
     for name in _MATMUL_KEYS:
-        layers[name], layers[name + "_scale"] = q_stacked(layers[name])
+        layers[name], layers[name + "_scale"] = q_stacked(layers[name],
+                                                          name in rows)
     new = dict(params, layers=layers)
     new["lm_head"], new["lm_head_scale"] = q(params["lm_head"])
     return new
@@ -235,7 +281,7 @@ def _int_matmul(x8: torch.Tensor, w8: torch.Tensor) -> torch.Tensor:
 
 
 def _wmm(x: torch.Tensor, p, name: str, out_dtype=None,
-         aq: bool = False) -> torch.Tensor:
+         aq: bool = False, tp=None) -> torch.Tensor:
     """Weight matmul ``x @ p[name]`` in the model dtype (bf16 or fp32); the
     GEMM accumulates in fp32. The weights stay ``torch.matmul``, as the JAX
     package leaves them to XLA. int8 weights (``llama.py:127-132``) are
@@ -249,15 +295,25 @@ def _wmm(x: torch.Tensor, p, name: str, out_dtype=None,
     fp32 result is multiplied by the token scale, then the channel scale.
     Activation rounding shifts the output slightly, so this is for
     proposal forwards (tree grow, the middle verify on request); a weight
-    that is not int8 ignores ``aq``."""
+    that is not int8 ignores ``aq``.
+
+    ``tp``: the mesh of a row-parallel weight (its input axis split over
+    ``tp``): the product is summed over ``tp`` before the channel scale,
+    and with ``aq`` the token maximum is taken over ``tp`` and the integer
+    product summed exactly in int32."""
     w = p[name]
     scale = p.get(name + "_scale")
     if w.dtype == torch.int8 and aq:
         xf = x.float()
         amax = xf.abs().amax(-1, keepdim=True).clamp_min(1e-6)
+        if tp is not None:
+            tp.all_reduce(amax, "tp", "max")
         s_x = amax / torch.full_like(amax, 127.0)     # IEEE division
         x8 = torch.round(xf / s_x).clamp(-127, 127).to(torch.int8)
-        out = _int_matmul(x8, w).float() * s_x
+        acc = _int_matmul(x8, w)
+        if tp is not None:
+            acc = tp.all_reduce(acc.contiguous(), "tp")
+        out = acc.float() * s_x
         if scale is not None:
             out = out * scale
         return out.to(out_dtype if out_dtype is not None else x.dtype)
@@ -266,40 +322,83 @@ def _wmm(x: torch.Tensor, p, name: str, out_dtype=None,
     out = torch.matmul(x, w)
     if out_dtype is not None:
         out = out.to(out_dtype)
+    if tp is not None:
+        out = tp.all_reduce(out.contiguous(), "tp")
     if scale is not None:
         out = out * scale.to(out.dtype)
     return out
 
 
-def _mlp(x, lp, aq: bool = False):
+def _mlp(x, lp, aq: bool = False, tp=None):
     gate = _wmm(x, lp, "w_gate", aq=aq)
     up = _wmm(x, lp, "w_up", aq=aq)
-    return _wmm(F.silu(gate) * up, lp, "w_down", aq=aq)
+    return _wmm(F.silu(gate) * up, lp, "w_down", aq=aq, tp=tp)
 
 
 def _qkv(x, lp, cfg: ModelConfig, aq: bool = False):
+    """Q, K, V [B, H, T, D] with the head counts of the weights given
+    (a rank's own heads over a mesh)."""
     b, t, _ = x.shape
-    q = _wmm(x, lp, "wq", aq=aq).reshape(b, t, cfg.num_heads,
-                                         cfg.head_dim).transpose(1, 2)
-    k = _wmm(x, lp, "wk", aq=aq).reshape(b, t, cfg.num_kv_heads,
-                                         cfg.head_dim).transpose(1, 2)
-    v = _wmm(x, lp, "wv", aq=aq).reshape(b, t, cfg.num_kv_heads,
-                                         cfg.head_dim).transpose(1, 2)
+    d = cfg.head_dim
+    q = _wmm(x, lp, "wq", aq=aq).reshape(b, t, -1, d).transpose(1, 2)
+    k = _wmm(x, lp, "wk", aq=aq).reshape(b, t, -1, d).transpose(1, 2)
+    v = _wmm(x, lp, "wv", aq=aq).reshape(b, t, -1, d).transpose(1, 2)
     return q, k, v  # [B, H, T, D]
 
 
-def _attn_out(ctx, lp, aq: bool = False):
+def _attn_out(ctx, lp, aq: bool = False, tp=None):
     b, hq, t, d = ctx.shape
-    return _wmm(ctx.transpose(1, 2).reshape(b, t, hq * d), lp, "wo", aq=aq)
+    return _wmm(ctx.transpose(1, 2).reshape(b, t, hq * d), lp, "wo", aq=aq,
+                tp=tp)
 
 
-def _logits(cfg: ModelConfig, params, x, aq: bool = False) -> torch.Tensor:
+def _logits(cfg: ModelConfig, params, x, aq: bool = False,
+            vocab_mesh=None) -> torch.Tensor:
     """fp32 logits. In bf16 the GEMM output is rounded to bf16 before the
     cast (the reference's ``lm_head(h).float()``); the JAX package keeps the
     fp32 accumulator instead. An int8 lm_head's scale multiplies the fp32
-    logits, as in the JAX package."""
+    logits, as in the JAX package. ``vocab_mesh``: the lm_head is split
+    over the vocabulary on that mesh's ``tp`` axis, and the logits are
+    gathered (``gather_vocab``)."""
     x = _rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
-    return _wmm(x, params, "lm_head", out_dtype=torch.float32, aq=aq)
+    out = _wmm(x, params, "lm_head", out_dtype=torch.float32, aq=aq)
+    if vocab_mesh is not None:
+        out = gather_vocab(out, vocab_mesh, cfg.vocab_size)
+    return out
+
+
+def gather_vocab(logits: torch.Tensor, mesh, vocab: int) -> torch.Tensor:
+    """This rank's slice of the vocabulary [..., V / tp] -> the whole
+    [..., V]: each rank writes its slice into zeros and one
+    ``all_reduce(SUM)`` over ``tp`` adds them (adding zeros is exact; gloo
+    on CUDA tensors has no ``all_gather``)."""
+    n = logits.shape[-1]
+    full = logits.new_zeros(logits.shape[:-1] + (vocab,))
+    i = mesh.index("tp")
+    full[..., i * n:(i + 1) * n] = logits
+    return mesh.all_reduce(full, "tp")
+
+
+@dataclasses.dataclass(frozen=True)
+class _Par:
+    """What a forward over a mesh reads of it: the mesh, and the mesh again
+    for each row-parallel product and for the vocabulary gather (None
+    where the sharding rules keep that weight whole)."""
+    mesh: object
+    wo: object
+    w_down: object
+    vocab: object
+
+
+def _par(mesh, cfg: ModelConfig) -> Optional[_Par]:
+    if mesh is None:
+        return None
+    sh = sharding.param_shardings(mesh, cfg)
+
+    def on(s):
+        return mesh if sharding.is_split(s) else None
+    return _Par(mesh, on(sh["layers"]["wo"]), on(sh["layers"]["w_down"]),
+                on(sh["lm_head"]))
 
 
 def _embed(params, input_ids):
@@ -328,9 +427,32 @@ def _commit_layer(cache, li: int, idx, k_new, v_new) -> None:
     cache.v[li].index_copy_(2, idx, v_new)
 
 
-def _layer_attention(q, cache, li: int, k_new, v_new, k_len, new_mask=None):
-    """``append_attention_auto`` over layer ``li`` of a target cache."""
+def _commit_layer_sharded(cache, li: int, start, k_new, v_new, mesh) -> None:
+    """``_commit_layer`` into a cache whose slots are split over ``sp``:
+    the T new tokens belong at global slots ``start ..`` (clamped into the
+    global cache as JAX clamps), and this rank writes the ones it owns
+    (``cache.write_window_sharded``); a window may straddle two shards."""
+    if cache.quantized:
+        k_new, ks = quantize_tokens(k_new)
+        v_new, vs = quantize_tokens(v_new)
+        write_window_sharded(cache.k_scale[li], ks, start, mesh, 2)
+        write_window_sharded(cache.v_scale[li], vs, start, mesh, 2)
+    write_window_sharded(cache.k[li], k_new, start, mesh, 2)
+    write_window_sharded(cache.v[li], v_new, start, mesh, 2)
+
+
+def _layer_attention(q, cache, li: int, k_new, v_new, k_len, new_mask=None,
+                     par: Optional[_Par] = None, shard_seq: bool = False):
+    """``append_attention_auto`` over layer ``li`` of a target cache; over
+    a mesh, ``append_attention_sharded`` over the whole stacked local cache
+    at layer ``li`` (its slots split over ``sp`` with ``shard_seq``)."""
     quant = cache.quantized
+    if par is not None:
+        return append_attention_sharded(
+            par.mesh, q, cache.k, cache.v, k_new, v_new, k_len=k_len,
+            new_mask=new_mask, k_scale=cache.k_scale if quant else None,
+            v_scale=cache.v_scale if quant else None, shard_seq=shard_seq,
+            layer=li)
     return append_attention_auto(
         q, cache.k[li], cache.v[li], k_new, v_new, k_len=k_len,
         new_mask=new_mask,
@@ -346,7 +468,8 @@ def forward_append(cfg: ModelConfig, params, input_ids: torch.Tensor,
                    kv: KVCache, *, positions=None,
                    build_rkv: Optional[RetrievalCache] = None,
                    prefill: int = 0, chunk_size: int = 8, budget: int = 0,
-                   tree_mask=None, need_logits: bool = True,
+                   tree_mask=None, need_logits: bool = True, mesh=None,
+                   shard_seq: bool = False,
                    ) -> Tuple[Optional[torch.Tensor], KVCache,
                               Optional[RetrievalCache]]:
     """Append ``T`` tokens to the full cache (in place) and attend causally
@@ -357,6 +480,10 @@ def forward_append(cfg: ModelConfig, params, input_ids: torch.Tensor,
     is also built, in place, from this token's query (the chunk scoring
     runs through ``ops/retrieval_kernel.py``). ``need_logits=False`` skips
     the lm_head projection (prefill chunks).
+
+    ``mesh``: every tensor is this rank's shard (module docstring); with
+    ``shard_seq`` the full cache's slots are split over ``sp``, ``kv``
+    holds this rank's ``S / sp`` of them and ``kv.seq_len`` stays global.
 
     With ``tree_mask`` ([T, T] bool ancestor matrix) the T appended tokens
     are a speculation tree: token i attends the committed prefix plus its
@@ -377,7 +504,10 @@ def forward_append(cfg: ModelConfig, params, input_ids: torch.Tensor,
         positions = torch.as_tensor(positions, device=dev).to(torch.int64)
     new_mask = None if tree_mask is None else torch.as_tensor(
         tree_mask, device=dev).to(torch.bool)
-    commit_idx = window(seq_len0, t, kv.max_len, dev)   # clamped, like JAX
+    par = _par(mesh, cfg)
+    split_seq = par is not None and shard_seq
+    if not split_seq:
+        commit_idx = window(seq_len0, t, kv.max_len, dev)  # clamped, like JAX
 
     x = _embed(params, input_ids)
     qs = []
@@ -387,16 +517,21 @@ def forward_append(cfg: ModelConfig, params, input_ids: torch.Tensor,
         q, k_new, v_new = _qkv(h, lp, cfg)
         q = rope.apply_rope(q, cos, sin, positions)
         k_new = rope.apply_rope(k_new, cos, sin, positions)  # stored rotated
-        ctx = _layer_attention(q, kv, li, k_new, v_new, seq_len0, new_mask)
-        _commit_layer(kv, li, commit_idx, k_new, v_new)
-        x = x + _attn_out(ctx, lp)
+        ctx = _layer_attention(q, kv, li, k_new, v_new, seq_len0, new_mask,
+                               par, split_seq)
+        if split_seq:
+            _commit_layer_sharded(kv, li, seq_len0, k_new, v_new, mesh)
+        else:
+            _commit_layer(kv, li, commit_idx, k_new, v_new)
+        x = x + _attn_out(ctx, lp, tp=par and par.wo)
         h = _rms_norm(x, lp["ln_mlp"], cfg.rms_norm_eps)
-        x = x + _mlp(h, lp)
+        x = x + _mlp(h, lp, tp=par and par.w_down)
         if building:
             qs.append(q)
 
     kv_out = dataclasses.replace(kv, seq_len=seq_len0 + t)
-    logits = _logits(cfg, params, x) if need_logits else None
+    logits = _logits(cfg, params, x, vocab_mesh=par and par.vocab) \
+        if need_logits else None
 
     if building:
         quant = kv.quantized
@@ -408,7 +543,8 @@ def forward_append(cfg: ModelConfig, params, input_ids: torch.Tensor,
             sel = retrieval_ops.build_layer(
                 qs[li], kv_out.k[li], kv_out.v[li], prefill, chunk_size,
                 budget, k_scale=kv_out.k_scale[li] if quant else None,
-                v_scale=kv_out.v_scale[li] if quant else None)
+                v_scale=kv_out.v_scale[li] if quant else None,
+                mesh=mesh if split_seq else None)
             for name, x in zip(planes, sel):
                 getattr(build_rkv, name)[li, :, :, :budget] = x
     return logits, kv_out, build_rkv
@@ -416,14 +552,15 @@ def forward_append(cfg: ModelConfig, params, input_ids: torch.Tensor,
 
 def forward_spec(cfg: ModelConfig, params, input_ids: torch.Tensor,
                  rkv: RetrievalCache, kv_seq_len, budget: int,
-                 commit: bool = True, act_quant: bool = False,
+                 commit: bool = True, act_quant: bool = False, mesh=None,
                  ) -> Tuple[torch.Tensor, RetrievalCache]:
     """Middle-model verify: the gamma+1 tokens attend the budget region
     plus themselves (causally) at absolute positions ``kv_seq_len +
     arange(T)``; with ``commit`` their KV lands in the scratch slots from
     ``budget`` (in place). ``kv_seq_len == 0`` gates the retrieval read to
     zero columns (a dead trip). ``act_quant``: int8 weights meet int8
-    activations (``_wmm(aq=True)``)."""
+    activations (``_wmm(aq=True)``). ``mesh``: this rank's heads of the
+    retrieval cache, whose slots are never split."""
     b, t = input_ids.shape
     dev = input_ids.device
     cos, sin = rope.cos_sin_tables(cfg, device=dev)
@@ -432,6 +569,7 @@ def forward_spec(cfg: ModelConfig, params, input_ids: torch.Tensor,
     k_len = torch.where(kv_seq_len > 0, budget, 0).to(torch.int32)
     commit_idx = window(budget, t, rkv.real_budget, dev)
     aq = act_quant
+    par = _par(mesh, cfg)
 
     x = _embed(params, input_ids)
     for li in range(cfg.num_layers):
@@ -440,13 +578,13 @@ def forward_spec(cfg: ModelConfig, params, input_ids: torch.Tensor,
         q, k_new, v_new = _qkv(h, lp, cfg, aq=aq)
         q = rope.apply_rope(q, cos, sin, positions)
         k_new = rope.apply_rope(k_new, cos, sin, positions)
-        ctx = _layer_attention(q, rkv, li, k_new, v_new, k_len)
+        ctx = _layer_attention(q, rkv, li, k_new, v_new, k_len, par=par)
         if commit:
             _commit_layer(rkv, li, commit_idx, k_new, v_new)
-        x = x + _attn_out(ctx, lp, aq=aq)
+        x = x + _attn_out(ctx, lp, aq=aq, tp=par and par.wo)
         h = _rms_norm(x, lp["ln_mlp"], cfg.rms_norm_eps)
-        x = x + _mlp(h, lp, aq=aq)
-    return _logits(cfg, params, x, aq=aq), rkv
+        x = x + _mlp(h, lp, aq=aq, tp=par and par.w_down)
+    return _logits(cfg, params, x, aq=aq, vocab_mesh=par and par.vocab), rkv
 
 
 # ---------------------------------------------------------------------------
@@ -523,7 +661,8 @@ def forward_tree_spec(cfg: ModelConfig, params, input_ids: torch.Tensor,
     same values. Needs ``kv``. ``act_quant``: int8 weights meet int8
     activations. Returns (logits [1, T, V] fp32, rkv, kv)."""
     if mesh is not None:
-        raise NotImplementedError("sharding over a mesh is not ported yet")
+        raise NotImplementedError("the tree grow over a mesh is not ported "
+                                  "yet (ROADMAP A11b)")
     if not 0 <= ssl <= cfg.num_layers:
         raise ValueError(f"ssl {ssl} outside [0, {cfg.num_layers}]")
     if ssl > 0 and kv is None:

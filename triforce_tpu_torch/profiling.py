@@ -114,18 +114,22 @@ def _time_calls(fn, dev: torch.device, iters: int, warm: int = 2) -> float:
 
 
 @contextlib.contextmanager
-def _slots_restored(kv, n: int):
+def _slots_restored(kv, n: int, offset: int = 0):
     """Put the full cache's slots ``[seq_len, seq_len + n)``, which a
-    forward_append of n tokens writes, back as they were afterwards."""
-    s0 = int(kv.seq_len)
+    forward_append of n tokens writes, back as they were afterwards.
+    ``offset``: the global slot of ``kv``'s first one (a rank's shard of a
+    cache split over ``sp``); the slots of the window it does not hold are
+    left to their ranks."""
+    s0 = int(kv.seq_len) - offset
+    lo, hi = max(s0, 0), min(max(s0 + n, 0), kv.max_len)
     planes = [p for p in (kv.k, kv.v, kv.k_scale, kv.v_scale)
               if p is not None]
-    saved = [p[:, :, :, s0:s0 + n].clone() for p in planes]
+    saved = [p[:, :, :, lo:hi].clone() for p in planes]
     try:
         yield
     finally:
         for p, x in zip(planes, saved):
-            p[:, :, :, s0:s0 + n] = x
+            p[:, :, :, lo:hi] = x
 
 
 def measure_phase_times(engine, state, iters: int = 20) -> Dict[str, float]:
@@ -136,7 +140,8 @@ def measure_phase_times(engine, state, iters: int = 20) -> Dict[str, float]:
     retrieval cache, into a scratch copy of it) and, with a drafter,
     ``draft_step``. Each is timed over ``iters`` calls after a warm-up (on
     a graphed engine the warm-up captures, and the timed calls are
-    replays); ``state`` is left as it was."""
+    replays); ``state`` is left as it was. Over a mesh every rank calls
+    it and times its own forwards, collectives included."""
     cfg, sp = engine.target_cfg, engine.spec
     dev = engine.device
     gamma = sp.gamma
@@ -151,10 +156,11 @@ def measure_phase_times(engine, state, iters: int = 20) -> Dict[str, float]:
 
     def verify(t):
         return phase(f"verify {t}", lambda x, n: llama.forward_append(
-            cfg, engine.t_params, x, engine_mod._kv_at(kv, n))[:1],
-            (ids[t], kv.seq_len), kv)
+            cfg, engine.t_params, x, engine_mod._kv_at(kv, n),
+            **engine.fwd)[:1], (ids[t], kv.seq_len), kv)
 
-    with _slots_restored(kv, gamma + 2):
+    offset = engine.mesh.index("sp") * kv.max_len if engine.shard_seq else 0
+    with _slots_restored(kv, gamma + 2, offset):
         out["target_verify"] = _time_calls(verify(gamma + 2), dev, iters)
         out["ar_step"] = _time_calls(verify(1), dev, iters)
         scratch = state.rkv.clone()
@@ -165,7 +171,7 @@ def measure_phase_times(engine, state, iters: int = 20) -> Dict[str, float]:
     out["middle_step"] = _time_calls(phase(
         "middle", lambda x, n: llama.forward_spec(
             cfg, engine.t_params, x, state.rkv, n, sp.budget, commit=False,
-            act_quant=sp.mid_act_quant)[:1],
+            act_quant=sp.mid_act_quant, mesh=engine.mesh)[:1],
         (ids[gamma + 1], kv.seq_len), state.rkv), dev, iters)
     if engine.draft_cfg is not None:
         out["draft_step"] = _time_calls(phase(

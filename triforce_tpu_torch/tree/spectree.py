@@ -139,8 +139,8 @@ class TreeEngine:
                  weight_quant: bool = False, ssl: int = 0, mesh=None,
                  device=None, graphs=None):
         if mesh is not None:
-            raise NotImplementedError("sharding over a mesh is not ported "
-                                      "yet")
+            raise NotImplementedError("the tree engine over a mesh is not "
+                                      "ported yet (ROADMAP A11b)")
         if prefill % chunk_size or budget % chunk_size:
             raise ValueError("prefill and budget must be multiples of "
                              "chunk_size")
