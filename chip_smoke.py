@@ -6,6 +6,7 @@
     python3 chip_smoke.py --ab TAG        # time the kernels (B1-B4)
     python3 chip_smoke.py --study         # the kernel study alone
     python3 chip_smoke.py --gqa           # the GQA gates and the CLI alone
+    python3 chip_smoke.py --mesh          # the rest of the mesh alone
 
 Phases, in order (any failure exits non-zero before the last line):
   1. device line: the card's name and power limit (nvidia-smi);
@@ -53,7 +54,7 @@ Phases, in order (any failure exits non-zero before the last line):
      implies after (the other precision's kernels at 0). Every decode mode
      of phases 7-10 runs from CUDA graphs (the engines' default on a card)
      and has a graph gate (lines "graphs [...]"): an eager witness
-     (``graphs=False``) of the same seed and prompt runs its first 32
+     (``graphs=False``) of the same seed and prompt runs its first 16
      tokens (4 for the tree, 2 steps for the rows; the whole request set
      for the schedulers), and the graphed run must match it in tokens,
      step counters, ``kv.seq_len`` and launch counts; the timed run's
@@ -122,10 +123,48 @@ Phases, in order (any failure exits non-zero before the last line):
      B2 the only kernels launched (exact counts), ms/token and prefill
      seconds printed beside the meshless gates'; then two gloo ranks on
      the card (child processes of this script, ``--shard-rank``), tp = 2
-     and sp = 2 at full width, prefill 4096, 8 TriForce tokens eagerly
-     (cut from 8192 and 32 for the time limit): the same tokens on both
-     ranks, logits held as above, per-rank peak memory;
- 12. the ``kernels`` JSON line, then the ``ok`` JSON line.
+     and sp = 2 at full width and 8 of the 32 layers, prefill 4096, 8
+     TriForce tokens eagerly (cut from 8192 and 32 tokens for the time
+     limit, and from 32 layers in PR 15): the same tokens on both ranks,
+     logits held as above, per-rank peak memory;
+ 12. the rest of the mesh (PR 15): B4 at its new shapes in the kernel
+     phase (the tree verify over a mesh, GT 128 over ``--prefill`` keys
+     and TinyLlama's GT 1024 at D 64; a grow level over 16 heads; a row's
+     verify over a 4096-key shard; the composed run's rank, GT 64 over a
+     2048-key shard at D 64) and B3 over 16 heads (7B at tp 2, 8192
+     keys); after each precision's tree run, ``TreeEngine`` over a world-1
+     NCCL mesh (``shard_seq=True``, graphed, the 128-node tree, prompt
+     4096: cut from 32768 for the time limit): the grow's root and first
+     level and the tree verify on fixed inputs held to the meshless
+     tree's logits by the near-tie rule and a cosine floor,
+     ``tree_decode``'s and a forced generation held bit for bit against
+     the mesh engine's eager witness (one read-back a generation), B4 and
+     B2 the only kernels (exact counts), forced ms/step beside the
+     meshless tree's at the same prompt; then two gloo ranks on the card
+     (``--mesh-rank`` children), 7B bf16 at full width: dp 2
+     (``BatchedSpecEngine`` over a dp mesh beside a meshless graphed
+     engine, 4 rows at 8192 forced 0.9, two calls of 4 steps; then
+     ``SpecScheduler``, 4 slots over dp 2, 4 requests of 16 tokens), each
+     rank's rows and requests bit-equal to a meshless run of the same
+     rows at the same local batch, and tp 2 (``TreeEngine`` over a tp
+     mesh, prefill 4096, two forced steps, eagerly), the same tokens on
+     both ranks, per-rank peak memory; then eight gloo ranks on the card,
+     TinyLlama-1.1B-128K at full width and depth over dp 2 x tp 2 x sp 2,
+     batched retrieval on 4 rows at prefill 4096, 3 steps, eagerly: the
+     same tokens on every rank, each dp index's rows bit-equal to its
+     (tp, sp) group's run alone, the meshless run's tokens beside them;
+ 13. the ``kernels`` JSON line, then the ``ok`` JSON line.
+
+Cuts for the 1200-second limit (each constant's comment says what it was):
+GEN 128 -> 64 -> 32 tokens a batch-1 mode; GATE_TOKENS 32 -> 16 (the
+eager witness's share); TREE_GEN 32 -> 16; SERVE_NEW 32 -> 16 (a served
+request); the 7B end-to-end, sharded world-1 and tree phases' prompt
+32768 -> 16384 (E2E_PREFILL; the kernel phase keeps ``--prefill``'s
+shapes); the cli phase's prompt 32768 -> 16384 and its generations 64 ->
+32 (batch-1) and 32 -> 16 (tree, serve); the two-rank tp / sp runs 8192
+-> 4096 prompt tokens, 32 -> 8 generated, 32 -> 8 layers; the world-1
+tree 32768 -> 4096 prompt tokens. The phases on several ranks run early,
+while this process holds little of the card.
 
 Exits non-zero (and prints no result) without a CUDA card or outside the
 repository.
@@ -135,6 +174,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -152,15 +192,18 @@ H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 H100_BF16_FLOPS = 989e12        # dense bf16 tensor cores
 H100_INT8_OPS = 1979e12         # dense int8 tensor cores
 H100_FP32_FLOPS = 67e12         # fp32 outside the tensor cores
-GEN = 64                        # generated tokens per end-to-end mode
-                                # (128 until PR 13; cut for the time
-                                # limit when the sharded phase came)
+GEN = 32                        # generated tokens per end-to-end mode
+                                # (128 until PR 13, 64 until PR 15: cut
+                                # for the time limit when the sharded
+                                # phase, then the rest of the mesh, came)
 GAMMA = 6
 TREE_SIZE, TREE_DEPTH = 128, 12  # planned tree: 128 nodes, 11 levels, W 22
-TREE_GEN, TREE_FORCED_GEN = 32, 64
+TREE_GEN, TREE_FORCED_GEN = 16, 64  # tree_decode's tokens: 32 until PR 15
+#                                     (cut for the time limit)
 ROWS = 4                        # rows (slots) of the batched phases
 SERVE_PREFILL = 8192            # prompt tokens of a served request
-SERVE_REQUESTS, SERVE_NEW, SERVE_SEGMENT = 6, 32, 4
+SERVE_REQUESTS, SERVE_NEW, SERVE_SEGMENT = 6, 16, 4  # SERVE_NEW: 32 until
+#                                                      PR 15 (time limit)
 # int8 kernel tolerances against their plain versions; see kernel_b1 and
 # kernel_b2 (B1-int8: over sqrt(k_len + Tn); B2-int8: of the score scale)
 INT8_B1_TOL = 0.005
@@ -1493,7 +1536,8 @@ def _check_counts(fd, rk, what, quant, want_b1, want_b2, want_b3=0,
 # Graph gates: every graphed decode mode against its eager witness
 # ---------------------------------------------------------------------------
 
-GATE_TOKENS, GATE_STEPS = 32, 2   # the witness's share of a mode (tokens;
+GATE_TOKENS, GATE_STEPS = 16, 2   # the witness's share of a mode (tokens:
+                                  # 32 until PR 15, cut for the time limit;
                                   # steps of the rows)
 TREE_GATE_TOKENS = 4              # the tree gates' generations (>= 1 step)
 
@@ -1548,7 +1592,7 @@ def _eager_twin(eng):
             eos_ids=eng.eos_ids, dtype=eng.dtype,
             prefill_chunk=eng.prefill_chunk, kv_quant=eng.kv_quant,
             weight_quant=eng.weight_quant, ssl=eng.ssl, device=eng.device,
-            graphs=False)
+            graphs=False, mesh=eng.mesh, shard_seq=eng.shard_seq)
     return Engine(eng.target_cfg, eng.spec, eng.t_params,
                   draft_cfg=eng.draft_cfg, draft_params=eng.d_params,
                   prefill=eng.prefill, max_cache_len=eng.max_cache_len,
@@ -2759,10 +2803,12 @@ def batched_end_to_end(tc, llama, Engine, bs, batching, fd, rk, dev, tp, dp,
 # ---------------------------------------------------------------------------
 
 GQA_MODEL, CLI_DRAFT = "tinyllama-1.1b-128k", "llama-68m"
-CLI_PREFILL, CLI_GEN, CLI_TREE_GEN, CLI_BUDGET = 32768, 64, 32, 4096
+# until PR 15 CLI_PREFILL 32768, CLI_GEN 64, CLI_TREE_GEN and CLI_SERVE_GEN
+# 32 (cut for the time limit when the rest of the mesh came)
+CLI_PREFILL, CLI_GEN, CLI_TREE_GEN, CLI_BUDGET = 16384, 32, 16, 4096
 CLI_TREE_SIZE, CLI_TREE_DEPTH = 128, 8      # --tree_size 128, the default depth
 CLI_SERVE_PREFILL, CLI_SERVE_GEN, CLI_SERVE_ROWS, CLI_SERVE_PROMPTS = \
-    8192, 32, 4, 6
+    8192, 16, 4, 6
 CLI_SUBPROCESS_GEN = 16
 
 
@@ -3317,6 +3363,9 @@ def cli_phase(tc, llama, Engine, cli, hf, ckpt, data, decoding, profiling,
 # the two-rank runs' prompt and tokens, cut from 8192 and 32 for the time
 # limit
 SHARD_PREFILL, SHARD_GEN = 4096, 8
+SHARD_LAYERS = 8      # the two-rank tp / sp runs' depth (32 until PR 15:
+#                       cut for the time limit when the rest of the mesh
+#                       came)
 SHARD_RUNS = ((2, 1), (1, 2))         # (tp, sp) of the two-rank runs
 SHARD_TIMEOUT_S = 600
 
@@ -3761,6 +3810,661 @@ def sharded_two_ranks(tc, llama, Engine, fd, rk, dev, tmp,
     return res
 
 
+# ---------------------------------------------------------------------------
+# The rest of the mesh (PR 15): the tree engine over a mesh, rows over dp,
+# the composed dp x tp x sp mesh
+# ---------------------------------------------------------------------------
+
+MESH_ROWS_STEPS = 4        # batched steps a decode call of the dp-2 ranks
+MESH_SERVE_REQUESTS, MESH_SERVE_NEW = 4, 16
+COMPOSED_PREFILL, COMPOSED_STEPS, COMPOSED_BUDGET = 4096, 3, 1024
+
+
+def kernel_mesh_shapes(fd, att, cache_mod, dev, prefill, s_tree, s_rkv,
+                       w_pad):
+    """B4 and B3 at the shapes the rest of the mesh gives them: B4 at the
+    tree verify over a mesh (every attention of a meshed forward is B4:
+    GT 128 over ``prefill`` keys at Llama2-7B; TinyLlama's G 8 x 128 =
+    1024 at D 64), at a grow level over 16 heads (tp 2 of 7B: GT 22 over
+    the 4096-slot budget region), at a row's verify over a 4096-key shard
+    (rows over sp 2 at 8192) and at the composed run's rank (TinyLlama, 2
+    KV heads, GT 8 x 8 over a 2048-key shard); B3 over 16 heads (7B at tp
+    2, rows at 8192), each against its plain version with device time,
+    bound and SDPA time."""
+    out = {}
+    for quant in (False, True):
+        out[quant] = dict(
+            b4=[kernel_b4(fd, att, cache_mod, dev, TREE_SIZE, prefill,
+                          s_tree, quant=quant, tn=TREE_SIZE),
+                kernel_b4(fd, att, cache_mod, dev, 8 * TREE_SIZE, prefill,
+                          s_tree, quant=quant, hkv=4, d=64, tn=TREE_SIZE),
+                kernel_b4(fd, att, cache_mod, dev, w_pad, 4096, s_rkv,
+                          quant=quant, hkv=16),
+                kernel_b4(fd, att, cache_mod, dev, GAMMA + 2, 4096,
+                          4096 + 64, quant=quant),
+                kernel_b4(fd, att, cache_mod, dev, 8 * (GAMMA + 2),
+                          COMPOSED_PREFILL // 2, COMPOSED_PREFILL // 2 + 64,
+                          quant=quant, hkv=2, d=64, tn=GAMMA + 2)],
+            b3=[kernel_b3(fd, cache_mod, dev, GAMMA + 2, GAMMA + 2,
+                          SERVE_PREFILL, SERVE_PREFILL + 512, quant=quant,
+                          hkv=16)])
+    return out
+
+
+def tree_teacher_logits(llama, eng, state):
+    """fp32 logits [1 + W + size, V] of fixed inputs on ``eng``'s prefilled
+    ``state``: the grow's root forward, its first level's forward on fixed
+    tokens, and the tree verify of those tokens under the ancestor mask
+    (the same inputs on any engine, meshed or not: the root is a fixed
+    token too, since the sampled first token of a near-uniform random
+    model flips with the last bits of its logits). They write what a step
+    writes (the tree scratch, slots past the length), which the next step
+    overwrites; the length stays."""
+    gm, seq = eng.gm, state.kv.seq_len
+    fixed = _probe_tokens(eng.cfg.vocab_size, gm.size, eng.device)[0]
+    kw = dict(kv=state.kv, ssl=eng.ssl, act_quant=eng.weight_quant,
+              **eng.fwd)
+    root, _, _ = llama.forward_tree_spec(
+        eng.cfg, eng.params, fixed[None, :1], state.rkv, seq,
+        eng.budget, depths=eng._depth[0:1], ancestor_mask=eng._mask[0:1],
+        slot_start=0, staged_len=0, **kw)
+    lvl, _, _ = llama.forward_tree_spec(
+        eng.cfg, eng.params, fixed[None, 1:1 + eng.W], state.rkv, seq,
+        eng.budget, depths=eng._depth_rows[0], ancestor_mask=eng._mask_rows[0],
+        slot_start=eng._starts[0], staged_len=gm.size, **kw)
+    ver, _, _ = llama.forward_append(
+        eng.cfg, eng.params, fixed[None], state.kv,
+        positions=seq.to(torch.int64) + eng._depth, tree_mask=eng._mask,
+        **eng.fwd)
+    return torch.cat([root[0], lvl[0], ver[0]]).float().cpu()
+
+
+E2E_PREFILL = 16384        # the 7B end-to-end phases' prompt (32768
+#                            until PR 15: cut for the time limit)
+TREE_MESH_PREFILL = 4096   # the world-1 tree's prompt (cut from 32768
+#                            for the time limit)
+TREE_MESH_COSINE = 0.99    # the least cosine of a teacher row (PR 14's
+#                            world-1 batch-1 logits read 0.996-0.998)
+
+
+def tree_mesh_world1(tc, llama, planner, spectree, mesh, fd, rk, dev, params,
+                     prefill, quant):
+    """The tree engine over ``mesh`` (NCCL, world size 1) at full width:
+    Llama2-7B-128K's weights ``params`` (int8 codes with ``quant``) in
+    ``TreeEngine(mesh=, shard_seq=True)`` with the path's 128-node tree,
+    graphed, at ``prefill``. The grow's root and first-level logits and
+    the tree verify's logits on fixed inputs are held to the meshless
+    ``TreeEngine``'s by the near-tie rule and a cosine floor;
+    ``tree_decode``'s generation and a forced one are held bit for bit
+    against the mesh engine's eager witness (tokens, counters, kv length,
+    launches, prefill caches; one read-back a generation), with B4 and B2
+    the only kernels launched (exact counts); then a timed forced run,
+    its ms/step beside the meshless tree's at the same prompt, timed in
+    this phase."""
+    tag = "int8 " if quant else ""
+    cfg = tc.LLAMA2_7B_128K
+    L = cfg.num_layers
+    gm = _grow_map(planner)
+    kw = dict(prefill=prefill,
+              max_cache_len=prefill + TREE_GEN + TREE_FORCED_GEN
+              + 4 * gm.size, budget=4096, chunk_size=8, temperature=0.6,
+              top_p=0.9, dtype=torch.bfloat16, prefill_chunk=512,
+              device=dev, kv_quant=quant, weight_quant=quant, eos_ids=())
+    ids = torch.randint(0, cfg.vocab_size, (1, prefill),
+                        generator=torch.Generator().manual_seed(5)).to(dev)
+    plain = spectree.TreeEngine(cfg, gm, params, **kw)
+    eng = spectree.TreeEngine(cfg, gm, params, mesh=mesh, shard_seq=True,
+                              **kw)
+    witness = _eager_twin(eng)
+    # both teachers read the meshless prefill's caches: the retrieval
+    # build's top-k of chunks flips with the last bits of a prefill, so
+    # two prefills would hold apart retrieval caches
+    st = plain.prefill_target(plain.init_state(3), ids)
+    mst = eng.init_state(3)
+    for name in ("kv", "rkv"):
+        for plane in ("k", "v", "k_scale", "v_scale"):
+            src = getattr(getattr(st, name), plane, None)
+            if src is not None:
+                dst = getattr(getattr(mst, name), plane)
+                n = min(src.shape[3], dst.shape[3])
+                dst[:, :, :, :n].copy_(src[:, :, :, :n])
+    mst.kv = dataclasses.replace(mst.kv, seq_len=st.kv.seq_len.clone())
+    ref = tree_teacher_logits(llama, plain, st)
+    got = tree_teacher_logits(llama, eng, mst)
+    del st, mst
+    meshless = _tree_forced_ms(plain, ids, prefill)
+    plain.release_graphs()
+    del plain
+    torch.cuda.empty_cache()
+    held = hold_logits(f"{tag}tree mesh world 1 logits", got, ref)
+    if not held["cosine"] >= TREE_MESH_COSINE:
+        _fail(f"{tag}tree mesh world 1: a teacher row's cosine "
+              f"{held['cosine']:.6f} against the meshless tree's is under "
+              f"{TREE_MESH_COSINE}")
+    fwd = gm.num_levels + 1            # grow forwards a step
+    body = prefill - 1
+    pre_fwd = -(-body // eng.prefill_chunk) + 1
+    res = dict(logits=held, launches={}, graphs={})
+    mesh.collectives.clear()
+    for what, seed, alpha in (("tree_decode", 1, None),
+                              ("tree forced", 2, 0.9)):
+        gate = graph_gate(f"{tag}tree mesh world 1 {what}", fd, rk,
+                          tree_gate_run(eng, ids, seed, alpha),
+                          tree_gate_run(witness, ids, seed, alpha))
+        steps = gate["counters"][0]
+        _path_counts(f"{tag}tree mesh world 1 {what}", fd, rk,
+                     gate["launches_by_kernel"], quant, L, pre_fwd,
+                     steps * (fwd + 1), 1)
+        res["launches"][what] = gate["launches_by_kernel"]
+        res["graphs"][what] = gate
+    # the timed forced run, as the meshless tree's
+    forced = _tree_forced_ms(eng, ids, prefill)
+    ms0 = meshless["ms_per_step"]
+    res.update(forced=dict(forced, meshless=meshless),
+               collectives=dict(mesh.collectives),
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    eng.release_graphs()
+    print(f"{tag}tree mesh world 1 [{mesh.backend}]: logits (root, level, "
+          f"verify: {held['rows']} rows) against the meshless tree's: max "
+          f"|diff| {held['max_abs_logit_err']:.3e} ({held['rel_err']:.4f} "
+          f"of the largest), cosine {held['cosine']:.6f}, "
+          f"{held['top1_flips']} top-1 flips (near ties); tree_decode and "
+          f"forced graphed = eager witness (one read-back a generation, B4 "
+          f"and B2 alone); forced a=0.9 {forced['ms_per_step']:.1f} "
+          f"ms/step (meshless at the same prompt {ms0:.1f}), "
+          f"{forced['tokens_per_step']:.2f} tokens/step ({prefill}-token "
+          f"prompt)", flush=True)
+    return res
+
+
+def _tree_forced_ms(eng, ids, prefill):
+    """A forced (0.9) tree generation of TREE_FORCED_GEN tokens on
+    ``eng`` from a fresh prefill: ms/step without capture seconds, one
+    read-back, the kv length its nodes imply."""
+    state = eng.prefill_target(eng.init_state(2), ids)
+    torch.cuda.synchronize()
+    snap = _snap(eng.graphs)
+    t0 = time.perf_counter()
+    state, buf, n, counters, _ = eng.generate_forced(state, TREE_FORCED_GEN,
+                                                     0.9)
+    d = _since(eng.graphs, snap)
+    dt = time.perf_counter() - t0 - d["capture_s"]
+    steps, nodes, readbacks = (int(x) for x in counters)
+    if readbacks != 1 or int(state.kv.seq_len) != prefill + nodes:
+        _fail(f"tree forced timing: {readbacks} read-backs, kv.seq_len "
+              f"{int(state.kv.seq_len)} != {prefill} + {nodes}")
+    return dict(steps=steps, ms_per_step=1e3 * dt / steps,
+                tokens_per_step=(n - 1) / steps)
+
+
+def _rows_ref(bs, eng, prompts, seeds, alpha, calls, steps):
+    """Meshless batched TriForce on ``prompts`` (``calls`` decode calls of
+    ``steps``): the tokens of every call, rows by row."""
+    bat = bs.BatchedSpecEngine(eng, mode="triforce", force_accept=alpha)
+    state = bat.prefill_rows(prompts, seeds)
+    toks = []
+    for _ in range(calls):
+        state, t, ns, c, _ = bat.decode(state, steps)
+        toks.append([[int(x) for s in range(steps) for x in t[r, s, :ns[r, s]]]
+                     for r in range(t.shape[0])])
+    return [sum((call[r] for call in toks), []) for r in range(len(seeds))]
+
+
+def _serve(bs, batching, eng, slots, prompts, new, mesh=None):
+    """``SpecScheduler`` (TriForce) over ``slots`` slots serving
+    ``prompts`` (request id = index): (outputs by id, stats, wall s)."""
+    sched = bs.SpecScheduler(eng, mode="triforce", slots=slots,
+                             segment=SERVE_SEGMENT, mesh=mesh)
+    for i, p in enumerate(prompts):
+        sched.submit(batching.Request(rid=i, prompt=p.reshape(-1).cpu()
+                                      .numpy(), max_new_tokens=new))
+    t0 = time.perf_counter()
+    done = sched.run()
+    wall = time.perf_counter() - t0
+    return ({r.rid: r.out for r in done}, dict(sched.stats), wall)
+
+
+def _mesh_ranks_dp_tp(job, dev):
+    """One rank of the two-rank run (``mesh_two_ranks``): dp 2 (a meshless
+    engine, rows over a dp mesh: batched TriForce, then ``SpecScheduler``),
+    then tp 2 (``TreeEngine`` over a tp mesh, two steps, eagerly)."""
+    from triforce_tpu_torch import batched_spec as bs, batching
+    from triforce_tpu_torch import config as tc
+    from triforce_tpu_torch.engine import Engine
+    from triforce_tpu_torch.models import llama
+    from triforce_tpu_torch.ops import flash_decode as fd
+    from triforce_tpu_torch.ops import retrieval_kernel as rk
+    from triforce_tpu_torch.parallel import mesh as mesh_mod
+    from triforce_tpu_torch.parallel import sharding
+    from triforce_tpu_torch.tree import planner, spectree
+    tcfg, dcfg = getattr(tc, job["target"]), getattr(tc, job["draft"])
+
+    def launches():
+        return {k: f.launches for k, f in _wrappers(fd, rk).items()}
+    dt = getattr(torch, job["dtype"])
+    cuda = dev.type == "cuda"
+    out = {}
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    # --- dp 2: rows over dp beside a meshless, graphed engine
+    mesh = mesh_mod.make_mesh(dp=2, device=dev)
+    tp = llama.init_params(tcfg, device=dev, dtype=dt, seed=0)
+    dp = llama.init_params(dcfg, device=dev, dtype=dt, seed=1)
+    P = len(job["prompts"][0][0])
+    headroom = bs.SpecScheduler.required_headroom(MESH_SERVE_NEW,
+                                                  SERVE_SEGMENT, GAMMA)
+    eng = Engine(tcfg, tc.SpecConfig(gamma=GAMMA, budget=job["budget"],
+                                     chunk_size=8),
+                 tp, draft_cfg=dcfg, draft_params=dp, prefill=P,
+                 max_cache_len=P + headroom, dtype=dt, device=dev,
+                 eos_token_id=-1)
+    prompts = [torch.tensor(p, dtype=torch.int64, device=dev)
+               for p in job["prompts"]]
+    bat = bs.BatchedSpecEngine(eng, mode="triforce", force_accept=0.9,
+                               mesh=mesh)
+    _reset(fd, rk)
+    state = bat.prefill_rows(prompts, job["seeds"])
+    rows = []
+    ms = []
+    for _ in range(2):           # the first call captures its loop graph
+        torch.distributed.barrier()
+        c0, s0 = eng.graphs.captures, eng.graphs.capture_s
+        t0 = time.perf_counter()
+        state, t, ns, c, _ = bat.decode(state, MESH_ROWS_STEPS)
+        ms.append((1e3 * (time.perf_counter() - t0
+                          - (eng.graphs.capture_s - s0))) / MESH_ROWS_STEPS)
+        rows.append([[int(x) for s in range(MESH_ROWS_STEPS)
+                      for x in t[r, s, :ns[r, s]]] for r in range(ROWS)])
+    out["rows"] = [sum((call[r] for call in rows), []) for r in range(ROWS)]
+    out["rows_ms_per_step"] = ms
+    out["rows_local"] = len(state.gens)
+    out["rows_launches"] = launches()
+    out["rows_target_forwards"] = bat.target_forwards
+    out["pre_fwd"] = -(-(P - 1) // eng.prefill_chunk) + 1
+    del state, bat
+    eng.release_graphs()          # the rows' loop graph and its pool
+    if cuda:
+        out["rows_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        torch.cuda.empty_cache()
+    _reset(fd, rk)
+    done, stats, wall = _serve(bs, batching, eng, ROWS,
+                               prompts[:MESH_SERVE_REQUESTS],
+                               MESH_SERVE_NEW, mesh)
+    out["serve_launches"] = launches()
+    out["serve"] = {str(k): v for k, v in done.items()}
+    out["serve_stats"] = stats
+    out["serve_tokens_per_s"] = sum(len(v) for v in done.values()) / wall
+    out["dp_collectives"] = dict(mesh.collectives)
+    eng.release_graphs()
+    del eng, tp, dp
+    if cuda:
+        torch.cuda.empty_cache()
+        out["dp_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        torch.cuda.reset_peak_memory_stats()
+    # --- tp 2: the tree engine over a tp mesh, eagerly (gloo)
+    mesh2 = mesh_mod.make_mesh(tp=2, device=dev)
+    tp = llama.init_params(tcfg, device=dev, dtype=dt, seed=0,
+                           shardings=sharding.param_shardings(mesh2, tcfg))
+    pv = planner.modeled_acceptance_vector(0.8, 4)
+    gm = planner.build_grow_map(*planner.plan_tree(pv, *job["tree"]),
+                                *job["tree"])
+    ids = torch.tensor(job["tree_ids"], dtype=torch.int64, device=dev)
+    teng = spectree.TreeEngine(
+        tcfg, gm, tp, prefill=ids.shape[1],
+        max_cache_len=ids.shape[1] + 4 * gm.size,
+        budget=min(job["budget"], ids.shape[1] // 4),
+        chunk_size=8, temperature=0.6, top_p=0.9, dtype=dt,
+        prefill_chunk=512, device=dev, mesh=mesh2, graphs=False, eos_ids=())
+    _reset(fd, rk)
+    st = teng.prefill_target(teng.init_state(1), ids)
+    toks, t0 = [], time.perf_counter()
+    mesh2.collectives.clear()
+    for _ in range(2):
+        st, s = teng.step(st, force_accept=0.9)
+        toks += s.tokens[:s.n_emitted].tolist()
+    out["tree_tokens"] = toks
+    out["tree_launches"] = launches()
+    out["tree_pre_fwd"] = -(-(ids.shape[1] - 1) // teng.prefill_chunk) + 1
+    out["tree_fwd"] = gm.num_levels + 1
+    out["tree_ms_per_step"] = 1e3 * (time.perf_counter() - t0) / 2
+    out["tree_collectives_per_step"] = {k: v / 2 for k, v in
+                                        mesh2.collectives.items()}
+    if cuda:
+        out["tree_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return out
+
+
+def _sub_mesh(mesh_mod, mesh):
+    """The (tp, sp) groups of a dp x tp x sp mesh as a mesh of their own
+    (dp 1): this rank's dp index's ranks, as a tp x sp run would group
+    them. Every rank makes every singleton dp group, in order."""
+    import torch.distributed as dist
+    solo = None
+    for r in range(dist.get_world_size()):
+        g = dist.new_group([r], backend=mesh.backend)
+        if r == dist.get_rank():
+            solo = g
+    sub = mesh_mod.Mesh(dict(mesh.shape, dp=1), dict(mesh.coords, dp=0),
+                        dict(mesh.groups, dp=solo), mesh.device, mesh.backend)
+    sub.all_reduce(torch.zeros(1, device=mesh.device), "dp")
+    return sub
+
+
+def _mesh_ranks_composed(job, dev):
+    """One rank of the eight-rank run (``mesh_composed``): TinyLlama over a
+    dp 2 x tp 2 x sp 2 mesh, batched retrieval on 4 rows, eagerly; then
+    each dp index's (tp, sp) group alone (dp 1) on its own 2 rows, the
+    arithmetic the composed run must reproduce bit for bit."""
+    from triforce_tpu_torch import batched_spec as bs
+    from triforce_tpu_torch import config as tc
+    from triforce_tpu_torch.engine import Engine
+    from triforce_tpu_torch.models import llama
+    from triforce_tpu_torch.ops import flash_decode as fd
+    from triforce_tpu_torch.ops import retrieval_kernel as rk
+    from triforce_tpu_torch.parallel import mesh as mesh_mod
+    from triforce_tpu_torch.parallel import sharding
+    cfg = tc.PRESETS[job["model"]]
+    dt = getattr(torch, job["dtype"])
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    mesh = mesh_mod.make_mesh(dp=2, tp=2, sp=2, device=dev)
+    params = llama.init_params(cfg, device=dev, dtype=dt, seed=0,
+                               shardings=sharding.param_shardings(mesh, cfg))
+    spec = tc.SpecConfig(gamma=GAMMA, budget=job["budget"], chunk_size=8)
+    prefill = len(job["prompts"][0][0])
+    prompts = [torch.tensor(p, dtype=torch.int64, device=dev)
+               for p in job["prompts"]]
+    out = {}
+    for name, m in (("composed", mesh), ("dp group", None)):
+        if m is None:
+            m = _sub_mesh(mesh_mod, mesh)
+            blk = sharding.row_block(mesh, len(prompts))
+            rows_in = [prompts[i] for i in blk]
+            seeds = [job["seeds"][i] for i in blk]
+        else:
+            rows_in, seeds = prompts, job["seeds"]
+        eng = Engine(cfg, spec, params, prefill=prefill,
+                     max_cache_len=prefill + 64, dtype=dt, device=dev,
+                     mesh=m, shard_seq=True, graphs=False, eos_token_id=-1)
+        bat = bs.BatchedSpecEngine(eng, mode="retrieval")
+        m.collectives.clear()
+        _reset(fd, rk)
+        t0 = time.perf_counter()
+        state = bat.prefill_rows(rows_in, seeds)
+        prefill_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        state, t, ns, c, _ = bat.decode(state, COMPOSED_STEPS)
+        ms = 1e3 * (time.perf_counter() - t0) / COMPOSED_STEPS
+        out[name] = dict(
+            tokens=[[int(x) for s in range(COMPOSED_STEPS)
+                     for x in t[r, s, :ns[r, s]]] for r in range(t.shape[0])],
+            counters=c.tolist(), prefill_s=prefill_s, ms_per_step=ms,
+            local_rows=len(state.gens), collectives=dict(m.collectives),
+            launches={k: f.launches for k, f in _wrappers(fd, rk).items()},
+            pre_fwd=-(-(prefill - 1) // eng.prefill_chunk) + 1)
+        del state, bat, eng
+    if dev.type == "cuda":
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return out
+
+
+def _mesh_counts(what, got, b1=0, b2=0, b3=0, b4=0):
+    """A child's bf16 launches must be exactly what its path implies."""
+    want = dict.fromkeys(COUNTERS, 0)
+    want.update(b1=b1, b2=b2, b3=b3, b4=b4)
+    print(f"  launches [{what}]: {got} (path implies {want})", flush=True)
+    if got != want:
+        _fail(f"{what}: kernel launch counts {got} != {want}")
+
+
+def mesh_rank_main(job_path: str) -> int:
+    """One rank of ``mesh_two_ranks`` or ``mesh_composed`` (this script as
+    a child process, ``--mesh-rank``): joins the gloo group on the
+    parent's card, runs its job's kind and writes what it saw."""
+    from triforce_tpu_torch.parallel import mesh as mesh_mod
+    import torch.distributed as dist
+    with open(job_path) as f:
+        job = json.load(f)
+    dev = mesh_mod.init_distributed(backend="gloo", device=job["device"],
+                                    timeout_s=SHARD_TIMEOUT_S)
+    fn = _mesh_ranks_dp_tp if job["kind"] == "dp tp" \
+        else _mesh_ranks_composed
+    out = fn(job, dev)
+    with open(f"{job['out']}.{dist.get_rank()}.json", "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def _launch_ranks(job, n, tmp, what):
+    """``n`` child processes of this script (``--mesh-rank``) on ``job``;
+    their results in rank order."""
+    path = os.path.join(tmp, what.replace(" ", "_") + ".job.json")
+    job = dict(job, out=path[:-len(".job.json")])
+    with open(path, "w") as f:
+        json.dump(job, f)
+    port = _free_port()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--mesh-rank", path],
+        env=_rank_env(r, n, port), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(n)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=SHARD_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    bad = [f"rank {r} exited {p.returncode}:\n{log[-3000:]}"
+           for r, (p, log) in enumerate(zip(procs, logs)) if p.returncode]
+    if bad:
+        _fail(f"{what}: " + "\n".join(bad))
+    out = []
+    for r in range(n):
+        with open(f"{job['out']}.{r}.json") as f:
+            out.append(json.load(f))
+    return out, time.perf_counter() - t0
+
+
+def mesh_two_ranks(tc, llama, Engine, bs, batching, dev, tmp,
+                   target="LLAMA2_7B_128K", draft="LLAMA_68M",
+                   prefill=SERVE_PREFILL, tree_prefill=SHARD_PREFILL,
+                   budget=4096, dtype="bfloat16", rank_device="cuda:0"):
+    """Two gloo ranks on the card, Llama2-7B-128K + Llama-68M bf16 at full
+    width: dp 2 (``BatchedSpecEngine(mesh=)`` over a meshless graphed
+    engine, 4 rows at 8192 forced 0.9, two decode calls of 4 steps; then
+    ``SpecScheduler`` with 4 slots over dp 2 serving 4 requests of 16
+    tokens) and tp 2 (``TreeEngine`` over a tp mesh, two forced steps at
+    prefill 4096, eagerly). Every rank must return the same global tokens;
+    each dp rank's rows and requests must equal, bit for bit, a meshless
+    run of the same rows at the same local batch (2 rows; a 2-slot
+    scheduler): a GEMM's rounding follows its row count, so 2 and 4 rows
+    round apart. Per-rank peak memory printed. The other arguments cut
+    the run to size (a rehearsal)."""
+    tcfg, dcfg = getattr(tc, target), getattr(tc, draft)
+    P, dt = prefill, getattr(torch, dtype)
+    gen = torch.Generator().manual_seed(6)
+    prompts = [torch.randint(0, tcfg.vocab_size, (1, P), generator=gen)
+               for _ in range(ROWS)]
+    seeds = list(range(ROWS))
+    tree_ids = torch.randint(0, tcfg.vocab_size, (1, tree_prefill),
+                             generator=gen)
+    # the meshless references: each dp rank's 2 rows, a 2-slot scheduler
+    tp = llama.init_params(tcfg, device=dev, dtype=dt, seed=0)
+    dp = llama.init_params(dcfg, device=dev, dtype=dt, seed=1)
+    headroom = bs.SpecScheduler.required_headroom(MESH_SERVE_NEW,
+                                                  SERVE_SEGMENT, GAMMA)
+    eng = Engine(tcfg, tc.SpecConfig(gamma=GAMMA, budget=budget,
+                                     chunk_size=8),
+                 tp, draft_cfg=dcfg, draft_params=dp, prefill=P,
+                 max_cache_len=P + headroom, dtype=dt, device=dev,
+                 eos_token_id=-1)
+    half = ROWS // 2
+    ref_rows = []
+    for blk in (range(half), range(half, ROWS)):
+        ref_rows += _rows_ref(bs, eng, [prompts[i].to(dev) for i in blk],
+                              [seeds[i] for i in blk], 0.9, 2,
+                              MESH_ROWS_STEPS)
+    ref_serve, _, _ = _serve(bs, batching, eng, half,
+                             [p.to(dev) for p in
+                              prompts[:MESH_SERVE_REQUESTS]], MESH_SERVE_NEW)
+    eng.release_graphs()
+    del eng, tp, dp
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    if dev.type == "cuda":
+        print(f"mesh two ranks: the parent holds "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB before the "
+              f"ranks start", flush=True)
+    job = dict(kind="dp tp", prompts=[p.tolist() for p in prompts],
+               seeds=seeds, tree_ids=tree_ids.tolist(), target=target,
+               draft=draft, budget=budget, dtype=dtype,
+               tree=[TREE_SIZE, TREE_DEPTH], device=rank_device)
+    ranks, wall = _launch_ranks(job, 2, tmp, "mesh two ranks")
+    for key in ("rows", "serve", "tree_tokens"):
+        if ranks[0][key] != ranks[1][key]:
+            _fail(f"mesh two ranks: the ranks' {key} differ")
+    r0 = ranks[0]
+    if r0["rows_local"] != half:
+        _fail(f"mesh two ranks: a dp rank holds {r0['rows_local']} rows")
+    if r0["rows"] != ref_rows:
+        _fail("mesh two ranks: the dp-2 rows differ from the meshless runs "
+              "of the same rows")
+    if r0["serve"] != {str(k): v for k, v in ref_serve.items()} \
+            or len(r0["serve"]) != MESH_SERVE_REQUESTS:
+        _fail("mesh two ranks: the dp-2 scheduler's requests differ from "
+              "the meshless 2-slot scheduler's")
+    if torch.device(rank_device).type == "cuda":
+        L = tcfg.num_layers
+        for r, x in enumerate(ranks):
+            # dp: each rank's meshless engine prefills its rows (B1 every
+            # chunk and build, B2 every build) and decodes them (B3 every
+            # batched target forward); tp: the tree over the mesh, B4
+            # every attention, B2 its build
+            n = x["rows_local"]
+            _mesh_counts(f"mesh two ranks rank {r} rows", x["rows_launches"],
+                         b1=L * n * x["pre_fwd"], b2=L * n,
+                         b3=L * x["rows_target_forwards"])
+            k = MESH_SERVE_REQUESTS // 2
+            _mesh_counts(f"mesh two ranks rank {r} serving",
+                         x["serve_launches"], b1=L * k * x["pre_fwd"],
+                         b2=L * k,
+                         b3=L * x["serve_stats"]["target_forwards"])
+            _mesh_counts(f"mesh two ranks rank {r} tree", x["tree_launches"],
+                         b2=L, b4=L * (x["tree_pre_fwd"]
+                                       + 2 * (x["tree_fwd"] + 1)))
+    res = dict(rows_ms_per_step=[x["rows_ms_per_step"] for x in ranks],
+               serve_tokens_per_s=r0["serve_tokens_per_s"],
+               serve_stats=r0["serve_stats"],
+               dp_collectives=r0["dp_collectives"],
+               launches={part: r0[part + "_launches"]
+                         for part in ("rows", "serve", "tree")},
+               dp_peak_gib=[x.get("dp_peak_gib") for x in ranks],
+               tree_tokens=len(r0["tree_tokens"]),
+               tree_ms_per_step=r0["tree_ms_per_step"],
+               tree_collectives_per_step=r0["tree_collectives_per_step"],
+               tree_peak_gib=[x.get("tree_peak_gib") for x in ranks],
+               wall_s=wall)
+    print(f"mesh two ranks [gloo on {rank_device}]: dp 2 rows = the "
+          f"meshless runs of the same rows ({sum(map(len, ref_rows))} tokens), ms/step "
+          f"(first call captures, second) {res['rows_ms_per_step'][0]}; "
+          f"SpecScheduler over dp 2 = the meshless 2-slot scheduler "
+          f"({MESH_SERVE_REQUESTS} requests), {res['serve_tokens_per_s']:.1f}"
+          f" tokens/s; dp collectives {res['dp_collectives']}; peak "
+          f"{res['dp_peak_gib']} GiB a rank; tp 2 tree: the same "
+          f"{res['tree_tokens']} tokens on both ranks, "
+          f"{res['tree_ms_per_step']:.1f} ms/step eagerly, collectives a "
+          f"step {res['tree_collectives_per_step']}, peak "
+          f"{res['tree_peak_gib']} GiB a rank; {wall:.1f} s with start-up",
+          flush=True)
+    return res
+
+
+def mesh_composed(tc, llama, Engine, bs, dev, tmp, model=GQA_MODEL,
+                  prefill=COMPOSED_PREFILL, budget=COMPOSED_BUDGET,
+                  dtype="bfloat16", rank_device="cuda:0"):
+    """Eight gloo ranks on the card: TinyLlama-1.1B-128K at full width and
+    depth over dp 2 x tp 2 x sp 2 (2 KV heads a rank, half the slots),
+    batched retrieval on 4 rows at prefill 4096 (budget 1024), 3 steps,
+    eagerly. Every rank must return the same global tokens, and each dp
+    index's rows must equal bit for bit what its (tp, sp) group computes
+    alone on them (dp 1: the same arithmetic, without the row split and
+    the gather). The meshless batched run of the same rows (graphed, this
+    process) is printed beside it: split bf16 sums round apart, so its
+    tokens agree up to where a near tie flips one. The other arguments
+    cut the run to size (a rehearsal)."""
+    cfg = tc.PRESETS[model]
+    dt = getattr(torch, dtype)
+    gen = torch.Generator().manual_seed(8)
+    prompts = [torch.randint(0, cfg.vocab_size, (1, prefill),
+                             generator=gen) for _ in range(ROWS)]
+    seeds = [11, 22, 33, 44]
+    params = llama.init_params(cfg, device=dev, dtype=dt, seed=0)
+    eng = Engine(cfg, tc.SpecConfig(gamma=GAMMA, budget=budget,
+                                    chunk_size=8), params,
+                 prefill=prefill, max_cache_len=prefill + 64, dtype=dt,
+                 device=dev, eos_token_id=-1)
+    bat = bs.BatchedSpecEngine(eng, mode="retrieval")
+    state = bat.prefill_rows([p.to(dev) for p in prompts], seeds)
+    _, t, ns, _, _ = bat.decode(state, COMPOSED_STEPS)
+    meshless = [[int(x) for s in range(COMPOSED_STEPS)
+                 for x in t[r, s, :ns[r, s]]] for r in range(ROWS)]
+    eng.release_graphs()
+    del state, bat, eng, params
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    job = dict(kind="composed", prompts=[p.tolist() for p in prompts],
+               seeds=seeds, model=model, budget=budget, dtype=dtype,
+               device=rank_device)
+    ranks, wall = _launch_ranks(job, 8, tmp, "mesh composed")
+    got = ranks[0]["composed"]
+    for r, x in enumerate(ranks):
+        if x["composed"]["tokens"] != got["tokens"] \
+                or x["composed"]["counters"] != got["counters"]:
+            _fail(f"mesh composed: rank {r}'s rows differ from rank 0's")
+        if x["composed"]["local_rows"] != ROWS // 2:
+            _fail(f"mesh composed: rank {r} holds "
+                  f"{x['composed']['local_rows']} rows")
+        blk = range(ROWS // 2) if r < 4 else range(ROWS // 2, ROWS)
+        if [got["tokens"][i] for i in blk] != x["dp group"]["tokens"]:
+            _fail(f"mesh composed: rank {r}'s dp group alone emits other "
+                  f"tokens than the composed run's rows {list(blk)}")
+        if torch.device(rank_device).type == "cuda":
+            # the rank's 2 rows: prefills over the mesh (B4 every chunk and
+            # build, B2 every build), then per step GAMMA middle verifies
+            # over the heads-split retrieval cache (B3) and the outer
+            # verify over the sp-split full cache (B4 a row)
+            L, n = cfg.num_layers, ROWS // 2
+            for part in ("composed", "dp group"):
+                y = x[part]
+                _mesh_counts(f"mesh composed rank {r} {part}",
+                             y["launches"], b2=L * n,
+                             b3=L * GAMMA * COMPOSED_STEPS,
+                             b4=L * n * (y["pre_fwd"] + COMPOSED_STEPS))
+    same = [_common_prefix(a, b) for a, b in zip(got["tokens"], meshless)]
+    res = dict(tokens=[len(x) for x in got["tokens"]],
+               tokens_equal_meshless=same, prefill_s=got["prefill_s"],
+               ms_per_step=got["ms_per_step"],
+               dp_group_ms_per_step=ranks[0]["dp group"]["ms_per_step"],
+               collectives=got["collectives"],
+               launches={"composed": got["launches"],
+                         "dp group": ranks[0]["dp group"]["launches"]},
+               peak_gib=[x.get("peak_gib") for x in ranks], wall_s=wall)
+    print(f"mesh composed [dp 2 x tp 2 x sp 2, 8 gloo ranks on "
+          f"{rank_device}, eager]: every rank returned the same {sum(res['tokens'])} "
+          f"tokens of {ROWS} rows, each dp index's rows = its (tp, sp) "
+          f"group's run alone, bit for bit; the first {same} tokens of each "
+          f"row equal the meshless run's; prefill {got['prefill_s']:.1f} s "
+          f"(2 rows a group), {got['ms_per_step']:.1f} ms/step (group "
+          f"alone {res['dp_group_ms_per_step']:.1f}); collectives "
+          f"{got['collectives']}; peak {res['peak_gib']} GiB a rank; "
+          f"{wall:.1f} s with start-up", flush=True)
+    return res
+
+
 def kernel_shards(fd, att, rk, rt, cache_mod, dev, prefill):
     """B4 and B2 alone at the shapes a rank's shard gives them (sp = 2 of a
     ``prefill`` cache; tp = 2 of Llama2-7B's 32 heads): B4 at the verify
@@ -3800,13 +4504,22 @@ def main() -> int:
                     help="only the GQA phase: the kernels at "
                     "tinyllama-1.1b-128k's shapes, its reference check and "
                     "the command line end to end")
+    ap.add_argument("--mesh", action="store_true",
+                    help="only the rest of the mesh: B4 and B3 at its "
+                    "shapes, the tree over a world-1 mesh, the dp / tp "
+                    "two-rank and the composed eight-rank runs")
     ap.add_argument("--shard-rank", metavar="JOB",
                     help="run one rank of the sharded phase's two-rank runs "
                     "(started by this script)")
+    ap.add_argument("--mesh-rank", metavar="JOB",
+                    help="run one rank of the mesh phase's dp / tp and "
+                    "composed runs (started by this script)")
     args = ap.parse_args()
 
     if args.shard_rank:
         return shard_rank_main(args.shard_rank)
+    if args.mesh_rank:
+        return mesh_rank_main(args.mesh_rank)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -3886,6 +4599,38 @@ def main() -> int:
     prefill = args.prefill
     s_kv = prefill + GEN + 4 * (GAMMA + 2)
     s_rkv = 4096 + TREE_SIZE + spectree._padded_levels(gm)[0]
+    w_pad = spectree._padded_levels(gm)[0]      # the padded level width
+    s_tree = prefill + TREE_GEN + TREE_FORCED_GEN + 4 * TREE_SIZE \
+        + TREE_SIZE + w_pad
+    if args.mesh:
+        _stamp("kernel mesh shapes")
+        kernel_mesh_shapes(fd, att, cache, dev, prefill, s_tree, s_rkv,
+                           w_pad)
+        for name, quant in (("bf16", False), ("int8", True)):
+            _stamp(f"tree mesh world 1 [{name}]")
+            tp = llama.init_params(tc.LLAMA2_7B_128K, device=dev,
+                                   dtype=torch.bfloat16, seed=0)
+            if quant:
+                tp = llama.quantize_weights(tp)
+            mesh = mesh_mod.single_device_mesh(dev)
+            print(json.dumps(tree_mesh_world1(
+                tc, llama, planner, spectree, mesh, fd, rk, dev, tp,
+                TREE_MESH_PREFILL, quant)), flush=True)
+            torch.distributed.destroy_process_group()
+            del tp
+            torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory(prefix="triforce_mesh_") as tmp:
+            _stamp("mesh two ranks")
+            print(json.dumps(mesh_two_ranks(tc, llama, Engine, batched_spec,
+                                            batching, dev, tmp)), flush=True)
+            _stamp("mesh composed")
+            print(json.dumps(mesh_composed(tc, llama, Engine, batched_spec,
+                                           dev, tmp)), flush=True)
+        _stamp("end")
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     if args.study:
         print(json.dumps({"kernel_study": kernel_study(
             fd, rk, cache, dev, prefill, s_kv, s_rkv, gm.mask)}), flush=True)
@@ -3917,9 +4662,6 @@ def main() -> int:
     # (the path's 128-node tree, and a 512-node one: the widest q tile)
     pv = planner.modeled_acceptance_vector(0.8, 4)
     gm512 = planner.build_grow_map(*planner.plan_tree(pv, 512, 16), 512, 16)
-    w_pad = spectree._padded_levels(gm)[0]      # the padded level width
-    s_tree = prefill + TREE_GEN + TREE_FORCED_GEN + 4 * TREE_SIZE \
-        + TREE_SIZE + w_pad
     for quant in (False, True):
         b1[quant] += [
             kernel_b1(fd, cache, dev, TREE_SIZE, TREE_SIZE, prefill, s_tree,
@@ -3950,6 +4692,13 @@ def main() -> int:
     shards = kernel_shards(fd, att, rk, rt, cache, dev, prefill)
     for quant in (False, True):
         b4[quant] += shards[quant]["b4"]
+    # B4 and B3 at the rest of the mesh's shapes
+    _stamp("kernel mesh shapes")
+    mshapes = kernel_mesh_shapes(fd, att, cache, dev, prefill, s_tree, s_rkv,
+                                 w_pad)
+    for quant in (False, True):
+        b4[quant] += mshapes[quant]["b4"]
+        b3[quant] += mshapes[quant]["b3"]
     # every kernel at the GQA model's shapes (the cli phase's run)
     _stamp("GQA kernel gates")
     gates = gqa_gates()
@@ -3981,7 +4730,22 @@ def main() -> int:
                    for name, quant in (("bf16", False), ("int8", True))}
         print(json.dumps({"rows_equal_batch1": rows_eq}), flush=True)
         torch.cuda.empty_cache()
-        e2e, bat_e2e, tree_e2e, mesh1 = {}, {}, {}, {}
+        # the mesh's ranks share the card: they run while this process
+        # holds little of it (the later phases leave several GiB behind)
+        _stamp("mesh two ranks")
+        with tempfile.TemporaryDirectory(prefix="triforce_mesh_") as tmp:
+            mesh2 = mesh_two_ranks(tc, llama, Engine, batched_spec, batching,
+                                   dev, tmp)
+        print("mesh two ranks: " + json.dumps(mesh2), flush=True)
+        torch.cuda.empty_cache()
+        _stamp("mesh composed")
+        with tempfile.TemporaryDirectory(prefix="triforce_mesh_") as tmp:
+            composed = mesh_composed(tc, llama, Engine, batched_spec, dev,
+                                     tmp)
+        print("mesh composed: " + json.dumps(composed), flush=True)
+        torch.cuda.empty_cache()
+        e2e, bat_e2e, tree_e2e, mesh1, tree_mesh1 = {}, {}, {}, {}, {}
+        e2e_prefill = min(prefill, E2E_PREFILL)
         tcfg, dcfg = tc.LLAMA2_7B_128K, tc.LLAMA_68M
         spec = tc.SpecConfig(gamma=GAMMA, budget=4096, chunk_size=8)
         for name, quant in (("bf16", False), ("int8", True)):
@@ -3991,8 +4755,8 @@ def main() -> int:
             dp = llama.init_params(dcfg, device=dev, dtype=torch.bfloat16,
                                    seed=1)
             eng = Engine(tcfg, spec, tp, draft_cfg=dcfg, draft_params=dp,
-                         prefill=prefill,
-                         max_cache_len=prefill + GEN + 4 * (GAMMA + 2),
+                         prefill=e2e_prefill,
+                         max_cache_len=e2e_prefill + GEN + 4 * (GAMMA + 2),
                          dtype=torch.bfloat16, device=dev, kv_quant=quant,
                          weight_quant=quant)
             if quant:    # the batched phase runs the same int8 weights
@@ -4004,7 +4768,7 @@ def main() -> int:
                   flush=True)
             _stamp(f"end to end [{name}]")
             e2e[name] = end_to_end(tc, decoding, llama, eng, fd, rk, dev,
-                                   prefill, quant)
+                                   e2e_prefill, quant)
             del eng
             torch.cuda.empty_cache()
             # the batch-1 TriForce run counts B1 and B2, the batched phases
@@ -4018,7 +4782,7 @@ def main() -> int:
             # a world of one rank, NCCL on this card, for this phase alone
             mesh = mesh_mod.single_device_mesh(dev)
             mesh1[name] = sharded_world1(tc, llama, Engine, mesh, fd, rk,
-                                         dev, prefill, quant, tp, dp,
+                                         dev, e2e_prefill, quant, tp, dp,
                                          e2e[name]["graphs"])
             torch.distributed.destroy_process_group()
             torch.cuda.empty_cache()
@@ -4026,10 +4790,19 @@ def main() -> int:
                   flush=True)
             _stamp(f"tree end to end [{name}]")
             tree_e2e[name] = tree_end_to_end(tc, planner, spectree, fd, rk,
-                                             dev, tp, prefill, quant)
+                                             dev, tp, e2e_prefill, quant)
             torch.cuda.empty_cache()
             print(f"tree end to end [{name}]: " + json.dumps(tree_e2e[name]),
                   flush=True)
+            _stamp(f"tree mesh world 1 [{name}]")
+            mesh = mesh_mod.single_device_mesh(dev)
+            tree_mesh1[name] = tree_mesh_world1(
+                tc, llama, planner, spectree, mesh, fd, rk, dev, tp,
+                TREE_MESH_PREFILL, quant)
+            torch.distributed.destroy_process_group()
+            torch.cuda.empty_cache()
+            print(f"tree mesh world 1 [{name}]: "
+                  + json.dumps(tree_mesh1[name]), flush=True)
             _stamp(f"batched end to end [{name}]")
             bat_e2e[name] = batched_end_to_end(
                 tc, llama, Engine, batched_spec, batching, fd, rk, dev, tp,
@@ -4049,6 +4822,8 @@ def main() -> int:
             for k in (k4, b12[1]):
                 by_phase[k]["mesh world 1 (triforce, forced, ar)"] = \
                     mesh1[name]["launches"][k]
+                for what, lc in tree_mesh1[name]["launches"].items():
+                    by_phase[k][f"tree mesh world 1 ({what})"] = lc[k]
             print(f"batched end to end [{name}]: " + json.dumps(bat_e2e[name]),
                   flush=True)
         by_phase["b3"]["ar_serving_int8_weights"] = \
@@ -4056,13 +4831,21 @@ def main() -> int:
         _stamp("sharded two ranks")
         t0 = time.perf_counter()
         with tempfile.TemporaryDirectory(prefix="triforce_ranks_") as tmp:
-            two = sharded_two_ranks(tc, llama, Engine, fd, rk, dev, tmp)
+            two = sharded_two_ranks(tc, llama, Engine, fd, rk, dev, tmp,
+                                    layers=SHARD_LAYERS)
         print(f"sharded two ranks: {time.perf_counter() - t0:.1f} s; "
               + json.dumps(two), flush=True)
         for run, r in two.items():
             for k in ("b4", "b2"):
                 by_phase[k][f"two ranks {run} (rank 0)"] = r["launches"][k]
         torch.cuda.empty_cache()
+        for name, r in (("mesh two ranks", mesh2), ("mesh composed",
+                                                     composed)):
+            for part, lc in r["launches"].items():
+                for k, n in lc.items():
+                    if n:
+                        by_phase.setdefault(k, {})[
+                            f"{name} {part} (rank 0)"] = n
         _stamp("cli phase")
         for tag, got in cli_run()["launches"].items():
             for k, n in got.items():

@@ -417,7 +417,7 @@ def test_spec_scheduler_retires_on_eos_matches_jax(weights, serving_engines):
 
 
 # ---------------------------------------------------------------------------
-# what is not ported raises; no card and no device raises
+# what is not a mesh raises; no card and no device raises
 # ---------------------------------------------------------------------------
 
 def test_required_headroom_matches_jax():
@@ -431,7 +431,10 @@ def test_required_headroom_matches_jax():
     lambda eng: tbs.SpecScheduler(eng, mesh=object()),
 ], ids=["BatchedSpecEngine", "SpecScheduler"])
 def test_mesh_raises_not_implemented(weights, build):
-    with pytest.raises(NotImplementedError):
+    """Rows over a mesh run (``tests/test_torch_sharded_rows_tree.py``);
+    what is not a ``parallel.mesh.Mesh`` is refused, as ``Engine``
+    refuses it."""
+    with pytest.raises(TypeError, match="Mesh"):
         build(_t_engine(weights))
 
 

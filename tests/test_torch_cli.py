@@ -107,14 +107,14 @@ def test_cli_pg19_fixture_with_stub_tokenizer(monkeypatch):
 
 
 def test_cli_multi_gpu_flags_exit_nonzero():
-    """Outside a process group of their size, --tp and --sp exit naming
-    the torchrun launch; --dp above 1 waits for ROADMAP A11b."""
-    for flag, why in (("--tp", "torchrun"), ("--sp", "torchrun"),
-                      ("--dp", "A11b")):
+    """Outside a process group of their size, --tp, --sp and --dp (with
+    the --batch rows it splits) exit naming the torchrun launch."""
+    for flags in (["--tp", "2"], ["--sp", "2"], ["--dp", "2", "--batch",
+                                                 "2"]):
         with pytest.raises(SystemExit) as e:
-            tcli.main(["--mode", "ar", *COMMON, flag, "2"])
+            tcli.main(["--mode", "ar", *COMMON, *flags])
         assert e.value.code not in (0, None)
-        assert why in str(e.value.code)
+        assert "torchrun" in str(e.value.code)
 
 
 def test_cli_without_device_and_card_raises(monkeypatch):
@@ -280,6 +280,10 @@ def test_cli_tp_sp_over_four_ranks_gives_the_tp1_tokens(name, tmp_path):
 @pytest.mark.parametrize("extra", [["--mode", "tree"], ["--batch", "2"]],
                          ids=["tree", "batch"])
 def test_cli_mesh_refuses_what_waits_for_a11b(extra):
+    """The tree mode and --batch run over a mesh
+    (``tests/test_torch_sharded_rows_tree.py``); outside a process group
+    of its size they exit naming the torchrun launch, as every mode
+    does."""
     with pytest.raises(SystemExit) as e:
         tcli.main(["--mode", "retrieval", *COMMON, "--tp", "2", *extra])
-    assert "A11b" in str(e.value.code)
+    assert "torchrun" in str(e.value.code)

@@ -396,6 +396,8 @@ B3_CASES = [
 
 
 def _b3_inputs(dev, gt, tn, k_lens, s, d, per_row_mask, hkv=4):
+    """Row-batched inputs: q [rows, Hkv, GT, D], the new block, a strided
+    row-stacked cache layer, the mask and the lengths."""
     rows = len(k_lens)
     q, kn, vn = (_randn(dev, 0, rows, hkv, gt, d),
                  _randn(dev, 1, rows, hkv, tn, d),
@@ -436,6 +438,86 @@ def test_flash_decode_batched_matches_plain_and_b1(dev, gt, tn, k_lens, s, d,
         one = tfd.flash_decode_append(q[b], k[b], v[b], kn[b], vn[b], kl[b],
                                       m.contiguous())
         assert torch.equal(out[b], one)
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_flash_decode_batched_over_16_heads(dev, quant):
+    """B3 at a tp-2 rank of Llama2-7B: 16 KV heads, 2 rows at 8192 keys
+    (one ragged), the outer verify's 8 rows: within B1's bound of the
+    plain version, and row by row B1's bits."""
+    k_lens = [8192, 5000]
+    q, kn, vn, k, v, mask, kl = _b3_inputs(dev, 8, 8, k_lens, 8192 + 64,
+                                           128, False, hkv=16)
+    k, v = k[:, 1], v[:, 1]
+    if quant:
+        (k, ks), (v, vs) = tcache.quantize_tokens(k), \
+            tcache.quantize_tokens(v)
+        out = tfd.flash_decode_append_batched_int8(q, k, v, kn, vn, kl, mask,
+                                                   ks, vs)
+        ref = tfd.flash_decode_append_batched_int8_plain(
+            q, k, v, kn, vn, kl, mask, ks, vs, group=tfd.KERNEL_GROUP)
+        ones = [tfd.flash_decode_append_int8(q[b], k[b], v[b], kn[b], vn[b],
+                                             kl[b], mask, ks[b], vs[b])
+                for b in range(2)]
+        tol = 0.005
+    else:
+        out = tfd.flash_decode_append_batched(q, k, v, kn, vn, kl, mask)
+        ref = tfd.flash_decode_append_batched_plain(q, k, v, kn, vn, kl,
+                                                    mask)
+        ones = [tfd.flash_decode_append(q[b], k[b], v[b], kn[b], vn[b],
+                                        kl[b], mask) for b in range(2)]
+        tol = 0.05
+    torch.cuda.synchronize()
+    for b, n in enumerate(k_lens):
+        assert (out[b] - ref[b]).abs().max().item() <= tol / (n + 8) ** 0.5
+        assert torch.equal(out[b], ones[b])
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_rows_partials_merged_over_sp_match_b3(dev, quant):
+    """Rows over sp: each row's B4 partials over its part of each rank's
+    slots (two ranks as threads, ``torch_mesh_worker.run_threads``),
+    merged over sp and folded with the new block
+    (``append_attention_rows_sharded``), against B3 on the whole cache:
+    three rows at 3000, 0 (a dead row) and 1500 keys over 2 x 2048 slots,
+    within B1's bound over sqrt(k_len + Tn) plus one bf16 ulp of the
+    row's largest output (both round their fp32 result to bf16)."""
+    from torch_mesh_worker import run_threads
+    from triforce_tpu_torch.ops import sp_attention as tsp
+    k_lens, tn, hkv, d, s = [3000, 0, 1500], 8, 4, 128, 4096
+    q, kn, vn, k, v, _, kl = _b3_inputs(dev, tn, tn, k_lens, s, d, False,
+                                        hkv=hkv)
+    k, v = k[:, 1].contiguous(), v[:, 1].contiguous()   # q: G 1
+    ks = vs = None
+    if quant:
+        (k, ks), (v, vs) = tcache.quantize_tokens(k), \
+            tcache.quantize_tokens(v)
+    want = tatt.append_attention_rows(q, k, v, kn, vn, k_len=kl, k_scale=ks,
+                                      v_scale=vs)
+
+    def rank(mesh):
+        half = s // 2
+        i = mesh.index("sp")
+
+        def cut(x):
+            return None if x is None else \
+                x[:, :, i * half:(i + 1) * half].contiguous()
+        return tsp.append_attention_rows_sharded(
+            mesh, q, cut(k), cut(v), kn, vn, k_len=kl, k_scale=cut(ks),
+            v_scale=cut(vs))
+
+    before = tfd.flash_decode_partials_int8.launches if quant \
+        else tfd.flash_decode_partials.launches
+    outs = run_threads(rank, sp=2)
+    torch.cuda.synchronize()
+    after = tfd.flash_decode_partials_int8.launches if quant \
+        else tfd.flash_decode_partials.launches
+    assert after - before == 2 * len(k_lens)      # one a row a rank
+    assert torch.equal(outs[0], outs[1])
+    for b, n in enumerate(k_lens):
+        err = (outs[0][b].float() - want[b].float()).abs().max().item()
+        ulp = want[b].float().abs().max().item() * 2 ** -7
+        assert err <= (0.005 if quant else 0.05) / (n + tn) ** 0.5 + ulp
 
 
 @pytest.mark.parametrize("gt,tn,k_lens,s,d,per_row_mask", B3_CASES)
@@ -512,6 +594,12 @@ B4_CASES = [
     (288, 4096, 4260, 64),
     (176, 4096, 4260, 64),
     (8, 4096, 4260, 64),
+    # over a mesh every attention is B4: the tree verify (GT 128 at D 128;
+    # tinyllama-1.1b-128k's G 8 x 128 = 1024 at D 64) and a row's verify
+    # over a shard
+    (128, 8192, 8400, 128),
+    (1024, 8192, 8400, 64),
+    (8, 4096, 4160, 128),
 ]
 
 

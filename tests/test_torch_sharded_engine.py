@@ -9,7 +9,8 @@ logits by float rounding alone) and, at temperature 1e-4, the JAX engine's
 processes of ``torch_mesh_worker.py`` (4 for the tp x sp cases, 2 for the
 two-process decode launched torchrun's way); the JAX references are made
 here. In-process, a one-rank mesh must match the meshless engine bit for
-bit, and what waits for ROADMAP A11b must refuse a mesh.
+bit, and so must the batched rows, the scheduler and the tree engine over
+it.
 """
 
 import dataclasses
@@ -25,6 +26,7 @@ from triforce_tpu import config as jcfg
 from triforce_tpu.engine import Engine as JEngine
 from triforce_tpu.models import llama as jl
 from triforce_tpu_torch import batched_spec as tbs
+from triforce_tpu_torch import batching as tbatching
 from triforce_tpu_torch import config as tcfg
 from triforce_tpu_torch import profiling as tprof
 from triforce_tpu_torch.engine import Engine as TEngine
@@ -190,7 +192,7 @@ def test_two_process_decode(two_process, name):
 
 
 # ---------------------------------------------------------------------------
-# in-process: a one-rank mesh, and what waits for A11b
+# in-process: a one-rank mesh
 # ---------------------------------------------------------------------------
 
 @pytest.fixture(scope="module")
@@ -254,15 +256,36 @@ def test_engine_takes_only_a_mesh():
 
 
 def test_a11b_paths_refuse_a_mesh(one_rank):
-    eng = _tiny(one_rank, shard_seq=True)
-    for build in (lambda: tbs.BatchedSpecEngine(eng),
-                  lambda: tbs.SpecScheduler(eng, slots=2)):
-        with pytest.raises(NotImplementedError, match="A11b"):
-            build()
+    """What once refused a mesh now runs over one: on a one-rank
+    mesh (every collective issued, adding nothing) batched rows of the
+    composed engine, ``SpecScheduler`` over it and ``TreeEngine(mesh=,
+    shard_seq=True)`` each equal their meshless runs bit for bit (tokens,
+    counts, served outputs); a second mesh beside a meshed engine is
+    refused."""
+    ids = [torch.from_numpy(np.random.default_rng(10 + i).integers(
+        0, 199, (1, PREFILL))) for i in range(2)]
     pvec = planner.modeled_acceptance_vector(0.8, 4)
     tree, choice = planner.plan_tree(pvec, 8, 4)
     gm = planner.build_grow_map(tree, choice, 8, 4)
-    with pytest.raises(NotImplementedError, match="A11b"):
-        TreeEngine(tcfg.TINY_TARGET, gm, eng.t_params, prefill=PREFILL,
-                   max_cache_len=PREFILL + 32, budget=16, chunk_size=4,
-                   device="cpu", mesh=one_rank)
+    outs = []
+    for mesh in (None, one_rank):
+        eng = _tiny(mesh, shard_seq=mesh is not None)
+        bat = tbs.BatchedSpecEngine(eng, mode="triforce")
+        st = bat.prefill_rows(ids, [11, 22])
+        _, toks, ns, cnt, _ = bat.decode(st, 2)
+        sched = tbs.SpecScheduler(eng, slots=2, segment=2)
+        for i in range(2):
+            sched.submit(tbatching.Request(rid=i, prompt=ids[i][0].numpy(),
+                                           max_new_tokens=4))
+        served = sorted((r.rid, r.out) for r in sched.run())
+        te = TreeEngine(tcfg.TINY_TARGET, gm, eng.t_params, prefill=PREFILL,
+                        max_cache_len=PREFILL + 32, budget=16, chunk_size=4,
+                        dtype=torch.float32, prefill_chunk=16, device="cpu",
+                        mesh=mesh, shard_seq=mesh is not None, ssl=1)
+        tst = te.prefill_target(te.init_state(3), ids[0])
+        _, buf, n, c, _ = te.generate(tst, 8)
+        outs.append((toks.tolist(), ns.tolist(), cnt.tolist(), served,
+                     buf[:n].tolist(), c.tolist()))
+    assert outs[0] == outs[1]
+    with pytest.raises(ValueError, match="second mesh"):
+        tbs.BatchedSpecEngine(eng, mesh=one_rank)

@@ -403,16 +403,26 @@ def test_forward_tree_spec_act_quant_matches_jax(target):
 
 
 def test_forward_tree_spec_mesh_raises(target):
+    """The grow over a mesh runs: over a one-rank mesh (every collective
+    issued, adding nothing) ``forward_tree_spec`` gives the meshless
+    logits and retrieval cache bit for bit (tp x sp against JAX's sharded
+    grow: ``tests/test_torch_sharded_rows_tree.py``); a ``TreeEngine``
+    refuses what is not a ``parallel.mesh.Mesh``."""
+    from triforce_tpu_torch.parallel import mesh as tmesh
     _, pt = target
     gm = _grow_map(tplan)
-    rt = tcache.init_tree_retrieval(TC, BUDGET, gm.size, dtype=torch.float32,
-                                    device="cpu")
-    with pytest.raises(NotImplementedError):
-        tl.forward_tree_spec(TC, pt, torch.zeros((1, 1), dtype=torch.int64),
-                             rt, 32, BUDGET, depths=gm.depth[0:1],
-                             ancestor_mask=gm.mask[0:1], slot_start=0,
-                             mesh=object())
-    with pytest.raises(NotImplementedError):
+    outs = []
+    for mesh in (None, tmesh.single_device_mesh(device="cpu")):
+        rt = tcache.init_tree_retrieval(TC, BUDGET, gm.size,
+                                        dtype=torch.float32, device="cpu")
+        lt, rt, _ = tl.forward_tree_spec(
+            TC, pt, torch.full((1, 1), 7, dtype=torch.int64), rt, 32,
+            BUDGET, depths=gm.depth[0:1], ancestor_mask=gm.mask[0:1],
+            slot_start=0, mesh=mesh)
+        outs.append((lt, rt.k))
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert torch.equal(outs[0][1], outs[1][1])
+    with pytest.raises(TypeError, match="Mesh"):
         ttree.TreeEngine(TC, gm, pt, prefill=PREFILL, max_cache_len=64,
                          budget=BUDGET, chunk_size=CHUNK, device="cpu",
                          mesh=object())

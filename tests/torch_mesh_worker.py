@@ -1,6 +1,7 @@
 """Helpers for the port's multi-rank tests (``test_torch_sp_attention.py``,
 ``test_torch_sharding.py``, ``test_torch_sharded_engine.py``,
-``test_torch_cli.py``); not collected by pytest.
+``test_torch_sharded_rows_tree.py``, ``test_torch_cli.py``); not collected
+by pytest.
 
 Two ways to run ranks of a ``triforce_tpu_torch.parallel.mesh.Mesh``:
 
@@ -80,14 +81,15 @@ class ThreadMesh:
         return x
 
 
-def run_threads(fn, tp=1, sp=1):
-    """``fn(mesh)`` on every rank of a tp x sp mesh of threads; returns
-    the results in rank order (row-major, sp fastest)."""
-    hub = _Hub(dict(dp=1, tp=tp, sp=sp))
+def run_threads(fn, tp=1, sp=1, dp=1):
+    """``fn(mesh)`` on every rank of a dp x tp x sp mesh of threads;
+    returns the results in rank order (row-major, sp fastest)."""
+    hub = _Hub(dict(dp=dp, tp=tp, sp=sp))
     out, errs = {}, []
 
     def one(r):
-        mesh = ThreadMesh(hub, dict(dp=0, tp=r // sp, sp=r % sp))
+        mesh = ThreadMesh(hub, dict(dp=r // (tp * sp), tp=(r // sp) % tp,
+                                    sp=r % sp))
         try:
             out[r] = fn(mesh)
         except BaseException as e:          # reported in the caller
@@ -95,16 +97,16 @@ def run_threads(fn, tp=1, sp=1):
             for b, _ in hub.groups.values():
                 b.abort()
 
-    threads = [threading.Thread(target=one, args=(r,))
-               for r in range(tp * sp)]
+    n = dp * tp * sp
+    threads = [threading.Thread(target=one, args=(r,)) for r in range(n)]
     for t in threads:
         t.start()
     for t in threads:
         t.join(120)
     if errs:
         raise errs[0]
-    assert len(out) == tp * sp, "a rank thread did not finish"
-    return [out[r] for r in range(tp * sp)]
+    assert len(out) == n, "a rank thread did not finish"
+    return [out[r] for r in range(n)]
 
 
 # ---------------------------------------------------------------------------
@@ -222,9 +224,9 @@ def _case_attention(mesh, job, case):
     return out.numpy().tolist()
 
 
-def _engine(mesh, job, case, temperature, kv_quant):
+def _load(job):
+    """The job's target config and its target and drafter params."""
     from triforce_tpu_torch import config as tcfg
-    from triforce_tpu_torch.engine import Engine
     from triforce_tpu_torch.models import llama as tl
     cfg = dict(job["target_cfg"])
     cfg = tcfg.ModelConfig(rope=tcfg.RopeConfig(**cfg.pop("rope")), **cfg)
@@ -241,9 +243,17 @@ def _engine(mesh, job, case, temperature, kv_quant):
 
     pt = tl.params_from_numpy(tree("t."), cfg, "cpu")
     pd = tl.params_from_numpy(tree("d."), tcfg.TINY_DRAFT, "cpu")
+    return cfg, pt, pd
+
+
+def _engine(mesh, job, case, temperature, kv_quant, max_new=32):
+    from triforce_tpu_torch import config as tcfg
+    from triforce_tpu_torch.engine import Engine
+    cfg, pt, pd = _load(job)
     spec = tcfg.SpecConfig(**dict(job["spec"], temperature=temperature))
     return Engine(cfg, spec, pt, draft_cfg=tcfg.TINY_DRAFT, draft_params=pd,
-                  prefill=job["prefill"], max_cache_len=job["prefill"] + 32,
+                  prefill=job["prefill"],
+                  max_cache_len=job["prefill"] + max_new,
                   dtype=torch.float32, prefill_chunk=16,
                   draft_prefill_chunk=8, device="cpu", mesh=mesh,
                   shard_seq=mesh is not None and mesh.shape["sp"] > 1,
@@ -280,16 +290,94 @@ def run_engine_case(mesh, job, case):
     return _tokens(buf[:n])
 
 
+def tree_grow_map(size=8, depth=4, branch=3):
+    """The tiny tree of ``tests/test_torch_tree.py`` (8 nodes, depth 4)."""
+    from triforce_tpu_torch.tree import planner
+    p = planner.modeled_acceptance_vector(0.8, max_branch=branch)
+    tree, choice = planner.plan_tree(p, max_budget=size, max_depth=depth)
+    return planner.build_grow_map(tree, choice, size, depth)
+
+
+def run_tree_case(mesh, job, case):
+    """Up to 4 steps of a ``TreeEngine`` (tp x sp over ``mesh``, the full
+    cache's slots split over sp): per step [n_nodes, n_emitted, tokens,
+    kv length]."""
+    from triforce_tpu_torch.tree.spectree import TreeEngine
+    cfg, pt, _ = _load(job)
+    spec = job["spec"]
+    eng = TreeEngine(cfg, tree_grow_map(), pt, prefill=job["prefill"],
+                     max_cache_len=job["prefill"] + 64,
+                     budget=spec["budget"], chunk_size=spec["chunk_size"],
+                     temperature=case["temperature"], top_p=0.9,
+                     dtype=torch.float32, prefill_chunk=16, device="cpu",
+                     mesh=mesh, shard_seq=mesh is not None
+                     and mesh.shape["sp"] > 1,
+                     kv_quant=case.get("kv_quant", False),
+                     weight_quant=case.get("weight_quant", False),
+                     ssl=case.get("ssl", 0))
+    st = eng.prefill_target(eng.init_state(7),
+                            torch.tensor(job["tree_ids"], dtype=torch.int64))
+    out = []
+    for _ in range(4):
+        st, s = eng.step(st)
+        out.append([s.n_nodes, s.n_emitted, _tokens(s.tokens),
+                    int(st.kv.seq_len)])
+        if s.terminal:
+            break
+    return out
+
+
+def run_rows_case(mesh, job, case):
+    """3 steps of ``BatchedSpecEngine`` over ``job["rows"]``: rows over the
+    mesh's dp axis, beside a meshless engine (a dp-only mesh) or with the
+    engine over the whole dp x tp x sp mesh. Returns the global tokens,
+    emitted counts and counters."""
+    from triforce_tpu_torch.batched_spec import BatchedSpecEngine
+    composed = mesh is not None and mesh.shape["tp"] * mesh.shape["sp"] > 1
+    eng = _engine(mesh if composed else None, job, case,
+                  case["temperature"], case.get("kv_quant", False))
+    bat = BatchedSpecEngine(eng, mode=case["mode"],
+                            mesh=None if composed else mesh)
+    st = bat.prefill_rows([torch.tensor([p], dtype=torch.int64)
+                           for p in job["rows"]], job["seeds"])
+    _, toks, ns, counters, _ = bat.decode(st, 3)
+    return dict(tokens=toks.tolist(), n_emitted=ns.tolist(),
+                counters=counters.tolist(), rows=len(st.gens))
+
+
+def run_serve_case(mesh, job, case):
+    """``job["requests"]`` through ``SpecScheduler`` (slots over the mesh's
+    dp axis, a meshless engine): every request's output by id."""
+    from triforce_tpu_torch.batched_spec import SpecScheduler
+    from triforce_tpu_torch.batching import Request
+    eng = _engine(None, job, case, case["temperature"], False, max_new=256)
+    sched = SpecScheduler(eng, mode=case["mode"], slots=case["slots"],
+                          segment=2, mesh=mesh)
+    for i, p in enumerate(job["requests"]):
+        sched.submit(Request(rid=i, prompt=np.asarray(p),
+                             max_new_tokens=case["max_new"]))
+    done = sched.run(max_wall_s=RUN_TIMEOUT_S)
+    return sorted([r.rid, r.out] for r in done)
+
+
 def _case_cli(job) -> dict:
     """``cli.main`` on this rank (it joins the process group itself): its
-    tokens and what it printed."""
+    tokens (a served run: every request's, by id) and what it printed."""
     import contextlib
     import io
     from triforce_tpu_torch import cli
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         res = cli.main(job["argv"])
+    if isinstance(res, list):
+        return {"tokens": sorted([r.rid, r.out] for r in res),
+                "stdout": out.getvalue()}
     return {"tokens": res.tokens, "stdout": out.getvalue()}
+
+
+_CASES = {"attention": "_case_attention", "engine": "run_engine_case",
+          "tree": "run_tree_case", "rows": "run_rows_case",
+          "serve": "run_serve_case"}
 
 
 def main(path: str) -> None:
@@ -305,9 +393,8 @@ def main(path: str) -> None:
         out = {}
         for case in job["cases"]:
             mesh = mesh_mod.make_mesh(tp=case["tp"], sp=case["sp"],
-                                      device="cpu")
-            fn = _case_attention if case["kind"] == "attention" \
-                else run_engine_case
+                                      dp=case.get("dp", 1), device="cpu")
+            fn = globals()[_CASES[case["kind"]]]
             out[case["name"]] = fn(mesh, job, case)
             out[case["name"] + " collectives"] = dict(mesh.collectives)
         import torch.distributed as dist

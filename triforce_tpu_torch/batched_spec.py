@@ -27,6 +27,18 @@ in place (``write_row``), copies the row's generator state into the
 slot's generator and replaces the length vectors, so the loop graph
 captured on the pool replays for every request: its key holds the pool's
 caches and generators, which live as long as the pool.
+
+Over a mesh (``BatchedSpecEngine(mesh=)``, ``SpecScheduler(mesh=)``) the
+rows split in contiguous blocks over the mesh's ``dp`` axis
+(``sharding.row_block``, JAX's ``P("dp")``): each rank prefills and holds
+its own rows, and a ``decode`` call gathers every row's tokens and counts
+over ``dp`` once, after its loop, before its one read-back
+(``engine.decode_rows``), so every rank returns the global [B, ...]
+result. Two shapes, as in the JAX package (``batched_spec.py:114-160``):
+dp alone, a dp mesh beside a meshless engine (the rows' steps then issue no
+collective), and the composed dp x tp x sp mesh, which the engine carries
+(each dp index's (tp, sp) group runs its rows' forwards over its heads and
+slots).
 """
 
 from __future__ import annotations
@@ -41,6 +53,8 @@ from .cache import (KVCache, RetrievalCache, StreamingCache, init_kv_rows,
                     set_entry, stack_rows, write_row)
 from .engine import (_COUNTS, BatchedStepStats, Engine, StackedState,
                      TriForceState, decode_rows)
+from .parallel import sharding
+from .parallel.mesh import Mesh
 
 # the columns of a batched step's counts (``engine._counts_of``)
 _COLS = ("n_emitted",) + _COUNTS + ("eos",)
@@ -67,18 +81,19 @@ def blank_stacked_state(engine: Engine, b: int, seeds) -> StackedState:
     """A row-stacked BLANK pool built directly at stacked shapes, with one
     seeded generator per row: peak memory is the pool alone. Blank rows
     have ``seq_len`` 0, i.e. they are gated until ``write_state_row`` fills
-    them."""
+    them. Over the engine's mesh the caches have this rank's shapes
+    (``Engine.local_target``)."""
     dev = engine.device
+    cfg, slots = engine.local_target()
     dkv = None
     if engine.draft_cfg is not None:
         dkv = init_streaming_rows(engine.draft_cfg, engine.spec, b,
                                   engine.dtype, device=dev)
     return StackedState(
-        kv=init_kv_rows(engine.target_cfg, engine.max_cache_len, b,
-                        engine.dtype, device=dev, quant=engine.kv_quant),
-        rkv=init_retrieval_rows(engine.target_cfg, engine.spec, b,
-                                engine.dtype, device=dev,
-                                quant=engine.kv_quant),
+        kv=init_kv_rows(cfg, slots, b, engine.dtype, device=dev,
+                        quant=engine.kv_quant),
+        rkv=init_retrieval_rows(cfg, engine.spec, b, engine.dtype,
+                                device=dev, quant=engine.kv_quant),
         dkv=dkv,
         next_token=torch.zeros((b,), dtype=torch.int64, device=dev),
         gens=[torch.Generator(device=dev).manual_seed(s) for s in seeds])
@@ -153,14 +168,31 @@ class BatchedSpecEngine:
     Built ON an existing batch-1 ``Engine`` (same configs, same params).
     ``mode`` is 'retrieval' (self-speculation) or 'triforce' (3-level with
     drafter). ``force_accept``: the controlled-acceptance coin of
-    ``Engine.generate_forced``, applied per row. Rows over a device mesh
-    (``mesh``, or an engine over one) are not ported (ROADMAP A11b)."""
+    ``Engine.generate_forced``, applied per row.
+
+    ``mesh``: a dp-only ``parallel.mesh.Mesh`` over whose ``dp`` axis the
+    rows split, beside a meshless engine; an engine over a mesh brings its
+    own (the composed dp x tp x sp case) and takes no second one. Every
+    rank of the mesh makes the same calls."""
 
     def __init__(self, engine: Engine, mode: str = "retrieval",
                  force_accept=None, mesh=None):
-        if mesh is not None or engine.mesh is not None:
-            raise NotImplementedError("batched rows over a mesh are not "
-                                      "ported yet (ROADMAP A11b)")
+        if engine.mesh is not None:
+            if mesh is not None:
+                raise ValueError("the engine's mesh already carries (dp, "
+                                 "tp, sp); pass no second mesh")
+            mesh = engine.mesh
+        elif mesh is not None:
+            if not isinstance(mesh, Mesh):
+                raise TypeError(f"mesh must be a parallel.mesh.Mesh, got "
+                                f"{type(mesh).__name__}")
+            if mesh.shape["tp"] * mesh.shape["sp"] != 1:
+                raise ValueError("beside a meshless engine the rows take a "
+                                 "dp-only mesh; build the engine over a "
+                                 "tp / sp mesh instead")
+            if mesh.device != engine.device:
+                raise ValueError(f"the mesh is on {mesh.device}, the engine "
+                                 f"on {engine.device}")
         if mode not in ("triforce", "retrieval"):
             raise ValueError(mode)
         if mode == "triforce" and engine.draft_cfg is None:
@@ -168,37 +200,50 @@ class BatchedSpecEngine:
         self.engine = engine
         self.mode = mode
         self.force_accept = force_accept
+        self.mesh = mesh
         self.steps = 0             # batched steps run so far
         self.target_forwards = 0   # batched target forwards they ran (the
-        #                            device's count, read back per call)
+        #                            device's count, read back per call;
+        #                            this rank's over a mesh)
+
+    def rows(self, n: int) -> range:
+        """The rows of an ``n``-row batch this rank holds
+        (``sharding.row_block``; all of them without a mesh)."""
+        return sharding.row_block(self.mesh, n)
 
     def prefill_rows(self, prompts, seeds) -> StackedState:
         """Prefill each row through the batch-1 engine and write it into a
         blank stacked pool (prefill is compute-bound: batching it buys
         little; decode is where rows share the weights). Writing row by
-        row keeps the peak at the pool plus ONE row."""
+        row keeps the peak at the pool plus ONE row. Over a mesh the rows
+        must divide over ``dp`` (``batched_spec.py:241-242``), and each
+        rank prefills and holds only its own block of them."""
         eng = self.engine
-        state = blank_stacked_state(eng, len(prompts), seeds)
-        for i, (ids, seed) in enumerate(zip(prompts, seeds)):
-            st = eng.init_state(seed)
-            st = eng.prefill_target(st, ids)
+        mine = self.rows(len(prompts))
+        state = blank_stacked_state(eng, len(mine),
+                                    [seeds[i] for i in mine])
+        for j, i in enumerate(mine):
+            st = eng.init_state(seeds[i])
+            st = eng.prefill_target(st, prompts[i])
             if self.mode == "triforce":
-                st = eng.prefill_draft(st, ids)
-            state = write_state_row(state, st, i)
+                st = eng.prefill_draft(st, prompts[i])
+            state = write_state_row(state, st, j)
             del st
         return state
 
     def _decode(self, state: StackedState, steps: int):
         state, toks, counts, forwards = decode_rows(
-            self.engine, state, self.mode, steps, self.force_accept)
+            self.engine, state, self.mode, steps, self.force_accept,
+            self.mesh)
         self.steps += steps
         self.target_forwards += forwards
         return state, toks, counts, forwards
 
     def step(self, state: StackedState):
         """One speculation step for EVERY row (a ``decode`` call of one
-        step: one read-back). Returns (state, ``BatchedStepStats``). The
-        caches of ``state`` are updated in place."""
+        step: one read-back). Returns (state, ``BatchedStepStats``; over a
+        mesh, every row's). The caches of ``state`` are updated in
+        place."""
         state, toks, counts, forwards = self._decode(state, 1)
         c = dict(zip(_COLS, counts[:, 0].unbind(-1)))
         eos = c.pop("eos") != 0
@@ -211,7 +256,8 @@ class BatchedSpecEngine:
         read-back (``engine.decode_rows``). Returns (state, tokens [B,
         steps, gamma+2], n_emitted [B, steps], counters [B, 4] = per-row
         (accepted, proposed, mid_verify, mid_live), eos [B, steps]), the
-        last four as numpy arrays."""
+        last four as numpy arrays over every row of the batch (over a
+        mesh, gathered over ``dp``; ``state`` stays this rank's rows)."""
         state, toks, counts, _ = self._decode(state, steps)
         counts = counts.numpy()
         return (state, toks.numpy(), counts[..., 0],
@@ -243,7 +289,17 @@ class SpecScheduler(batching.SchedulerBase):
     prefill's graphs, the retrieval build's among them, replay from the
     second request on. A decode segment is one ``BatchedSpecEngine.decode``
     call: one loop graph per pool, captured at the first segment and
-    replayed after every admission, and one read-back a segment."""
+    replayed after every admission, and one read-back a segment.
+
+    ``mesh`` (a dp-only mesh beside a meshless engine; an engine over a
+    dp x tp x sp mesh brings its own): the slots split over ``dp`` in
+    contiguous blocks (``batched_spec.py:345-355``). Every rank runs the
+    same loop and takes the same decisions: a request's admission slices
+    follow from its length (``Engine.prefill_slice``), so only the ranks
+    holding its slot prefill it, and one collective over ``dp`` gives
+    every rank its first token when the admission completes; retirement
+    reads the segment's tokens, gathered over ``dp`` by the decode call,
+    so every rank (rank 0 among them) holds every request's output."""
 
     @staticmethod
     def required_headroom(gen_len: int, segment: int, gamma: int) -> int:
@@ -272,9 +328,10 @@ class SpecScheduler(batching.SchedulerBase):
             self.bat = BatchedSpecEngine(engine, mode=mode,
                                          force_accept=force_accept,
                                          mesh=mesh)
-        # B blank rows (seq_len 0 -> gated until admission)
+        # this rank's blank rows (seq_len 0 -> gated until admission)
+        self._mine = self.bat.rows(slots)
         self.state = blank_stacked_state(
-            engine, slots, [seed * 1000 + i for i in range(slots)])
+            engine, len(self._mine), [seed * 1000 + i for i in self._mine])
         self._pending = None   # in-flight chunked admission
         # the batch-1 row every request is prefilled into: one set of cache
         # planes, so the prefill's graphs (chunks, build, drafter chunks)
@@ -284,26 +341,43 @@ class SpecScheduler(batching.SchedulerBase):
     def _admitting(self) -> bool:
         return self._pending is not None
 
+    def _local(self, slot: int):
+        """``slot``'s row in this rank's pool, or None where another rank
+        holds it."""
+        return slot - self._mine.start if slot in self._mine else None
+
     def _admit_one(self, slot: int, req) -> bool:
         eng = self.engine
+        local = self._local(slot)
         if self._pending is None or self._pending["req"] is not req:
             ids = torch.as_tensor(np.asarray(req.prompt), dtype=torch.int64,
                                   device=eng.device)
             if ids.dim() == 1:
                 ids = ids[None]
             self._pending = {"req": req, "ids": ids, "pos": 0,
-                             "row": self._reset_row(req.rid)}
+                             "row": None if local is None
+                             else self._reset_row(req.rid)}
         p = self._pending
-        row, pos, done = eng.prefill_target_partial(
-            p["row"], p["ids"], p["pos"], self.admit_chunks)
-        p["row"], p["pos"] = row, pos
+        if local is None:        # another rank's slot: follow its slices
+            stop = eng.prefill_slice(p["pos"], self.admit_chunks)
+            done = stop >= eng.prefill - 1
+            p["pos"] = eng.prefill if done else stop
+        else:
+            row, p["pos"], done = eng.prefill_target_partial(
+                p["row"], p["ids"], p["pos"], self.admit_chunks)
+            p["row"] = row
         if not done:
             return False
-        if self.mode == "triforce":
-            row = eng.prefill_draft(row, p["ids"])
         self.stats["prefill_tokens"] += int(p["ids"].shape[-1])
-        req.out = [int(row.next_token[0])]   # the prefill sample
-        self.state = write_state_row(self.state, row, slot)
+        first = torch.zeros((1,), dtype=torch.int64, device=eng.device)
+        if local is not None:
+            if self.mode == "triforce":
+                row = eng.prefill_draft(row, p["ids"])
+            self.state = write_state_row(self.state, row, local)
+            first = row.next_token[:1].clone()
+        if self.bat.mesh is not None:   # the holder's sample, on every rank
+            self.bat.mesh.all_reduce(first, "dp")
+        req.out = [int(first[0])]       # the prefill sample
         self._pending = None
         return True
 
@@ -344,6 +418,9 @@ class SpecScheduler(batching.SchedulerBase):
     def _release_slot(self, slot: int) -> None:
         """Gate a retired slot: zero its kv/dkv lengths; the stale cache
         contents are unreachable behind the zero length."""
+        slot = self._local(slot)
+        if slot is None:
+            return
         st = self.state
         kv = dataclasses.replace(st.kv,
                                  seq_len=set_entry(st.kv.seq_len, slot, 0))

@@ -159,7 +159,14 @@ class SchedulerBase:
 
     Retirement is shared: trim at the first EOS (inclusive; EOS is a
     static id tuple like the engines'), trim to ``max_new_tokens``, retire
-    on EOS / length / force."""
+    on EOS / length / force.
+
+    Over a mesh whose ``dp`` axis splits the slots
+    (``batched_spec.SpecScheduler(mesh=)``) every rank runs this loop:
+    admission depends only on the queue and the free slots, and
+    ``_decode_segment`` returns every slot's tokens, gathered over ``dp``
+    by the decode call, so every rank takes the same decisions and holds
+    every request's output."""
 
     def __init__(self, slots: int, eos_token_id, device: torch.device,
                  graphs: graphs_mod.GraphSet):

@@ -416,7 +416,8 @@ def streaming_evict_for_spec(cache: StreamingCache, spec: SpecConfig,
 
 
 def gather_kv_incremental(kv: KVCache, accept_idx: torch.Tensor, n_accept,
-                          offset, max_accept: int, max_span: int) -> KVCache:
+                          offset, max_accept: int, max_span: int,
+                          mesh=None) -> KVCache:
     """Compact an accepted speculation-tree path in place: slot
     ``offset + accept_idx[j]`` moves to ``offset + j`` for ``j <
     n_accept``, and ``seq_len`` becomes ``offset + n_accept``.
@@ -424,7 +425,10 @@ def gather_kv_incremental(kv: KVCache, accept_idx: torch.Tensor, n_accept,
     path order (junk beyond ``n_accept``); ``max_span`` bounds the appended
     region (the tree size). The block is read before it is written (the
     move overlaps itself); an int8 cache moves its scales too. Mirrors the
-    JAX function down to its clamped slices."""
+    JAX function down to its clamped slices. ``mesh``: the cache's slots
+    are split over its ``sp`` axis; the span (which may straddle two
+    shards) is read whole on every rank (``slice_sharded``) and each rank
+    writes back the slots it owns (``write_window_sharded``)."""
     dev = kv.k.device
     offset = device_scalar(offset, dev)
     n_accept = device_scalar(n_accept, dev)
@@ -432,12 +436,16 @@ def gather_kv_incremental(kv: KVCache, accept_idx: torch.Tensor, n_accept,
     idx = accept_idx[:max_accept].to(torch.int64).clamp(0, max_span - 1)
 
     def one(buf):
-        block = slice_at(buf, offset, max_span, 3)        # a copy
+        block = slice_at(buf, offset, max_span, 3) if mesh is None \
+            else slice_sharded(buf, offset, max_span, mesh, 3)   # a copy
         gathered = block.index_select(3, idx)
         sel = sel0.reshape((1, 1, 1, max_accept) + (1,) * (buf.dim() - 4))
         block[:, :, :, :max_accept] = torch.where(
             sel, gathered, block[:, :, :, :max_accept])
-        write_at(buf, block, offset, 3)
+        if mesh is None:
+            write_at(buf, block, offset, 3)
+        else:
+            write_window_sharded(buf, block, offset, mesh, 3)
 
     one(kv.k)
     one(kv.v)
@@ -532,10 +540,27 @@ def streaming_evict_for_spec_rows(cache: StreamingCache, spec: SpecConfig,
     return cache
 
 
+def _rows_window_sharded(old: torch.Tensor, t_new: int, s_loc: int, mesh):
+    """Each row's commit window on this rank's shard of a cache whose slots
+    are split over ``sp``: row b's ``t_new`` slots start at global
+    ``old[b]`` clamped into the global cache. Returns (slots [rows, wb]:
+    distinct local slots a row, src: the window position each would take,
+    own: whether it lies in the window), as ``write_window_sharded``
+    reads, blends and writes one block for a batch-1 cache."""
+    dev = old.device
+    g0 = old.clamp(0, s_loc * mesh.shape["sp"] - t_new)
+    lo = g0 - mesh.index("sp") * s_loc           # the windows, local frame
+    wb = min(t_new, s_loc)
+    slots = lo.clamp(0, s_loc - wb)[:, None] + torch.arange(wb, device=dev)
+    src = slots - lo[:, None]
+    own = (src >= 0) & (src < t_new)
+    return slots, src.clamp(0, t_new - 1), own
+
+
 def batched_commit_and_refresh(kv: KVCache, rkv: RetrievalCache,
                                nk: torch.Tensor, nv: torch.Tensor,
                                old_lens: torch.Tensor, spec: SpecConfig,
-                               prefill: int):
+                               prefill: int, mesh=None):
     """The write-back of a batched speculation step, in place on the
     row-stacked caches: every row's new K/V ``nk``/``nv`` [rows, L, Hkv, T,
     D] is committed at its own pre-step length ``old_lens`` [rows] (the
@@ -549,6 +574,11 @@ def batched_commit_and_refresh(kv: KVCache, rkv: RetrievalCache,
     followed by ``retrieval_tail_refresh``: generated token g of a row
     lives at slot ``budget - 1 - (g mod budget)``, which is what that
     function's two clamped blocks write (``_rolling_window_blocks``).
+    ``mesh``: the full cache's slots are split over its ``sp`` axis (the
+    retrieval cache's never are): each row's window lands at its global
+    slots, each rank writing the ones it owns through one block of
+    distinct slots a row (``_rows_window_sharded``); the refresh reads the
+    new K/V, not the full cache, so it needs no collective.
     Returns (kv, rkv), the caches passed in."""
     rows, _, _, t_new, _ = nk.shape
     budget = spec.budget
@@ -565,7 +595,11 @@ def batched_commit_and_refresh(kv: KVCache, rkv: RetrievalCache,
     js = torch.arange(t_new, device=dev)
     ri = torch.arange(rows, device=dev)[:, None]               # [rows, 1]
     # commit: row b's window starts at old[b], clamped into the cache
-    c_idx = old.clamp(0, kv.max_len - t_new)[:, None] + js     # [rows, T]
+    if mesh is None:
+        c_idx = old.clamp(0, kv.max_len - t_new)[:, None] + js  # [rows, T]
+        src = own = None
+    else:
+        c_idx, src, own = _rows_window_sharded(old, t_new, kv.max_len, mesh)
     # refresh: token j of row b goes to slot budget-1-((base[b]+j) % budget)
     # when j < n_new[b]; other positions rewrite what the slot holds (the
     # T slots of a row are distinct, since T <= budget)
@@ -575,7 +609,12 @@ def batched_commit_and_refresh(kv: KVCache, rkv: RetrievalCache,
     valid = js[None, :] < n_new[:, None]                       # [rows, T]
     for full, retr, new in planes:
         new = new.transpose(1, 3).transpose(2, 3)   # [rows, T, L, Hkv(, D)]
-        full[ri, :, :, c_idx] = new
+        if own is None:
+            full[ri, :, :, c_idx] = new
+        else:
+            keep = own.reshape(own.shape + (1,) * (new.dim() - 2))
+            full[ri, :, :, c_idx] = torch.where(keep, new[ri, src],
+                                                full[ri, :, :, c_idx])
         sel = valid.reshape(valid.shape + (1,) * (new.dim() - 2))
         retr[ri, :, :, r_idx] = torch.where(sel, new, retr[ri, :, :, r_idx])
     return kv, rkv

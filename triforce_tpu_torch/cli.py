@@ -15,18 +15,22 @@ with an error). Models are preset names (random weights from
 HF checkpoint directories (read by the port's own safetensors reader), or
 native checkpoint directories (``models/ckpt.py``).
 
-``--tp`` / ``--sp`` run one process per rank, launched as the reference
-launches its tensor parallelism::
+``--dp`` / ``--tp`` / ``--sp`` run one process per rank, dp x tp x sp of
+them, launched as the reference launches its tensor parallelism::
 
     torchrun --nproc-per-node=4 -m triforce_tpu_torch.cli --tp 2 --sp 2 ...
+    torchrun --nproc-per-node=8 -m triforce_tpu_torch.cli --batch 4 \
+        --dp 2 --tp 2 --sp 2 ...
 
 Each rank joins the process group from ``torchrun``'s environment (NCCL on
-the cards, rank r on ``cuda:<LOCAL_RANK>``; gloo with ``--device cpu``),
-loads its own shards of the target (``parallel/sharding.py``) and runs the
-same batch-1 engine as every other rank (``Engine(mesh=, shard_seq=--sp >
-1)``); rank 0 prints. ``--dp`` above 1, ``--batch`` with a mesh and the
-tree and serve modes with a mesh are not ported yet (ROADMAP A11b) and exit
-with an error.
+the cards, rank r on ``cuda:<LOCAL_RANK>``; gloo with ``--device cpu``)
+and loads its own shards of the target (``parallel/sharding.py``). Every
+mode runs over the mesh: the batch-1 and tree engines over (tp, sp)
+(``Engine`` / ``TreeEngine(mesh=, shard_seq=--sp > 1)``); ``--batch`` rows
+and the ``serve`` slots split over ``dp`` as well, which counts only there
+(JAX ``cli.py:260-264``): with ``--tp`` / ``--sp`` the composed mesh, with
+``--dp`` alone a dp mesh beside a meshless engine. Rank 0 prints, totals
+over every row.
 """
 
 from __future__ import annotations
@@ -128,7 +132,8 @@ def parse_args(argv=None):
                    help="batched speculation: N prompts decode together "
                         "(retrieval/triforce modes); slots in mode=serve")
     p.add_argument("--dp", type=int, default=1,
-                   help="data-parallel devices (not ported yet)")
+                   help="data-parallel size: splits the --batch rows or "
+                        "the serve slots (one torchrun process per rank)")
     p.add_argument("--tp", type=int, default=1,
                    help="tensor-parallel size (one torchrun process per "
                         "rank)")
@@ -219,32 +224,33 @@ def load_model(spec: str, dtype, drafter: bool = False, device=None,
     return cfg, params, _tokenizer(path)
 
 
+def _dp(args) -> int:
+    """The dp size that counts: rows split over dp with ``--batch`` above
+    1 or in ``serve`` alone (JAX ``cli.py:260-264``)."""
+    return args.dp if args.batch > 1 or args.mode == "serve" else 1
+
+
 def _mesh(args):
-    """The mesh of a ``--tp`` / ``--sp`` run (None for one process): this
-    process joins the process group from ``torchrun``'s environment."""
+    """The (dp, tp, sp) mesh of a multi-rank run (None for one process):
+    this process joins the process group from ``torchrun``'s
+    environment."""
     world = int(os.environ.get("WORLD_SIZE", "1"))
-    if args.dp > 1:
-        raise SystemExit(f"--dp {args.dp}: data-parallel rows are not "
-                         f"ported yet (ROADMAP A11b); use 1")
-    n = args.tp * args.sp
+    dp = _dp(args)
+    n = dp * args.tp * args.sp
     if n == 1 and world == 1:
         return None
     if args.save_ckpt:
         raise SystemExit("--save_ckpt writes the whole model: run it "
-                         "without --tp / --sp")
-    if args.batch > 1 or args.mode in ("tree", "serve"):
-        raise SystemExit(f"--tp {args.tp} --sp {args.sp} with --mode "
-                         f"{args.mode} --batch {args.batch}: over a mesh "
-                         f"only the batch-1 engine is ported (tree, serve "
-                         f"and --batch wait for ROADMAP A11b)")
+                         "without --dp / --tp / --sp")
     if world != n:
-        raise SystemExit(f"--tp {args.tp} --sp {args.sp} runs {n} ranks, "
-                         f"one process each: launch it as torchrun "
-                         f"--nproc-per-node={n} -m triforce_tpu_torch.cli "
-                         f"... (this process group has {world})")
+        raise SystemExit(f"--dp {dp} --tp {args.tp} --sp {args.sp} runs "
+                         f"{n} ranks, one process each: launch it as "
+                         f"torchrun --nproc-per-node={n} -m "
+                         f"triforce_tpu_torch.cli ... (this process group "
+                         f"has {world})")
     dev = mesh_mod.init_distributed(
         device="cpu" if args.device == "cpu" else None)
-    return mesh_mod.make_mesh(tp=args.tp, sp=args.sp, device=dev)
+    return mesh_mod.make_mesh(tp=args.tp, sp=args.sp, dp=dp, device=dev)
 
 
 def main(argv=None):
@@ -266,6 +272,10 @@ def _main(args, mesh):
     # the default raises without a card: nothing falls back to the CPU
     dev = mesh.device if mesh is not None else \
         resolve_device(None if args.device == "cuda" else args.device)
+    # the engines run over (tp, sp); rows over dp alone take the mesh
+    # beside a meshless engine (JAX cli.py:413-420, :460-467)
+    eng_mesh = mesh if mesh is not None and args.tp * args.sp > 1 else None
+    dp_mesh = mesh if mesh is not None and eng_mesh is None else None
     if args.dtype is None:
         dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
     else:
@@ -292,8 +302,8 @@ def _main(args, mesh):
 
     # the target's shards alone over a mesh (the drafter is whole)
     t_cfg, t_params, tokenizer = load_model(
-        args.model, dtype, device=dev, **({} if mesh is None
-                                          else {"mesh": mesh}))
+        args.model, dtype, device=dev, **({} if eng_mesh is None
+                                          else {"mesh": eng_mesh}))
     if args.save_ckpt:
         ckpt_mod.save_checkpoint(args.save_ckpt, t_cfg, t_params)
         print(f"[ckpt] saved native checkpoint to {args.save_ckpt}")
@@ -335,7 +345,8 @@ def _main(args, mesh):
             temperature=args.temp, top_p=args.top_p, dtype=dtype,
             kv_quant=args.kv_dtype == "int8",
             weight_quant=weight_quant, ssl=args.ssl,
-            eos_ids=eos_ids, device=dev)
+            eos_ids=eos_ids, device=dev, mesh=eng_mesh,
+            shard_seq=args.sp > 1)
         runs = [tree_decode(engine, pids, max_len=args.gen_len,
                             seed=args.seed + i, device=dev)
                 for i, pids in enumerate(prompt_ids)]
@@ -358,11 +369,11 @@ def _main(args, mesh):
             prefill=args.prefill, max_cache_len=args.prefill + headroom,
             dtype=dtype, kv_quant=args.kv_dtype == "int8",
             weight_quant=weight_quant, eos_token_id=eos_ids, device=dev,
-            mesh=mesh, shard_seq=args.sp > 1)
+            mesh=eng_mesh, shard_seq=args.sp > 1)
         if args.mode == "serve":
-            return _run_serve(engine, args, prompt_ids)
+            return _run_serve(engine, args, prompt_ids, dp_mesh)
         if args.batch > 1 and args.mode in ("retrieval", "triforce"):
-            runs = [_run_batched(engine, args, prompts)]
+            runs = [_run_batched(engine, args, prompts, dp_mesh)]
             res = runs[0]
         else:
             fn = {"triforce": decoding.triforce,
@@ -428,19 +439,22 @@ def dataclasses_replace_mean(res, runs):
         wall_s=tot_wall)
 
 
-def _run_batched(engine, args, prompts):
-    """--batch N: N rows speculate together (``BatchedSpecEngine``).
-    tokens/s over all rows; acceptance pooled."""
+def _run_batched(engine, args, prompts, dp_mesh=None):
+    """--batch N: N rows speculate together (``BatchedSpecEngine``; over
+    dp, each rank its block of them, the result every row's). tokens/s
+    over all rows; acceptance pooled."""
     from .batched_spec import BatchedSpecEngine
     from .decoding import DecodeResult, _CaptureClock
 
     b = args.batch
-    bat = BatchedSpecEngine(engine, mode=args.mode)
+    bat = BatchedSpecEngine(engine, mode=args.mode, mesh=dp_mesh)
     rows = [torch.from_numpy(data_mod.fit_prompt(prompts[i % len(prompts)],
                                                  args.prefill))
             .to(engine.device) for i in range(b)]
     state = bat.prefill_rows(rows, [args.seed + i for i in range(b)])
     _ = int(state.next_token[0])     # read-back: the prefill is done
+    if bat.mesh is not None:         # every rank's rows are
+        torch.distributed.barrier()
     # a fixed step count: ~gen_len tokens a row at >= 1 token a step
     steps = args.gen_len
     clock = _CaptureClock(engine.graphs)
@@ -461,15 +475,17 @@ def _run_batched(engine, args, prompts):
         capture_s=clock.seconds, readbacks=engine.graphs.readbacks - r0)
 
 
-def _run_serve(engine, args, prompt_ids):
+def _run_serve(engine, args, prompt_ids, dp_mesh=None):
     """--mode serve: ``--num_prompts`` requests flow through ``--batch``
     slots (``SpecScheduler``: admit -> ``--segment`` batched spec steps ->
-    retire on EOS/length). Returns the finished requests."""
+    retire on EOS/length; over dp, the slots split over it). Returns the
+    finished requests."""
     from .batched_spec import SpecScheduler
     from .batching import Request
 
     sched = SpecScheduler(engine, mode=args.serve_spec, slots=args.batch,
-                          segment=args.segment, seed=args.seed)
+                          segment=args.segment, seed=args.seed,
+                          mesh=dp_mesh)
     t0 = time.perf_counter()
     for i, pids in enumerate(prompt_ids):
         sched.submit(Request(rid=args.seed + i,

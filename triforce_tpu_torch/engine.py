@@ -53,8 +53,12 @@ so a batched row emits what its batch-1 run with the same seed emits.
 params are this rank's shards (``parallel/sharding.py``), its caches hold
 this rank's KV heads and, with ``shard_seq``, its slots of the full cache,
 and the forwards issue the collectives (``models/llama.py``,
-``ops/sp_attention.py``). Every rank runs the same steps with the same
-generator, so every rank emits the same tokens and nothing is broadcast.
+``ops/sp_attention.py``) over ``tp`` and ``sp`` alone. Every rank runs the
+same steps with the same generator, so every rank emits the same tokens
+and nothing is broadcast. A mesh with ``dp`` above 1 is the composed
+mesh of batched rows (``batched_spec.py``): each ``dp`` index's (tp, sp)
+group runs its own batch-1 prefills and its block of rows, and
+``decode_rows`` gathers the rows over ``dp`` once a call.
 """
 
 from __future__ import annotations
@@ -77,7 +81,7 @@ from .models import llama
 from .ops import sampling
 from .ops.flash_decode import causal_mask
 from .parallel import sharding
-from .parallel.mesh import Mesh
+from .parallel.mesh import Mesh, gather_rows
 
 JUNK_TOKEN = 100  # the reference pads spec buffers with token id 100
 
@@ -208,10 +212,12 @@ class Engine:
     are ``self.graphs`` (``graphs.GraphSet``); ``release_graphs`` drops
     them, and the prefill's converted weights with them.
 
-    ``mesh`` (a ``parallel.mesh.Mesh``; its ``dp`` must be 1): this
-    process is one rank of it, on ``mesh.device``. The target params may be
-    the full weights (cut here, ``sharding.shard_params``) or this rank's
-    shards (loaded with ``shardings=``); the drafter is replicated.
+    ``mesh`` (a ``parallel.mesh.Mesh``): this process is one rank of it,
+    on ``mesh.device``; the forwards run over its ``tp`` and ``sp`` axes
+    (its ``dp`` axis splits the rows of ``batched_spec``). The target
+    params may be the full weights (cut here, ``sharding.shard_params``)
+    or this rank's shards (loaded with ``shardings=``); the drafter is
+    replicated.
     ``shard_seq`` splits the full cache's slots over ``sp``; its length is
     then padded to a multiple of ``sp * chunk_size``, so that every shard
     holds whole retrieval chunks. A mesh whose collectives cannot be
@@ -231,10 +237,6 @@ class Engine:
             if not isinstance(mesh, Mesh):
                 raise TypeError(f"mesh must be a parallel.mesh.Mesh, got "
                                 f"{type(mesh).__name__}")
-            if mesh.shape["dp"] != 1:
-                raise NotImplementedError(
-                    "data-parallel rows over a mesh are not ported yet "
-                    "(ROADMAP A11b)")
             device = mesh.device if device is None else device
             if shard_seq:
                 unit = mesh.shape["sp"] * spec.chunk_size
@@ -301,10 +303,10 @@ class Engine:
         """The mesh arguments of the target's full-cache forwards."""
         return dict(mesh=self.mesh, shard_seq=self.shard_seq)
 
-    def init_state(self, seed: int) -> TriForceState:
-        """A fresh state; over a mesh its target caches have this rank's
-        local shapes (``sharding.state_shardings``)."""
-        dev = self.device
+    def local_target(self):
+        """(target config with this rank's KV heads, this rank's full-cache
+        slots): the shapes of its target caches
+        (``sharding.state_shardings``; the whole ones without a mesh)."""
         cfg, slots = self.target_cfg, self.max_cache_len
         if self.mesh is not None:
             sh = sharding.state_shardings(self.mesh, cfg, self.draft_cfg,
@@ -312,6 +314,13 @@ class Engine:
             _, _, hkv, slots, _ = sh.kv["k"].local_shape(
                 (cfg.num_layers, 1, cfg.num_kv_heads, slots, cfg.head_dim))
             cfg = cfg.with_(num_kv_heads=hkv)
+        return cfg, slots
+
+    def init_state(self, seed: int) -> TriForceState:
+        """A fresh state; over a mesh its target caches have this rank's
+        local shapes (``local_target``)."""
+        dev = self.device
+        cfg, slots = self.local_target()
         kv = init_kv(cfg, slots, 1, self.dtype, device=dev,
                      quant=self.kv_quant)
         rkv = init_retrieval(cfg, self.spec, 1, self.dtype, device=dev,
@@ -381,12 +390,8 @@ class Engine:
         if input_ids.shape[1] != self.prefill:
             raise ValueError(f"prompt has {input_ids.shape[1]} tokens, the "
                              f"engine was built for {self.prefill}")
-        c = self.prefill_chunk
         body = input_ids[:, :-1]
-        n = min(max_chunks, (body.shape[1] - pos) // c)
-        stop = pos + n * c
-        if n < max_chunks and stop < body.shape[1]:
-            stop = body.shape[1]   # the remainder fits in the same slice
+        stop = self.prefill_slice(pos, max_chunks)
         kv = state.kv
         if stop > pos:
             # whole chunks, then the remainder (if any) as prefill_body's
@@ -395,6 +400,19 @@ class Engine:
             return dataclasses.replace(state, kv=kv), stop, False
         return (self._build_and_sample(state, kv, input_ids), self.prefill,
                 True)
+
+    def prefill_slice(self, pos: int, max_chunks: int) -> int:
+        """Where ``prefill_target_partial`` from token offset ``pos`` stops:
+        up to ``max_chunks`` full chunks, the ragged remainder with them
+        when it fits in the slice; at ``prefill - 1`` (the whole body) the
+        build runs too. A host computation: ranks that do not hold the
+        row follow the admission with it."""
+        c, body = self.prefill_chunk, self.prefill - 1
+        n = min(max_chunks, (body - pos) // c)
+        stop = pos + n * c
+        if n < max_chunks and stop < body:
+            stop = body            # the remainder fits in the same slice
+        return stop
 
     def prefill_draft(self, state: TriForceState, input_ids: torch.Tensor,
                       mode: str = "full") -> TriForceState:
@@ -1076,7 +1094,7 @@ def _middle_spec_rows(eng: Engine, state: StackedState, u,
         m_logits = llama.forward_spec_rows(
             t_cfg, eng.t_params, vt, state.rkv,
             torch.where(live, kv_len, torch.zeros_like(kv_len)), sp.budget,
-            act_quant=sp.mid_act_quant)
+            act_quant=sp.mid_act_quant, mesh=eng.mesh)
         rows_idx = (n0[:, None] + torch.arange(k + 1, device=dev)).clamp(
             0, gamma)
         p_rows = sampling.norm_logits(m_logits[ar[:, None], rows_idx],
@@ -1150,7 +1168,7 @@ def _outer_verify_and_commit_rows(eng: Engine, state: StackedState, u,
 
     verify_in = torch.cat([state.next_token[:, None], gen_tokens], 1)
     logits, nk, nv = llama.forward_append_rows(t_cfg, eng.t_params,
-                                               verify_in, state.kv)
+                                               verify_in, state.kv, **eng.fwd)
     p_all = sampling.norm_logits(logits, sp.temperature, sp.top_k,
                                  sp.top_p)                # [B, gamma+2, V]
 
@@ -1190,8 +1208,9 @@ def _outer_verify_and_commit_rows(eng: Engine, state: StackedState, u,
     # count + 1 slots, one fewer when an accepted EOS stays its next token
     keep = count + 1 - (eos_acc & ~has_final).long()
     kv = _kv_at(state.kv, (old + keep).to(old.dtype))
-    kv, _ = batched_commit_and_refresh(kv, state.rkv, nk, nv, old, sp,
-                                       eng.prefill)
+    kv, _ = batched_commit_and_refresh(
+        kv, state.rkv, nk, nv, old, sp, eng.prefill,
+        mesh=eng.mesh if eng.shard_seq else None)
     # dead-slot freeze: a row that started the step empty stays empty
     seq_len = torch.where(old == 0, torch.zeros_like(old), kv.seq_len)
 
@@ -1255,7 +1274,7 @@ def retrieval_spec_step_rows(eng: Engine, state: StackedState, u,
     for n in range(gamma):
         m_logits = llama.forward_spec_rows(
             t_cfg, eng.t_params, verify_tokens, state.rkv, state.kv.seq_len,
-            sp.budget, act_quant=sp.mid_act_quant)
+            sp.budget, act_quant=sp.mid_act_quant, mesh=eng.mesh)
         p_n = sampling.norm_logits(m_logits[:, n], sp.temperature, -1,
                                    sp.top_p)
         tok = sampling.sample_u(p_n, u["mid"][:, n])
@@ -1277,7 +1296,7 @@ _ROWS_BODIES = {"triforce": triforce_step_rows,
 
 
 def decode_rows(eng: Engine, state: StackedState, mode: str, steps: int,
-                force_accept=None):
+                force_accept=None, mesh: Optional[Mesh] = None):
     """``steps`` batched steps of ``mode`` on the device, as the JAX
     package's ``_decode_fused`` (``triforce_tpu/batched_spec.py:37-64``, a
     ``fori_loop`` over the vmapped step): ``steps`` calls of one loop
@@ -1291,7 +1310,14 @@ def decode_rows(eng: Engine, state: StackedState, mode: str, steps: int,
     tokens, the counts and the target forwards (with the bodies' launch
     counts, ``GraphSet.read``). Returns (state, tokens [B, steps, gamma+2],
     counts [B, steps, 10] in ``_counts_of``'s order, target forwards),
-    the last three on the host (``BatchedSpecEngine`` checks ``mode``)."""
+    the last three on the host (``BatchedSpecEngine`` checks ``mode``).
+
+    ``mesh``: ``state`` holds this rank's block of the rows split over the
+    mesh's ``dp`` axis (``sharding.row_block``); after the loop its tokens
+    and counts go into the global [B, ...] on every rank by one collective
+    over ``dp`` (``mesh.gather_rows``, outside the loop region, so a step
+    that issues no collective of its own is captured even over gloo), then
+    the one read-back. The target forwards are this rank's."""
     dev, g = eng.device, eng.graphs
     rows, gamma = state.rows, eng.spec.gamma
     ncount = len(_COUNTS) + 2
@@ -1330,11 +1356,19 @@ def decode_rows(eng: Engine, state: StackedState, mode: str, steps: int,
     for _ in range(steps):
         g.run(name, region, (), caches=caches + tuple(lb.values()),
               gens=gens, extra=(force_accept, steps), capture_first=True)
-    host = g.read(torch.cat([lb["tokens"].reshape(-1),
-                             lb["counts"].reshape(-1), lb["forwards"]]))
-    nt = rows * steps * (gamma + 2)
+    nt = steps * (gamma + 2)
+    out = torch.cat([lb["tokens"].reshape(rows, -1),
+                     lb["counts"].reshape(rows, -1),
+                     lb["forwards"].expand(rows, 1)], 1)
+    mine = 0
+    if mesh is not None:
+        mine = mesh.index("dp") * rows
+        rows *= mesh.shape["dp"]
+        out = gather_rows(mesh, out, rows)
+    host = g.read(out)                                  # the read-back
     state = dataclasses.replace(
         state, kv=_kv_at(state.kv, lb["seq_len"].clone()),
         next_token=lb["next_token"].clone())
-    return (state, host[:nt].reshape(rows, steps, gamma + 2),
-            host[nt:-1].reshape(rows, steps, ncount), int(host[-1]))
+    return (state, host[:, :nt].reshape(rows, steps, gamma + 2),
+            host[:, nt:-1].reshape(rows, steps, ncount),
+            int(host[mine, -1]))

@@ -33,8 +33,8 @@ Forward modes:
   draft_forward_spec  — drafter speculation at the fixed spec slots with
                         un-rotated key storage + whole-window re-rotation
 
-Over a mesh (``mesh=``, ``parallel/mesh.py``; ``forward_append`` and
-``forward_spec``) every rank runs the same forward on its own shards
+Over a mesh (``mesh=``, ``parallel/mesh.py``; every target forward)
+every rank runs the same forward on its own shards
 (``parallel/sharding.py``): its heads, its MLP columns and its slice of the
 vocabulary. The row-parallel products (``wo``, ``w_down``) are summed over
 ``tp`` with one ``all_reduce`` each, the vocabulary-split logits gathered
@@ -43,7 +43,13 @@ a row-parallel input is taken over ``tp`` first, as GSPMD reduces it over
 the whole row in the JAX package. Attention goes through
 ``ops/sp_attention.append_attention_sharded``; with ``shard_seq`` the full
 cache's slots are split over ``sp`` and each rank commits only the slots it
-owns.
+owns. The tree grow's layers over the tree retrieval cache (split by heads
+alone) keep their meshless decomposition on the rank's heads; its
+self-speculation layers over a split full cache take the partials kernel
+over each rank's part of the visible prefix, merged over ``sp``, then the
+staged tree window read across the shards. The rows forwards over a split
+full cache merge each row's partials over ``sp``
+(``append_attention_rows_sharded``).
 
 ``forward_append_rows``, ``forward_spec_rows`` and ``draft_forward_spec_rows``
 are the same forwards for B rows in ONE pass over the weights, over
@@ -66,13 +72,15 @@ import torch.nn.functional as F
 
 from ..cache import (KVCache, RetrievalCache, StreamingCache, dequantize,
                      device_scalar, int8_scale, quantize_tokens, slice_at,
-                     window, write_window_sharded)
+                     slice_sharded, window, write_window_sharded)
 from ..config import ModelConfig, SpecConfig
 from ..ops import retrieval as retrieval_ops
 from ..ops.attention import (append_attention, append_attention_auto,
                              append_attention_rows, attention_partials_auto,
                              finalize, merge_partials, new_block_partials)
-from ..ops.sp_attention import append_attention_sharded
+from ..ops.sp_attention import (append_attention_rows_sharded,
+                                append_attention_sharded,
+                                prefix_partials_sharded)
 from ..parallel import sharding
 from . import rope
 
@@ -601,7 +609,7 @@ def _slots(buf, start, n: int):
 
 def _tree_grow_attention(q, cache, li: int, prefix_len, staged_start,
                          slot_start: int, staged_len: int, amask, k_new,
-                         v_new, new_mask):
+                         v_new, new_mask, seq_mesh=None):
     """Grow-level attention over layer ``li`` of ``cache``, as three
     partials merged associatively (``llama.py:618-690``):
 
@@ -612,20 +620,33 @@ def _tree_grow_attention(q, cache, li: int, prefix_len, staged_start,
                region); a column is visible iff it is already written
                (col < slot_start) and an ancestor per ``amask``;
       self   — the frontier block (same-level nodes see only themselves).
+
+    ``seq_mesh``: the cache holds this rank's slots of a cache split over
+    that mesh's ``sp`` axis (``prefix_len`` and ``staged_start`` global):
+    the prefix is each rank's part of it merged over ``sp``
+    (``prefix_partials_sharded``), and the staged window, which may
+    straddle two shards, is read whole on every rank (``slice_sharded``).
+    This is the decomposition JAX's sharded grow body leaves for one
+    masked attention (``llama.py:540-553``); the visible set is the same.
     """
     quant = cache.quantized
-    p = attention_partials_auto(
-        q, cache.k[li], cache.v[li], k_len=prefix_len,
-        k_scale=cache.k_scale[li] if quant else None,
-        v_scale=cache.v_scale[li] if quant else None)
+    scales = dict(k_scale=cache.k_scale[li] if quant else None,
+                  v_scale=cache.v_scale[li] if quant else None)
+    if seq_mesh is None:
+        p = attention_partials_auto(q, cache.k[li], cache.v[li],
+                                    k_len=prefix_len, **scales)
+    else:
+        p = prefix_partials_sharded(seq_mesh, q, cache.k[li], cache.v[li],
+                                    k_len=prefix_len, **scales)
     if staged_len > 0:
-        ks = _slots(cache.k[li], staged_start, staged_len)
-        vs = _slots(cache.v[li], staged_start, staged_len)
+        def staged(buf):
+            if seq_mesh is None:
+                return _slots(buf, staged_start, staged_len)
+            return slice_sharded(buf, staged_start, staged_len, seq_mesh, 2)
+        ks, vs = staged(cache.k[li]), staged(cache.v[li])
         if quant:
-            ks = dequantize(ks, _slots(cache.k_scale[li], staged_start,
-                                       staged_len), q.dtype)
-            vs = dequantize(vs, _slots(cache.v_scale[li], staged_start,
-                                       staged_len), q.dtype)
+            ks = dequantize(ks, staged(cache.k_scale[li]), q.dtype)
+            vs = dequantize(vs, staged(cache.v_scale[li]), q.dtype)
         cols = torch.arange(staged_len, device=q.device)
         staged_mask = amask[:, :staged_len] & (cols < slot_start)
         p = merge_partials(p, new_block_partials(q, ks, vs, staged_mask))
@@ -637,12 +658,13 @@ def forward_tree_spec(cfg: ModelConfig, params, input_ids: torch.Tensor,
                       rkv: RetrievalCache, kv_seq_len, budget: int, depths,
                       ancestor_mask, slot_start: int,
                       kv: Optional[KVCache] = None, ssl: int = 0, mesh=None,
+                      shard_seq: bool = False,
                       staged_len: Optional[int] = None,
                       act_quant: bool = False,
                       ) -> Tuple[torch.Tensor, RetrievalCache,
                                  Optional[KVCache]]:
     """Middle-model forward of one speculation-tree frontier over the tree
-    retrieval cache (``llama.py:476-614``, its meshless branch).
+    retrieval cache (``llama.py:476-614``).
 
     ``input_ids`` [1, T] are the frontier tokens (one grow level, padded to
     a fixed width by the caller); their KV lands, in place, at the scratch
@@ -659,10 +681,13 @@ def forward_tree_spec(cfg: ModelConfig, params, input_ids: torch.Tensor,
     cache, and stage their tree-node KV at full-cache slots ``kv_seq_len +
     slot_start ..``; the later verify overwrites the same slots with the
     same values. Needs ``kv``. ``act_quant``: int8 weights meet int8
-    activations. Returns (logits [1, T, V] fp32, rkv, kv)."""
-    if mesh is not None:
-        raise NotImplementedError("the tree grow over a mesh is not ported "
-                                  "yet (ROADMAP A11b)")
+    activations.
+
+    ``mesh``: every tensor is this rank's shard; the tree retrieval cache
+    holds the rank's heads, and with ``shard_seq`` the full cache its
+    slots, split over ``sp`` (``_tree_grow_attention``'s ``seq_mesh``; the
+    ssl layers then stage their nodes at the slots each rank owns).
+    Returns (logits [1, T, V] fp32, rkv, kv)."""
     if not 0 <= ssl <= cfg.num_layers:
         raise ValueError(f"ssl {ssl} outside [0, {cfg.num_layers}]")
     if ssl > 0 and kv is None:
@@ -684,9 +709,11 @@ def forward_tree_spec(cfg: ModelConfig, params, input_ids: torch.Tensor,
     # write that would run over the end slides back (JAX's clamp), which
     # the caller's padding of both caches keeps from happening
     rkv_idx = window(budget + slot_start, t, rkv.real_budget, dev)
-    if ssl > 0:
-        kv_idx = window(kv_seq_len.to(torch.int64) + slot_start, t,
-                        kv.max_len, dev)
+    par = _par(mesh, cfg)
+    seq_mesh = mesh if par is not None and shard_seq else None
+    kv_start = kv_seq_len.to(torch.int64) + slot_start
+    if ssl > 0 and seq_mesh is None:
+        kv_idx = window(kv_start, t, kv.max_len, dev)
 
     x = _embed(params, input_ids)
     for li in range(cfg.num_layers):
@@ -696,16 +723,24 @@ def forward_tree_spec(cfg: ModelConfig, params, input_ids: torch.Tensor,
         q = rope.apply_rope(q, cos, sin, positions)
         k_new = rope.apply_rope(k_new, cos, sin, positions)
         if li < ssl:
-            cache, prefix, start, idx = kv, full_len, full_len, kv_idx
+            ctx = _tree_grow_attention(q, kv, li, full_len, full_len,
+                                       slot_start, staged_len, amask, k_new,
+                                       v_new, new_mask, seq_mesh)
+            if seq_mesh is None:
+                _commit_layer(kv, li, kv_idx, k_new, v_new)
+            else:
+                _commit_layer_sharded(kv, li, kv_start, k_new, v_new,
+                                      seq_mesh)
         else:
-            cache, prefix, start, idx = rkv, budget_len, budget, rkv_idx
-        ctx = _tree_grow_attention(q, cache, li, prefix, start, slot_start,
-                                   staged_len, amask, k_new, v_new, new_mask)
-        _commit_layer(cache, li, idx, k_new, v_new)
-        x = x + _attn_out(ctx, lp, aq=aq)
+            ctx = _tree_grow_attention(q, rkv, li, budget_len, budget,
+                                       slot_start, staged_len, amask, k_new,
+                                       v_new, new_mask)
+            _commit_layer(rkv, li, rkv_idx, k_new, v_new)
+        x = x + _attn_out(ctx, lp, aq=aq, tp=par and par.wo)
         h = _rms_norm(x, lp["ln_mlp"], cfg.rms_norm_eps)
-        x = x + _mlp(h, lp, aq=aq)
-    return _logits(cfg, params, x, aq=aq), rkv, kv
+        x = x + _mlp(h, lp, aq=aq, tp=par and par.w_down)
+    return _logits(cfg, params, x, aq=aq, vocab_mesh=par and par.vocab), \
+        rkv, kv
 
 
 # ---------------------------------------------------------------------------
@@ -788,11 +823,14 @@ def draft_forward_spec(cfg: ModelConfig, params, input_ids: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def _target_layers_rows(cfg: ModelConfig, params, input_ids, cache,
-                        positions, k_len, aq: bool = False):
+                        positions, k_len, aq: bool = False,
+                        par: Optional[_Par] = None, shard_seq: bool = False):
     """The target's layer loop for B rows over a row-stacked cache, read
     only: row b attends slots [0, k_len[b]) of its own cache plus its T new
     tokens, at RoPE positions ``positions`` [B, T]. Returns (hidden
-    [B, T, H], new K stack, new V stack [B, L, Hkv, T, D]); keys rotated."""
+    [B, T, H], new K stack, new V stack [B, L, Hkv, T, D]); keys rotated.
+    ``par``: over a mesh (this rank's heads and columns; with
+    ``shard_seq`` the cache's slots split over ``sp``)."""
     cos, sin = rope.cos_sin_tables(cfg, device=input_ids.device)
     quant = cache.quantized
     x = _embed(params, input_ids)
@@ -803,13 +841,19 @@ def _target_layers_rows(cfg: ModelConfig, params, input_ids, cache,
         q, k_new, v_new = _qkv(h, lp, cfg, aq=aq)
         q = rope.apply_rope(q, cos, sin, positions)
         k_new = rope.apply_rope(k_new, cos, sin, positions)
-        ctx = append_attention_rows(
-            q, cache.k[:, li], cache.v[:, li], k_new, v_new, k_len=k_len,
-            k_scale=cache.k_scale[:, li] if quant else None,
-            v_scale=cache.v_scale[:, li] if quant else None)
-        x = x + _attn_out(ctx, lp, aq=aq)
+        kw = dict(k_len=k_len,
+                  k_scale=cache.k_scale[:, li] if quant else None,
+                  v_scale=cache.v_scale[:, li] if quant else None)
+        if par is not None and shard_seq:
+            ctx = append_attention_rows_sharded(
+                par.mesh, q, cache.k[:, li], cache.v[:, li], k_new, v_new,
+                **kw)
+        else:
+            ctx = append_attention_rows(q, cache.k[:, li], cache.v[:, li],
+                                        k_new, v_new, **kw)
+        x = x + _attn_out(ctx, lp, aq=aq, tp=par and par.wo)
         h = _rms_norm(x, lp["ln_mlp"], cfg.rms_norm_eps)
-        x = x + _mlp(h, lp, aq=aq)
+        x = x + _mlp(h, lp, aq=aq, tp=par and par.w_down)
         nk.append(k_new)
         nv.append(v_new)
     return x, torch.stack(nk, 1), torch.stack(nv, 1)
@@ -822,36 +866,42 @@ def _row_positions(start: torch.Tensor, t: int) -> torch.Tensor:
 
 
 def forward_append_rows(cfg: ModelConfig, params, input_ids: torch.Tensor,
-                        kv: KVCache):
+                        kv: KVCache, mesh=None, shard_seq: bool = False):
     """``forward_append`` for B rows at once: row b appends its T tokens at
     its own length ``kv.seq_len[b]`` and attends its own live prefix. The
     cache is NOT written: returns (logits [B, T, V] fp32, new K stack, new
     V stack [B, L, Hkv, T, D]) for ``cache.batched_commit_and_refresh``
-    (or a plain per-row commit) to store."""
+    (or a plain per-row commit) to store. ``mesh`` / ``shard_seq`` as in
+    ``forward_append`` (``kv.seq_len`` stays global)."""
     if cfg.rope_on_slots:
         raise ValueError("a rope_on_slots drafter runs draft_forward_spec")
     t = input_ids.shape[1]
+    par = _par(mesh, cfg)
     x, nk, nv = _target_layers_rows(cfg, params, input_ids, kv,
                                     _row_positions(kv.seq_len, t),
-                                    kv.seq_len)
-    return _logits(cfg, params, x), nk, nv
+                                    kv.seq_len, par=par, shard_seq=shard_seq)
+    return _logits(cfg, params, x, vocab_mesh=par and par.vocab), nk, nv
 
 
 def forward_spec_rows(cfg: ModelConfig, params, input_ids: torch.Tensor,
                       rkv: RetrievalCache, kv_seq_len: torch.Tensor,
-                      budget: int, act_quant: bool = False) -> torch.Tensor:
+                      budget: int, act_quant: bool = False,
+                      mesh=None) -> torch.Tensor:
     """``forward_spec`` for B rows at once, read-only (the engines never
     commit a middle verify): row b's gamma+1 tokens attend its budget
     region plus themselves at positions ``kv_seq_len[b] + arange(T)``.
     ``kv_seq_len[b] == 0`` (a dead slot, or a dead middle trip) collapses
     that row's retrieval read to zero columns. ``act_quant`` as in
-    ``forward_spec``. Returns logits [B, T, V]."""
+    ``forward_spec``. ``mesh``: this rank's heads of the retrieval caches,
+    whose slots are never split. Returns logits [B, T, V]."""
     t = input_ids.shape[1]
     k_len = torch.where(kv_seq_len > 0, budget, 0).to(torch.int32)
+    par = _par(mesh, cfg)
     x, _, _ = _target_layers_rows(cfg, params, input_ids, rkv,
                                   _row_positions(kv_seq_len, t), k_len,
-                                  aq=act_quant)
-    return _logits(cfg, params, x, aq=act_quant)
+                                  aq=act_quant, par=par)
+    return _logits(cfg, params, x, aq=act_quant,
+                   vocab_mesh=par and par.vocab)
 
 
 def draft_forward_spec_rows(cfg: ModelConfig, params,

@@ -10,7 +10,9 @@ merge associatively:
 
 ``attention_partials_auto`` is the same dispatch for the cache part alone
 (the tree grow's prefix): the partials kernel on a CUDA tensor,
-``attention_partials`` on the CPU.
+``attention_partials`` on the CPU. ``attention_partials_rows`` is it for B
+rows with a length each (rows whose cache slots are split over a mesh):
+one partials-kernel launch a row on a CUDA tensor.
 
 ``append_attention_auto`` is the dispatcher the models call: a CUDA tensor
 with no extra cache mask goes to the hand-written flash-decode kernel
@@ -133,6 +135,26 @@ def attention_partials_auto(q, k, v, *, k_len, k_scale=None,
     if q.device.type == "cuda":
         return attention_partials_kernel(q, k, v, k_len=k_len,
                                          k_scale=k_scale, v_scale=v_scale)
+    return attention_partials(q, k, v, k_len=k_len, k_scale=k_scale,
+                              v_scale=v_scale)
+
+
+def attention_partials_rows(q, k, v, *, k_len, k_scale=None,
+                            v_scale=None) -> Partials:
+    """``attention_partials_auto`` for B rows, each over its own fully
+    visible prefix [0, k_len[b]): q [B, Hq, T, D]; k/v [B, Hkv, S, D] (one
+    layer of every row); k_len [B] int32 on q's device; scales [B, Hkv, S]
+    with an int8 cache. A CUDA tensor launches the partials kernel once a
+    row (its ``k_len`` a view of the row's entry, never read back); a CPU
+    tensor runs ``attention_partials`` with per-row lengths. -> (m, l
+    [B, Hkv, G, T], acc [B, Hkv, G, T, D])."""
+    if q.device.type == "cuda":
+        parts = [attention_partials_kernel(
+            q[b:b + 1], k[b:b + 1], v[b:b + 1], k_len=k_len[b],
+            k_scale=None if k_scale is None else k_scale[b:b + 1],
+            v_scale=None if v_scale is None else v_scale[b:b + 1])
+            for b in range(q.shape[0])]
+        return tuple(torch.cat(x) for x in zip(*parts))
     return attention_partials(q, k, v, k_len=k_len, k_scale=k_scale,
                               v_scale=v_scale)
 

@@ -16,6 +16,14 @@ committing the new K/V is left to the caller.
 With ``shard_seq=False`` (plain head parallelism, the retrieval cache) no
 collective is issued, so every forward over a mesh takes this one code
 path.
+
+``prefix_partials_sharded`` is the cache part alone over a fully visible
+prefix (the tree grow's self-speculation layers), and
+``append_attention_rows_sharded`` the same attention for B rows of a
+row-stacked cache, each with its own live length: over ``sp`` every row
+takes the partials kernel over its part of the rank's shard and the
+row-stacked partials merge in the same two collectives; without a split
+of the slots the row-batched kernel (B3) runs on the rank's heads.
 """
 
 from __future__ import annotations
@@ -23,7 +31,18 @@ from __future__ import annotations
 import torch
 
 from .attention import (attention_partials, attention_partials_auto,
-                        finalize, merge_partials, new_block_partials)
+                        attention_partials_rows, finalize, merge_partials,
+                        new_block_partials)
+
+
+def _local_len(k_len, mesh, s_loc: int):
+    """A GLOBAL live length (an int, a 0-d or a [B] device tensor) in the
+    frame of this rank's ``s_loc`` slots of a cache split over ``sp``:
+    clamped into [0, s_loc], so a shard past the prefix reads nothing."""
+    start = mesh.index("sp") * s_loc
+    if torch.is_tensor(k_len):
+        return (k_len - start).clamp(0, s_loc)
+    return min(max(int(k_len) - start, 0), s_loc)
 
 
 def _cache_partials_local(q, k, v, k_len, ks, vs, mask_fn=None,
@@ -90,10 +109,7 @@ def append_attention_sharded(mesh, q, k_cache, v_cache, k_new, v_new, *,
     s_loc = k_cache.shape[-2]
     if shard_seq:
         start = mesh.index("sp") * s_loc
-        if torch.is_tensor(k_len):
-            local_len = (k_len - start).clamp(0, s_loc)
-        else:
-            local_len = min(max(int(k_len) - start, 0), s_loc)
+        local_len = _local_len(k_len, mesh, s_loc)
         if cache_mask_fn is not None:
             # the local column frame translated back to global columns
             def mask_fn(rows, cols, _off=start):
@@ -105,6 +121,42 @@ def append_attention_sharded(mesh, q, k_cache, v_cache, k_new, v_new, *,
     if shard_seq:
         p = merge_partials_psum(p, mesh, "sp")
     pn = new_block_partials(q, k_new, v_new, new_mask)
+    return finalize(merge_partials(p, pn), q.dtype)
+
+
+def prefix_partials_sharded(mesh, q, k_cache, v_cache, *, k_len,
+                            k_scale=None, v_scale=None, layer=None):
+    """Partials of q [B, Hq, T, D] over the fully visible GLOBAL prefix
+    [0, k_len) of a cache whose slots are split over ``sp``: the partials
+    kernel (B4; ``attention_partials`` on the CPU) over this rank's part
+    of it, merged over ``sp`` (``merge_partials_psum``). ``layer`` as in
+    ``append_attention_sharded``."""
+    s_loc = k_cache.shape[-2]
+    p = _cache_partials_local(q, k_cache, v_cache,
+                              _local_len(k_len, mesh, s_loc), k_scale,
+                              v_scale, layer=layer)
+    return merge_partials_psum(p, mesh, "sp")
+
+
+def append_attention_rows_sharded(mesh, q, k_cache, v_cache, k_new, v_new,
+                                  *, k_len, k_scale=None, v_scale=None):
+    """``append_attention_rows`` over a cache whose slots are split over
+    ``sp``: q/k_new/v_new [B, H_local, T, D], this rank's heads; k_cache /
+    v_cache one layer of every row [B, Hkv_local, S_loc, D] (scales
+    [B, Hkv_local, S_loc]); ``k_len`` [B] the rows' GLOBAL live lengths.
+    Each row's partials over its part of the rank's slots (one
+    partials-kernel launch a row: B3 returns normalised rows, which cannot
+    merge) merge over ``sp``, then the causal new block; a dead row
+    (length 0) reads nothing on any shard. (Without a split of the slots
+    the row-batched kernel runs on the rank's heads, no collective.)
+    Returns [B, Hq_local, T, D] in q's dtype."""
+    s_loc = k_cache.shape[-2]
+    p = attention_partials_rows(q, k_cache, v_cache,
+                                k_len=_local_len(k_len, mesh, s_loc),
+                                k_scale=k_scale, v_scale=v_scale)
+    p = merge_partials_psum(p, mesh, "sp")
+    pn = new_block_partials(q, k_new, v_new,
+                            _causal(q.shape[2], k_new.shape[2], q.device))
     return finalize(merge_partials(p, pn), q.dtype)
 
 

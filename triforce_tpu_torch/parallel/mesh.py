@@ -85,6 +85,22 @@ class Mesh:
                 f"device={self.device}, backend={self.backend})")
 
 
+def gather_rows(mesh: Mesh, x: torch.Tensor, rows: int) -> torch.Tensor:
+    """This rank's block of rows ``x`` [n, ...] (its ``dp`` index's
+    contiguous block, ``sharding.row_block``) -> the global [rows, ...] on
+    every rank: each rank writes its block into zeros and one
+    ``all_reduce(SUM)`` over ``dp`` adds them (adding zeros is exact; gloo
+    on CUDA tensors has no ``all_gather``)."""
+    n = x.shape[0]
+    if n * mesh.shape["dp"] != rows:
+        raise ValueError(f"{n} rows a rank over dp={mesh.shape['dp']} are "
+                         f"not {rows}")
+    full = x.new_zeros((rows,) + tuple(x.shape[1:]))
+    i = mesh.index("dp")
+    full[i * n:(i + 1) * n] = x
+    return mesh.all_reduce(full, "dp")
+
+
 def _free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))

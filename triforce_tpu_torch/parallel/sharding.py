@@ -14,7 +14,10 @@ rank's slice of the leaf: ``take`` cuts a full tensor to it and
   - a dimension that does not divide by ``tp`` stays whole (replicated);
   - KV caches split heads over ``tp`` and, with ``shard_seq``, slots over
     ``sp``; the retrieval cache splits heads only; the drafter, its cache
-    and the scalars are replicated.
+    and the scalars are replicated;
+  - a row-stacked state (batched speculation, serving slots) splits its
+    rows in contiguous blocks over ``dp``, every other axis as above
+    (``batched_state_shardings``, ``row_block``).
 """
 
 from __future__ import annotations
@@ -186,6 +189,56 @@ def state_shardings(mesh, target_cfg: ModelConfig, draft_cfg=None,
         rs = scale_shardings(mesh, target_cfg, False)
         r.update(k_scale=rs, v_scale=rs)
     return StateShardings(kv=kv, rkv=r, dkv=dict(k=rep, v=rep))
+
+
+def tree_state_shardings(mesh, cfg: ModelConfig, shard_seq: bool = False,
+                         quant: bool = False) -> dict:
+    """The shardings of a ``TreeState``'s caches (``spectree.py:248-266``):
+    the full cache as ``kv_shardings(shard_seq)``, the tree retrieval cache
+    (budget + tree slots) over heads only. Returns {"kv": planes, "rkv":
+    planes}, planes by name as in ``StateShardings``."""
+    full = kv_shardings(mesh, cfg, shard_seq)
+    rkv = kv_shardings(mesh, cfg, False)
+    kv, r = dict(k=full, v=full), dict(k=rkv, v=rkv)
+    if quant:
+        kv.update(k_scale=scale_shardings(mesh, cfg, shard_seq),
+                  v_scale=scale_shardings(mesh, cfg, shard_seq))
+        rs = scale_shardings(mesh, cfg, False)
+        r.update(k_scale=rs, v_scale=rs)
+    return dict(kv=kv, rkv=r)
+
+
+def _with_rows(sh: Sharding) -> Sharding:
+    """A batch-1 cache's sharding -> its row-stacked cache's: the rows
+    lead and take the batch axis's place ([rows, L, Hkv, S(, D)])."""
+    return Sharding(sh.mesh, Spec("dp", *(sh.spec[:1] + sh.spec[2:])))
+
+
+def batched_state_shardings(mesh, target_cfg: ModelConfig, draft_cfg=None,
+                            shard_seq: bool = False, quant: bool = False):
+    """The shardings of a row-stacked state (``sharding.py:126-137``): a
+    leading row axis split over ``dp`` (JAX's ``P("dp")``: contiguous
+    blocks), every other axis as ``state_shardings``. The port's
+    row-stacked caches have no batch axis of their own
+    ([rows, L, Hkv, S, D], ``cache.py``), where JAX stacks [B, L, 1, ...]."""
+    base = state_shardings(mesh, target_cfg, draft_cfg, shard_seq, quant)
+    return StateShardings(**{
+        name: {k: _with_rows(v) for k, v in getattr(base, name).items()}
+        for name in ("kv", "rkv", "dkv")})
+
+
+def row_block(mesh, rows: int) -> range:
+    """The rows of a ``rows``-row stacked state this rank holds: the
+    ``dp`` axis's contiguous block of them (all of them without a mesh).
+    ``rows`` must divide over ``dp``."""
+    if mesh is None:
+        return range(rows)
+    dp = mesh.shape["dp"]
+    if rows % dp:
+        raise ValueError(f"{rows} rows do not divide over dp={dp}")
+    n = rows // dp
+    i = mesh.index("dp")
+    return range(i * n, (i + 1) * n)
 
 
 def shard_tree(params, shardings, device=None):

@@ -21,6 +21,14 @@ reads its counts back once. ``TreeEngine(graphs=False)`` runs the same
 code eagerly, reading each condition back. The caches are updated in
 place; a state is not reusable after a step unless it was cloned first.
 
+``TreeEngine(mesh=, shard_seq=)`` runs the engine as one rank of a
+``parallel.mesh.Mesh``, as ``Engine(mesh=)`` does (``spectree.py:68-117``,
+``:248-266``): the params are this rank's shards, the full cache holds its
+KV heads and, with ``shard_seq``, its slots (split over ``sp``), the tree
+retrieval cache its heads; the grow, the verify under the ancestor mask,
+the path compaction and the tail refresh issue the collectives. Every rank
+draws the same uniforms, so every rank emits the same tokens.
+
 Random draws come from the state's ``torch.Generator``: each round draws
 its uniforms in one call at its top (``_draw_parts``): per grow level a
 Gumbel block ``[R, V]`` (R = the widest level's root count, every level
@@ -47,6 +55,8 @@ from ..engine import _draws, _row, append_graphed, dense_weights, \
     prefill_chunks
 from ..models import llama
 from ..ops import sampling
+from ..parallel import sharding
+from ..parallel.mesh import Mesh
 from .planner import GrowMap
 
 JUNK_TOKEN = 100
@@ -129,7 +139,14 @@ class TreeEngine:
     ``ssl``: during the grow the first ``ssl`` layers attend the FULL cache
     instead of the tree retrieval cache. ``graphs`` as ``Engine``'s: None
     captures the step's regions on a CUDA device, False runs them eagerly,
-    True on the CPU raises."""
+    True on the CPU raises.
+
+    ``mesh`` / ``shard_seq`` as ``Engine``'s: this process is one rank of
+    the mesh, on ``mesh.device``; the params may be the full weights (cut
+    here) or this rank's shards; with ``shard_seq`` the full cache's
+    length is padded to a multiple of ``sp * chunk_size``. A mesh whose
+    collectives cannot be captured (gloo on a card) needs
+    ``graphs=False``."""
 
     def __init__(self, cfg: ModelConfig, grow_map: GrowMap, params, *,
                  prefill: int, max_cache_len: int, budget: int = 4096,
@@ -137,20 +154,31 @@ class TreeEngine:
                  top_p: float = 0.9, eos_ids=(0, 2), dtype=torch.bfloat16,
                  prefill_chunk: int = 128, kv_quant: bool = False,
                  weight_quant: bool = False, ssl: int = 0, mesh=None,
-                 device=None, graphs=None):
-        if mesh is not None:
-            raise NotImplementedError("the tree engine over a mesh is not "
-                                      "ported yet (ROADMAP A11b)")
+                 shard_seq: bool = False, device=None, graphs=None):
         if prefill % chunk_size or budget % chunk_size:
             raise ValueError("prefill and budget must be multiples of "
                              "chunk_size")
         if not 0 <= ssl <= cfg.num_layers:
             raise ValueError(f"ssl {ssl} outside [0, {cfg.num_layers}]")
+        if mesh is not None:
+            if not isinstance(mesh, Mesh):
+                raise TypeError(f"mesh must be a parallel.mesh.Mesh, got "
+                                f"{type(mesh).__name__}")
+            device = mesh.device if device is None else device
         self.device = resolve_device(device)
+        if mesh is not None and self.device != mesh.device:
+            raise ValueError(f"the engine is on {self.device}, its mesh on "
+                             f"{mesh.device}")
         if params["embed"].device != self.device:
             raise ValueError(f"params are on {params['embed'].device}, "
                              f"engine on {self.device}")
+        self.mesh = mesh
+        self.shard_seq = bool(shard_seq) and mesh is not None
         self.graphs = graphs_mod.GraphSet(self.device, graphs)
+        if mesh is not None and self.graphs.mode == "graph" \
+                and not mesh.capturable:
+            raise ValueError(f"{mesh.backend} collectives cannot be captured "
+                             f"in a CUDA graph: pass graphs=False")
         self.cfg = cfg
         self.gm = grow_map
         self.prefill = prefill
@@ -159,7 +187,11 @@ class TreeEngine:
         # the padded grow width W is reserved past the tree region of both
         # caches, so that the last levels' fixed-width writes never slide
         # back over committed tree slots
-        self.max_cache_len = max_cache_len + grow_map.size + self.W
+        max_cache_len += grow_map.size + self.W
+        if self.shard_seq:
+            unit = mesh.shape["sp"] * chunk_size
+            max_cache_len = -(-max_cache_len // unit) * unit
+        self.max_cache_len = max_cache_len
         self.budget = budget
         self.chunk_size = chunk_size
         self.temperature = temperature
@@ -170,8 +202,10 @@ class TreeEngine:
         self.kv_quant = kv_quant
         self.ssl = ssl
         self.weight_quant = weight_quant
-        if weight_quant:
-            params = llama.quantize_weights(params)    # unless already codes
+        if mesh is not None and not sharding.is_local(params, mesh, cfg):
+            params = sharding.shard_params(params, mesh, cfg)
+        if weight_quant:                               # unless already codes
+            params = llama.quantize_weights(params, mesh, cfg)
         self.params = params
         self._dense = None     # the prefill's converted weights (graphed)
         self.max_path = int(grow_map.depth.max()) + 1
@@ -193,11 +227,25 @@ class TreeEngine:
 
     # ------------------------------------------------------------------
 
+    @property
+    def fwd(self) -> dict:
+        """The mesh arguments of the target's full-cache forwards."""
+        return dict(mesh=self.mesh, shard_seq=self.shard_seq)
+
     def init_state(self, seed: int) -> TreeState:
+        """A fresh state; over a mesh its caches have this rank's local
+        shapes (``sharding.tree_state_shardings``)."""
         dev = self.device
-        kv = init_kv(self.cfg, self.max_cache_len, dtype=self.dtype,
-                     device=dev, quant=self.kv_quant)
-        rkv = init_tree_retrieval(self.cfg, self.budget, self.gm.size,
+        cfg, slots = self.cfg, self.max_cache_len
+        if self.mesh is not None:
+            sh = sharding.tree_state_shardings(self.mesh, cfg,
+                                               self.shard_seq)
+            _, _, hkv, slots, _ = sh["kv"]["k"].local_shape(
+                (cfg.num_layers, 1, cfg.num_kv_heads, slots, cfg.head_dim))
+            cfg = cfg.with_(num_kv_heads=hkv)
+        kv = init_kv(cfg, slots, dtype=self.dtype, device=dev,
+                     quant=self.kv_quant)
+        rkv = init_tree_retrieval(cfg, self.budget, self.gm.size,
                                   dtype=self.dtype, device=dev,
                                   quant=self.kv_quant, pad=self.W)
         return TreeState(
@@ -214,11 +262,12 @@ class TreeEngine:
                              f"engine was built for {self.prefill}")
         kv = prefill_chunks(self.graphs, self.cfg,
                             dense_weights(self, self.params), state.kv,
-                            input_ids[:, :-1], self.prefill_chunk)
+                            input_ids[:, :-1], self.prefill_chunk,
+                            **self.fwd)
         logits, kv = append_graphed(
             self.graphs, self.cfg, self.params, kv, input_ids[:, -1:],
             build_rkv=state.rkv, prefill=self.prefill,
-            chunk_size=self.chunk_size, budget=self.budget)
+            chunk_size=self.chunk_size, budget=self.budget, **self.fwd)
         probs = sampling.norm_logits(logits[:, -1], self.temperature, -1,
                                      self.top_p)
         return dataclasses.replace(
@@ -391,7 +440,8 @@ def _grow_body(eng: TreeEngine, state: TreeState, u):
         logits, _, _ = llama.forward_tree_spec(
             cfg, eng.params, toks[None], state.rkv, kv_seq_len, eng.budget,
             depths=depths, ancestor_mask=amask, slot_start=slot_start,
-            kv=state.kv, ssl=eng.ssl, staged_len=staged_len, act_quant=aq)
+            kv=state.kv, ssl=eng.ssl, staged_len=staged_len, act_quant=aq,
+            **eng.fwd)
         return logits[0].float()
 
     draft_logits[0] = forward(state.next_token, eng._depth[0:1],
@@ -416,7 +466,7 @@ def _verify(eng: TreeEngine, kv: KVCache, verify_tokens):
     logits_t, kv_out, _ = llama.forward_append(
         eng.cfg, eng.params, verify_tokens[None], kv,
         positions=kv.seq_len.to(torch.int64) + eng._depth,
-        tree_mask=eng._mask)
+        tree_mask=eng._mask, **eng.fwd)
     # row by row the same function; chunked to bound the top-p filter's
     # [rows, V, grid] intermediate
     p_all = torch.cat([sampling.norm_logits(c, eng.temperature, -1,
@@ -510,12 +560,13 @@ def _tree_body(eng: TreeEngine, state: TreeState, u,
     res_eos = ~no_final & _is_eos(sampled, eng.eos_ids)
 
     # --- commit: compact the accepted path, refresh the retrieval tail
+    seq_mesh = eng.mesh if eng.shard_seq else None
     kv = gather_kv_incremental(dataclasses.replace(state.kv, seq_len=seq_len),
                                accept_idx, n_nodes, seq0, max_path,
-                               max_span=gm.size)
+                               max_span=gm.size, mesh=seq_mesh)
     retrieval_tail_refresh(
         state.rkv, kv, SpecConfig(budget=eng.budget, chunk_size=1),
-        eng.prefill, seq0, max_new=max_path)
+        eng.prefill, seq0, max_new=max_path, mesh=seq_mesh)
 
     # --- emitted tokens: accepted children, then the sampled token
     pos = torch.arange(max_path + 1, device=dev)
