@@ -112,7 +112,17 @@ Phases, in order (any failure exits non-zero before the last line):
  11. sharded (``parallel/``, the batch-1 engine over a mesh): B4 and
      B4-int8 at a rank's shard shapes (the verify, GT 8 over 16 heads; a
      prefill chunk, GT 512, and TinyLlama's G 8 x 512 = 4096 at D 64; an
-     empty shard) and B2 over P / 2, in the kernel phase; after each
+     empty shard) and B2 over P / 2, in the kernel phase, at the shard of
+     every prompt run over a mesh: ``--prefill`` / 2, E2E_PREFILL / 2 =
+     8192 keys and, for the verify and the chunk, the two-rank runs'
+     SHARD_PREFILL / 2 = 2048 (line "kernel shards: N s"); B4-int8 merged
+     with its new block is held to the same merge of its plain partials
+     and B1-int8 to its plain version on the same inputs (the merge
+     rounds the new block's p against the block's own maximum, B1's fold
+     against the row's, so merge(plain B4-int8) is not plain B1-int8 to
+     the int8 tolerance: ROADMAP C item 2), a lost or doubled new block
+     shown to fail; B1 and B1-int8 at the world-1 prefill's 17th chunk
+     (GT 512, Tn 512 over 8192 keys); after each
      precision's end-to-end run, world size 1 over NCCL on this card
      (``Engine(mesh=single_device_mesh(), shard_seq=True)``, graphed, the
      collectives captured in the prefill, step and loop graphs and their
@@ -160,7 +170,8 @@ GEN 128 -> 64 -> 32 tokens a batch-1 mode; GATE_TOKENS 32 -> 16 (the
 eager witness's share); TREE_GEN 32 -> 16; SERVE_NEW 32 -> 16 (a served
 request); the 7B end-to-end, sharded world-1 and tree phases' prompt
 32768 -> 16384 (E2E_PREFILL; the kernel phase keeps ``--prefill``'s
-shapes); the cli phase's prompt 32768 -> 16384 and its generations 64 ->
+shapes and adds E2E_PREFILL's and SHARD_PREFILL's shard shapes); the cli
+phase's prompt 32768 -> 16384 and its generations 64 ->
 32 (batch-1) and 32 -> 16 (tree, serve); the two-rank tp / sp runs 8192
 -> 4096 prompt tokens, 32 -> 8 generated, 32 -> 8 layers; the world-1
 tree 32768 -> 4096 prompt tokens. The phases on several ranks run early,
@@ -745,7 +756,9 @@ def kernel_b4(fd, att, cache_mod, dev, gt, k_len, s, quant=False, hkv=32,
     shape: (m, l, acc) against the plain version, the merge with a new
     block of ``tn`` tokens (the grow's self block: GT, or a level's W
     tokens under a GQA model's G groups of rows) against B1 on the same
-    inputs, device time and bound."""
+    inputs (int8: against the same merge of the plain partials, with
+    B1-int8 held to its plain version beside it), device time and
+    bound."""
     name = "B4-int8" if quant else "B4"
     g = torch.Generator(device=dev).manual_seed(seed)
     bf = torch.bfloat16
@@ -821,27 +834,72 @@ def kernel_b4(fd, att, cache_mod, dev, gt, k_len, s, quant=False, hkv=32,
         if not gap > 10 * tol:
             _fail(f"{name} gt={gt} k_len={k_len}: a normalised acc moves "
                   f"the check only {gap:.3e}")
-    # finalize(merge(B4, new block)) = B1 on the same inputs. B1-int8 shows
-    # its new block bf16(q8 * qs): give the merge's new block that q
-    g_, t_ = 1, gt
-    part = (m.reshape(1, hkv, g_, t_), l.reshape(1, hkv, g_, t_),
-            acc.reshape(1, hkv, g_, t_, d))
+    # finalize(merge(B4, new block)), as a mesh's attention takes it. B1-int8
+    # shows its new block bf16(q8 * qs): give the merge's new block that q
+    def as_part(p):
+        return (p[0].reshape(1, hkv, 1, gt), p[1].reshape(1, hkv, 1, gt),
+                p[2].reshape(1, hkv, 1, gt, d))
+
     if quant:
         qf = (q.float() * fd._scale(d)).to(bf).float()
         q8, qs = fd._quantize_rows(qf)
-        qg = (q8 * qs).to(bf).reshape(1, hkv, g_, t_, d)
+        qg = (q8 * qs).to(bf).reshape(1, hkv, 1, gt, d)
         pn = att._update(qg, *att._init_partials(q[None], hkv), kn[None],
                          vn[None], mask)
     else:
         pn = att.new_block_partials(q[None], kn[None], vn[None], mask)
-    merged = att.finalize(att.merge_partials(part, pn), torch.float32)[0]
+
+    def merge(p, *blocks):
+        for b in blocks:
+            p = att.merge_partials(p, b)
+        return att.finalize(p, torch.float32)[0]
+
+    merged = merge(as_part((m, l, acc)), pn)
     whole = b1()
     torch.cuda.synchronize()
     if not torch.isfinite(merged).all():
         _fail(f"{name} gt={gt} k_len={k_len}: the merge is not finite")
     err_b1 = (merged - whole).abs().max().item()
     tol_b1 = (INT8_B1_TOL if quant else 0.05) / (k_len + tn) ** 0.5
-    if not err_b1 <= tol_b1:
+    extra = {}
+    if quant:
+        # The merge rounds the new block's p to bf16 against the block's own
+        # maximum, B1-int8's fold against the row's final one: each p.v term
+        # moves by up to 2^-7 of itself, ~1/(k_len + Tn) of an output, so
+        # merge(plain B4-int8) vs plain B1-int8 (no kernel in it) reached
+        # INT8_B1_TOL / sqrt(k_len + Tn) at GT 512 over 8192 keys (1.03x;
+        # ROADMAP C item 2). Each kernel is held to its plain version
+        # instead: B4 through the merge to the same merge of its plain
+        # partials, B1-int8 to its plain version on these inputs.
+        merged_plain = merge(as_part((mr, lr, accr)), pn)
+        err_merge = (merged - merged_plain).abs().max().item()
+        if not err_merge <= tol_b1:
+            _fail(f"{name} gt={gt} k_len={k_len}: merge(B4, new block) "
+                  f"differs from merge(plain, new block) by {err_merge:.3e} "
+                  f"(tol {tol_b1:.3e})")
+        # the check has the power to catch a lost or a doubled new block
+        # (doubling it moves nothing where it is all there is)
+        faults = {"lost new block": merge(as_part((mr, lr, accr)))}
+        if k_len:
+            faults["doubled new block"] = merge(as_part((mr, lr, accr)), pn,
+                                                pn)
+        for what, alt in faults.items():
+            gap = (alt - merged_plain).abs().max().item()
+            if not gap > 10 * tol_b1:
+                _fail(f"{name} gt={gt} k_len={k_len}: a {what} moves the "
+                      f"merge only {gap:.3e}")
+        whole_plain = fd.flash_decode_append_int8_plain(
+            q, k, v, kn, vn, klen_t, mask, ks, vs, group=fd.KERNEL_GROUP)
+        err_b1_plain = (whole - whole_plain).abs().max().item()
+        if not err_b1_plain <= tol_b1:
+            _fail(f"B1-int8 gt={gt} tn={tn} k_len={k_len}: kernel disagrees "
+                  f"with plain (err {err_b1_plain:.3e}, tol {tol_b1:.3e})")
+        extra = dict(err_merge_vs_plain_merge=err_merge,
+                     err_b1_int8_vs_plain=err_b1_plain,
+                     err_plain_merge_vs_plain_b1=(
+                         merged_plain - whole_plain).abs().max().item())
+        del merged_plain, whole_plain
+    elif not err_b1 <= tol_b1:
         _fail(f"{name} gt={gt} k_len={k_len}: merge(B4, new block) differs "
               f"from B1 by {err_b1:.3e} (tol {tol_b1:.3e})")
     ms = _device_ms(kernel)
@@ -863,15 +921,25 @@ def kernel_b4(fd, att, cache_mod, dev, gt, k_len, s, quant=False, hkv=32,
     flops = 4.0 * hkv * gt * k_len * d
     bound_ms, bound_by = _bound(nbytes, flops,
                                 H100_INT8_OPS if quant else H100_BF16_FLOPS)
-    print(f"{name} gt={gt} k_len={k_len} s={s}: acc / l err {err:.3e} (tol "
-          f"{tol:.3e}), m err {err_m:.1e}, l rel err {err_l:.1e}; merge vs "
-          f"B1 {err_b1:.3e} (tol {tol_b1:.3e}); kernel {ms:.4f} ms, bound "
+    if quant:
+        merge_note = (
+            f"merge vs merge(plain) {extra['err_merge_vs_plain_merge']:.3e}, "
+            f"B1-int8 vs plain {extra['err_b1_int8_vs_plain']:.3e} (tol "
+            f"{tol_b1:.3e}); not gated: merge vs B1-int8 {err_b1:.3e}, "
+            f"merge(plain) vs plain B1-int8 "
+            f"{extra['err_plain_merge_vs_plain_b1']:.3e}")
+    else:
+        merge_note = f"merge vs B1 {err_b1:.3e} (tol {tol_b1:.3e})"
+    print(f"{name} gt={gt} hkv={hkv} d={d} tn={tn} k_len={k_len} s={s}: acc "
+          f"/ l err {err:.3e} (tol {tol:.3e}), m err {err_m:.1e}, l rel err "
+          f"{err_l:.1e}; {merge_note}; kernel {ms:.4f} ms, bound "
           f"{bound_ms:.4f} ms ({bound_by}), sdpa {lib_ms} ms, plain "
           f"{plain_ms:.4f} ms", flush=True)
-    return dict(gt=gt, k_len=k_len, s=s, max_abs_err=err, tol=tol,
-                err_m=err_m, err_l_rel=err_l, err_merge_vs_b1=err_b1,
-                tol_merge_vs_b1=tol_b1, ms=ms, plain_ms=plain_ms,
-                library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by)
+    return dict(gt=gt, hkv=hkv, d=d, tn=tn, k_len=k_len, s=s,
+                max_abs_err=err, tol=tol, err_m=err_m, err_l_rel=err_l,
+                err_merge_vs_b1=err_b1, tol_merge_vs_b1=tol_b1, **extra,
+                ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
 
 
 def _kernel_name(key: str) -> str:
@@ -4466,25 +4534,51 @@ def mesh_composed(tc, llama, Engine, bs, dev, tmp, model=GQA_MODEL,
 
 
 def kernel_shards(fd, att, rk, rt, cache_mod, dev, prefill):
-    """B4 and B2 alone at the shapes a rank's shard gives them (sp = 2 of a
-    ``prefill`` cache; tp = 2 of Llama2-7B's 32 heads): B4 at the verify
-    (GT 8), at the prefill chunk (GT 512; TinyLlama's G 8 x 512 = 4096 at
-    D = 64) and over an empty shard (local k_len 0), B2 over P / sp,
-    each against its plain version with device time and bound."""
-    s_loc = prefill // 2
-    out = {}
-    for quant in (False, True):
-        out[quant] = dict(
-            b4=[kernel_b4(fd, att, cache_mod, dev, GAMMA + 2, s_loc,
+    """B4 and B2 alone at the shapes a rank's shard gives them (sp = 2;
+    tp = 2 of Llama2-7B's 32 heads), at the shard of every prompt this
+    script runs over a mesh: ``prefill`` (the kernel phase's), E2E_PREFILL
+    (the world-1 runs') and, for the verify and the prefill chunk alone,
+    SHARD_PREFILL (the two-rank runs'). B4 at the verify (GT 8), at the
+    prefill chunk (GT 512; TinyLlama's G 8 x 512 = 4096 at D = 64) and over
+    an empty shard (local k_len 0), B2 over P / sp; then B1 and B1-int8 at
+    the world-1 prefill's chunk over half of E2E_PREFILL (its 17th
+    512-token chunk, whose attention over a mesh is B4 over those keys
+    merged with the chunk): each against its plain version with device
+    time and bound."""
+    out = {quant: dict(b4=[], b2=[], b1=[]) for quant in (False, True)}
+    t_all = time.perf_counter()
+    for s_loc in sorted({prefill // 2, E2E_PREFILL // 2}, reverse=True):
+        t0 = time.perf_counter()
+        for quant in (False, True):
+            out[quant]["b4"] += [
+                kernel_b4(fd, att, cache_mod, dev, GAMMA + 2, s_loc,
                           s_loc + 64, quant=quant, hkv=16),
                 kernel_b4(fd, att, cache_mod, dev, 512, s_loc, s_loc + 512,
                           quant=quant),
                 kernel_b4(fd, att, cache_mod, dev, 4096, s_loc, s_loc + 512,
                           quant=quant, hkv=4, d=64, tn=512),
                 kernel_b4(fd, att, cache_mod, dev, GAMMA + 2, 0, s_loc,
-                          quant=quant, hkv=16)],
-            b2=kernel_b2(rk, rt, cache_mod, dev, s_loc, 8, 4096, s_loc + 64,
-                         quant=quant))
+                          quant=quant, hkv=16)]
+            out[quant]["b2"].append(kernel_b2(rk, rt, cache_mod, dev, s_loc,
+                                              8, 4096, s_loc + 64,
+                                              quant=quant))
+        print(f"kernel shards [{s_loc} keys]: "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    s_loc = SHARD_PREFILL // 2
+    for quant in (False, True):
+        out[quant]["b4"] += [
+            kernel_b4(fd, att, cache_mod, dev, GAMMA + 2, s_loc, s_loc + 64,
+                      quant=quant, hkv=16),
+            kernel_b4(fd, att, cache_mod, dev, 512, s_loc, s_loc + 512,
+                      quant=quant)]
+    keys = E2E_PREFILL // 2
+    for quant in (False, True):
+        out[quant]["b1"].append(kernel_b1(fd, cache_mod, dev, 512, 512, keys,
+                                          keys + 512, quant=quant))
+    print(f"kernel shards [{s_loc} keys: verify and chunk; B1 at {keys} "
+          f"keys, GT 512]: {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"kernel shards: {time.perf_counter() - t_all:.1f} s", flush=True)
     return out
 
 
@@ -4692,6 +4786,7 @@ def main() -> int:
     shards = kernel_shards(fd, att, rk, rt, cache, dev, prefill)
     for quant in (False, True):
         b4[quant] += shards[quant]["b4"]
+        b1[quant] += shards[quant]["b1"]
     # B4 and B3 at the rest of the mesh's shapes
     _stamp("kernel mesh shapes")
     mshapes = kernel_mesh_shapes(fd, att, cache, dev, prefill, s_tree, s_rkv,
@@ -4873,13 +4968,12 @@ def main() -> int:
                     entry_point=source_fn, replaces=replaces,
                     launches=main_path[key],
                     launches_by_phase=by_phase.get(key),
-                    max_abs_err=max(r["max_abs_err"],
-                                    gates[quant]["b2"]["max_abs_err"],
-                                    shards[quant]["b2"]["max_abs_err"]),
+                    max_abs_err=max(x["max_abs_err"] for x in [
+                        r, gates[quant]["b2"], *shards[quant]["b2"]]),
                     ms=r["ms"], plain_ms=r["plain_ms"],
                     bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                     library_ms=r["library_ms"],
-                    shapes=[r, gates[quant]["b2"], shards[quant]["b2"]])
+                    shapes=[r, gates[quant]["b2"], *shards[quant]["b2"]])
 
     def b3_entry(name, source_fn, quant):
         main = b3[quant][1]   # the outer verify: one per speculation step

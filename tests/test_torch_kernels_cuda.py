@@ -9,7 +9,9 @@ a machine without JAX:
 chip_smoke.py holds the same kernels against the same plain versions at the
 main path's full shapes. The row-batched kernels (B3, B3-int8) are also held
 against the single-row ones row by row, bit for bit, and the partials
-kernels (B4, B4-int8) merged with a new block against B1.
+kernels (B4, B4-int8) merged with a new block against B1 (B4-int8 at a
+rank's shard shapes against the same merge of its plain partials, with
+B1-int8 against its plain version beside it).
 """
 
 import dataclasses
@@ -685,6 +687,71 @@ def test_flash_decode_partials_int8_matches_plain_and_b1(dev, gt, k_len, s,
     b1 = tfd.flash_decode_append_int8(q, k, v, kn, vn, kl, mask, ks, vs)
     assert torch.isfinite(out).all()
     assert (out - b1).abs().max().item() <= 0.1
+
+
+# a rank's shard over a mesh (sp 2; tp 2 of Llama2-7B's 32 heads): gt, hkv,
+# d, tn, k_len
+SHARD_CASES = [
+    # the world-1 prefill's 17th 512-token chunk over 8192 keys, where
+    # merge(plain B4-int8, new block) missed plain B1-int8 by 1.03x the
+    # tolerance (ROADMAP C item 2)
+    (512, 32, 128, 512, 8192),
+    (8, 16, 128, 8, 8192),          # the verify over a 16384-token prompt
+    (4096, 4, 64, 512, 8192),       # tinyllama's G 8 x 512-token chunk
+    (8, 16, 128, 8, 2048),          # the verify of the two-rank runs
+    (512, 32, 128, 512, 2048),      # their prefill chunk
+]
+
+
+@pytest.mark.parametrize("gt,hkv,d,tn,k_len", SHARD_CASES)
+def test_partials_int8_merge_at_shard_shapes(dev, gt, hkv, d, tn, k_len):
+    """B4-int8 merged with a new block (q'' = bf16(q8 * qs), as B1-int8
+    shows its new block) against the same merge of its plain partials, and
+    B1-int8 against its plain version on the same inputs, each at
+    chip_smoke.py's int8 tolerance 0.005 / sqrt(k_len + Tn); the plain
+    partials with B1's fold are plain B1-int8 bit for bit. merge(plain) is
+    not held to B1-int8 at that tolerance: the merge rounds the new block's
+    p against the block's own maximum, B1's fold against the row's, which
+    moves each p.v term by up to 2^-7 of itself."""
+    q, kn, vn = (_randn(dev, 0, hkv, gt, d), _randn(dev, 1, hkv, tn, d),
+                 _randn(dev, 2, hkv, tn, d))
+    s = k_len + 64
+    k, ks = _int8_cache(dev, 3, hkv, s, d)
+    v, vs = _int8_cache(dev, 4, hkv, s, d)
+    k[:, k_len:], v[:, k_len:] = 127, -127        # never read
+    ks[:, k_len:], vs[:, k_len:] = 1e3, 1e3
+    kl = torch.tensor(k_len, dtype=torch.int32, device=dev)
+    mask = _mask(dev, "random", gt, tn)
+    got = tfd.flash_decode_partials_int8(q, k, v, kl, ks, vs)
+    ref = tfd.flash_decode_partials_int8_plain(q, k, v, kl, ks, vs,
+                                               group=tfd.KERNEL_GROUP)
+    b1 = tfd.flash_decode_append_int8(q, k, v, kn, vn, kl, mask, ks, vs)
+    b1_plain = tfd.flash_decode_append_int8_plain(
+        q, k, v, kn, vn, kl, mask, ks, vs, group=tfd.KERNEL_GROUP)
+    torch.cuda.synchronize()
+    _assert_partials(got, ref, k_len, 0.005)
+    tol = 0.005 / (k_len + tn) ** 0.5
+    assert (b1 - b1_plain).abs().max().item() <= tol
+    assert torch.equal(tfd.flash_decode_fold_int8_plain(q, *ref, kn, vn,
+                                                        mask), b1_plain)
+    q8, qs = tfd._quantize_rows(
+        (q.float() * tfd._scale(d)).to(torch.bfloat16).float())
+    qn = (q8 * qs).to(torch.bfloat16).reshape(1, hkv, 1, gt, d)
+    pn = tatt._update(qn, *tatt._init_partials(q[None], hkv), kn[None],
+                      vn[None], mask)
+
+    def merge(p, *blocks):
+        p = _as_partials(p, hkv, gt, d)
+        for b in blocks:
+            p = tatt.merge_partials(p, b)
+        return tatt.finalize(p, torch.float32)[0]
+
+    out, want = merge(got, pn), merge(ref, pn)
+    assert torch.isfinite(out).all()
+    assert (out - want).abs().max().item() <= tol
+    # the check would catch a lost or a doubled new block
+    for alt in (merge(ref), merge(ref, pn, pn)):
+        assert (alt - want).abs().max().item() > 10 * tol
 
 
 def test_flash_decode_partials_rejects_what_it_does_not_take(dev):

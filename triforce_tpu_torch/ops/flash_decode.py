@@ -200,9 +200,25 @@ def flash_decode_append_int8_plain(q, k, v, k_new, v_new, k_len, new_mask,
     where its rounding was a near tie. The integer q8 . k8 dots are summed
     in fp32, exact below 2^24.
     """
-    m, l, acc, q8, qs = _int8_cache_partials(q, k, v, k_len, k_scale,
-                                             v_scale, group)
-    # fold in the new block with q dequantized to k_new's dtype
+    part = flash_decode_partials_int8_plain(q, k, v, k_len, k_scale,
+                                            v_scale, group=group)
+    return flash_decode_fold_int8_plain(q, *part, k_new, v_new, new_mask)
+
+
+def flash_decode_fold_int8_plain(q, m, l, acc, k_new, v_new, new_mask):
+    """The new-block fold of ``flash_decode_append_int8_plain`` on its own:
+    cache partials (m, l [Hkv, GT], acc [Hkv, GT, D], as
+    ``flash_decode_partials_int8_plain`` gives them, or several shards'
+    merged) with the new block folded in and normalised. The new block
+    sees q'' = bf16(q8 * qs) of the pre-scaled q, and its p is rounded to
+    k_new's dtype against the row's final maximum, as the kernel's fold
+    rounds it. (``new_block_partials`` + ``merge_partials`` round that p
+    against the new block's own maximum instead: each p is then rounded
+    twice apart, so the two differ by up to 2^-7 of the new block's share
+    of every output.) -> [Hkv, GT, D] fp32."""
+    d = q.shape[-1]
+    q8, qs = _quantize_rows((q.float() * _scale(d)).to(q.dtype).float())
+    m, l = m[..., None], l[..., None]
     qn = (q8 * qs).to(k_new.dtype).float()
     sn = torch.einsum("hgd,hnd->hgn", qn, k_new.float())
     sn = sn + torch.where(new_mask, 0.0, _NEG_INF)
