@@ -63,21 +63,6 @@ def _state(eng, seed=100):
     return eng.prefill_draft(st, ids)
 
 
-def test_timer_spans():
-    t = profiling.Timer()
-    x = torch.zeros(3)
-    with t.span("a", sync=x):
-        pass
-    with t.span("a"):
-        pass
-    with t.span("b", sync=x):
-        x += 1
-    rep = t.report()
-    assert rep["a"]["count"] == 2 and rep["b"]["count"] == 1
-    assert rep["a"]["total_s"] >= 0 and rep["a"]["mean_ms"] >= 0
-    assert "a" in t.pretty() and "b" in t.pretty()
-
-
 def test_return_probs_rows_equal_jax():
     """Three retrieval-speculation steps with ``return_probs``: the same
     tokens, the same one-hot q (middle) and p (target) rows."""

@@ -1,5 +1,6 @@
-"""Build and load the port's CUDA kernels (``csrc/*.cu``) and its
-conditional graph nodes (``csrc/graph_cond.cu``).
+"""Build and load the port's CUDA kernels (``csrc/*.cu``), its
+conditional graph nodes and the trace's device timer
+(``csrc/graph_cond.cu``).
 
 Each source is compiled by ``nvcc`` for ``sm_90a`` into its own shared
 library with a plain C interface, all sources at once (one ``nvcc`` process
@@ -87,6 +88,8 @@ _SIGNATURES = {
         # parent (capturing) stream, the bool predicate, child stream
         "tf_cond_begin": [_P, _P, _P],
         "tf_cond_end": [_P],
+        # stream, head (uint64), ring [capacity, 2] int64, capacity, code
+        "tf_stamp": [_P, _P, _P, _L, _L],
     },
 }
 

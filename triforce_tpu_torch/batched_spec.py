@@ -47,7 +47,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from . import batching
+from . import batching, profiling
 from .cache import (KVCache, RetrievalCache, StreamingCache, init_kv_rows,
                     init_retrieval_rows, init_streaming_rows, row_view,
                     set_entry, stack_rows, write_row)
@@ -61,6 +61,8 @@ _COLS = ("n_emitted",) + _COUNTS + ("eos",)
 # ``decode``'s counters: per row (accepted, proposed, mid_verify, mid_live)
 _COUNTERS = [_COLS.index(k) for k in ("accepted", "gamma2", "mid_verify",
                                       "mid_live")]
+# the middle level's counts a SpecScheduler sums over its live rows
+_MID = ("mid_verify", "mid_live", "mid_draft")
 
 
 def stack_states(states) -> StackedState:
@@ -338,6 +340,15 @@ class SpecScheduler(batching.SchedulerBase):
         # are captured once and replay for every later request
         self._row = engine.init_state(0)
 
+    @staticmethod
+    def _blank_stats() -> dict:
+        """``SchedulerBase``'s, and the middle level's counts summed over
+        the live rows of every decode segment: ``mid_verify`` (middle
+        verifies a row took part in), ``mid_live`` (those that read its
+        retrieval cache) and ``mid_draft`` (drafter proposals)."""
+        return dict(batching.SchedulerBase._blank_stats(),
+                    **dict.fromkeys(_MID, 0))
+
     def _admitting(self) -> bool:
         return self._pending is not None
 
@@ -358,6 +369,7 @@ class SpecScheduler(batching.SchedulerBase):
                              "row": None if local is None
                              else self._reset_row(req.rid)}
         p = self._pending
+        pos = p["pos"]
         if local is None:        # another rank's slot: follow its slices
             stop = eng.prefill_slice(p["pos"], self.admit_chunks)
             done = stop >= eng.prefill - 1
@@ -366,6 +378,7 @@ class SpecScheduler(batching.SchedulerBase):
             row, p["pos"], done = eng.prefill_target_partial(
                 p["row"], p["ids"], p["pos"], self.admit_chunks)
             p["row"] = row
+        profiling.note("tokens", (pos, p["pos"]))
         if not done:
             return False
         self.stats["prefill_tokens"] += int(p["ids"].shape[-1])
@@ -373,7 +386,8 @@ class SpecScheduler(batching.SchedulerBase):
         if local is not None:
             if self.mode == "triforce":
                 row = eng.prefill_draft(row, p["ids"])
-            self.state = write_state_row(self.state, row, local)
+            with self.graphs.region("row_write"):
+                self.state = write_state_row(self.state, row, local)
             first = row.next_token[:1].clone()
         if self.bat.mesh is not None:   # the holder's sample, on every rank
             self.bat.mesh.all_reduce(first, "dp")
@@ -402,10 +416,17 @@ class SpecScheduler(batching.SchedulerBase):
 
     def _decode_segment(self):
         before = self.bat.target_forwards
-        self.state, toks, ns, _c, _eos = self.bat.decode(self.state,
-                                                         self.segment)
+        self.state, toks, counts, _ = self.bat._decode(self.state,
+                                                       self.segment)
+        toks, counts = toks.numpy(), counts.numpy()
+        ns = counts[..., 0]
         self.stats["steps"] += self.segment
         self.stats["target_forwards"] += self.bat.target_forwards - before
+        live = [s for s, r in enumerate(self.slot_req) if r is not None]
+        for name in _MID:
+            n = int(counts[live][..., _COLS.index(name)].sum())
+            self.stats[name] += n
+            profiling.count(name, n)
         new_tokens = []
         for slot, req in enumerate(self.slot_req):
             if req is None:

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from . import graphs as graphs_mod
+from . import profiling
 from .cache import KVCache, init_kv_rows, row_view, set_entry
 from .config import ModelConfig, SpecConfig, resolve_device
 from .engine import _as_eos_tuple, append_graphed, prefill_chunks
@@ -183,16 +184,19 @@ class SchedulerBase:
         """Wall seconds in admission and in decode segments, each without
         the seconds of the CUDA graphs captured in it (``admit_capture_s``
         / ``capture_s``, counted in ``admit_captures`` / ``captures``),
-        prompt tokens prefilled, batched decode steps, the target
-        forwards they ran and the host read-backs of the decode segments
-        (``GraphSet.readbacks``: one a segment where they replay graphs;
-        an eager speculative segment reads each condition back too)."""
+        prompt tokens prefilled, batched decode steps, the rows live at
+        each summed over them (``live_row_steps``: slots holding a
+        request), the target forwards they ran and the host read-backs of
+        the decode segments (``GraphSet.readbacks``: one a segment where
+        they replay graphs; an eager speculative segment reads each
+        condition back too)."""
         return {"admit_s": 0.0, "decode_s": 0.0, "prefill_tokens": 0,
-                "steps": 0, "target_forwards": 0, "capture_s": 0.0,
-                "captures": 0, "admit_capture_s": 0.0, "admit_captures": 0,
-                "readbacks": 0}
+                "steps": 0, "live_row_steps": 0, "target_forwards": 0,
+                "capture_s": 0.0, "captures": 0, "admit_capture_s": 0.0,
+                "admit_captures": 0, "readbacks": 0}
 
     def submit(self, req: Request) -> None:
+        profiling.event("submit", req.rid)
         self.queue.append(req)
 
     def _admit(self) -> None:
@@ -200,7 +204,10 @@ class SchedulerBase:
             if self.slot_req[slot] is not None or not self.queue:
                 continue
             req = self.queue[0]
-            if self._admit_one(slot, req):
+            with profiling.span("admit", req.rid):   # one slice
+                admitted = self._admit_one(slot, req)
+            if admitted:
+                profiling.event("first_token", req.rid)
                 self.queue.pop(0)
                 self.slot_req[slot] = req
             else:
@@ -228,6 +235,17 @@ class SchedulerBase:
         while (self.queue or self._admitting()
                or any(r is not None for r in self.slot_req)) \
                 and time.perf_counter() - t0 < max_wall_s:
+            with profiling.span("cycle"):
+                self._cycle(done)
+        return done
+
+    def _cycle(self, done: List[Request]) -> None:
+        """One cycle of ``run``: an admission sweep, then (with a slot
+        live) one decode segment and the retirements it brings; the host
+        spans ``admission`` (the sweep, its ``admit`` slices and the wait
+        for the device), ``decode_segment`` (the live slots' request ids)
+        and ``retire``."""
+        with profiling.span("admission"):
             ta = time.perf_counter()
             c0, s0 = self.graphs.captures, self.graphs.capture_s
             self._admit()
@@ -236,17 +254,24 @@ class SchedulerBase:
             self.stats["admit_s"] += time.perf_counter() - ta - cap
             self.stats["admit_capture_s"] += cap
             self.stats["admit_captures"] += self.graphs.captures - c0
-            if not any(r is not None for r in self.slot_req):
-                continue   # nothing live yet (admission still chunking)
+        live = [r.rid for r in self.slot_req if r is not None]
+        if not live:
+            return   # nothing live yet (admission still chunking)
+        with profiling.span("decode_segment", live):
             td = time.perf_counter()
             c0, s0 = self.graphs.captures, self.graphs.capture_s
-            r0 = self.graphs.readbacks
+            r0, steps0 = self.graphs.readbacks, self.stats["steps"]
             new_tokens, force = self._decode_segment()
             cap = self.graphs.capture_s - s0
             self.stats["decode_s"] += time.perf_counter() - td - cap
             self.stats["capture_s"] += cap
             self.stats["captures"] += self.graphs.captures - c0
             self.stats["readbacks"] += self.graphs.readbacks - r0
+            steps = self.stats["steps"] - steps0
+            self.stats["live_row_steps"] += len(live) * steps
+            profiling.count("live_row_steps", len(live) * steps)
+            profiling.count("slot_steps", self.slots * steps)
+        with profiling.span("retire"):
             for slot, req in enumerate(self.slot_req):
                 if req is None:
                     continue
@@ -262,10 +287,10 @@ class SchedulerBase:
                 if eos_pos or len(req.out) >= req.max_new_tokens \
                         or force[slot]:
                     req.done = True
+                    profiling.event("done", req.rid)
                     done.append(req)
                     self.slot_req[slot] = None
                     self._release_slot(slot)
-        return done
 
 
 class Scheduler(SchedulerBase):

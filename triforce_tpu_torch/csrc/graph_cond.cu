@@ -23,6 +23,19 @@
 // The caller launches the body's work on ``child`` between the two calls
 // and routes the allocations it makes there to a memory pool of the
 // capture. Nothing here is a compute kernel: the set kernel reads one bool.
+//
+// The device timer of ``profiling.Trace`` lives here too, beside the graph
+// machinery it has to survive:
+//
+//   tf_stamp(stream, head, ring, capacity, code):
+//     one one-thread kernel on ``stream`` that reads the device's global
+//     nanosecond clock (``%globaltimer``), takes the next index of the ring
+//     with an atomicAdd on ``head`` and writes (code, ns) there; an index
+//     past ``capacity`` is counted by ``head`` and written nowhere.
+//
+// It is an ordinary launch, so stream capture takes it into a graph and
+// into an if-node's body like any kernel: a replay stamps where the work
+// it brackets really runs. The trace reads the ring back once, at its end.
 
 #include <cuda_runtime.h>
 
@@ -48,7 +61,26 @@ cudaError_t capture_info(cudaStream_t s, cudaGraph_t* graph,
                ? cudaSuccess : cudaErrorIllegalState;
 }
 
+__global__ void tf_stamp_kernel(unsigned long long* head, long long* ring,
+                                long long capacity, long long code) {
+    unsigned long long ns;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns));
+    unsigned long long i = atomicAdd(head, 1ULL);
+    if (i < static_cast<unsigned long long>(capacity)) {
+        ring[2 * i] = code;
+        ring[2 * i + 1] = static_cast<long long>(ns);
+    }
+}
+
 }  // namespace
+
+extern "C" int tf_stamp(void* stream, void* head, void* ring,
+                        long long capacity, long long code) {
+    tf_stamp_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<unsigned long long*>(head), static_cast<long long*>(ring),
+        capacity, code);
+    return cudaGetLastError();
+}
 
 extern "C" int tf_cond_begin(void* parent_stream, const void* pred,
                              void* child_stream) {

@@ -71,6 +71,7 @@ from typing import Optional
 import torch
 
 from . import graphs as graphs_mod
+from . import profiling
 from .cache import (KVCache, RetrievalCache, StreamingCache,
                     batched_commit_and_refresh, device_scalar, init_kv,
                     init_retrieval, init_streaming, retrieval_tail_refresh,
@@ -431,9 +432,10 @@ class Engine:
         d_cfg, d_params = self.draft_cfg, self.d_params
 
         def region(ids, seq_len):
-            d = streaming_evict_prefill(_kv_at(dkv, seq_len), sp, c)
-            _, d = llama.draft_forward(d_cfg, d_params, ids, d,
-                                       need_logits=False)
+            with self.graphs.region("draft_prefill"):
+                d = streaming_evict_prefill(_kv_at(dkv, seq_len), sp, c)
+                _, d = llama.draft_forward(d_cfg, d_params, ids, d,
+                                           need_logits=False)
             return (d.seq_len,)
 
         caches = graphs_mod.planes(dkv) + param_planes(d_params)
@@ -498,6 +500,12 @@ class Engine:
             raise ValueError(mode)
         if mode == "triforce" and self.draft_cfg is None:
             raise ValueError("triforce mode needs a drafter")
+        with profiling.span("generate"):
+            return self._gen_loop(mode, force_accept, max_len, stop_on_eos,
+                                  state)
+
+    def _gen_loop(self, mode: str, force_accept, max_len: int,
+                  stop_on_eos: bool, state: TriForceState):
         dev, g = self.device, self.graphs
         slack = self.spec.gamma + 2
         caches = graphs_mod.planes(state.kv, state.rkv, state.dkv)
@@ -521,21 +529,28 @@ class Engine:
         gen = state.gen
         st = dataclasses.replace(state, kv=_kv_at(state.kv, lb["seq_len"]),
                                  next_token=lb["next_token"])
-        one = torch.ones((1,), **i64)
 
         def region():
-            u = _draws(parts, gen, dev)
+            # the loop's turn: draws, then the step where it holds
+            with g.region("loop"):
+                u = _draws(parts, gen, dev)
 
-            def step():
-                o = body(self, st, u, force_accept)
-                write_at(lb["buf"], o["tokens"], lb["n"], 0)
-                lb["n"].add_(o["n_emitted"])
-                lb["counters"].add_(torch.cat([one, _counts_of(o)[1:9]]))
-                lb["seq_len"].copy_(o["seq_len"])
-                lb["next_token"].copy_(o["next_token"])
-                if stop_on_eos:
-                    lb["stop"].copy_(o["eos"])
-            g.cond((lb["n"] < max_len + 1) & ~lb["stop"], step)
+                def step():
+                    with g.region("step"):
+                        o = body(self, st, u, force_accept)
+                        write_at(lb["buf"], o["tokens"], lb["n"], 0)
+                        lb["n"].add_(o["n_emitted"])
+                        # the step count made in the step (a tensor made
+                        # per call would be read by address on every
+                        # replay)
+                        counts = _counts_of(o)[:9]
+                        counts[:1] = 1
+                        lb["counters"].add_(counts)
+                        lb["seq_len"].copy_(o["seq_len"])
+                        lb["next_token"].copy_(o["next_token"])
+                        if stop_on_eos:
+                            lb["stop"].copy_(o["eos"])
+                g.cond((lb["n"] < max_len + 1) & ~lb["stop"], step)
             return ()
 
         for _ in range(max_len):
@@ -543,9 +558,14 @@ class Engine:
                 lb.values()), gens=(gen,),
                 extra=(force_accept, stop_on_eos, max_len),
                 capture_first=True)
-        host = g.read(torch.cat([lb["buf"], lb["n"].reshape(1),
-                                 lb["counters"]]))       # the read-back
+        with profiling.span("readback"):
+            host = g.read(torch.cat([lb["buf"], lb["n"].reshape(1),
+                                     lb["counters"]]))   # the read-back
         size = max_len + slack
+        if profiling.current() is not None:
+            for name, v in zip(("steps",) + _COUNTS,
+                               host[size + 1:].tolist()):
+                profiling.count(name, v)
         state = dataclasses.replace(
             state, kv=_kv_at(state.kv, lb["seq_len"].clone()),
             next_token=lb["next_token"].clone())
@@ -621,15 +641,17 @@ def append_graphed(graphs: graphs_mod.GraphSet, cfg: ModelConfig, params,
     ``k_len`` on the device). ``mesh``/``shard_seq``: the forward runs over
     the mesh (a set of one mesh: it belongs to one engine). Returns (logits
     or None, kv at its new length)."""
+    name = "build" if build_rkv is not None else "prefill"
+
     def region(ids, seq_len):
-        logits, out, _ = llama.forward_append(
-            cfg, params, ids, _kv_at(kv, seq_len), build_rkv=build_rkv,
-            prefill=prefill, chunk_size=chunk_size, budget=budget,
-            need_logits=need_logits, mesh=mesh, shard_seq=shard_seq)
+        with graphs.region(name):
+            logits, out, _ = llama.forward_append(
+                cfg, params, ids, _kv_at(kv, seq_len), build_rkv=build_rkv,
+                prefill=prefill, chunk_size=chunk_size, budget=budget,
+                need_logits=need_logits, mesh=mesh, shard_seq=shard_seq)
         return (logits, out.seq_len) if need_logits else (out.seq_len,)
 
-    out = graphs.run("build" if build_rkv is not None else "prefill",
-                     region, (ids, kv.seq_len),
+    out = graphs.run(name, region, (ids, kv.seq_len),
                      caches=graphs_mod.planes(kv, build_rkv)
                      + param_planes(params),
                      extra=(need_logits, prefill, chunk_size, budget))
@@ -738,7 +760,7 @@ def _middle_spec(eng: Engine, state: TriForceState, u, force_accept=None):
     t_cfg, d_cfg, sp = eng.target_cfg, eng.draft_cfg, eng.spec
     gamma, k, vocab = sp.gamma, _chain_len(sp), t_cfg.vocab_size
     dev = state.next_token.device
-    cond = eng.graphs.cond
+    cond, region = eng.graphs.cond, eng.graphs.region
     kv_len = state.kv.seq_len
     i64 = dict(dtype=torch.int64, device=dev)
     gen_tokens = torch.full((gamma + 1,), JUNK_TOKEN, **i64)
@@ -759,24 +781,27 @@ def _middle_spec(eng: Engine, state: TriForceState, u, force_accept=None):
         def draft(i):
             # the drafter at its fixed width gamma+1, the proposal sampled
             # from row n0 + i
-            d_logits, _ = llama.draft_forward_spec(
-                d_cfg, eng.d_params, vt, state.dkv, sp, commit=False)
-            q = sampling.norm_logits(
-                d_logits[0].index_select(0, (n0 + i).reshape(1)),
-                sp.temperature, -1, sp.top_p)[0]
-            tok = sampling.sample_u(q, u["drafts"][t, i]).reshape(1)
-            chain_toks[i:i + 1] = tok
-            chain_q[i:i + 1] = q.gather(0, tok)
-            vt[0].index_copy_(0, (n0 + i + 1).reshape(1), tok)
+            with region("draft"):
+                d_logits, _ = llama.draft_forward_spec(
+                    d_cfg, eng.d_params, vt, state.dkv, sp, commit=False)
+                q = sampling.norm_logits(
+                    d_logits[0].index_select(0, (n0 + i).reshape(1)),
+                    sp.temperature, -1, sp.top_p)[0]
+                tok = sampling.sample_u(q, u["drafts"][t, i]).reshape(1)
+                chain_toks[i:i + 1] = tok
+                chain_q[i:i + 1] = q.gather(0, tok)
+                vt[0].index_copy_(0, (n0 + i + 1).reshape(1), tok)
 
         for i in range(k):
             cond(n0 + i <= gamma - 1, functools.partial(draft, i))
         i_fin = (gamma - n0).clamp(0, k)       # the drafter forwards run
         # --- ONE middle verify over the whole chain (read-only rkv)
-        m_logits, _ = llama.forward_spec(
-            t_cfg, eng.t_params, vt, state.rkv,
-            torch.where(live, kv_len, torch.zeros_like(kv_len)), sp.budget,
-            commit=False, act_quant=sp.mid_act_quant, mesh=eng.mesh)
+        with region("middle"):
+            m_logits, _ = llama.forward_spec(
+                t_cfg, eng.t_params, vt, state.rkv,
+                torch.where(live, kv_len, torch.zeros_like(kv_len)),
+                sp.budget, commit=False, act_quant=sp.mid_act_quant,
+                mesh=eng.mesh)
         rows_idx = (n0 + torch.arange(k + 1, device=dev)).clamp(0, gamma)
         p_rows = sampling.norm_logits(m_logits[0].index_select(0, rows_idx),
                                       sp.temperature, -1, sp.top_p)
@@ -846,8 +871,9 @@ def _verify_and_commit(eng: Engine, state: TriForceState, u, gamma2,
     gamma2 = device_scalar(gamma2, dev)
     old = state.kv.seq_len
     verify_in = torch.cat([state.next_token[:1], gen_tokens[:gamma + 1]])[None]
-    logits, _, _ = llama.forward_append(t_cfg, eng.t_params, verify_in,
-                                        state.kv, **eng.fwd)
+    with eng.graphs.region("verify"):
+        logits, _, _ = llama.forward_append(t_cfg, eng.t_params, verify_in,
+                                            state.kv, **eng.fwd)
     p_all = sampling.norm_logits(logits[0], sp.temperature, sp.top_k,
                                  sp.top_p)                    # [gamma+2, V]
     pos = torch.arange(gamma + 1, device=dev)
@@ -898,8 +924,9 @@ def _verify_and_commit(eng: Engine, state: TriForceState, u, gamma2,
             torch.where(ppos <= count, gen_tokens[(ppos - 1).clamp(0, gamma)],
                         torch.where((ppos == count + 1) & has_final, pred,
                                     JUNK_TOKEN)))
-        llama.draft_forward_spec(eng.draft_cfg, eng.d_params,
-                                 pass_tokens[None], state.dkv, sp)
+        with eng.graphs.region("draft"):
+            llama.draft_forward_spec(eng.draft_cfg, eng.d_params,
+                                     pass_tokens[None], state.dkv, sp)
         # the reference's count includes the bonus but NOT a resample — it
         # drops the last accepted token from the window on rejection
         streaming_evict_for_spec(state.dkv, sp, count + bonus.long())
@@ -984,9 +1011,10 @@ def _step(eng: Engine, state: TriForceState, mode: str, force_accept=None,
 
     def region(next_token, seq_len):
         u = _draws(parts, gen, next_token.device)
-        o = body(eng, dataclasses.replace(
-            state, kv=_kv_at(state.kv, seq_len), next_token=next_token),
-            u, force_accept)
+        with eng.graphs.region("step"):
+            o = body(eng, dataclasses.replace(
+                state, kv=_kv_at(state.kv, seq_len), next_token=next_token),
+                u, force_accept)
         out = (o["tokens"], _counts_of(o), o["seq_len"], o["next_token"])
         if return_probs:
             out += (o["gen_tokens"], o["gen_probs"], o["p_all"])
@@ -1047,7 +1075,7 @@ def _middle_spec_rows(eng: Engine, state: StackedState, u,
     t_cfg, d_cfg, sp = eng.target_cfg, eng.draft_cfg, eng.spec
     gamma, k, vocab = sp.gamma, _chain_len(sp), t_cfg.vocab_size
     dev = state.next_token.device
-    cond = eng.graphs.cond
+    cond, region = eng.graphs.cond, eng.graphs.region
     rows = state.rows
     fixed = sp.middle_trips > 0
     kv_len = state.kv.seq_len
@@ -1074,27 +1102,30 @@ def _middle_spec_rows(eng: Engine, state: StackedState, u,
             # the drafter at its fixed width gamma+1 for every row; row b
             # takes proposal i, sampled from its row n0[b] + i, while
             # n0[b] + i stays under the gamma-1 cap
-            d_logits, _ = llama.draft_forward_spec_rows(
-                d_cfg, eng.d_params, vt, state.dkv, sp, commit=False)
-            q = sampling.norm_logits(d_logits[ar, (n0 + i).clamp(max=gamma)],
-                                     sp.temperature, -1, sp.top_p)  # [B, V]
-            tok = sampling.sample_u(q, u["drafts"][:, t, i])
-            act = n0 + i <= gamma - 1
-            chain_toks[:, i] = torch.where(act, tok, chain_toks[:, i])
-            chain_q[:, i] = torch.where(act, q.gather(1, tok[:, None])[:, 0],
-                                        chain_q[:, i])
-            at = (n0 + i + 1).clamp(max=gamma)[:, None]
-            vt.scatter_(1, at, torch.where(act[:, None], tok[:, None],
-                                           vt.gather(1, at)))
+            with region("draft"):
+                d_logits, _ = llama.draft_forward_spec_rows(
+                    d_cfg, eng.d_params, vt, state.dkv, sp, commit=False)
+                q = sampling.norm_logits(
+                    d_logits[ar, (n0 + i).clamp(max=gamma)],
+                    sp.temperature, -1, sp.top_p)                 # [B, V]
+                tok = sampling.sample_u(q, u["drafts"][:, t, i])
+                act = n0 + i <= gamma - 1
+                chain_toks[:, i] = torch.where(act, tok, chain_toks[:, i])
+                chain_q[:, i] = torch.where(
+                    act, q.gather(1, tok[:, None])[:, 0], chain_q[:, i])
+                at = (n0 + i + 1).clamp(max=gamma)[:, None]
+                vt.scatter_(1, at, torch.where(act[:, None], tok[:, None],
+                                               vt.gather(1, at)))
 
         for i in range(k):
             cond((n0 + i <= gamma - 1).any(), functools.partial(draft, i))
         i_fin = (gamma - n0).clamp(0, k)       # the proposals each row took
         # --- ONE middle verify over every row's chain (read-only rkv)
-        m_logits = llama.forward_spec_rows(
-            t_cfg, eng.t_params, vt, state.rkv,
-            torch.where(live, kv_len, torch.zeros_like(kv_len)), sp.budget,
-            act_quant=sp.mid_act_quant, mesh=eng.mesh)
+        with region("middle"):
+            m_logits = llama.forward_spec_rows(
+                t_cfg, eng.t_params, vt, state.rkv,
+                torch.where(live, kv_len, torch.zeros_like(kv_len)),
+                sp.budget, act_quant=sp.mid_act_quant, mesh=eng.mesh)
         rows_idx = (n0[:, None] + torch.arange(k + 1, device=dev)).clamp(
             0, gamma)
         p_rows = sampling.norm_logits(m_logits[ar[:, None], rows_idx],
@@ -1167,8 +1198,9 @@ def _outer_verify_and_commit_rows(eng: Engine, state: StackedState, u,
     ar = torch.arange(state.rows, device=dev)
 
     verify_in = torch.cat([state.next_token[:, None], gen_tokens], 1)
-    logits, nk, nv = llama.forward_append_rows(t_cfg, eng.t_params,
-                                               verify_in, state.kv, **eng.fwd)
+    with eng.graphs.region("verify"):
+        logits, nk, nv = llama.forward_append_rows(
+            t_cfg, eng.t_params, verify_in, state.kv, **eng.fwd)
     p_all = sampling.norm_logits(logits, sp.temperature, sp.top_k,
                                  sp.top_p)                # [B, gamma+2, V]
 
@@ -1229,8 +1261,9 @@ def _outer_verify_and_commit_rows(eng: Engine, state: StackedState, u,
                         torch.where((ppos == count[:, None] + 1)
                                     & has_final[:, None], pred[:, None],
                                     JUNK_TOKEN)))
-        llama.draft_forward_spec_rows(eng.draft_cfg, eng.d_params,
-                                      pass_tokens, state.dkv, sp)
+        with eng.graphs.region("draft"):
+            llama.draft_forward_spec_rows(eng.draft_cfg, eng.d_params,
+                                          pass_tokens, state.dkv, sp)
         # the reference's count includes the bonus but NOT a resample
         streaming_evict_for_spec_rows(state.dkv, sp, count + bonus.long())
     return dict(tokens=emitted, n_emitted=count + has_final.long(),
@@ -1344,28 +1377,32 @@ def decode_rows(eng: Engine, state: StackedState, mode: str, steps: int,
                              next_token=lb["next_token"])
 
     def region():
-        o = body(eng, st, _draws(parts, gens, dev), force_accept)
-        lb["tokens"].index_copy_(1, lb["at"], o["tokens"][:, None])
-        lb["counts"].index_copy_(1, lb["at"], _counts_of(o)[:, None])
-        lb["forwards"].add_(o["target_forwards"])
-        lb["seq_len"].copy_(o["seq_len"])
-        lb["next_token"].copy_(o["next_token"])
-        lb["at"].add_(1)
+        with g.region("step"):
+            o = body(eng, st, _draws(parts, gens, dev), force_accept)
+            lb["tokens"].index_copy_(1, lb["at"], o["tokens"][:, None])
+            lb["counts"].index_copy_(1, lb["at"], _counts_of(o)[:, None])
+            lb["forwards"].add_(o["target_forwards"])
+            lb["seq_len"].copy_(o["seq_len"])
+            lb["next_token"].copy_(o["next_token"])
+            lb["at"].add_(1)
         return ()
 
-    for _ in range(steps):
-        g.run(name, region, (), caches=caches + tuple(lb.values()),
-              gens=gens, extra=(force_accept, steps), capture_first=True)
-    nt = steps * (gamma + 2)
-    out = torch.cat([lb["tokens"].reshape(rows, -1),
-                     lb["counts"].reshape(rows, -1),
-                     lb["forwards"].expand(rows, 1)], 1)
-    mine = 0
-    if mesh is not None:
-        mine = mesh.index("dp") * rows
-        rows *= mesh.shape["dp"]
-        out = gather_rows(mesh, out, rows)
-    host = g.read(out)                                  # the read-back
+    with profiling.span("generate"):
+        for _ in range(steps):
+            g.run(name, region, (), caches=caches + tuple(lb.values()),
+                  gens=gens, extra=(force_accept, steps), capture_first=True)
+        nt = steps * (gamma + 2)
+        out = torch.cat([lb["tokens"].reshape(rows, -1),
+                         lb["counts"].reshape(rows, -1),
+                         lb["forwards"].expand(rows, 1)], 1)
+        mine = 0
+        if mesh is not None:
+            mine = mesh.index("dp") * rows
+            rows *= mesh.shape["dp"]
+            out = gather_rows(mesh, out, rows)
+        with profiling.span("readback"):
+            host = g.read(out)                          # the read-back
+    profiling.count("steps", steps)
     state = dataclasses.replace(
         state, kv=_kv_at(state.kv, lb["seq_len"].clone()),
         next_token=lb["next_token"].clone())

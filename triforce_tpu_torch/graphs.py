@@ -77,6 +77,14 @@ back. The per-shape device caches its forwards read must then exist
 before the capture (the engines build them at construction); one built
 under a capture raises.
 
+Tracing (``profiling.tracing``): ``region(name)`` brackets a region's
+work with the current trace's stamps (``profiling.py``), which a capture
+takes into the graph and its if-node bodies; with no trace current it is
+a shared null context, so a graph captured then holds no stamp. The
+trace's ring is part of every key (``run``), as a cache plane is: a graph
+captured under a trace dies with its ring, and turning tracing on or off
+captures anew instead of replaying a graph of the other kind.
+
 ``staged(device)`` is a test-only set for the CPU: the same keys, staging
 and counter bookkeeping, with the capture replaced by a direct call of the
 region through the static buffers, so that an output that aliases a static
@@ -96,6 +104,7 @@ from typing import Optional
 import torch
 
 from . import _build
+from . import profiling
 from .ops import flash_decode as _fd
 from .ops import retrieval_kernel as _rk
 
@@ -123,6 +132,11 @@ def _add_counts(delta, times: int = 1) -> None:
 
 def _diff(a, b) -> list:
     return [x - y for x, y in zip(a, b)]
+
+
+def _stamps_issued() -> int:
+    tr = profiling.current()
+    return 0 if tr is None else tr.issued
 
 
 MAX_BODIES = 4096     # captured if-node bodies a set can count
@@ -193,17 +207,20 @@ class _Seen:
 class _Graph(_Seen):
     """A captured region: the graph, its static inputs and outputs, the
     launches of each counted wrapper it holds outside its if-node bodies,
-    and the indices of those bodies' counters."""
-    __slots__ = ("graph", "static_in", "static_out", "delta", "bodies")
+    the indices of those bodies' counters and the trace stamps it holds
+    (``stamps``: 0 where no trace was current at its capture)."""
+    __slots__ = ("graph", "static_in", "static_out", "delta", "bodies",
+                 "stamps")
 
     def __init__(self, seen, graph, static_in, static_out, delta,
-                 bodies=()):
+                 bodies=(), stamps=0):
         self.refs, self.gens = seen.refs, seen.gens
         self.graph = graph
         self.static_in = static_in
         self.static_out = static_out
         self.delta = delta
         self.bodies = bodies
+        self.stamps = stamps
 
 
 class GraphSet:
@@ -290,6 +307,16 @@ class GraphSet:
         bufs = make()
         self._buffers[key] = ([weakref.ref(c) for c in caches], bufs)
         return bufs
+
+    def region(self, name: str):
+        """A context manager that brackets device work with the current
+        trace's stamps (``profiling.Trace.region``; inside a host span of
+        the same name where the work runs now, not into a capture), or
+        ``profiling.NULL`` with no trace current."""
+        tr = profiling.current()
+        if tr is None:
+            return profiling.NULL
+        return tr.region(name, self.device, self._graph is None)
 
     def read(self, t: torch.Tensor) -> torch.Tensor:
         """``t`` (int64) on the host: one read-back, which also brings the
@@ -385,6 +412,9 @@ class GraphSet:
         ``fn`` inline."""
         if self.mode == "eager" or self._active:
             return self._call(fn, self._tensors(inputs))
+        tr = profiling.current()
+        if tr is not None:
+            caches = caches + (tr.ring,)
         key = (name, tuple(_in_key(x) for x in inputs),
                tuple(_plane_key(c) for c in caches),
                tuple(id(g) for g in gens), extra)
@@ -465,11 +495,13 @@ class GraphSet:
         static_in = [x.clone() if torch.is_tensor(x) else x
                      for x in self._tensors(inputs)]
         before = _counts()
+        stamps = _stamps_issued()
         if self.mode == "staged":
             out = self._call(fn, static_in)
             delta = [a - b for a, b in zip(_counts(), before)]
             _set_counts(before)
-            ent = _Graph(seen, None, static_in, _outputs(out), delta)
+            ent = _Graph(seen, None, static_in, _outputs(out), delta,
+                         stamps=_stamps_issued() - stamps)
             self._entries[key] = ent
             self.captures += 1
             return ent
@@ -527,7 +559,7 @@ class GraphSet:
         delta = [a - b for a, b in zip(_counts(), before)]
         _set_counts(before)
         ent = _Graph(seen, graph, static_in, _outputs(out), delta,
-                     tuple(self._captured))
+                     tuple(self._captured), _stamps_issued() - stamps)
         self._entries[key] = ent
         self.captures += 1
         return ent
