@@ -32,7 +32,13 @@ Phases, in order (any failure exits non-zero before the last line):
      builds and served prefills (lines "b2 plan sweep", each plan
      bit-equal to the wrapper's output); B1 replayed from a graph with
      its dependent phase as a programmatic dependent and as an ordinary
-     launch (lines "pdl");
+     launch (lines "pdl"); the layer glue (``ops/layer_glue.py``: residual
+     add + RMSNorm, RoPE on q and k, silu * up) against its plain versions
+     at the main path's shapes (the verifies' 7 and 8 tokens, the rows
+     step's 8 x 7, a 512-token chunk, the drafter's width and window):
+     RoPE and silu * up bit-equal, the norm's normalised value within one
+     ulp, each with its device time, the plain chain's, a library
+     yardstick's and its bound (lines "glue ...");
   4. reference: the full-width model at cut depth on a short prompt, the
      card's path (through the kernels) against an fp32 CPU run of the same
      weights: bf16 weights and cache (top-1 may differ only at a near
@@ -51,7 +57,9 @@ Phases, in order (any failure exits non-zero before the last line):
      through the decoding drivers, first in bf16, then with int8 weights
      and KV (``kv_quant``, ``weight_quant``); each run sets every kernel
      launch count to 0 before and checks it against the count the path
-     implies after (the other precision's kernels at 0). Every decode mode
+     implies after (the other precision's kernels at 0; the layer glue's
+     counts, which every forward moves, are recorded and must not stay
+     0). Every decode mode
      of phases 7-10 runs from CUDA graphs (the engines' default on a card)
      and has a graph gate (lines "graphs [...]"): an eager witness
      (``graphs=False``) of the same seed and prompt runs its first 16
@@ -942,6 +950,144 @@ def kernel_b4(fd, att, cache_mod, dev, gt, k_len, s, quant=False, hkv=32,
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
+def _bf16_ulps(a, b) -> int:
+    """Largest elementwise distance of two bf16 tensors in ulps (bit
+    patterns in sign-magnitude order, so -0 and +0 are one value)."""
+    def key(x):
+        k = x.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(k < 0, -(k & 0x7FFF), k)
+    return int((key(a) - key(b)).abs().max().item())
+
+
+def kernel_glue(lg, tc, rope_mod, cache_mod, dev):
+    """The layer glue (``ops/layer_glue.py``) against its plain versions
+    on the card, in bf16 (the path's type), at the main path's shapes:
+    the verifies (T 7 / 8), the rows step (8 rows x 7), a 512-token
+    prefill chunk and the drafter's width and 275-slot window, at the
+    widths of Llama2-7B-128K (the end-to-end phases), Mistral-7B (GQA 4)
+    and Yi-6B's rows (GQA 8; the benchmark's cells), TinyLlama-1.1B (D 64)
+    and Llama-68M. RoPE and silu * up must be bit-equal; add + norm's x + y
+    bit-equal, its normalised value (a gain of 1) within one ulp and h
+    within two (only the order of the fp32 sum of squares differs). Each
+    row: the kernel's, the plain chain's and a library yardstick's device
+    ms (``_device_ms``: a CUDA graph, as the path runs them) and the bound
+    (bytes / 3.35 TB/s). -> {kernel: [row per shape]}"""
+    bf = torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(20)
+
+    def rn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(bf)
+
+    def timed(what, fn, plain, lib, nbytes, **row):
+        row.update(ms=_device_ms(fn), plain_ms=_device_ms(plain),
+                   library_ms=_device_ms(lib),
+                   bound_ms=_bound(nbytes, 0, H100_BF16_FLOPS)[0],
+                   bound_by="bytes")
+        print(f"glue {what}: kernel {row['ms'] * 1e3:.2f} us, plain "
+              f"{row['plain_ms'] * 1e3:.2f} us, library "
+              f"{row['library_ms'] * 1e3:.2f} us, bound "
+              f"{row['bound_ms'] * 1e3:.2f} us", flush=True)
+        return row
+
+    out = {"add_rms_norm": [], "rope": [], "silu_mul": []}
+    eps = 1e-5
+    for rows, hidden, residual in ((1, 4096, True), (7, 4096, True),
+                                   (8, 4096, False), (56, 4096, True),
+                                   (512, 4096, True), (512, 4096, False),
+                                   (7, 768, True), (7, 768, False),
+                                   (8, 2048, True)):
+        x = rn(1, rows, hidden)
+        y = rn(1, rows, hidden, scale=0.3) if residual else None
+        w = 1 + rn(hidden, scale=0.1)
+        xo, h = lg.add_rms_norm(x, y, w, eps)
+        _, n = lg.add_rms_norm(x, y, torch.ones_like(w), eps)
+        px, ph = lg.add_rms_norm_plain(x, y, w, eps)
+        _, pn = lg.add_rms_norm_plain(x, y, torch.ones_like(w), eps)
+        what = f"add_rms_norm rows={rows} hidden={hidden} y={residual}"
+        n_ulps, h_ulps = _bf16_ulps(n, pn), _bf16_ulps(h, ph)
+        if not torch.equal(xo, px) or n_ulps > 1 or h_ulps > 2:
+            _fail(f"{what}: x + y equal {torch.equal(xo, px)}, normalised "
+                  f"value {n_ulps} ulps (tol 1), h {h_ulps} ulps (tol 2)")
+        err = (h.float() - ph.float()).abs().max().item()
+        nbytes = 2 * rows * hidden * (4 if residual else 2) + 2 * hidden
+        out["add_rms_norm"].append(timed(
+            what, lambda: lg.add_rms_norm(x, y, w, eps),
+            lambda: lg.add_rms_norm_plain(x, y, w, eps),
+            lambda: torch.nn.functional.rms_norm(
+                x if y is None else x + y, (hidden,), w, eps), nbytes,
+            rows=rows, hidden=hidden, residual=residual,
+            normalised_ulps=n_ulps, h_ulps=h_ulps, max_abs_err=err,
+            library="torch.add + F.rms_norm"))
+
+    l7 = tc.LLAMA2_7B_128K
+    tables = {}
+    for b, hq, hkv, t, d, per_row in (
+            (1, 32, 32, 7, 128, False), (1, 32, 32, 8, 128, False),
+            (1, 32, 8, 7, 128, False), (8, 32, 4, 7, 128, True),
+            (1, 32, 32, 512, 128, False), (1, 32, 4, 8, 64, False),
+            (1, 12, 12, 7, 64, False)):
+        if d not in tables:
+            tables[d] = rope_mod.cos_sin_tables(l7.with_(head_dim=d),
+                                                device=dev)
+        cos, sin = tables[d]
+        pos = torch.randint(0, cos.shape[0], (b, t) if per_row else (t,),
+                            generator=g, device=dev)
+        q = rn(b, t, hq, d).transpose(1, 2)
+        k = rn(b, t, hkv, d).transpose(1, 2)
+        what = (f"rope b={b} hq={hq} hkv={hkv} t={t} d={d}"
+                f"{' per row' if per_row else ''}")
+        rq, rk = lg.rope((q, k), cos, sin, pos)
+        if not (torch.equal(rq, lg.rope_plain(q, cos, sin, pos))
+                and torch.equal(rk, lg.rope_plain(k, cos, sin, pos))):
+            _fail(f"{what}: not bit-equal to the plain version")
+        cq, ck = torch.empty_like(rq), torch.empty_like(rk)
+        nbytes = 4 * (q.numel() + k.numel()) + pos.numel() * (8 + 8 * d)
+        out["rope"].append(timed(
+            what, lambda: lg.rope((q, k), cos, sin, pos),
+            lambda: (lg.rope_plain(q, cos, sin, pos),
+                     lg.rope_plain(k, cos, sin, pos)),
+            lambda: (cq.copy_(q), ck.copy_(k)), nbytes,
+            b=b, hq=hq, hkv=hkv, t=t, d=d, per_row=per_row, max_abs_err=0.0,
+            library="copy_ of q and k (the same bytes)"))
+    # the drafter's re-rotation of one layer of its window, every slot
+    dcfg = tc.LLAMA_68M
+    dkv = cache_mod.init_streaming(dcfg, tc.SpecConfig(gamma=GAMMA),
+                                   device=dev)
+    dkv.k.copy_(rn(*dkv.k.shape))
+    layer, s = dkv.k[1], dkv.real_budget
+    cos, sin = rope_mod.cos_sin_tables(dcfg, max_len=s, device=dev)
+    slot_pos = torch.arange(s, device=dev)
+    (got,) = lg.rope((layer,), cos, sin, slot_pos)
+    what = f"rope drafter window slots={s} d={dcfg.head_dim}"
+    if not torch.equal(got, lg.rope_plain(layer, cos, sin, slot_pos)):
+        _fail(f"{what}: not bit-equal to the plain version")
+    cw = torch.empty_like(got)
+    out["rope"].append(timed(
+        what, lambda: lg.rope((layer,), cos, sin, slot_pos),
+        lambda: lg.rope_plain(layer, cos, sin, slot_pos),
+        lambda: cw.copy_(layer),
+        4 * layer.numel() + s * (8 + 8 * dcfg.head_dim),
+        slots=s, heads=dcfg.num_kv_heads, d=dcfg.head_dim, max_abs_err=0.0,
+        library="copy_ of the window (the same bytes)"))
+    del dkv
+
+    for rows, inter in ((7, 11008), (8, 11008), (7, 14336), (56, 11008),
+                        (512, 14336), (512, 11008), (7, 3072)):
+        gate, up = rn(1, rows, inter, scale=3.0), rn(1, rows, inter)
+        what = f"silu_mul rows={rows} intermediate={inter}"
+        if not torch.equal(lg.silu_mul(gate, up),
+                           lg.silu_mul_plain(gate, up)):
+            _fail(f"{what}: not bit-equal to the plain version")
+        out["silu_mul"].append(timed(
+            what, lambda: lg.silu_mul(gate, up),
+            lambda: lg.silu_mul_plain(gate, up),
+            lambda: torch.mul(gate, up), 6 * rows * inter,
+            rows=rows, intermediate=inter, max_abs_err=0.0,
+            library="torch.mul (one launch, the same bytes)"))
+    torch.cuda.synchronize()
+    return out
+
+
 def _kernel_name(key: str) -> str:
     """A profiler kernel name without its namespace and argument list."""
     return key.replace("(anonymous namespace)::", "").split("(")[0]
@@ -1579,8 +1725,18 @@ def _wrappers(fd, rk):
                 b4_int8=fd.flash_decode_partials_int8)
 
 
+# the layer glue's counters (ops/layer_glue.py): every forward launches
+# them, so they are recorded beside the path's counts, not held to zero
+GLUE_COUNTERS = ("add_rms_norm", "rope", "silu_mul")
+
+
+def _glue_wrappers():
+    from triforce_tpu_torch.ops import layer_glue
+    return {k: getattr(layer_glue, k) for k in GLUE_COUNTERS}
+
+
 def _reset(fd, rk):
-    for fn in _wrappers(fd, rk).values():
+    for fn in (*_wrappers(fd, rk).values(), *_glue_wrappers().values()):
         fn.launches = 0
 
 
@@ -2007,7 +2163,7 @@ def end_to_end(tc, decoding, llama, eng, fd, rk, dev, prefill, quant):
     body = prefill - 1
     pre_fwd = body // eng.prefill_chunk + (1 if body % eng.prefill_chunk
                                            else 0) + 1
-    res = {"launches": {}, "graphs": {}}
+    res = {"launches": {}, "glue_launches": {}, "graphs": {}}
 
     def check_tokens(name, toks):
         if not all(0 <= t < tcfg.vocab_size for t in toks):
@@ -2016,6 +2172,11 @@ def end_to_end(tc, decoding, llama, eng, fd, rk, dev, prefill, quant):
     def counts(what, want_b1, want_b2):
         res["launches"][what] = _check_counts(fd, rk, tag + what, quant,
                                               want_b1, want_b2)
+        glue = {k: fn.launches for k, fn in _glue_wrappers().items()}
+        print(f"  glue launches [{tag}{what}]: {glue}", flush=True)
+        if not all(glue.values()):
+            _fail(f"{tag}{what}: a layer glue kernel was never launched")
+        res["glue_launches"][what] = glue
         if what in ("retrieval", "triforce") and not (want_b1 and want_b2):
             _fail(f"{tag}{what}: a kernel of the path was never launched")
 
@@ -4623,6 +4784,8 @@ def main() -> int:
         from triforce_tpu_torch import cli, data, profiling
         from triforce_tpu_torch.engine import Engine
         from triforce_tpu_torch.models import ckpt, hf, llama
+        from triforce_tpu_torch.models import rope as rope_mod
+        from triforce_tpu_torch.ops import layer_glue
         from triforce_tpu_torch.tree import planner, spectree
         from triforce_tpu_torch.ops import attention as att
         from triforce_tpu_torch.ops import flash_decode as fd
@@ -4794,6 +4957,9 @@ def main() -> int:
     for quant in (False, True):
         b4[quant] += mshapes[quant]["b4"]
         b3[quant] += mshapes[quant]["b3"]
+    # the layer glue at the main path's shapes
+    _stamp("glue kernel gates")
+    glue = kernel_glue(layer_glue, tc, rope_mod, cache, dev)
     # every kernel at the GQA model's shapes (the cli phase's run)
     _stamp("GQA kernel gates")
     gates = gqa_gates()
@@ -4811,7 +4977,7 @@ def main() -> int:
                                                   GQA_MODEL)}
 
     # launches of each kernel in its own path's decoding.triforce run
-    main_path = dict.fromkeys(COUNTERS)
+    main_path = dict.fromkeys(COUNTERS + GLUE_COUNTERS)
     by_phase = {}
     _stamp("tree gate")
     gate = {name: tree_gate(tc, llama, planner, spectree, dev, quant)
@@ -4871,6 +5037,14 @@ def main() -> int:
             b12 = ("b1_int8", "b2_int8") if quant else ("b1", "b2")
             for k in b12:
                 main_path[k] = e2e[name]["launches"]["triforce"][k]
+            # the glue runs in both precisions (bf16 activations either way)
+            pre = "int8 " if quant else ""
+            for k in GLUE_COUNTERS:
+                if not quant:
+                    main_path[k] = e2e[name]["glue_launches"]["triforce"][k]
+                by_phase.setdefault(k, {}).update(
+                    {pre + ph: v[k]
+                     for ph, v in e2e[name]["glue_launches"].items()})
             print(f"end to end [{name}]: " + json.dumps(e2e[name]),
                   flush=True)
             _stamp(f"sharded world 1 [{name}]")
@@ -5005,6 +5179,19 @@ def main() -> int:
                     bound_ms=main["bound_ms"], bound_by=main["bound_by"],
                     library_ms=main["library_ms"], shapes=b4[quant])
 
+    def glue_entry(name, source_fn, main, replaces):
+        rows = glue[name]
+        return dict(name=name, route="cuda",
+                    source="triforce_tpu_torch/csrc/layer_glue.cu",
+                    entry_point=source_fn, replaces=replaces,
+                    launches=main_path[name],
+                    launches_by_phase=by_phase.get(name),
+                    max_abs_err=max(r["max_abs_err"] for r in rows),
+                    ms=rows[main]["ms"], plain_ms=rows[main]["plain_ms"],
+                    bound_ms=rows[main]["bound_ms"],
+                    bound_by=rows[main]["bound_by"],
+                    library_ms=rows[main]["library_ms"], shapes=rows)
+
     kernels = [
         b1_entry("flash_decode_append", "tf_flash_decode_bf16", False,
                  "triforce_tpu/ops/flash_decode.py:332"),
@@ -5024,6 +5211,14 @@ def main() -> int:
                  False),
         b4_entry("flash_decode_partials_int8",
                  "tf_flash_decode_partials_int8", True),
+        # main shapes: a middle verify's 7 rows at 4096 (with y), its q
+        # and k at 7 tokens, its 7 rows of the MLP
+        glue_entry("add_rms_norm", "tf_add_rms_norm", 1,
+                   "triforce_tpu/models/llama.py:89 (XLA-fused there)"),
+        glue_entry("rope", "tf_rope", 0,
+                   "triforce_tpu/models/rope.py:141 (XLA-fused there)"),
+        glue_entry("silu_mul", "tf_silu_mul", 0,
+                   "triforce_tpu/models/llama.py:138 (XLA-fused there)"),
     ]
     _stamp("end")
     print(json.dumps({"reference": ref}), flush=True)

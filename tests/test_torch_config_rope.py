@@ -11,6 +11,7 @@ from triforce_tpu import config as jcfg
 from triforce_tpu.models import rope as jrope
 from triforce_tpu_torch import config as tcfg
 from triforce_tpu_torch.models import rope as trope
+from triforce_tpu_torch.ops import layer_glue
 
 torch.set_num_threads(1)
 
@@ -55,7 +56,7 @@ def test_apply_rope_matches():
     jcos, jsin = jrope.cos_sin_tables(cfg_j)
     tcos, tsin = trope.cos_sin_tables(cfg_t, device="cpu")
     want = jrope.apply_rope(jnp.asarray(x), jcos, jsin, jnp.asarray(pos))
-    got = trope.apply_rope(torch.from_numpy(x), tcos, tsin,
-                           torch.from_numpy(pos))
+    (got,) = layer_glue.rope((torch.from_numpy(x),), tcos, tsin,
+                             torch.from_numpy(pos))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
                                atol=1e-6)

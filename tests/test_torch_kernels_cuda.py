@@ -831,12 +831,215 @@ def test_wide_plan_on_the_card(dev, d, quant):
 
 
 # ---------------------------------------------------------------------------
+# The layer glue (ops/layer_glue.py): residual add + RMSNorm, RoPE on q and
+# k, silu(gate) * up, against their plain versions at the cells' shapes
+# ---------------------------------------------------------------------------
+
+from triforce_tpu_torch import config as tcfg  # noqa: E402
+from triforce_tpu_torch.models import rope as trope  # noqa: E402
+from triforce_tpu_torch.ops import layer_glue as tlg  # noqa: E402
+
+
+def _bf16_ulps(a, b):
+    """Elementwise distance in bf16 ulps (bit patterns in sign-magnitude
+    order, so -0 and +0 are one value)."""
+    def key(x):
+        k = x.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(k < 0, -(k & 0x7FFF), k)
+    return (key(a) - key(b)).abs()
+
+
+def _rand(dev, seed, *shape, dtype=torch.bfloat16, scale=1.0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
+
+
+# rows x hidden: a verify (7, 8), the rows step (8 x 7), a prefill chunk,
+# the drafter's width
+NORM_CASES = [(1, 4096), (7, 4096), (8, 4096), (56, 4096), (512, 4096),
+              (7, 768), (266, 768)]
+
+
+@pytest.mark.parametrize("residual", [True, False])
+@pytest.mark.parametrize("rows,hidden", NORM_CASES)
+def test_add_rms_norm_matches_plain(dev, rows, hidden, residual):
+    """bf16: x + y bit-equal; the normalised value (gain 1) within one
+    ulp, since only the order of the fp32 sum of squares differs; with a
+    gain, h = bf16(w * n) moves by at most two ulps when n moves by one.
+    fp32: the same chain to fp32 rounding."""
+    for dtype in (torch.bfloat16, torch.float32):
+        x = _rand(dev, 0, 1, rows, hidden, dtype=dtype)
+        y = _rand(dev, 1, 1, rows, hidden, dtype=dtype, scale=0.3) \
+            if residual else None
+        w = 1 + _rand(dev, 2, hidden, dtype=dtype, scale=0.1)
+        ones = torch.ones_like(w)
+        before = tlg.add_rms_norm.launches
+        xo, h = tlg.add_rms_norm(x, y, w, 1e-5)
+        _, n = tlg.add_rms_norm(x, y, ones, 1e-5)
+        torch.cuda.synchronize()
+        assert tlg.add_rms_norm.launches == before + 2
+        px, ph = tlg.add_rms_norm_plain(x, y, w, 1e-5)
+        _, pn = tlg.add_rms_norm_plain(x, y, ones, 1e-5)
+        assert torch.equal(xo, px)
+        if not residual:
+            assert xo is x
+        if dtype == torch.bfloat16:
+            assert _bf16_ulps(n, pn).max().item() <= 1
+            assert _bf16_ulps(h, ph).max().item() <= 2
+        else:
+            torch.testing.assert_close(h, ph, rtol=2e-6, atol=1e-7)
+
+
+# (B, Hq, Hkv, T, D, a position per row): Mistral's verifies (GQA 4), Yi's
+# rows step (8 rows x 7, GQA 8), a 512-token prefill chunk, the drafter's
+# q and k (12 heads, D 64)
+ROPE_CARD_CASES = [(1, 32, 8, 7, 128, False), (1, 32, 8, 8, 128, False),
+                   (8, 32, 4, 7, 128, True), (1, 32, 8, 512, 128, False),
+                   (1, 12, 12, 7, 64, False), (1, 32, 4, 1, 128, True)]
+
+
+@pytest.mark.parametrize("b,hq,hkv,t,d,per_row", ROPE_CARD_CASES)
+def test_rope_matches_plain(dev, b, hq, hkv, t, d, per_row):
+    """q and k, as the projections leave them (a [B, T, H, D] buffer seen
+    as [B, H, T, D]), rotated in one launch: bit-equal to the plain
+    version in bf16 and fp32."""
+    cfg = tcfg.LLAMA2_7B_128K.with_(head_dim=d)
+    cos, sin = trope.cos_sin_tables(cfg, device=dev)
+    g = torch.Generator(device=dev).manual_seed(t)
+    shape = (b, t) if per_row else (t,)
+    positions = torch.randint(0, cos.shape[0], shape, generator=g,
+                              device=dev)
+    for dtype in (torch.bfloat16, torch.float32):
+        q = _rand(dev, 3, b, t, hq, d, dtype=dtype).transpose(1, 2)
+        k = _rand(dev, 4, b, t, hkv, d, dtype=dtype).transpose(1, 2)
+        before = tlg.rope.launches
+        rq, rk = tlg.rope((q, k), cos, sin, positions)
+        torch.cuda.synchronize()
+        assert tlg.rope.launches == before + 1
+        assert rq.is_contiguous() and rk.is_contiguous()
+        assert torch.equal(rq, tlg.rope_plain(q, cos, sin, positions))
+        assert torch.equal(rk, tlg.rope_plain(k, cos, sin, positions))
+
+
+@pytest.mark.parametrize("rows", [1, 8])
+def test_rope_over_the_drafters_window_matches_plain(dev, rows):
+    """The drafter's re-rotation of one layer of its un-rotated cache (a
+    view of the stacked planes) at every slot: 275 slots (start 16 +
+    recent 250 + gamma 6 + 3) at D 64, bit-equal."""
+    cfg = tcfg.TINY_DRAFT.with_(num_heads=12, num_kv_heads=12, head_dim=64,
+                                hidden_size=768)
+    spec = tcfg.SpecConfig(gamma=6)
+    if rows == 1:
+        dkv = tcache.init_streaming(cfg, spec, device=dev)
+        layer = dkv.k[1]
+    else:
+        dkv = tcache.init_streaming_rows(cfg, spec, rows, device=dev)
+        layer = dkv.k[:, 1]
+    dkv.k.copy_(_rand(dev, 5, *dkv.k.shape))
+    s = dkv.real_budget
+    cos, sin = trope.cos_sin_tables(cfg, max_len=s, device=dev)
+    slot_pos = torch.arange(s, device=dev)
+    (got,) = tlg.rope((layer,), cos, sin, slot_pos)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tlg.rope_plain(layer, cos, sin, slot_pos))
+
+
+@pytest.mark.parametrize("shape", [(1, 7, 14336), (8, 7, 11008),
+                                   (1, 512, 14336), (1, 7, 3072)])
+def test_silu_mul_matches_plain(dev, shape):
+    for dtype in (torch.bfloat16, torch.float32):
+        gate = _rand(dev, 6, *shape, dtype=dtype, scale=3.0)
+        up = _rand(dev, 7, *shape, dtype=dtype)
+        before = tlg.silu_mul.launches
+        out = tlg.silu_mul(gate, up)
+        torch.cuda.synchronize()
+        assert tlg.silu_mul.launches == before + 1
+        assert torch.equal(out, tlg.silu_mul_plain(gate, up))
+
+
+def test_layer_glue_refuses_off_16_byte_packs(dev):
+    """The kernels move 16-byte packs only: a row, a half head or a length
+    that is not a whole number of packs, and an operand that does not
+    start on 16 bytes, are refused before any launch."""
+    def offset(*shape):       # contiguous, 2 bytes past a 16-byte boundary
+        return _rand(dev, 9, int(torch.tensor(shape).prod()) + 1)[1:] \
+            .view(*shape)
+    counters = (tlg.add_rms_norm, tlg.rope, tlg.silu_mul)
+    before = [c.launches for c in counters]
+    w = 1 + _rand(dev, 2, 4100, scale=0.1)
+    with pytest.raises(ValueError):      # hidden 4100: not whole packs
+        tlg.add_rms_norm(_rand(dev, 0, 7, 4100), None, w, 1e-5)
+    w = 1 + _rand(dev, 2, 4096, scale=0.1)
+    with pytest.raises(ValueError):      # y off 16 bytes
+        tlg.add_rms_norm(_rand(dev, 0, 7, 4096), offset(7, 4096), w, 1e-5)
+    cfg = tcfg.LLAMA2_7B_128K.with_(head_dim=36)
+    cos, sin = trope.cos_sin_tables(cfg, device=dev)
+    pos = torch.arange(5, 12, device=dev)
+    with pytest.raises(ValueError):      # D / 2 = 18: not whole packs
+        tlg.rope((_rand(dev, 3, 1, 7, 8, 36).transpose(1, 2),), cos, sin,
+                 pos)
+    with pytest.raises(ValueError):      # n = 7007: not whole packs
+        tlg.silu_mul(_rand(dev, 6, 7, 1001), _rand(dev, 7, 7, 1001))
+    with pytest.raises(ValueError):      # gate off 16 bytes
+        tlg.silu_mul(offset(7, 1024), _rand(dev, 7, 7, 1024))
+    assert [c.launches for c in counters] == before
+
+
+ROPE_TRAP_CHILD = """
+import sys, torch
+from triforce_tpu_torch.ops import layer_glue as lg
+dev = torch.device("cuda")
+cos = torch.zeros((16, 64), device=dev)
+q = torch.zeros((1, 4, 3, 64), dtype=torch.bfloat16, device=dev)
+try:
+    lg.rope((q,), cos, cos, torch.tensor([0, int(sys.argv[1]), 1],
+                                         device=dev))
+    torch.cuda.synchronize()
+except RuntimeError as e:
+    print("stopped:", str(e).splitlines()[0])
+else:
+    print("rotated")
+"""
+
+
+@pytest.mark.parametrize("position,want", [(16, "stopped"), (-1, "stopped"),
+                                           (15, "rotated")])
+def test_rope_stops_at_a_position_outside_the_table(dev, position, want):
+    """A position outside the table's 16 rows stops the kernel (a device
+    trap) rather than rotating by some other row; the last row rotates.
+    In a child process: the trap ends its CUDA context."""
+    import pathlib
+    import subprocess
+    import sys
+    root = pathlib.Path(__file__).resolve().parents[1]
+    r = subprocess.run([sys.executable, "-c", ROPE_TRAP_CHILD,
+                        str(position)], cwd=root, capture_output=True,
+                       text=True, timeout=600)
+    assert r.stdout.startswith(want), (r.stdout, r.stderr[-2000:])
+
+
+def test_layer_glue_refuses_what_it_does_not_take(dev):
+    x = _rand(dev, 0, 1, 7, 256)
+    with pytest.raises(ValueError):      # y of another dtype
+        tlg.add_rms_norm(x, x.float(), torch.ones(256, device=dev,
+                                                  dtype=x.dtype), 1e-5)
+    with pytest.raises(ValueError):      # a transposed x
+        tlg.add_rms_norm(x.transpose(1, 2), None, torch.ones(
+            7, device=dev, dtype=x.dtype), 1e-5)
+    with pytest.raises(ValueError):      # a strided gate
+        tlg.silu_mul(x[..., ::2], x[..., ::2])
+    cos = torch.zeros((16, 64), device=dev)
+    with pytest.raises(ValueError):      # int32 positions
+        tlg.rope((_rand(dev, 1, 1, 4, 7, 64),), cos, cos,
+                 torch.zeros(7, dtype=torch.int32, device=dev))
+
+
+# ---------------------------------------------------------------------------
 # CUDA graphs: every graphed decode region against its eager witness
 # ---------------------------------------------------------------------------
 
 from triforce_tpu_torch import batched_spec as tbs  # noqa: E402
 from triforce_tpu_torch import batching as tbatching  # noqa: E402
-from triforce_tpu_torch import config as tcfg  # noqa: E402
 from triforce_tpu_torch import graphs as tgraphs  # noqa: E402
 from triforce_tpu_torch.engine import Engine as TEngine  # noqa: E402
 from triforce_tpu_torch.tree import planner as tplanner  # noqa: E402
@@ -1186,3 +1389,51 @@ def test_dead_graphs_give_back_their_body_counters(dev):
 def test_graphs_refuse_the_cpu():
     with pytest.raises(ValueError):
         tgraphs.GraphSet("cpu", True)
+
+
+@pytest.mark.parametrize("which", ["middle verify", "drafter"])
+def test_glue_launches_once_a_layer_in_a_graphed_forward(dev, which):
+    """A forward through a graph set, called three times (eager, capture
+    and replay, replay), leaves the eager forward's logits each time, and
+    each glue counter rises by its launches a forward each time: rope and
+    silu * up once a layer (the drafter's rope twice: q with k, then the
+    window), add + norm twice a layer and once for the final norm."""
+    if which == "middle verify":
+        cfg = CARD_TARGET
+        params = tl.init_params(cfg, device=dev, seed=3)
+        rkv = tcache.init_retrieval(cfg, CARD_SPEC, device=dev)
+        rkv.k.copy_(_rand(dev, 1, *rkv.k.shape))
+        rkv.v.copy_(_rand(dev, 2, *rkv.v.shape))
+        kv_len = torch.full((), 300, dtype=torch.int32, device=dev)
+        caches = (rkv.k, rkv.v)
+
+        def forward(ids):
+            return (tl.forward_spec(cfg, params, ids, rkv, kv_len,
+                                    CARD_SPEC.budget, commit=False)[0],)
+        ropes = cfg.num_layers
+    else:
+        cfg = CARD_DRAFT
+        params = tl.init_params(cfg, device=dev, seed=4)
+        dkv = tcache.init_streaming(cfg, CARD_SPEC, device=dev)
+        dkv.k.copy_(_rand(dev, 1, *dkv.k.shape))
+        dkv.v.copy_(_rand(dev, 2, *dkv.v.shape))
+        caches = (dkv.k, dkv.v)
+
+        def forward(ids):
+            return (tl.draft_forward_spec(cfg, params, ids, dkv, CARD_SPEC,
+                                          commit=False)[0],)
+        ropes = 2 * cfg.num_layers
+    ids = torch.randint(0, cfg.vocab_size, (1, CARD_SPEC.gamma + 1),
+                        generator=torch.Generator().manual_seed(0)).to(dev)
+    (want,) = forward(ids)
+    counters = (tlg.add_rms_norm, tlg.rope, tlg.silu_mul)
+    per_forward = (2 * cfg.num_layers + 1, ropes, cfg.num_layers)
+    gs = tgraphs.GraphSet(dev, True)
+    for call in range(1, 4):
+        before = [fn.launches for fn in counters]
+        (got,) = gs.run("glue", forward, (ids,), caches=caches)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        assert [fn.launches - b for fn, b in zip(counters, before)] == \
+            list(per_forward)
+    assert gs.captures == 1 and gs.replays == 2

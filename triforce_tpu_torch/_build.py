@@ -27,7 +27,8 @@ from pathlib import Path
 _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
 BUILD_ROOT = _HERE / "_build"
-SOURCES = ("flash_decode.cu", "chunk_scores.cu", "graph_cond.cu")
+SOURCES = ("flash_decode.cu", "chunk_scores.cu", "layer_glue.cu",
+           "graph_cond.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
               "-Xptxas", "-v")
@@ -83,6 +84,17 @@ _SIGNATURES = {
         # q, then 1 if q is bf16 (0: fp32)
         "tf_chunk_scores_int8": [_P, _I, _P, _L, _L, _P, _L, _P, _I, _I,
                                  _I, _I, _I, _I, _I, _P],
+    },
+    "layer_glue.cu": {
+        # x, y (or null), w, x + y, h, rows, hidden, 1 / hidden, eps, dtype
+        "tf_add_rms_norm": [_P, _P, _P, _P, _P, _I, _I, _F, _F, _I, _P],
+        # per tensor x, out, B / H / T strides, heads (the second: heads 0
+        # when absent); positions, their row stride, cos, sin, table rows,
+        # B, T, D, dtype
+        "tf_rope": [_P, _P, _L, _L, _L, _I, _P, _P, _L, _L, _L, _I,
+                    _P, _L, _P, _P, _L, _I, _I, _I, _I, _P],
+        # gate, up, out, elements, dtype
+        "tf_silu_mul": [_P, _P, _P, _L, _I, _P],
     },
     "graph_cond.cu": {
         # parent (capturing) stream, the bool predicate, child stream

@@ -106,6 +106,7 @@ import torch
 from . import _build
 from . import profiling
 from .ops import flash_decode as _fd
+from .ops import layer_glue as _lg
 from .ops import retrieval_kernel as _rk
 
 # every kernel wrapper with a Python launch counter
@@ -113,7 +114,8 @@ COUNTED = [_fd.flash_decode_append, _fd.flash_decode_append_int8,
            _fd.flash_decode_partials, _fd.flash_decode_partials_int8,
            _fd.flash_decode_append_batched,
            _fd.flash_decode_append_batched_int8,
-           _rk.chunk_scores, _rk.chunk_scores_int8]
+           _rk.chunk_scores, _rk.chunk_scores_int8,
+           _lg.add_rms_norm, _lg.rope, _lg.silu_mul]
 
 
 def _counts() -> list:

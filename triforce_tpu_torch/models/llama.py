@@ -21,6 +21,10 @@ Caches may be INT8 (``cache.init_kv(quant=True)``): the forwards quantize
 the new K/V per token as they commit them and hand the scales to the
 attention.
 
+Each layer's glue between the products (residual add + RMSNorm, RoPE on q
+and k, SiLU(gate) * up) goes through ``ops/layer_glue.py``: three kernels
+on the card, the plain PyTorch chain on the CPU.
+
 Forward modes:
   forward_append      — prefill chunks / AR decode / full-cache target
                         verify, optionally building the retrieval cache on
@@ -74,6 +78,7 @@ from ..cache import (KVCache, RetrievalCache, StreamingCache, dequantize,
                      device_scalar, int8_scale, quantize_tokens, slice_at,
                      slice_sharded, window, write_window_sharded)
 from ..config import ModelConfig, SpecConfig
+from ..ops import layer_glue
 from ..ops import retrieval as retrieval_ops
 from ..ops.attention import (append_attention, append_attention_auto,
                              append_attention_rows, attention_partials_auto,
@@ -257,10 +262,12 @@ def _layer(params, li: int):
 # Blocks
 # ---------------------------------------------------------------------------
 
-def _rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
-    xf = x.float()
-    var = (xf * xf).mean(-1, keepdim=True)
-    return w * (xf * torch.rsqrt(var + eps)).to(x.dtype)
+def _add_norm(x, y, w, cfg: ModelConfig):
+    """The residual ``x + y`` (y None: x) and its RMSNorm with gain w, as
+    one kernel on the card (``ops/layer_glue.add_rms_norm``). The layer
+    loops carry each MLP output as y into the next layer's first norm (or
+    into ``_logits``'s final norm), so each add rides with a norm."""
+    return layer_glue.add_rms_norm(x, y, w, cfg.rms_norm_eps)
 
 
 def _int_matmul(x8: torch.Tensor, w8: torch.Tensor) -> torch.Tensor:
@@ -340,7 +347,7 @@ def _wmm(x: torch.Tensor, p, name: str, out_dtype=None,
 def _mlp(x, lp, aq: bool = False, tp=None):
     gate = _wmm(x, lp, "w_gate", aq=aq)
     up = _wmm(x, lp, "w_up", aq=aq)
-    return _wmm(F.silu(gate) * up, lp, "w_down", aq=aq, tp=tp)
+    return _wmm(layer_glue.silu_mul(gate, up), lp, "w_down", aq=aq, tp=tp)
 
 
 def _qkv(x, lp, cfg: ModelConfig, aq: bool = False):
@@ -360,16 +367,18 @@ def _attn_out(ctx, lp, aq: bool = False, tp=None):
                 tp=tp)
 
 
-def _logits(cfg: ModelConfig, params, x, aq: bool = False,
+def _logits(cfg: ModelConfig, params, x, y=None, aq: bool = False,
             vocab_mesh=None) -> torch.Tensor:
-    """fp32 logits. In bf16 the GEMM output is rounded to bf16 before the
-    cast (the reference's ``lm_head(h).float()``); the JAX package keeps the
-    fp32 accumulator instead. An int8 lm_head's scale multiplies the fp32
-    logits, as in the JAX package. ``vocab_mesh``: the lm_head is split
+    """fp32 logits of the hidden state ``x + y`` (the last layer's
+    residual, added here with the final norm). In bf16 the GEMM output is
+    rounded to bf16 before the cast (the reference's
+    ``lm_head(h).float()``); the JAX package keeps the fp32 accumulator
+    instead. An int8 lm_head's scale multiplies the fp32 logits, as in the
+    JAX package. ``vocab_mesh``: the lm_head is split
     over the vocabulary on that mesh's ``tp`` axis, and the logits are
     gathered (``gather_vocab``)."""
-    x = _rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
-    out = _wmm(x, params, "lm_head", out_dtype=torch.float32, aq=aq)
+    _, h = _add_norm(x, y, params["final_norm"], cfg)
+    out = _wmm(h, params, "lm_head", out_dtype=torch.float32, aq=aq)
     if vocab_mesh is not None:
         out = gather_vocab(out, vocab_mesh, cfg.vocab_size)
     return out
@@ -517,28 +526,28 @@ def forward_append(cfg: ModelConfig, params, input_ids: torch.Tensor,
     if not split_seq:
         commit_idx = window(seq_len0, t, kv.max_len, dev)  # clamped, like JAX
 
-    x = _embed(params, input_ids)
+    x, y = _embed(params, input_ids), None
     qs = []
     for li in range(cfg.num_layers):
         lp = _layer(params, li)
-        h = _rms_norm(x, lp["ln_attn"], cfg.rms_norm_eps)
+        x, h = _add_norm(x, y, lp["ln_attn"], cfg)
         q, k_new, v_new = _qkv(h, lp, cfg)
-        q = rope.apply_rope(q, cos, sin, positions)
-        k_new = rope.apply_rope(k_new, cos, sin, positions)  # stored rotated
+        # keys stored rotated
+        q, k_new = layer_glue.rope((q, k_new), cos, sin, positions)
         ctx = _layer_attention(q, kv, li, k_new, v_new, seq_len0, new_mask,
                                par, split_seq)
         if split_seq:
             _commit_layer_sharded(kv, li, seq_len0, k_new, v_new, mesh)
         else:
             _commit_layer(kv, li, commit_idx, k_new, v_new)
-        x = x + _attn_out(ctx, lp, tp=par and par.wo)
-        h = _rms_norm(x, lp["ln_mlp"], cfg.rms_norm_eps)
-        x = x + _mlp(h, lp, tp=par and par.w_down)
+        x, h = _add_norm(x, _attn_out(ctx, lp, tp=par and par.wo),
+                         lp["ln_mlp"], cfg)
+        y = _mlp(h, lp, tp=par and par.w_down)
         if building:
             qs.append(q)
 
     kv_out = dataclasses.replace(kv, seq_len=seq_len0 + t)
-    logits = _logits(cfg, params, x, vocab_mesh=par and par.vocab) \
+    logits = _logits(cfg, params, x, y, vocab_mesh=par and par.vocab) \
         if need_logits else None
 
     if building:
@@ -579,20 +588,20 @@ def forward_spec(cfg: ModelConfig, params, input_ids: torch.Tensor,
     aq = act_quant
     par = _par(mesh, cfg)
 
-    x = _embed(params, input_ids)
+    x, y = _embed(params, input_ids), None
     for li in range(cfg.num_layers):
         lp = _layer(params, li)
-        h = _rms_norm(x, lp["ln_attn"], cfg.rms_norm_eps)
+        x, h = _add_norm(x, y, lp["ln_attn"], cfg)
         q, k_new, v_new = _qkv(h, lp, cfg, aq=aq)
-        q = rope.apply_rope(q, cos, sin, positions)
-        k_new = rope.apply_rope(k_new, cos, sin, positions)
+        q, k_new = layer_glue.rope((q, k_new), cos, sin, positions)
         ctx = _layer_attention(q, rkv, li, k_new, v_new, k_len, par=par)
         if commit:
             _commit_layer(rkv, li, commit_idx, k_new, v_new)
-        x = x + _attn_out(ctx, lp, aq=aq, tp=par and par.wo)
-        h = _rms_norm(x, lp["ln_mlp"], cfg.rms_norm_eps)
-        x = x + _mlp(h, lp, aq=aq, tp=par and par.w_down)
-    return _logits(cfg, params, x, aq=aq, vocab_mesh=par and par.vocab), rkv
+        x, h = _add_norm(x, _attn_out(ctx, lp, aq=aq, tp=par and par.wo),
+                         lp["ln_mlp"], cfg)
+        y = _mlp(h, lp, aq=aq, tp=par and par.w_down)
+    return _logits(cfg, params, x, y, aq=aq,
+                   vocab_mesh=par and par.vocab), rkv
 
 
 # ---------------------------------------------------------------------------
@@ -715,13 +724,12 @@ def forward_tree_spec(cfg: ModelConfig, params, input_ids: torch.Tensor,
     if ssl > 0 and seq_mesh is None:
         kv_idx = window(kv_start, t, kv.max_len, dev)
 
-    x = _embed(params, input_ids)
+    x, y = _embed(params, input_ids), None
     for li in range(cfg.num_layers):
         lp = _layer(params, li)
-        h = _rms_norm(x, lp["ln_attn"], cfg.rms_norm_eps)
+        x, h = _add_norm(x, y, lp["ln_attn"], cfg)
         q, k_new, v_new = _qkv(h, lp, cfg, aq=aq)
-        q = rope.apply_rope(q, cos, sin, positions)
-        k_new = rope.apply_rope(k_new, cos, sin, positions)
+        q, k_new = layer_glue.rope((q, k_new), cos, sin, positions)
         if li < ssl:
             ctx = _tree_grow_attention(q, kv, li, full_len, full_len,
                                        slot_start, staged_len, amask, k_new,
@@ -736,10 +744,10 @@ def forward_tree_spec(cfg: ModelConfig, params, input_ids: torch.Tensor,
                                        slot_start, staged_len, amask, k_new,
                                        v_new, new_mask)
             _commit_layer(rkv, li, rkv_idx, k_new, v_new)
-        x = x + _attn_out(ctx, lp, aq=aq, tp=par and par.wo)
-        h = _rms_norm(x, lp["ln_mlp"], cfg.rms_norm_eps)
-        x = x + _mlp(h, lp, aq=aq, tp=par and par.w_down)
-    return _logits(cfg, params, x, aq=aq, vocab_mesh=par and par.vocab), \
+        x, h = _add_norm(x, _attn_out(ctx, lp, aq=aq, tp=par and par.wo),
+                         lp["ln_mlp"], cfg)
+        y = _mlp(h, lp, aq=aq, tp=par and par.w_down)
+    return _logits(cfg, params, x, y, aq=aq, vocab_mesh=par and par.vocab), \
         rkv, kv
 
 
@@ -753,7 +761,8 @@ def _draft_layers(cfg, params, x, dkv, positions, k_len, commit_at,
     window is re-rotated with slot positions, and attention is the plain
     ``append_attention`` (no kernel, as in the JAX package). ``rows``: the
     cache is row-stacked [B, L, ...] (positions and ``k_len`` are the same
-    for every row at the fixed spec slots)."""
+    for every row at the fixed spec slots). Returns the last layer's (x,
+    MLP output), whose sum ``_logits`` takes."""
     dev = x.device
 
     def layer(buf, li):
@@ -763,22 +772,21 @@ def _draft_layers(cfg, params, x, dkv, positions, k_len, commit_at,
     slot_pos = torch.arange(dkv.real_budget, device=dev)
     if commit_at is not None:
         commit_idx = window(commit_at, x.shape[1], dkv.real_budget, dev)
+    y = None
     for li in range(cfg.num_layers):
         lp = _layer(params, li)
-        h = _rms_norm(x, lp["ln_attn"], cfg.rms_norm_eps)
+        x, h = _add_norm(x, y, lp["ln_attn"], cfg)
         q, k_new, v_new = _qkv(h, lp, cfg)
-        q = rope.apply_rope(q, cos, sin, positions)
-        k_cache = rope.apply_rope(layer(dkv.k, li), cos, sin, slot_pos)
-        k_att = rope.apply_rope(k_new, cos, sin, positions)
+        q, k_att = layer_glue.rope((q, k_new), cos, sin, positions)
+        (k_cache,) = layer_glue.rope((layer(dkv.k, li),), cos, sin, slot_pos)
         ctx = append_attention(q, k_cache, layer(dkv.v, li), k_att, v_new,
                                k_len=k_len)
         if commit_at is not None:
             layer(dkv.k, li).index_copy_(2, commit_idx, k_new)
             layer(dkv.v, li).index_copy_(2, commit_idx, v_new)
-        x = x + _attn_out(ctx, lp)
-        h = _rms_norm(x, lp["ln_mlp"], cfg.rms_norm_eps)
-        x = x + _mlp(h, lp)
-    return x
+        x, h = _add_norm(x, _attn_out(ctx, lp), lp["ln_mlp"], cfg)
+        y = _mlp(h, lp)
+    return x, y
 
 
 def draft_forward(cfg: ModelConfig, params, input_ids: torch.Tensor,
@@ -793,9 +801,9 @@ def draft_forward(cfg: ModelConfig, params, input_ids: torch.Tensor,
     b, t = input_ids.shape
     seq_len0 = dkv.seq_len
     positions = _positions(seq_len0, t, input_ids.device)
-    x = _draft_layers(cfg, params, _embed(params, input_ids), dkv,
-                      positions, seq_len0, seq_len0)
-    logits = _logits(cfg, params, x) if need_logits else None
+    x, y = _draft_layers(cfg, params, _embed(params, input_ids), dkv,
+                         positions, seq_len0, seq_len0)
+    logits = _logits(cfg, params, x, y) if need_logits else None
     return logits, dataclasses.replace(dkv, seq_len=seq_len0 + t)
 
 
@@ -813,9 +821,9 @@ def draft_forward_spec(cfg: ModelConfig, params, input_ids: torch.Tensor,
     b, t = input_ids.shape
     spec0 = spec.draft_start_size + spec.draft_recent_size
     positions = _positions(spec0, t, input_ids.device)
-    x = _draft_layers(cfg, params, _embed(params, input_ids), dkv,
-                      positions, spec0, spec0 if commit else None)
-    return _logits(cfg, params, x), dkv
+    x, y = _draft_layers(cfg, params, _embed(params, input_ids), dkv,
+                         positions, spec0, spec0 if commit else None)
+    return _logits(cfg, params, x, y), dkv
 
 
 # ---------------------------------------------------------------------------
@@ -828,19 +836,19 @@ def _target_layers_rows(cfg: ModelConfig, params, input_ids, cache,
     """The target's layer loop for B rows over a row-stacked cache, read
     only: row b attends slots [0, k_len[b]) of its own cache plus its T new
     tokens, at RoPE positions ``positions`` [B, T]. Returns (hidden
-    [B, T, H], new K stack, new V stack [B, L, Hkv, T, D]); keys rotated.
+    [B, T, H] before the last MLP's residual, that MLP's output, new K
+    stack, new V stack [B, L, Hkv, T, D]); keys rotated.
     ``par``: over a mesh (this rank's heads and columns; with
     ``shard_seq`` the cache's slots split over ``sp``)."""
     cos, sin = rope.cos_sin_tables(cfg, device=input_ids.device)
     quant = cache.quantized
-    x = _embed(params, input_ids)
+    x, y = _embed(params, input_ids), None
     nk, nv = [], []
     for li in range(cfg.num_layers):
         lp = _layer(params, li)
-        h = _rms_norm(x, lp["ln_attn"], cfg.rms_norm_eps)
+        x, h = _add_norm(x, y, lp["ln_attn"], cfg)
         q, k_new, v_new = _qkv(h, lp, cfg, aq=aq)
-        q = rope.apply_rope(q, cos, sin, positions)
-        k_new = rope.apply_rope(k_new, cos, sin, positions)
+        q, k_new = layer_glue.rope((q, k_new), cos, sin, positions)
         kw = dict(k_len=k_len,
                   k_scale=cache.k_scale[:, li] if quant else None,
                   v_scale=cache.v_scale[:, li] if quant else None)
@@ -851,12 +859,12 @@ def _target_layers_rows(cfg: ModelConfig, params, input_ids, cache,
         else:
             ctx = append_attention_rows(q, cache.k[:, li], cache.v[:, li],
                                         k_new, v_new, **kw)
-        x = x + _attn_out(ctx, lp, aq=aq, tp=par and par.wo)
-        h = _rms_norm(x, lp["ln_mlp"], cfg.rms_norm_eps)
-        x = x + _mlp(h, lp, aq=aq, tp=par and par.w_down)
+        x, h = _add_norm(x, _attn_out(ctx, lp, aq=aq, tp=par and par.wo),
+                         lp["ln_mlp"], cfg)
+        y = _mlp(h, lp, aq=aq, tp=par and par.w_down)
         nk.append(k_new)
         nv.append(v_new)
-    return x, torch.stack(nk, 1), torch.stack(nv, 1)
+    return x, y, torch.stack(nk, 1), torch.stack(nv, 1)
 
 
 def _row_positions(start: torch.Tensor, t: int) -> torch.Tensor:
@@ -877,10 +885,11 @@ def forward_append_rows(cfg: ModelConfig, params, input_ids: torch.Tensor,
         raise ValueError("a rope_on_slots drafter runs draft_forward_spec")
     t = input_ids.shape[1]
     par = _par(mesh, cfg)
-    x, nk, nv = _target_layers_rows(cfg, params, input_ids, kv,
-                                    _row_positions(kv.seq_len, t),
-                                    kv.seq_len, par=par, shard_seq=shard_seq)
-    return _logits(cfg, params, x, vocab_mesh=par and par.vocab), nk, nv
+    x, y, nk, nv = _target_layers_rows(cfg, params, input_ids, kv,
+                                       _row_positions(kv.seq_len, t),
+                                       kv.seq_len, par=par,
+                                       shard_seq=shard_seq)
+    return _logits(cfg, params, x, y, vocab_mesh=par and par.vocab), nk, nv
 
 
 def forward_spec_rows(cfg: ModelConfig, params, input_ids: torch.Tensor,
@@ -897,10 +906,10 @@ def forward_spec_rows(cfg: ModelConfig, params, input_ids: torch.Tensor,
     t = input_ids.shape[1]
     k_len = torch.where(kv_seq_len > 0, budget, 0).to(torch.int32)
     par = _par(mesh, cfg)
-    x, _, _ = _target_layers_rows(cfg, params, input_ids, rkv,
-                                  _row_positions(kv_seq_len, t), k_len,
-                                  aq=act_quant, par=par)
-    return _logits(cfg, params, x, aq=act_quant,
+    x, y, _, _ = _target_layers_rows(cfg, params, input_ids, rkv,
+                                     _row_positions(kv_seq_len, t), k_len,
+                                     aq=act_quant, par=par)
+    return _logits(cfg, params, x, y, aq=act_quant,
                    vocab_mesh=par and par.vocab)
 
 
@@ -917,6 +926,7 @@ def draft_forward_spec_rows(cfg: ModelConfig, params,
     t = input_ids.shape[1]
     spec0 = spec.draft_start_size + spec.draft_recent_size
     positions = _positions(spec0, t, input_ids.device)
-    x = _draft_layers(cfg, params, _embed(params, input_ids), dkv,
-                      positions, spec0, spec0 if commit else None, rows=True)
-    return _logits(cfg, params, x), dkv
+    x, y = _draft_layers(cfg, params, _embed(params, input_ids), dkv,
+                         positions, spec0, spec0 if commit else None,
+                         rows=True)
+    return _logits(cfg, params, x, y), dkv

@@ -3,7 +3,9 @@
 Counterpart of ``triforce_tpu/models/rope.py``. Tables are pure functions of
 the config, computed once in fp32 with numpy (the same arithmetic as the JAX
 package, so both packages rotate with identical tables) and cached per
-device; ``apply_rope`` gathers rows by (device) position tensors.
+device. The rotation itself is ``ops/layer_glue.rope`` (a kernel on the
+card that reads the table rows at device position tensors; its plain
+version ``rope_plain`` on the CPU).
 """
 
 from __future__ import annotations
@@ -114,23 +116,3 @@ def cos_sin_tables(config: ModelConfig, max_len: int | None = None,
     max_len = max_len or config.max_position_embeddings
     return _cos_sin_tables_dev(config.rope, config.head_dim, max_len,
                                resolve_device(device))
-
-
-def rotate_half(x: torch.Tensor) -> torch.Tensor:
-    half = x.shape[-1] // 2
-    return torch.cat([-x[..., half:], x[..., :half]], dim=-1)
-
-
-def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
-               positions: torch.Tensor) -> torch.Tensor:
-    """Rotate ``x`` ([..., T, D]) at ``positions`` ([T] long, on x's device);
-    table rows are cast to x's dtype before the product, like the JAX
-    package. ``positions`` [B, T] rotates each row of ``x`` [B, H, T, D] at
-    its own positions."""
-    if positions.dim() == 2:
-        c = cos[positions][:, None].to(x.dtype)       # [B, 1, T, D]
-        s = sin[positions][:, None].to(x.dtype)
-    else:
-        c = cos.index_select(0, positions).to(x.dtype)
-        s = sin.index_select(0, positions).to(x.dtype)
-    return x * c + rotate_half(x) * s
