@@ -7,6 +7,7 @@
     python3 chip_smoke.py --study         # the kernel study alone
     python3 chip_smoke.py --gqa           # the GQA gates and the CLI alone
     python3 chip_smoke.py --mesh          # the rest of the mesh alone
+    python3 chip_smoke.py --moe-window    # the hybrid path's gates alone
 
 Phases, in order (any failure exits non-zero before the last line):
   1. device line: the card's name and power limit (nvidia-smi);
@@ -171,7 +172,19 @@ Phases, in order (any failure exits non-zero before the last line):
      batched retrieval on 4 rows at prefill 4096, 3 steps, eagerly: the
      same tokens on every rank, each dp index's rows bit-equal to its
      (tp, sp) group's run alone, the meshless run's tokens beside them;
- 13. the ``kernels`` JSON line, then the ``ok`` JSON line.
+ 13. hybrid (a model with sliding-window and expert layers), after the
+     batched phases: the kernel gate (``kernel_moe_window``, in phase 3:
+     the router, the expert kernel, the grouped GEMM and B1's window
+     kernel at Mellum2-12B-A2.5B's widths against their plain versions),
+     then that model at 4 of its 28 layers end to end
+     (``hybrid_end_to_end``): a graphed engine and its eager witness run
+     an 8192-token prefill, forced TriForce, forced retrieval speculation
+     and AR from one seed, each phase's launch counters zeroed just
+     before it; tokens, step counters, expert counts, launch counts and
+     cache digests must match after every phase, and each phase must
+     launch its kernels (lines "hybrid [...]");
+ 14. the ``kernels`` JSON line (the hybrid kernels' entries with launches
+     from phase 13's TriForce call), then the ``ok`` JSON line.
 
 Cuts for the 1200-second limit (each constant's comment says what it was):
 GEN 128 -> 64 -> 32 tokens a batch-1 mode; GATE_TOKENS 32 -> 16 (the
@@ -1086,6 +1099,304 @@ def kernel_glue(lg, tc, rope_mod, cache_mod, dev):
             library="torch.mul (one launch, the same bytes)"))
     torch.cuda.synchronize()
     return out
+
+
+def kernel_moe_window(moe, fd, dev):
+    """The hybrid path's kernels on the card against their plain versions
+    at Mellum2-12B-A2.5B's widths (hidden 2304, 64 experts of 896, top 8;
+    4 KV heads of 128 at GQA 8, a 1024-token window on a 1536-slot ring):
+    the expert kernel at 1 / 7 / 8 tokens routed by the router kernel,
+    8 tokens routed over 12 experts (skewed), 64 tokens all through one
+    expert, and a 512-token chunk through the grouped GEMM; B1's window
+    kernel at 1 / 8 / 512 new tokens over rings holding 1023, 1024, 1536
+    and 122880 positions (wrapped from 1537 on). Limits: an expert output
+    within 2e-3 of the plain version's norm (bf16 roundings of sums taken
+    in another order), B1's 0.05 / sqrt(keys) as ``kernel_b1``. Each row:
+    device ms (a CUDA graph), the plain version's (host-timed: it reads
+    its routing back), a library yardstick's (the grouped GEMM; fused
+    attention over the window's keys gathered beforehand) and the bound
+    (bytes read / 3.35 TB/s). -> {kernel: [row]}"""
+    bf = torch.bfloat16
+    h, e, i, k = 2304, 64, 896, 8
+    g = torch.Generator(device=dev).manual_seed(31)
+
+    def rn(*shape, std=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * std).to(bf)
+
+    wr, wg, wu, wd = (rn(e, h, std=h ** -0.5), rn(e, i, h, std=h ** -0.5),
+                      rn(e, i, h, std=h ** -0.5), rn(e, h, i, std=i ** -0.5))
+    out = {"moe_experts": [], "moe_route": [], "b1_window": []}
+    for n, kind in ((1, "router"), (7, "router"), (8, "router"),
+                    (8, "skewed"), (64, "one"), (512, "router")):
+        x = rn(n, h)
+        ids, w = moe.route(x, wr, k)
+        if kind == "router":
+            # the plain router's choice, but at a near tie (its k-th and
+            # (k+1)-th probabilities within 1e-3), and its weights
+            ids_p, w_p = moe.route_plain(x, wr, k)
+            top = torch.softmax(x.float() @ wr.float().T, -1).topk(
+                k + 1, -1).values
+            same = (ids.sort(-1).values == ids_p.sort(-1).values).all(-1)
+            tie = top[:, k - 1] - top[:, k] <= 1e-3 * top[:, k - 1]
+            w_err = float((w - w_p).abs()[same].max())
+            if not bool((same | tie).all()) or not w_err <= 1e-5:
+                _fail(f"moe route [{n} tokens]: {int((~same).sum())} "
+                      f"choices differ, weights within {w_err}")
+        if kind == "skewed":
+            ids = torch.stack([torch.randperm(12, generator=g, device=dev)[:k]
+                               for _ in range(n)]).to(torch.int32)
+        elif kind == "one":
+            ids = torch.stack([torch.randperm(e - 1, generator=g,
+                                              device=dev)[:k] + 1
+                               for _ in range(n)]).to(torch.int32)
+            ids[:, 0] = 0
+        got = moe.experts(x, ids, w, wg, wu, wd)
+        want = moe.combine_plain(moe.expert_outputs_plain(x, ids, wg, wu,
+                                                          wd), w)
+        rel = float((got.float() - want.float()).norm()
+                    / want.float().norm())
+        if not rel < 2e-3:
+            _fail(f"moe experts [{n} tokens, {kind}]: {rel}")
+        read = torch.unique(ids).numel()
+        row = dict(tokens=n, routing=kind, experts_read=read, rel_err=rel,
+                   ms=_device_ms(lambda: moe.experts(x, ids, w, wg, wu, wd)),
+                   plain_ms=_time_ms(lambda: moe.combine_plain(
+                       moe.expert_outputs_plain(x, ids, wg, wu, wd), w),
+                       reps=5, warm=1),
+                   library_ms=_device_ms(lambda: moe._grouped(
+                       x, ids, w, wg, wu, wd)),
+                   bound_ms=_bound(read * 3 * h * i * 2, 0,
+                                   H100_BF16_FLOPS)[0])
+        print(f"moe experts [{n} tokens, {kind}, {read} experts]: kernel "
+              f"{row['ms'] * 1e3:.1f} us, plain {row['plain_ms'] * 1e3:.1f} "
+              f"us, grouped GEMM {row['library_ms'] * 1e3:.1f} us, bound "
+              f"{row['bound_ms'] * 1e3:.1f} us, rel {rel:.2e}", flush=True)
+        out["moe_experts"].append(row)
+        if kind == "router":
+            row = dict(tokens=n, w_err=w_err,
+                       ms=_device_ms(lambda: moe.route(x, wr, k)),
+                       plain_ms=_device_ms(lambda: moe.route_plain(x, wr, k)),
+                       bound_ms=_bound(e * h * 2, 0, H100_BF16_FLOPS)[0])
+            print(f"moe route [{n} tokens]: kernel {row['ms'] * 1e3:.1f} "
+                  f"us, plain {row['plain_ms'] * 1e3:.1f} us", flush=True)
+            out["moe_route"].append(row)
+    hkv, grp, d, win, ring = 4, 8, 128, 1024, 1536
+    for t in (1, 8, 512):
+        for length in (1023, 1024, 1536, 122880):
+            q, kn, vn = rn(hkv, grp * t, d), rn(hkv, t, d), rn(hkv, t, d)
+            kc, vc = rn(hkv, ring, d), rn(hkv, ring, d)
+            kl = torch.tensor(length, dtype=torch.int32, device=dev)
+            mask = fd.causal_mask(t, t, grp, dev)
+            got = fd.flash_decode_window(q, kc, vc, kn, vn, kl, mask, win)
+            ref = fd.flash_decode_append_plain(q, kc, vc, kn, vn, kl, mask,
+                                               window=win)
+            keys = min(length, win - 1)
+            err = float((got - ref).abs().max())
+            if not err <= 0.05 / (keys + t) ** 0.5:
+                _fail(f"b1 window [T {t}, L {length}]: {err}")
+            pos = torch.arange(length - keys, length, device=dev) % ring
+            kw = torch.cat([kc[:, pos], kn], 1).repeat_interleave(grp, 0)
+            vw = torch.cat([vc[:, pos], vn], 1).repeat_interleave(grp, 0)
+            qw = q.reshape(hkv, grp, t, d).reshape(hkv * grp, t, d)
+            band = (torch.arange(keys + t, device=dev)[None, :]
+                    <= torch.arange(keys, keys + t, device=dev)[:, None]) \
+                & (torch.arange(keys + t, device=dev)[None, :]
+                   > torch.arange(t, device=dev)[:, None] + keys - win)
+            row = dict(tokens=t, length=length, max_abs_err=err,
+                       ms=_device_ms(lambda: fd.flash_decode_window(
+                           q, kc, vc, kn, vn, kl, mask, win)),
+                       plain_ms=_device_ms(lambda: fd.flash_decode_append_plain(
+                           q, kc, vc, kn, vn, kl, mask, window=win)),
+                       library_ms=_device_ms(
+                           lambda: torch.nn.functional.scaled_dot_product_attention(
+                               qw, kw, vw, attn_mask=band)),
+                       bound_ms=_bound(2 * hkv * (keys + t) * d * 2
+                                       + 2 * hkv * grp * t * d * 2,
+                                       4 * hkv * grp * t * d * (keys + t),
+                                       H100_BF16_FLOPS)[0])
+            print(f"b1 window [T {t}, L {length}]: kernel "
+                  f"{row['ms'] * 1e3:.1f} us, plain {row['plain_ms'] * 1e3:.1f}"
+                  f" us, sdpa {row['library_ms'] * 1e3:.1f} us, bound "
+                  f"{row['bound_ms'] * 1e3:.1f} us, err {err:.2e}", flush=True)
+            out["b1_window"].append(row)
+    return out
+
+
+HYBRID_LAYERS = 4          # Mellum2's widths, its first 4 layers (three
+HYBRID_PREFILL = 8192      # sliding, one full); the prompt wraps each ring
+HYBRID_TOKENS = 32         # tokens a decode call of the hybrid phase
+
+
+def _hybrid_wrappers(fd, rk):
+    """The kernels a hybrid model's forwards launch, by ``kernels`` name."""
+    from triforce_tpu_torch.ops import layer_glue, moe
+    return {"flash_decode_append": fd.flash_decode_append,
+            "flash_decode_window": fd.flash_decode_window,
+            "chunk_scores": rk.chunk_scores, "moe_route": moe.route,
+            "moe_experts": moe.experts, "moe_grouped": moe._grouped,
+            **{k: getattr(layer_glue, k) for k in GLUE_COUNTERS}}
+
+
+def hybrid_end_to_end(tc, Engine, llama, fd, rk, dev):
+    """The hybrid path end to end (sliding-window layers on rings, expert
+    MLPs): Mellum2-12B-A2.5B's widths at HYBRID_LAYERS layers with random
+    weights and a Llama-68M drafter, a HYBRID_PREFILL-token prompt. A
+    graphed engine and its eager witness (``graphs=False``) run, from one
+    seed, the prefill, then forced-acceptance TriForce, retrieval
+    speculation and AR calls of HYBRID_TOKENS tokens; each phase zeroes
+    the launch counters just before it. The two must leave the same
+    tokens, step counters, expert counts, launch counts and cache bits
+    (word digests of the full cache to its length, the rings, the
+    retrieval cache) after every phase; each phase must launch its kinds'
+    kernels (the window kernel, B1 on the full layer, the router, the
+    expert kernel in the decode phases and the build token, the grouped
+    GEMM in the prefill's chunks alone, B2 in the build alone, silu * up
+    where the drafter or the grouped GEMM runs alone).
+    -> {"launches":
+    {phase: {kernel: n}}, "ms_per_token": {mode: ms}, ...}"""
+    cfg = dataclasses.replace(
+        tc.MELLUM2_12B_A2_5B, num_layers=HYBRID_LAYERS,
+        layer_types=tc.MELLUM2_12B_A2_5B.layer_types[:HYBRID_LAYERS])
+    dcfg = tc.LLAMA_68M.with_(vocab_size=cfg.vocab_size)
+    spec = tc.SpecConfig(gamma=GAMMA, budget=4096, chunk_size=8)
+    params = llama.init_params(cfg, device=dev, seed=11)
+    draft = llama.init_params(dcfg, device=dev, seed=12)
+    ids = torch.randint(3, cfg.vocab_size, (1, HYBRID_PREFILL),
+                        generator=torch.Generator(device=dev).manual_seed(13),
+                        device=dev)
+    room = HYBRID_PREFILL + 8 * HYBRID_TOKENS + 64
+    wrappers = _hybrid_wrappers(fd, rk)
+
+    def forced(mode):
+        def run(eng, st):
+            st, buf, n, c = eng.generate_forced(st, HYBRID_TOKENS, 0.9,
+                                                mode=mode)
+            return st, buf[:n].tolist(), c.tolist()
+        return run
+
+    def ar(eng, st):
+        kv, tok, _, buf = eng.generate_ar(st.kv, st.next_token, st.gen,
+                                          HYBRID_TOKENS)
+        return (dataclasses.replace(st, kv=kv, next_token=tok),
+                buf.tolist(), [])
+    decode = (("triforce", forced("triforce")),
+              ("retrieval", forced("retrieval")), ("ar", ar))
+    runs = {}
+    for name, graphs in (("graphed", None), ("eager", False)):
+        eng = Engine(cfg, spec, params, draft_cfg=dcfg, draft_params=draft,
+                     prefill=HYBRID_PREFILL, max_cache_len=room,
+                     graphs=graphs, device=dev)
+        rec = {"launches": {}, "seen": {}, "s": {}}
+
+        def phase(what, fn):
+            for w in wrappers.values():
+                w.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            rec["s"][what] = time.perf_counter() - t0
+            rec["launches"][what] = {k: w.launches
+                                     for k, w in wrappers.items()}
+            return out
+
+        st = phase("prefill", lambda: eng.prefill_draft(
+            eng.prefill_target(eng.init_state(7), ids), ids))
+        st_ = [st]
+        rec["seen"]["prefill"] = [
+            _digest([st.kv.k[..., :HYBRID_PREFILL, :],
+                     st.kv.v[..., :HYBRID_PREFILL, :], st.kv.ring_k,
+                     st.kv.ring_v, st.rkv.k, st.rkv.v]),
+            eng.moe_counts.tolist(), int(st.next_token[0])]
+        for mode, fn in decode:
+            s, toks, counters = phase(mode, lambda: fn(eng, st_[0]))
+            st_[0] = s
+            n = int(s.kv.seq_len)
+            rec["seen"][mode] = [
+                toks, counters, n, eng.moe_counts.tolist(),
+                _digest([s.kv.k[..., :n, :], s.kv.v[..., :n, :],
+                         s.kv.ring_k, s.kv.ring_v, s.rkv.k, s.rkv.v])]
+            rec.setdefault("tokens", {})[mode] = len(toks)
+        runs[name] = rec
+        eng.release_graphs()
+        del eng, st, st_
+        torch.cuda.empty_cache()
+    g, e = runs["graphed"], runs["eager"]
+    for what in g["seen"]:
+        print(f"hybrid [{what}]: graphed {g['s'][what]:.2f} s, eager "
+              f"{e['s'][what]:.2f} s; launches {g['launches'][what]}",
+              flush=True)
+        if g["seen"][what] != e["seen"][what]:
+            _fail(f"hybrid [{what}]: the graphed run's tokens, counters or "
+                  f"caches differ from the eager witness's")
+        if g["launches"][what] != e["launches"][what]:
+            _fail(f"hybrid [{what}]: launches {g['launches'][what]} != the "
+                  f"eager witness's {e['launches'][what]}")
+        got = g["launches"][what]
+        # silu * up runs in the drafter and the grouped GEMM's chunks (the
+        # expert kernel fuses it): in retrieval and AR it launches never
+        need = ["flash_decode_append", "flash_decode_window", "moe_route",
+                "moe_experts", "add_rms_norm", "rope"]
+        zero = []
+        if what in ("prefill", "triforce"):
+            need.append("silu_mul")
+        else:
+            zero.append("silu_mul")
+        if what == "prefill":    # chunks: grouped; the build token: kernel
+            need += ["moe_grouped", "chunk_scores"]
+            if got["moe_experts"] != HYBRID_LAYERS:
+                _fail(f"hybrid [prefill]: the expert kernel launched "
+                      f"{got['moe_experts']} times, not once a layer of "
+                      f"the build token")
+        else:
+            zero += ["moe_grouped", "chunk_scores"]
+        if any(got[k] == 0 for k in need) or any(got[k] for k in zero):
+            _fail(f"hybrid [{what}]: launches {got}: {need} must run, "
+                  f"{zero} must not")
+    ms = {mode: 1e3 * g["s"][mode] / g["tokens"][mode]
+          for mode, _ in decode}
+    print(f"hybrid ms/token (graphed, first calls, captures included): "
+          f"{ms}", flush=True)
+    return {"layers": HYBRID_LAYERS, "prefill": HYBRID_PREFILL,
+            "tokens": HYBRID_TOKENS, "launches": g["launches"],
+            "seconds": {"graphed": g["s"], "eager": e["s"]},
+            "ms_per_token": ms}
+
+
+def hybrid_entries(kmw, hyb):
+    """``kernels`` entries of the hybrid path's kernels: device, plain,
+    library and bound ms at a target verify's shape (8 tokens; the grouped
+    GEMM at a 512-token chunk, B1's window at 8 over a ring of 122880
+    positions) from ``kernel_moe_window``, launches from the TriForce call
+    of ``hybrid_end_to_end`` (every phase's beside it)."""
+    def entry(name, entry_point, rows, main, err_key, library):
+        r = rows[main]
+        lb = {ph: lc[name] for ph, lc in hyb["launches"].items()}
+        return dict(name=name, route="cuda",
+                    source="triforce_tpu_torch/csrc/" + (
+                        "flash_decode.cu" if name.startswith("flash")
+                        else "moe.cu"),
+                    entry_point=entry_point,
+                    replaces="none (no JAX counterpart: " + library + ")",
+                    launches=lb["triforce"], launches_by_phase=lb,
+                    max_abs_err=max(x.get(err_key, 0.0) for x in rows),
+                    ms=r["ms"], plain_ms=r["plain_ms"],
+                    bound_ms=r["bound_ms"], library_ms=r.get("library_ms"),
+                    shapes=rows)
+    ex = kmw["moe_experts"]
+    return [
+        entry("moe_route", "tf_moe_route", kmw["moe_route"], 2, "w_err",
+              "the router of a sparse layer"),
+        entry("moe_experts", "tf_moe_experts",
+              [r for r in ex if r["tokens"] <= 64], 2, "rel_err",
+              "the expert kernel: gate/up, down, combine"),
+        entry("moe_grouped", "tf_moe_combine",
+              [r for r in ex if r["tokens"] > 64], 0, "rel_err",
+              "torch._grouped_mm and the combine kernel, prefill chunks"),
+        entry("flash_decode_window", "tf_flash_decode_window_bf16",
+              kmw["b1_window"], 7, "max_abs_err",
+              "B1 over a sliding layer's ring"),
+    ]
 
 
 def _kernel_name(key: str) -> str:
@@ -4763,6 +5074,10 @@ def main() -> int:
                     help="only the rest of the mesh: B4 and B3 at its "
                     "shapes, the tree over a world-1 mesh, the dp / tp "
                     "two-rank and the composed eight-rank runs")
+    ap.add_argument("--moe-window", action="store_true",
+                    help="only the hybrid path's kernel gate "
+                    "(kernel_moe_window): the router, the expert kernel and "
+                    "B1's window kernel at Mellum2-12B-A2.5B's widths")
     ap.add_argument("--shard-rank", metavar="JOB",
                     help="run one rank of the sharded phase's two-rank runs "
                     "(started by this script)")
@@ -4785,7 +5100,7 @@ def main() -> int:
         from triforce_tpu_torch.engine import Engine
         from triforce_tpu_torch.models import ckpt, hf, llama
         from triforce_tpu_torch.models import rope as rope_mod
-        from triforce_tpu_torch.ops import layer_glue
+        from triforce_tpu_torch.ops import layer_glue, moe
         from triforce_tpu_torch.tree import planner, spectree
         from triforce_tpu_torch.ops import attention as att
         from triforce_tpu_torch.ops import flash_decode as fd
@@ -4816,6 +5131,15 @@ def main() -> int:
         print(f"  ptxas [{name}]: {len(regs)} kernels, registers "
               f"{sorted(set(regs))}, {spills} with spills", flush=True)
     gm = _grow_map(planner)
+    if args.moe_window:
+        kmw = kernel_moe_window(moe, fd, dev)
+        print(json.dumps({"kernels_moe_window": kmw}), flush=True)
+        torch.cuda.empty_cache()
+        _stamp("hybrid end to end")
+        hyb = hybrid_end_to_end(tc, Engine, llama, fd, rk, dev)
+        print("hybrid end to end: " + json.dumps(hyb), flush=True)
+        print(json.dumps({"kernels": hybrid_entries(kmw, hyb)}), flush=True)
+        return 0
     if args.ab:
         print(f"AB {args.ab} " + json.dumps(kernel_ab(
             fd, att, rk, rt, cache, dev, args.prefill, gm.mask)), flush=True)
@@ -4960,6 +5284,11 @@ def main() -> int:
     # the layer glue at the main path's shapes
     _stamp("glue kernel gates")
     glue = kernel_glue(layer_glue, tc, rope_mod, cache, dev)
+    # the hybrid path's experts and window kernel at Mellum2's widths
+    _stamp("moe and window kernel gates")
+    kmw = kernel_moe_window(moe, fd, dev)
+    print(json.dumps({"kernels_moe_window": kmw}), flush=True)
+    torch.cuda.empty_cache()
     # every kernel at the GQA model's shapes (the cli phase's run)
     _stamp("GQA kernel gates")
     gates = gqa_gates()
@@ -4979,6 +5308,7 @@ def main() -> int:
     # launches of each kernel in its own path's decoding.triforce run
     main_path = dict.fromkeys(COUNTERS + GLUE_COUNTERS)
     by_phase = {}
+    hyb = None
     _stamp("tree gate")
     gate = {name: tree_gate(tc, llama, planner, spectree, dev, quant)
             for name, quant in (("bf16", False), ("int8", True))}
@@ -5115,6 +5445,9 @@ def main() -> int:
                     if n:
                         by_phase.setdefault(k, {})[
                             f"{name} {part} (rank 0)"] = n
+        _stamp("hybrid end to end")
+        hyb = hybrid_end_to_end(tc, Engine, llama, fd, rk, dev)
+        print("hybrid end to end: " + json.dumps(hyb), flush=True)
         _stamp("cli phase")
         for tag, got in cli_run()["launches"].items():
             for k, n in got.items():
@@ -5219,7 +5552,7 @@ def main() -> int:
                    "triforce_tpu/models/rope.py:141 (XLA-fused there)"),
         glue_entry("silu_mul", "tf_silu_mul", 0,
                    "triforce_tpu/models/llama.py:138 (XLA-fused there)"),
-    ]
+    ] + (hybrid_entries(kmw, hyb) if hyb is not None else [])
     _stamp("end")
     print(json.dumps({"reference": ref}), flush=True)
     print(json.dumps({"kernel_study": study}), flush=True)

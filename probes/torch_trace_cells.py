@@ -40,7 +40,7 @@ import torch  # noqa: E402
 
 import harness  # noqa: E402
 import run as bench_run  # noqa: E402
-from reference import check  # noqa: E402
+from reference import check, check_moe  # noqa: E402
 
 from triforce_tpu_torch import profiling  # noqa: E402
 
@@ -90,20 +90,28 @@ class _Window:
 
 def _skip_judge():
     def judge(m, weights, ids, prog):
-        return dict(kv_len_gap=0.0, kv_err=0.0, rkv_err=0.0, build_gap=0.0)
-    check.judge = judge
+        return dict(kv_len_gap=0.0, kv_err=0.0, rkv_err=0.0, build_gap=0.0,
+                    logit_err=0.0)
+    check.judge = check_moe.judge = judge
 
 
 def _metrics(summary: dict, rec: dict) -> dict:
     """What the per-layer metrics of the trace would read: the step split
-    (``.decode`` in batch-1 cells, ``.serve`` in serving), the live slots
-    and the admission's device share."""
+    (``.decode`` in batch-1 cells, ``.serve`` in serving), and in a
+    hybrid model's cell the device ms a step spends in its expert layers
+    and its sliding-window attention (the ``moe`` and ``window_attn``
+    regions inside the forwards), the live slots and the admission's
+    device share."""
     kind = "serve" if "serve" in rec else "decode"
     out = {}
     split = summary.get("step")
     if split:
         for part in ("verify", "middle", "draft", "rest"):
             out[f"step_{part}_ms.{kind}"] = split[part + "_ms"]
+        for part in ("moe", "window_attn"):
+            reg = summary["regions"].get(part)
+            if reg and split["steps"]:
+                out[f"step_{part}_ms.{kind}"] = reg["ms"] / split["steps"]
     for key, name in (("live_slot_pct", "live_slot_pct.serve"),
                       ("admit_device_pct", "admit_device_pct.serve")):
         if key in summary:

@@ -28,7 +28,7 @@ _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
 BUILD_ROOT = _HERE / "_build"
 SOURCES = ("flash_decode.cu", "chunk_scores.cu", "layer_glue.cu",
-           "graph_cond.cu")
+           "graph_cond.cu", "moe.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
               "-Xptxas", "-v")
@@ -49,6 +49,12 @@ _SIGNATURES = {
                                  _P, _L, _L, _P, _L, _L, _P, _P,
                                  _P, _P, _P, _P,
                                  _I, _I, _I, _I, _I, _I, _F, _P],
+        # as tf_flash_decode_bf16, then the window and the new tokens
+        "tf_flash_decode_window_bf16": [_P, _L, _L, _P, _L, _L, _P, _L, _L,
+                                        _P, _L, _L, _P, _L, _L, _P, _P,
+                                        _P, _P, _P, _P,
+                                        _I, _I, _I, _I, _I, _I, _F, _I, _I,
+                                        _P],
         "tf_flash_decode_int8": [_P, _L, _L, _P, _L, _L, _P, _L, _L,
                                  _P, _L, _P, _L,
                                  _P, _L, _L, _P, _L, _L, _P, _P,
@@ -95,6 +101,17 @@ _SIGNATURES = {
                     _P, _L, _P, _P, _L, _I, _I, _I, _I, _P],
         # gate, up, out, elements, dtype
         "tf_silu_mul": [_P, _P, _P, _L, _I, _P],
+    },
+    "moe.cu": {
+        # h, router, N, hidden, experts, top k, renormalise, ids, weights,
+        # counts (or null)
+        "tf_moe_route": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+        # h, ids, weights, gate, up, down, act and y scratch, out, N, K,
+        # hidden, expert width, experts, counts (or null)
+        "tf_moe_experts": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                           _I, _I, _I, _I, _I, _P, _P],
+        # y, weights, out, N, K, hidden
+        "tf_moe_combine": [_P, _P, _P, _I, _I, _I, _P],
     },
     "graph_cond.cu": {
         # parent (capturing) stream, the bool predicate, child stream

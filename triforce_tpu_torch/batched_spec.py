@@ -51,6 +51,7 @@ from . import batching, profiling
 from .cache import (KVCache, RetrievalCache, StreamingCache, init_kv_rows,
                     init_retrieval_rows, init_streaming_rows, row_view,
                     set_entry, stack_rows, write_row)
+from .config import refuse_hybrid
 from .engine import (_COUNTS, BatchedStepStats, Engine, StackedState,
                      TriForceState, decode_rows)
 from .parallel import sharding
@@ -179,6 +180,7 @@ class BatchedSpecEngine:
 
     def __init__(self, engine: Engine, mode: str = "retrieval",
                  force_accept=None, mesh=None):
+        refuse_hybrid(engine.target_cfg, "BatchedSpecEngine")
         if engine.mesh is not None:
             if mesh is not None:
                 raise ValueError("the engine's mesh already carries (dp, "
@@ -315,6 +317,7 @@ class SpecScheduler(batching.SchedulerBase):
                  slots: int = 4, segment: int = 4, seed: int = 0,
                  force_accept=None, mesh=None, bat=None,
                  admit_chunks: int = 8):
+        refuse_hybrid(engine.target_cfg, "SpecScheduler")
         super().__init__(slots, engine.eos_token_id, engine.device,
                          engine.graphs)
         self.engine = engine

@@ -35,7 +35,7 @@ import torch
 from . import graphs as graphs_mod
 from . import profiling
 from .cache import KVCache, init_kv_rows, row_view, set_entry
-from .config import ModelConfig, SpecConfig, resolve_device
+from .config import ModelConfig, SpecConfig, refuse_hybrid, resolve_device
 from .engine import _as_eos_tuple, append_graphed, prefill_chunks
 from .models import llama
 from .ops import sampling
@@ -309,6 +309,7 @@ class Scheduler(SchedulerBase):
                  prefill_chunk: int = 256, eos_token_id: int = 2,
                  dtype=torch.bfloat16, segment: int = 16, seed: int = 0,
                  out_cap: int = 1024, device=None, graphs=None):
+        refuse_hybrid(cfg, "the AR Scheduler")
         dev = resolve_device(device)
         super().__init__(batch, eos_token_id, dev,
                          graphs_mod.GraphSet(dev, graphs))

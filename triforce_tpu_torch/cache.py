@@ -53,13 +53,26 @@ def _clone(x: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
 @dataclasses.dataclass
 class KVCache:
     """Full (target) KV cache; keys stored rotated. ``rollback`` subtracts
-    from ``seq_len`` (attention is masked by length, never re-sliced)."""
+    from ``seq_len`` (attention is masked by length, never re-sliced).
+
+    A model with sliding-window layers (``config.HybridConfig``) keeps two
+    kinds of state side by side, under the one ``seq_len``: ``k``/``v``
+    hold its full-attention layers only, and ``ring_k``/``ring_v`` its
+    sliding layers, each a ring of R slots where position p lives at slot
+    p mod R (``ring_slots``). R is the window plus the most tokens one
+    forward appends, so a forward that writes positions L .. L+T-1 over a
+    ring holding L tokens overwrites only positions below L - window + 1,
+    which no query from L on sees: after any forward and any rollback to
+    a length L' >= L, the ring's slots of positions L' - window .. L' - 1
+    hold exactly those positions."""
 
     k: torch.Tensor        # [L, B, H_kv, S_max, D] (model dtype, or int8)
     v: torch.Tensor
     seq_len: torch.Tensor  # 0-d int32
     k_scale: Optional[torch.Tensor] = None   # [L, B, H_kv, S_max] fp32
     v_scale: Optional[torch.Tensor] = None
+    ring_k: Optional[torch.Tensor] = None    # [L_sliding, B, H_kv, R, D]
+    ring_v: Optional[torch.Tensor] = None
 
     @property
     def max_len(self) -> int:
@@ -69,12 +82,17 @@ class KVCache:
     def quantized(self) -> bool:
         return self.k_scale is not None
 
+    @property
+    def ring_slots(self) -> int:
+        return 0 if self.ring_k is None else self.ring_k.shape[3]
+
     def rollback(self, n) -> "KVCache":
         return dataclasses.replace(self, seq_len=self.seq_len - n)
 
     def clone(self) -> "KVCache":
         return KVCache(self.k.clone(), self.v.clone(), self.seq_len.clone(),
-                       _clone(self.k_scale), _clone(self.v_scale))
+                       _clone(self.k_scale), _clone(self.v_scale),
+                       _clone(self.ring_k), _clone(self.ring_v))
 
 
 @dataclasses.dataclass
@@ -145,23 +163,49 @@ def _planes(shape, dtype, quant: bool, device) -> dict:
                 v=torch.zeros(shape, dtype=dtype, device=device))
 
 
+RING_SLACK = 512   # a sliding layer's ring: the window + this many slots
+
+
 def init_kv(cfg: ModelConfig, max_len: int, batch: int = 1,
-            dtype=torch.bfloat16, device=None, quant: bool = False
-            ) -> KVCache:
+            dtype=torch.bfloat16, device=None, quant: bool = False,
+            ring_slack: int = RING_SLACK) -> KVCache:
+    """A full cache over the model's full-attention layers (every layer of
+    a plain model) and, for a model with sliding layers, a ring of
+    ``sliding_window + ring_slack`` slots each (``ring_slack``: the most
+    tokens one forward appends)."""
     device = resolve_device(device)
-    shape = (cfg.num_layers, batch, cfg.num_kv_heads, max_len, cfg.head_dim)
+    shape = (cfg.num_full_layers, batch, cfg.num_kv_heads, max_len,
+             cfg.head_dim)
+    ring = {}
+    if cfg.windowed:
+        if quant:
+            raise NotImplementedError("int8 caches of sliding-window "
+                                      "layers are not implemented")
+        rshape = (len(cfg.plan.sliding), batch, cfg.num_kv_heads,
+                  cfg.sliding_window + ring_slack, cfg.head_dim)
+        ring = dict(ring_k=torch.zeros(rshape, dtype=dtype, device=device),
+                    ring_v=torch.zeros(rshape, dtype=dtype, device=device))
     return KVCache(seq_len=_zero_len(device),
-                   **_planes(shape, dtype, quant, device))
+                   **_planes(shape, dtype, quant, device), **ring)
+
+
+def ring_index(seq_len, t: int, ring: int, device) -> torch.Tensor:
+    """The ring slots ``(seq_len + j) mod ring`` of the ``t`` tokens a
+    forward appends after ``seq_len`` (a 0-d device tensor or an int)."""
+    start = device_scalar(seq_len, device)
+    return torch.remainder(start + torch.arange(t, device=device), ring)
 
 
 def init_retrieval(cfg: ModelConfig, spec: SpecConfig, batch: int = 1,
                    dtype=torch.bfloat16, device=None, quant: bool = False
                    ) -> RetrievalCache:
     """No ``pad_to``: the JAX package pads the slots only for TPU DMA
-    blocks, and off the TPU it pads to 1."""
+    blocks, and off the TPU it pads to 1. One plane a full-attention
+    layer (sliding layers read their ring exactly)."""
     device = resolve_device(device)
     real = spec.budget + spec.gamma + 1
-    shape = (cfg.num_layers, batch, cfg.num_kv_heads, real, cfg.head_dim)
+    shape = (cfg.num_full_layers, batch, cfg.num_kv_heads, real,
+             cfg.head_dim)
     return RetrievalCache(**_planes(shape, dtype, quant, device))
 
 

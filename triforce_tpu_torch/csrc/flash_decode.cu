@@ -139,6 +139,18 @@
 //   - The split count fills whole waves of the card's occupancy, from the
 //     shape alone (ops/flash_decode.py: wide_nsplit).
 //
+// Sliding windows (tf_flash_decode_window_bf16). A sliding-window layer's
+// cache is a ring of s slots, position p at slot p mod s, and k_len is the
+// sequence length L (it may pass s: split_share clamps the slots read to
+// min(L, s)). Query row r is token t = r mod wtok of the wtok new tokens,
+// and sees slot j iff the slot's age (L - 1 - j) mod s is at most
+// window - 2 - t: positions L + t - window + 1 .. L - 1, and itself in the
+// new block. Both paths' phase 1 mask the scores by it (`age_of`); the
+// new block keeps its mask (the caller's causal one). The test sits in
+// kernels of their own (fd_decode_window_kernel, fd_wide_window_kernel:
+// the phase-1 bodies instantiated with WIN), so B1's launches for full
+// layers run tile loops with no window arithmetic in them.
+//
 // Rows (the batched entry points). The TPU kernel's grid is (B, nb), walked
 // in order with the scratch re-initialised at the first block of every row.
 // Here the row is folded into the head's grid index (b * Hkv + h) of both
@@ -178,7 +190,17 @@ struct SplitArgs {
   int hkv, gt, s, nsplit;  // nsplit CTAs share each row's [0, k_len[b])
   int nparts;              // partials per row (tf_flash_decode_parts)
   float scale;
+  int window, wtok;        // WIN: the window and the new tokens (rows mod)
 };
+
+// WIN: the age of ring slot j when slot top holds the newest position
+// (top = (L - 1) mod s), and the largest age query row r sees
+__device__ __forceinline__ int age_of(int j, int top, int s) {
+  return j <= top ? top - j : top - j + s;
+}
+__device__ __forceinline__ int age_limit(const SplitArgs& P, int r) {
+  return P.window - 2 - r % P.wtok;
+}
 
 // One row's live length clamped into [0, s], and the keys each split takes
 // of it (a multiple of KT): split i owns [i * per, min(klen, (i + 1) * per)),
@@ -361,9 +383,9 @@ __device__ __forceinline__ int acc_col(int n, int e, int t) {
 // four warps take 16 keys of each tile for all (<= 16) query rows. At the
 // end the warps merge their (m, l, acc) in shared memory, in warp order,
 // and the CTA writes one partial: P.nparts == P.nsplit.
-template <int D, bool QUANT>
-__global__ void __launch_bounds__(WARPS * 32)
-fd_decode_kernel(SplitArgs P) {
+template <int D, bool QUANT, bool WIN>
+__device__ __forceinline__ void decode_split(const SplitArgs& P) {
+  static_assert(!(WIN && QUANT), "the window is a bf16 path");
   using R = Ring<D, QUANT>;
   constexpr int ESZ = QUANT ? 1 : 2;       // bytes per cache element
   constexpr int CH = D * ESZ / 16;         // 16-byte chunks per key row
@@ -386,6 +408,13 @@ fd_decode_kernel(SplitArgs P) {
   const int end = min(klen, beg + per);
   if (beg >= end) return;
   const int ntiles = (end - beg + KT - 1) / KT;
+  // WIN: the newest slot, and the oldest age rows g and g + 8 see
+  int top = 0, lim0 = 0, lim1 = 0;
+  if constexpr (WIN) {
+    top = (P.k_len[b] - 1) % P.s;
+    lim0 = age_limit(P, g);
+    lim1 = age_limit(P, g + 8);
+  }
 
   const char* kh = (const char*)P.k + ((long long)b * P.k_sb + (long long)h * P.k_sh) * ESZ;
   const char* vh = (const char*)P.v + ((long long)b * P.v_sb + (long long)h * P.v_sh) * ESZ;
@@ -537,6 +566,16 @@ fd_decode_kernel(SplitArgs P) {
       if (key >= end)     { sc[n][0] = -INFINITY; sc[n][2] = -INFINITY; }
       if (key + 1 >= end) { sc[n][1] = -INFINITY; sc[n][3] = -INFINITY; }
     }
+    if constexpr (WIN) {   // and ring slots older than each row's window
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int age = age_of(kb + kw0 + n * 8 + 2 * t + e, top, P.s);
+          if (age > lim0) sc[n][e] = -INFINITY;
+          if (age > lim1) sc[n][2 + e] = -INFINITY;
+        }
+    }
     // row maxima over the warp's 16 keys (int8: the re-quantization group)
     const float gm0 = quad_max(fmaxf(fmaxf(sc[0][0], sc[0][1]), fmaxf(sc[1][0], sc[1][1])));
     const float gm1 = quad_max(fmaxf(fmaxf(sc[0][2], sc[0][3]), fmaxf(sc[1][2], sc[1][3])));
@@ -669,6 +708,20 @@ fd_decode_kernel(SplitArgs P) {
     if (c == 0) { P.m_part[o] = M; P.l_part[o] = L; }
     P.acc_part[o * D + c] = A;
   }
+}
+
+template <int D, bool QUANT>
+__global__ void __launch_bounds__(WARPS * 32)
+fd_decode_kernel(SplitArgs P) {
+  decode_split<D, QUANT, false>(P);
+}
+
+// The same over a sliding-window layer's ring (WIN): a kernel of its own,
+// so that a trace tells the two apart
+template <int D>
+__global__ void __launch_bounds__(WARPS * 32)
+fd_decode_window_kernel(SplitArgs P) {
+  decode_split<D, false, true>(P);
 }
 
 // reductions over a 128-thread CTA in a fixed order (the same result on
@@ -806,14 +859,15 @@ fd_reduce_kernel(ReduceArgs RA) {
 // The decode path: fd_decode_kernel, then fd_reduce_kernel with (FOLD) or
 // without the new-token fold. The ring is dynamic shared memory, above the
 // 48 KB a kernel gets without asking.
-template <int D, bool QUANT, bool FOLD>
+template <int D, bool QUANT, bool FOLD, bool WIN = false>
 int launch_decode(const SplitArgs& sa, const ReduceArgs& ra, int bh, cudaStream_t st) {
   using R = Ring<D, QUANT>;
-  cudaError_t e = cudaFuncSetAttribute(fd_decode_kernel<D, QUANT>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+  void (*split)(SplitArgs) = fd_decode_kernel<D, QUANT>;
+  if constexpr (WIN) split = fd_decode_window_kernel<D>;
+  cudaError_t e = cudaFuncSetAttribute(split, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        R::BYTES);
   if (e != cudaSuccess) return (int)e;
-  fd_decode_kernel<D, QUANT><<<dim3(sa.nsplit, 1, bh), WARPS * 32, R::BYTES, st>>>(sa);
+  split<<<dim3(sa.nsplit, 1, bh), WARPS * 32, R::BYTES, st>>>(sa);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   // the reduce kernel's QUANT matters only to the fold
@@ -1187,7 +1241,7 @@ __device__ __forceinline__ void quad_sum2(float (&l)[2]) {
 // warning), which cost more than the overlap gained (PERF.md). The
 // two warpgroups' chains and softmaxes interleave on the SM. Writes one
 // partial per row.
-template <int D, int NWG>
+template <int D, int NWG, bool WIN>
 __device__ __forceinline__ void wide_cache_bf16(const SplitArgs& P, unsigned char* smem,
                                                 int beg, int end, int row0, int b, int h,
                                                 int bh, int split) {
@@ -1217,9 +1271,18 @@ __device__ __forceinline__ void wide_cache_bf16(const SplitArgs& P, unsigned cha
   float m_r[2] = {-INFINITY, -INFINITY};
   float l_r[2] = {0.f, 0.f};
   uint32_t pa[KT / 16][4];
+  // WIN: the newest slot, and the oldest age this thread's two rows see
+  int top = 0, lim0 = 0, lim1 = 0;
+  if constexpr (WIN) {
+    const int ra = row0 + wg * 64 + warp * 16 + g;
+    top = (P.k_len[b] - 1) % P.s;
+    lim0 = age_limit(P, ra);
+    lim1 = age_limit(P, ra + 8);
+  }
 
-  // the softmax of the tile at kb on s, in place: mask keys past end, move
-  // the running max, s = p = e^(s - m); al = e^(m_old - m)
+  // the softmax of the tile at kb on s, in place: mask keys past end (and
+  // WIN: slots older than the row's window), move the running max,
+  // s = p = e^(s - m); al = e^(m_old - m)
   auto softmax = [&](float (&s)[32], int kb, float& al0, float& al1) {
     if (kb + KT > end) {
 #pragma unroll
@@ -1227,6 +1290,16 @@ __device__ __forceinline__ void wide_cache_bf16(const SplitArgs& P, unsigned cha
 #pragma unroll
         for (int e = 0; e < 2; ++e)
           if (kb + 8 * j + 2 * t + e >= end) s[4 * j + e] = s[4 * j + 2 + e] = -INFINITY;
+    }
+    if constexpr (WIN) {
+#pragma unroll
+      for (int j = 0; j < KT / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int age = age_of(kb + 8 * j + 2 * t + e, top, P.s);
+          if (age > lim0) s[4 * j + e] = -INFINITY;
+          if (age > lim1) s[4 * j + 2 + e] = -INFINITY;
+        }
     }
     float mx0, mx1;
     row_max(s, mx0, mx1);
@@ -1697,9 +1770,9 @@ __device__ __forceinline__ void wide_int8(const SplitArgs& P, unsigned char* rin
 // per row: bf16 on wgmma (wide_cache_bf16), int8 on the decode kernel's s8
 // fragments (wide_int8). The q tiles of one (split, head) are neighbours in
 // launch order, so the second reads the K/V the first brought into L2.
-template <int D, bool QUANT, int NWG>
-__global__ void __launch_bounds__(NWG * 128)
-fd_wide_kernel(WideArgs A) {
+template <int D, bool QUANT, int NWG, bool WIN>
+__device__ __forceinline__ void wide_split(const WideArgs& A) {
+  static_assert(!(WIN && QUANT), "the window is a bf16 path");
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   // phase 2, launched as this grid's programmatic dependent, may start
@@ -1719,11 +1792,24 @@ fd_wide_kernel(WideArgs A) {
       wide_int8<D, NWG>(P, smem + WideSmem<D, NWG>::Q_BYTES, beg, end, row0, b, h, bh,
                         split);
     else
-      wide_cache_bf16<D, NWG>(P, smem, beg, end, row0, b, h, bh, split);
+      wide_cache_bf16<D, NWG, WIN>(P, smem, beg, end, row0, b, h, bh, split);
   }
   if (!fold_here) return;
   __syncthreads();   // the partial written, the ring drained
   wide_fold<D, QUANT, NWG>(A, smem, row0, b, h, bh);
+}
+
+template <int D, bool QUANT, int NWG>
+__global__ void __launch_bounds__(NWG * 128)
+fd_wide_kernel(WideArgs A) {
+  wide_split<D, QUANT, NWG, false>(A);
+}
+
+// The same over a sliding-window layer's ring (WIN), a kernel of its own
+template <int D, int NWG>
+__global__ void __launch_bounds__(NWG * 128)
+fd_wide_window_kernel(WideArgs A) {
+  wide_split<D, false, NWG, true>(A);
 }
 
 // Phase 2 of the wide path with a new block (B1, B3): grid (q tile, 1,
@@ -1830,11 +1916,12 @@ int launch_wide_grid(K kernel, dim3 grid, const WideArgs& wa, bool pdl, cudaStre
 
 // The wide path: fd_wide_kernel, then as its programmatic dependent
 // fd_wide_fold_kernel (FOLD: B1, B3) or fd_wide_merge_kernel (B4).
-template <int D, bool QUANT, int NWG, bool FOLD>
+template <int D, bool QUANT, int NWG, bool FOLD, bool WIN = false>
 int launch_wide(const WideArgs& wa, const WideMergeArgs& ma, int bh, cudaStream_t st) {
   const int qt = (wa.c.gt + WideSmem<D, NWG>::R - 1) / WideSmem<D, NWG>::R;
-  int err = launch_wide_grid<D, NWG>(fd_wide_kernel<D, QUANT, NWG>,
-                                     dim3(qt, wa.c.nsplit, bh), wa, false, st);
+  void (*split)(WideArgs) = fd_wide_kernel<D, QUANT, NWG>;
+  if constexpr (WIN) split = fd_wide_window_kernel<D, NWG>;
+  int err = launch_wide_grid<D, NWG>(split, dim3(qt, wa.c.nsplit, bh), wa, false, st);
   if (err != 0) return err;
   if constexpr (FOLD) {   // one split: phase 1 folded the new block in
     if (wa.c.nsplit == 1) return 0;
@@ -1853,14 +1940,14 @@ int launch_wide(const WideArgs& wa, const WideMergeArgs& ma, int bh, cudaStream_
   return (int)cudaLaunchKernelEx(&cfg, fd_wide_merge_kernel<D>, ma);
 }
 
-template <int D, bool QUANT>
+template <int D, bool QUANT, bool WIN = false>
 int launch(const WideArgs& wa, const CombineArgs& ca, int bh, cudaStream_t st) {
   if (wa.c.gt <= DECODE_ROWS)
-    return launch_decode<D, QUANT, true>(wa.c, ReduceArgs{ca, nullptr, nullptr, nullptr},
-                                         bh, st);
+    return launch_decode<D, QUANT, true, WIN>(
+        wa.c, ReduceArgs{ca, nullptr, nullptr, nullptr}, bh, st);
   const WideMergeArgs none{};
-  return wide_wgs(wa.c.gt) == 1 ? launch_wide<D, QUANT, 1, true>(wa, none, bh, st)
-                                : launch_wide<D, QUANT, 2, true>(wa, none, bh, st);
+  return wide_wgs(wa.c.gt) == 1 ? launch_wide<D, QUANT, 1, true, WIN>(wa, none, bh, st)
+                                : launch_wide<D, QUANT, 2, true, WIN>(wa, none, bh, st);
 }
 
 template <int D, bool QUANT>
@@ -1924,16 +2011,16 @@ int run(int bsz, const void* q, long long q_sb, long long q_sh, long long q_sr,
         const void* vs, long long vs_sb, long long vs_sh,
         const void* kn, long long kn_sb, long long kn_sh, long long kn_sr,
         const void* vn, long long vn_sb, long long vn_sh, long long vn_sr,
-        long long mask_sb, TF_FD_TAIL_PARAMS) {
+        long long mask_sb, TF_FD_TAIL_PARAMS, int window = 0, int wtok = 0) {
   if (bsz <= 0 || hkv <= 0 || gt <= 0 || tn <= 0 || !splits_ok(gt, nsplit) ||
-      (long long)bsz * hkv > 65535)
+      (long long)bsz * hkv > 65535 || (window && (QUANT || window < 2 || wtok <= 0)))
     return (int)cudaErrorInvalidValue;
   const int nparts = n_parts(gt, nsplit);
   WideArgs wa{{(const __nv_bfloat16*)q, q_sb, q_sh, q_sr, k, k_sb, k_sh, k_sr,
                v, v_sb, v_sh, v_sr, (const float*)ks, ks_sb, ks_sh,
                (const float*)vs, vs_sb, vs_sh,
                (const int*)k_len, (float*)m_part, (float*)l_part,
-               (float*)acc_part, hkv, gt, s, nsplit, nparts, scale},
+               (float*)acc_part, hkv, gt, s, nsplit, nparts, scale, window, wtok},
               (const __nv_bfloat16*)kn, kn_sb, kn_sh, kn_sr,
               (const __nv_bfloat16*)vn, vn_sb, vn_sh, vn_sr,
               (const uint8_t*)mask, mask_sb, tn, (float*)out};
@@ -1945,6 +2032,13 @@ int run(int bsz, const void* q, long long q_sb, long long q_sh, long long q_sr,
                  (const float*)acc_part, (float*)out,
                  hkv, gt, tn, s, nsplit, nparts, scale};
   cudaStream_t st = (cudaStream_t)stream;
+  if constexpr (!QUANT) {
+    if (window) {
+      if (d == 128) return launch<128, false, true>(wa, ca, bsz * hkv, st);
+      if (d == 64) return launch<64, false, true>(wa, ca, bsz * hkv, st);
+      return (int)cudaErrorInvalidValue;
+    }
+  }
   if (d == 128) return launch<128, QUANT>(wa, ca, bsz * hkv, st);
   if (d == 64) return launch<64, QUANT>(wa, ca, bsz * hkv, st);
   return (int)cudaErrorInvalidValue;
@@ -2020,6 +2114,23 @@ extern "C" int tf_flash_decode_bf16(
   return run<false>(1, q, 0, q_sh, q_sr, k, 0, k_sh, k_sr, v, 0, v_sh, v_sr,
                     nullptr, 0, 0, nullptr, 0, 0, kn, 0, kn_sh, kn_sr,
                     vn, 0, vn_sh, vn_sr, 0, TF_FD_TAIL_ARGS);
+}
+
+// A sliding-window layer's ring (see the top): k/v the ring [Hkv, S, D],
+// k_len the sequence length, window and the new tokens wtok (= tn) last
+extern "C" int tf_flash_decode_window_bf16(
+    const void* q, long long q_sh, long long q_sr,
+    const void* k, long long k_sh, long long k_sr,
+    const void* v, long long v_sh, long long v_sr,
+    const void* kn, long long kn_sh, long long kn_sr,
+    const void* vn, long long vn_sh, long long vn_sr,
+    const void* mask, const void* k_len,
+    void* m_part, void* l_part, void* acc_part, void* out,
+    int hkv, int gt, int tn, int s, int d, int nsplit, float scale,
+    int window, int wtok, void* stream) {
+  return run<false>(1, q, 0, q_sh, q_sr, k, 0, k_sh, k_sr, v, 0, v_sh, v_sr,
+                    nullptr, 0, 0, nullptr, 0, 0, kn, 0, kn_sh, kn_sr,
+                    vn, 0, vn_sh, vn_sr, 0, TF_FD_TAIL_ARGS, window, wtok);
 }
 
 // int8 cache: k/v int8 codes [Hkv, S, D] (strides in elements = bytes),

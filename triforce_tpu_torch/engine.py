@@ -59,6 +59,20 @@ and nothing is broadcast. A mesh with ``dp`` above 1 is the composed
 mesh of batched rows (``batched_spec.py``): each ``dp`` index's (tp, sp)
 group runs its own batch-1 prefills and its block of rows, and
 ``decode_rows`` gathers the rows over ``dp`` once a call.
+
+A hybrid model (``config.HybridConfig``: sliding-window layers beside
+full ones, expert MLPs) runs the batch-1 engine as a plain one does. Its
+full cache holds the full layers and a ring a sliding layer
+(``cache.KVCache``), both rolled back by the one ``seq_len``; the ring
+takes the window plus the most tokens one forward appends
+(``ring_slack``). The retrieval build, the retrieval cache and its tail
+refresh cover the full layers only, and the middle verify's sliding
+layers read the target's rings exactly. ``moe_counts`` [3, 3] (int64 on
+the device) adds up the expert layers' counts (``ops/moe.py``: experts
+read, pairs routed, layer calls) of target forwards (verifies and AR
+steps), middle verifies and prefill forwards (``MOE_KINDS``), inside the
+graphs. The batched rows, the serving schedulers, the tree, the mesh and
+the int8 caches and weights refuse such a model.
 """
 
 from __future__ import annotations
@@ -77,14 +91,15 @@ from .cache import (KVCache, RetrievalCache, StreamingCache,
                     init_retrieval, init_streaming, retrieval_tail_refresh,
                     streaming_evict_for_spec, streaming_evict_for_spec_rows,
                     streaming_evict_prefill, write_at)
-from .config import ModelConfig, SpecConfig, resolve_device
+from .config import ModelConfig, SpecConfig, refuse_hybrid, resolve_device
 from .models import llama
-from .ops import sampling
+from .ops import moe, sampling
 from .ops.flash_decode import causal_mask
 from .parallel import sharding
 from .parallel.mesh import Mesh, gather_rows
 
 JUNK_TOKEN = 100  # the reference pads spec buffers with token id 100
+MOE_KINDS = ("target", "middle", "prefill")   # rows of Engine.moe_counts
 
 
 def _as_eos_tuple(eos_token_id) -> tuple:
@@ -235,6 +250,10 @@ class Engine:
         if prefill % spec.chunk_size:
             raise ValueError("prefill must be a multiple of chunk_size")
         if mesh is not None:
+            refuse_hybrid(target_cfg, "the mesh")
+        if kv_quant or weight_quant:
+            refuse_hybrid(target_cfg, "int8 caches and weights")
+        if mesh is not None:
             if not isinstance(mesh, Mesh):
                 raise TypeError(f"mesh must be a parallel.mesh.Mesh, got "
                                 f"{type(mesh).__name__}")
@@ -285,6 +304,15 @@ class Engine:
         self.t_params = target_params
         self.d_params = draft_params
         self._dense = None     # the prefill's converted weights (graphed)
+        self.ring_slack = max(prefill_chunk, spec.gamma + 2)
+        if target_cfg.windowed \
+                and self.ring_slack > target_cfg.sliding_window:
+            raise ValueError(f"prefill chunks of {prefill_chunk} would "
+                             f"overwrite ring slots a window of "
+                             f"{target_cfg.sliding_window} still reads")
+        self.moe_counts = torch.zeros(
+            (len(MOE_KINDS), 3), dtype=torch.int64,
+            device=self.device) if target_cfg.moe else None
         if self.device.type == "cuda":
             # the decode forwards' causal masks (the target's kernel rows:
             # AR, middle verify, target verify; the drafter's chain and
@@ -303,6 +331,26 @@ class Engine:
     def fwd(self) -> dict:
         """The mesh arguments of the target's full-cache forwards."""
         return dict(mesh=self.mesh, shard_seq=self.shard_seq)
+
+    def counting(self, kind: str):
+        """Count the expert layers of the forwards run (or captured)
+        inside into ``moe_counts``'s row of ``kind`` (``MOE_KINDS``)."""
+        if self.moe_counts is None:
+            return profiling.NULL
+        return moe.counting(self.moe_counts[MOE_KINDS.index(kind)])
+
+    def moe_counters(self) -> dict:
+        """``moe_counts`` read off the device once, by name:
+        ``moe.experts_read.<kind>`` (the distinct experts each layer call
+        read, added up), ``moe.tokens_routed.<kind>`` (token-expert pairs)
+        and ``moe.layer_calls.<kind>``, a ``MOE_KINDS`` kind each; {} for a
+        model with no expert layers."""
+        if self.moe_counts is None:
+            return {}
+        return {f"moe.{name}.{kind}": v
+                for kind, row in zip(MOE_KINDS, self.moe_counts.tolist())
+                for name, v in zip(("experts_read", "tokens_routed",
+                                    "layer_calls"), row)}
 
     def local_target(self):
         """(target config with this rank's KV heads, this rank's full-cache
@@ -323,7 +371,7 @@ class Engine:
         dev = self.device
         cfg, slots = self.local_target()
         kv = init_kv(cfg, slots, 1, self.dtype, device=dev,
-                     quant=self.kv_quant)
+                     quant=self.kv_quant, ring_slack=self.ring_slack)
         rkv = init_retrieval(cfg, self.spec, 1, self.dtype, device=dev,
                              quant=self.kv_quant)
         dkv = None
@@ -340,9 +388,10 @@ class Engine:
         ``prefill_chunk`` chunks, then the ragged remainder
         (``prefill_chunks``), over weights converted out of int8
         (``dense_weights``; bit-identical)."""
-        return prefill_chunks(self.graphs, self.target_cfg,
-                              dense_weights(self, self.t_params), kv, body,
-                              self.prefill_chunk, **self.fwd)
+        with self.counting("prefill"):
+            return prefill_chunks(self.graphs, self.target_cfg,
+                                  dense_weights(self, self.t_params), kv,
+                                  body, self.prefill_chunk, **self.fwd)
 
     def _sample_next(self, logits, gen):
         sp = self.spec
@@ -374,10 +423,12 @@ class Engine:
         every layer's budget region of ``rkv`` is built in place; one
         graph region. Returns (logits [1, 1, V], kv)."""
         sp = self.spec
-        return append_graphed(self.graphs, self.target_cfg, self.t_params,
-                              kv, last, build_rkv=rkv, prefill=self.prefill,
-                              chunk_size=sp.chunk_size, budget=sp.budget,
-                              **self.fwd)
+        with self.counting("prefill"):
+            return append_graphed(self.graphs, self.target_cfg,
+                                  self.t_params, kv, last, build_rkv=rkv,
+                                  prefill=self.prefill,
+                                  chunk_size=sp.chunk_size,
+                                  budget=sp.budget, **self.fwd)
 
     def prefill_target_partial(self, state: TriForceState,
                                input_ids: torch.Tensor, pos: int,
@@ -467,9 +518,10 @@ class Engine:
                 dataclasses.replace(kv, seq_len=seq_len), **self.fwd)
             return self._sample_next(logits, gen), kv_out.seq_len
 
-        tok, seq_len = self.graphs.run("ar", region, (token, kv.seq_len),
-                                       caches=graphs_mod.planes(kv),
-                                       gens=(gen,))
+        with self.counting("target"):
+            tok, seq_len = self.graphs.run("ar", region, (token, kv.seq_len),
+                                           caches=graphs_mod.planes(kv),
+                                           gens=(gen,))
         return tok, dataclasses.replace(kv, seq_len=seq_len)
 
     def generate_ar(self, kv: KVCache, token: torch.Tensor,
@@ -796,12 +848,12 @@ def _middle_spec(eng: Engine, state: TriForceState, u, force_accept=None):
             cond(n0 + i <= gamma - 1, functools.partial(draft, i))
         i_fin = (gamma - n0).clamp(0, k)       # the drafter forwards run
         # --- ONE middle verify over the whole chain (read-only rkv)
-        with region("middle"):
+        with region("middle"), eng.counting("middle"):
             m_logits, _ = llama.forward_spec(
                 t_cfg, eng.t_params, vt, state.rkv,
                 torch.where(live, kv_len, torch.zeros_like(kv_len)),
                 sp.budget, commit=False, act_quant=sp.mid_act_quant,
-                mesh=eng.mesh)
+                mesh=eng.mesh, ring=state.kv)
         rows_idx = (n0 + torch.arange(k + 1, device=dev)).clamp(0, gamma)
         p_rows = sampling.norm_logits(m_logits[0].index_select(0, rows_idx),
                                       sp.temperature, -1, sp.top_p)
@@ -871,7 +923,7 @@ def _verify_and_commit(eng: Engine, state: TriForceState, u, gamma2,
     gamma2 = device_scalar(gamma2, dev)
     old = state.kv.seq_len
     verify_in = torch.cat([state.next_token[:1], gen_tokens[:gamma + 1]])[None]
-    with eng.graphs.region("verify"):
+    with eng.graphs.region("verify"), eng.counting("target"):
         logits, _, _ = llama.forward_append(t_cfg, eng.t_params, verify_in,
                                             state.kv, **eng.fwd)
     p_all = sampling.norm_logits(logits[0], sp.temperature, sp.top_k,
@@ -965,11 +1017,11 @@ def _retrieval_body(eng: Engine, state: TriForceState, u,
     gen_probs = torch.zeros((gamma + 1, t_cfg.vocab_size),
                             dtype=torch.float32, device=dev)
     for n in range(gamma):
-        m_logits, _ = llama.forward_spec(t_cfg, eng.t_params, verify_tokens,
-                                         state.rkv, state.kv.seq_len,
-                                         sp.budget, commit=False,
-                                         act_quant=sp.mid_act_quant,
-                                         mesh=eng.mesh)
+        with eng.counting("middle"):
+            m_logits, _ = llama.forward_spec(
+                t_cfg, eng.t_params, verify_tokens, state.rkv,
+                state.kv.seq_len, sp.budget, commit=False,
+                act_quant=sp.mid_act_quant, mesh=eng.mesh, ring=state.kv)
         p_n = sampling.norm_logits(m_logits[0, n][None], sp.temperature,
                                    -1, sp.top_p)[0]
         tok = sampling.sample_u(p_n, u["mid"][n])

@@ -107,15 +107,18 @@ from . import _build
 from . import profiling
 from .ops import flash_decode as _fd
 from .ops import layer_glue as _lg
+from .ops import moe as _moe
 from .ops import retrieval_kernel as _rk
 
 # every kernel wrapper with a Python launch counter
 COUNTED = [_fd.flash_decode_append, _fd.flash_decode_append_int8,
+           _fd.flash_decode_window,
            _fd.flash_decode_partials, _fd.flash_decode_partials_int8,
            _fd.flash_decode_append_batched,
            _fd.flash_decode_append_batched_int8,
            _rk.chunk_scores, _rk.chunk_scores_int8,
-           _lg.add_rms_norm, _lg.rope, _lg.silu_mul]
+           _lg.add_rms_norm, _lg.rope, _lg.silu_mul, _moe.route,
+           _moe.experts, _moe._grouped]
 
 
 def _counts() -> list:
@@ -176,7 +179,9 @@ def planes(*caches) -> tuple:
         if c is None:
             continue
         out += [p for p in (c.k, c.v, getattr(c, "k_scale", None),
-                            getattr(c, "v_scale", None)) if p is not None]
+                            getattr(c, "v_scale", None),
+                            getattr(c, "ring_k", None),
+                            getattr(c, "ring_v", None)) if p is not None]
     return tuple(out)
 
 

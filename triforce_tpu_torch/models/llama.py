@@ -63,6 +63,18 @@ through ``append_attention_rows`` (the row-batched kernel on the card). They
 stand where the JAX package vmaps its batch-1 forwards. The target ones do
 not commit: they return the new K/V of every layer, which
 ``cache.batched_commit_and_refresh`` writes at each row's own length.
+
+Hybrid models (``config.HybridConfig``: sliding-window layers beside full
+ones, sparse MLPs) run through ``forward_append`` and ``forward_spec``,
+the layer loop taking each layer's kinds from ``cfg.plan`` (resolved
+once a configuration). A sliding layer rotates with the local RoPE
+tables, attends its ring in the full cache (``KVCache.ring_k``) through
+the window kernel and commits its new K/V there at ``(L + j) mod R``; in
+the middle verify it reads the target's ring (``forward_spec(ring=)``)
+and commits nothing. A full layer reads and writes its plane of the full
+cache and of the retrieval cache (its index among the full layers). A
+sparse MLP is ``ops/moe.py``. The rows forwards, the tree grow, int8
+weights and the mesh take plain models only.
 """
 
 from __future__ import annotations
@@ -75,10 +87,11 @@ import torch
 import torch.nn.functional as F
 
 from ..cache import (KVCache, RetrievalCache, StreamingCache, dequantize,
-                     device_scalar, int8_scale, quantize_tokens, slice_at,
-                     slice_sharded, window, write_window_sharded)
-from ..config import ModelConfig, SpecConfig
+                     device_scalar, int8_scale, quantize_tokens, ring_index,
+                     slice_at, slice_sharded, window, write_window_sharded)
+from ..config import SLIDING, ModelConfig, SpecConfig, refuse_hybrid
 from ..ops import layer_glue
+from ..ops import moe
 from ..ops import retrieval as retrieval_ops
 from ..ops.attention import (append_attention, append_attention_auto,
                              append_attention_rows, attention_partials_auto,
@@ -91,6 +104,11 @@ from . import rope
 
 _MATMUL_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 _LAYER_KEYS = _MATMUL_KEYS + ("ln_attn", "ln_mlp")
+
+
+def _region(name: str, device):
+    from .. import profiling      # profiling imports this module
+    return profiling.device_region(name, device)
 
 
 # ---------------------------------------------------------------------------
@@ -109,6 +127,10 @@ def init_params(cfg: ModelConfig, *, device, dtype=torch.bfloat16,
     h, i, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
     hq = cfg.num_heads * cfg.head_dim
     hkv = cfg.num_kv_heads * cfg.head_dim
+    if cfg.moe or cfg.windowed:
+        if shardings is not None:
+            refuse_hybrid(cfg, "sharding")
+        return _init_hybrid(cfg, gen, device, dtype)
 
     def cut(x, name, stacked=False):
         if shardings is None:
@@ -153,6 +175,35 @@ def init_params(cfg: ModelConfig, *, device, dtype=torch.bfloat16,
     else:
         params["lm_head"] = cut(rnd((h, cfg.vocab_size)), "lm_head")
     return params
+
+
+def _init_hybrid(cfg: ModelConfig, gen, device, dtype):
+    """``init_params`` of a hybrid model: attention, norms and the MLP
+    stacked over every layer, the MLP an expert layer's (``ops/moe.py``'s
+    layout) in a model with experts."""
+    h, d, n = cfg.hidden_size, cfg.head_dim, cfg.num_layers
+
+    def rnd(*shape):
+        return (torch.randn(shape, generator=gen, device=device)
+                * 0.02).to(dtype)
+
+    layers = {"wq": rnd(n, h, cfg.num_heads * d),
+              "wk": rnd(n, h, cfg.num_kv_heads * d),
+              "wv": rnd(n, h, cfg.num_kv_heads * d),
+              "wo": rnd(n, cfg.num_heads * d, h),
+              "ln_attn": torch.ones((n, h), dtype=dtype, device=device),
+              "ln_mlp": torch.ones((n, h), dtype=dtype, device=device)}
+    if cfg.moe:
+        e, i = cfg.num_experts, cfg.moe_intermediate_size
+        layers.update(w_router=rnd(n, e, h), w_gate_e=rnd(n, e, i, h),
+                      w_up_e=rnd(n, e, i, h), w_down_e=rnd(n, e, h, i))
+    else:
+        i = cfg.intermediate_size
+        layers.update(w_gate=rnd(n, h, i), w_up=rnd(n, h, i),
+                      w_down=rnd(n, i, h))
+    return {"embed": rnd(cfg.vocab_size, h), "layers": layers,
+            "final_norm": torch.ones((h,), dtype=dtype, device=device),
+            "lm_head": rnd(h, cfg.vocab_size)}
 
 
 def _to_torch(a, device, dtype) -> torch.Tensor:
@@ -209,6 +260,11 @@ def quantize_weights(params, mesh=None, cfg: Optional[ModelConfig] = None):
     weights gives."""
     if params["lm_head"].dtype == torch.int8:
         return params
+    if cfg is not None:
+        refuse_hybrid(cfg, "int8 weights")
+    if "w_router" in params["layers"]:
+        raise NotImplementedError("int8 weights are not implemented for "
+                                  "expert layers")
     rows = ()
     if mesh is not None:
         sh = sharding.param_shardings(mesh, cfg)["layers"]
@@ -256,6 +312,34 @@ def dequant_weights(params, dtype=torch.bfloat16):
 
 def _layer(params, li: int):
     return {k: v[li] for k, v in params["layers"].items()}
+
+
+def _mlp_of(cfg: ModelConfig, li: int, h, lp, aq: bool = False, tp=None):
+    """Layer ``li``'s MLP: the sparse layer of ``ops/moe.py`` (a ``moe``
+    region) in a model with experts, else the dense SwiGLU."""
+    if cfg.moe:
+        with _region("moe", h.device):
+            return moe.moe_mlp(h, lp, cfg.num_experts_per_tok,
+                               cfg.norm_topk_prob)
+    return _mlp(h, lp, aq=aq, tp=tp)
+
+
+def _ring_attention(cfg: ModelConfig, q, k_new, v_new, ring: KVCache,
+                    si: int, k_len, positions, commit_idx=None):
+    """A sliding layer: q and k rotated with the local tables, attention
+    over ring ``si`` of ``ring`` (the sequence ``k_len`` long) and the new
+    block through the window kernel, and, with ``commit_idx``, the new K/V
+    written at those ring slots. A ``window_attn`` region."""
+    with _region("window_attn", q.device):
+        cos, sin = rope.cos_sin_tables(cfg, device=q.device, local=True)
+        q, k_new = layer_glue.rope((q, k_new), cos, sin, positions)
+        ctx = append_attention_auto(q, ring.ring_k[si], ring.ring_v[si],
+                                    k_new, v_new, k_len=k_len,
+                                    window=cfg.sliding_window)
+        if commit_idx is not None:
+            ring.ring_k[si].index_copy_(2, commit_idx, k_new)
+            ring.ring_v[si].index_copy_(2, commit_idx, v_new)
+    return ctx
 
 
 # ---------------------------------------------------------------------------
@@ -512,6 +596,14 @@ def forward_append(cfg: ModelConfig, params, input_ids: torch.Tensor,
         raise ValueError("retrieval build requires a 1-token forward")
     if cfg.rope_on_slots:
         raise ValueError("a rope_on_slots drafter runs draft_forward")
+    plan = cfg.plan
+    if cfg.windowed:
+        if mesh is not None or tree_mask is not None:
+            refuse_hybrid(cfg, "the mesh and the tree verify")
+        if t > kv.ring_slots - cfg.sliding_window:
+            raise ValueError(f"a forward of {t} tokens overwrites ring "
+                             f"slots its window still sees (ring "
+                             f"{kv.ring_slots}, window {cfg.sliding_window})")
     dev = input_ids.device
     cos, sin = rope.cos_sin_tables(cfg, device=dev)
     seq_len0 = kv.seq_len
@@ -525,6 +617,8 @@ def forward_append(cfg: ModelConfig, params, input_ids: torch.Tensor,
     split_seq = par is not None and shard_seq
     if not split_seq:
         commit_idx = window(seq_len0, t, kv.max_len, dev)  # clamped, like JAX
+    if cfg.windowed:
+        ring_idx = ring_index(seq_len0, t, kv.ring_slots, dev)
 
     x, y = _embed(params, input_ids), None
     qs = []
@@ -532,19 +626,24 @@ def forward_append(cfg: ModelConfig, params, input_ids: torch.Tensor,
         lp = _layer(params, li)
         x, h = _add_norm(x, y, lp["ln_attn"], cfg)
         q, k_new, v_new = _qkv(h, lp, cfg)
-        # keys stored rotated
-        q, k_new = layer_glue.rope((q, k_new), cos, sin, positions)
-        ctx = _layer_attention(q, kv, li, k_new, v_new, seq_len0, new_mask,
-                               par, split_seq)
-        if split_seq:
-            _commit_layer_sharded(kv, li, seq_len0, k_new, v_new, mesh)
+        fi = plan.slot[li]           # the layer's plane among its kind's
+        if plan.attn[li] == SLIDING:
+            ctx = _ring_attention(cfg, q, k_new, v_new, kv, fi, seq_len0,
+                                  positions, ring_idx)
         else:
-            _commit_layer(kv, li, commit_idx, k_new, v_new)
+            # keys stored rotated
+            q, k_new = layer_glue.rope((q, k_new), cos, sin, positions)
+            ctx = _layer_attention(q, kv, fi, k_new, v_new, seq_len0,
+                                   new_mask, par, split_seq)
+            if split_seq:
+                _commit_layer_sharded(kv, fi, seq_len0, k_new, v_new, mesh)
+            else:
+                _commit_layer(kv, fi, commit_idx, k_new, v_new)
+            if building:
+                qs.append(q)
         x, h = _add_norm(x, _attn_out(ctx, lp, tp=par and par.wo),
                          lp["ln_mlp"], cfg)
-        y = _mlp(h, lp, tp=par and par.w_down)
-        if building:
-            qs.append(q)
+        y = _mlp_of(cfg, li, h, lp, tp=par and par.w_down)
 
     kv_out = dataclasses.replace(kv, seq_len=seq_len0 + t)
     logits = _logits(cfg, params, x, y, vocab_mesh=par and par.vocab) \
@@ -556,20 +655,21 @@ def forward_append(cfg: ModelConfig, params, input_ids: torch.Tensor,
             raise ValueError("the retrieval cache and the full cache must "
                              "both be int8 or neither")
         planes = ("k", "v", "k_scale", "v_scale") if quant else ("k", "v")
-        for li in range(cfg.num_layers):
+        for fi in range(len(plan.full)):       # the full layers only
             sel = retrieval_ops.build_layer(
-                qs[li], kv_out.k[li], kv_out.v[li], prefill, chunk_size,
-                budget, k_scale=kv_out.k_scale[li] if quant else None,
-                v_scale=kv_out.v_scale[li] if quant else None,
+                qs[fi], kv_out.k[fi], kv_out.v[fi], prefill, chunk_size,
+                budget, k_scale=kv_out.k_scale[fi] if quant else None,
+                v_scale=kv_out.v_scale[fi] if quant else None,
                 mesh=mesh if split_seq else None)
             for name, x in zip(planes, sel):
-                getattr(build_rkv, name)[li, :, :, :budget] = x
+                getattr(build_rkv, name)[fi, :, :, :budget] = x
     return logits, kv_out, build_rkv
 
 
 def forward_spec(cfg: ModelConfig, params, input_ids: torch.Tensor,
                  rkv: RetrievalCache, kv_seq_len, budget: int,
                  commit: bool = True, act_quant: bool = False, mesh=None,
+                 ring: Optional[KVCache] = None,
                  ) -> Tuple[torch.Tensor, RetrievalCache]:
     """Middle-model verify: the gamma+1 tokens attend the budget region
     plus themselves (causally) at absolute positions ``kv_seq_len +
@@ -577,8 +677,16 @@ def forward_spec(cfg: ModelConfig, params, input_ids: torch.Tensor,
     ``budget`` (in place). ``kv_seq_len == 0`` gates the retrieval read to
     zero columns (a dead trip). ``act_quant``: int8 weights meet int8
     activations (``_wmm(aq=True)``). ``mesh``: this rank's heads of the
-    retrieval cache, whose slots are never split."""
+    retrieval cache, whose slots are never split. A hybrid model's
+    sliding layers read the rings of the target's full cache ``ring``
+    exactly (``kv_seq_len`` long; 0 on a dead trip) and commit nothing;
+    its retrieval cache holds the full layers."""
     b, t = input_ids.shape
+    plan = cfg.plan
+    if cfg.windowed and (ring is None or commit or mesh is not None):
+        raise ValueError("a sliding-window model's middle verify reads the "
+                         "target's ring (ring=), commits nothing and runs "
+                         "without a mesh")
     dev = input_ids.device
     cos, sin = rope.cos_sin_tables(cfg, device=dev)
     kv_seq_len = device_scalar(kv_seq_len, dev, torch.int32)
@@ -593,13 +701,18 @@ def forward_spec(cfg: ModelConfig, params, input_ids: torch.Tensor,
         lp = _layer(params, li)
         x, h = _add_norm(x, y, lp["ln_attn"], cfg)
         q, k_new, v_new = _qkv(h, lp, cfg, aq=aq)
-        q, k_new = layer_glue.rope((q, k_new), cos, sin, positions)
-        ctx = _layer_attention(q, rkv, li, k_new, v_new, k_len, par=par)
-        if commit:
-            _commit_layer(rkv, li, commit_idx, k_new, v_new)
+        fi = plan.slot[li]
+        if plan.attn[li] == SLIDING:
+            ctx = _ring_attention(cfg, q, k_new, v_new, ring, fi,
+                                  kv_seq_len, positions)
+        else:
+            q, k_new = layer_glue.rope((q, k_new), cos, sin, positions)
+            ctx = _layer_attention(q, rkv, fi, k_new, v_new, k_len, par=par)
+            if commit:
+                _commit_layer(rkv, fi, commit_idx, k_new, v_new)
         x, h = _add_norm(x, _attn_out(ctx, lp, aq=aq, tp=par and par.wo),
                          lp["ln_mlp"], cfg)
-        y = _mlp(h, lp, aq=aq, tp=par and par.w_down)
+        y = _mlp_of(cfg, li, h, lp, aq=aq, tp=par and par.w_down)
     return _logits(cfg, params, x, y, aq=aq,
                    vocab_mesh=par and par.vocab), rkv
 
@@ -697,6 +810,7 @@ def forward_tree_spec(cfg: ModelConfig, params, input_ids: torch.Tensor,
     slots, split over ``sp`` (``_tree_grow_attention``'s ``seq_mesh``; the
     ssl layers then stage their nodes at the slots each rank owns).
     Returns (logits [1, T, V] fp32, rkv, kv)."""
+    refuse_hybrid(cfg, "the tree grow")
     if not 0 <= ssl <= cfg.num_layers:
         raise ValueError(f"ssl {ssl} outside [0, {cfg.num_layers}]")
     if ssl > 0 and kv is None:
@@ -840,6 +954,7 @@ def _target_layers_rows(cfg: ModelConfig, params, input_ids, cache,
     stack, new V stack [B, L, Hkv, T, D]); keys rotated.
     ``par``: over a mesh (this rank's heads and columns; with
     ``shard_seq`` the cache's slots split over ``sp``)."""
+    refuse_hybrid(cfg, "the rows forwards")
     cos, sin = rope.cos_sin_tables(cfg, device=input_ids.device)
     quant = cache.quantized
     x, y = _embed(params, input_ids), None

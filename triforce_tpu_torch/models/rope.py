@@ -109,10 +109,15 @@ def _cos_sin_tables_dev(rope: RopeConfig, head_dim: int, max_len: int,
 
 
 def cos_sin_tables(config: ModelConfig, max_len: int | None = None,
-                   device=None):
+                   device=None, local: bool = False):
     """Full fp32 [max_len, head_dim] cos/sin tables (YaRN mscale folded
-    in), cached per (rope, head_dim, max_len, device). ``device=None`` means
-    the first CUDA card and raises without one."""
+    in), cached per (rope, head_dim, max_len, device). ``local``: the
+    sliding-window layers' tables (``config.rope_local`` where a hybrid
+    configuration has one). ``device=None`` means the first CUDA card and
+    raises without one."""
     max_len = max_len or config.max_position_embeddings
-    return _cos_sin_tables_dev(config.rope, config.head_dim, max_len,
+    rope = config.rope
+    if local and getattr(config, "rope_local", None) is not None:
+        rope = config.rope_local
+    return _cos_sin_tables_dev(rope, config.head_dim, max_len,
                                resolve_device(device))

@@ -23,6 +23,13 @@ CUDA tensor, ``append_attention`` with per-row lengths on the CPU. It
 stands where the JAX package has its ``custom_vmap`` rules and
 ``batching._batched_attention``.
 
+A sliding-window layer's cache is a ring (``cache.KVCache.ring_k``): R
+slots, position p at slot p mod R, ``k_len`` the sequence length L. With
+``window`` W > 0 slot s holds position L - 1 - ((L - 1 - s) mod R), and
+query token t (at position L + t) sees it iff that position is at least
+L + t - W + 1 (``window_valid``); the new block stays causal (a forward
+appends at most R - W <= W tokens).
+
 An int8 cache comes with fp32 per-token scales (``k_scale``/``v_scale``
 [B, Hkv, S]); the plain path dequantizes each block to fp32 and then runs
 the model-dtype step, as the JAX package does off the TPU
@@ -43,7 +50,8 @@ from .flash_decode import (append_attention_kernel,
                            append_attention_kernel_batched,
                            append_attention_kernel_batched_int8,
                            append_attention_kernel_int8,
-                           attention_partials_kernel, causal_mask)
+                           attention_partials_kernel, causal_mask,
+                           window_valid)
 
 _NEG_INF = -1e30
 
@@ -93,13 +101,15 @@ def _deq(blk, scale):
 
 def attention_partials(q, k, v, *, k_len=None, mask_fn=None,
                        block: int = 2048, k_scale=None,
-                       v_scale=None) -> Partials:
+                       v_scale=None, window: int = 0) -> Partials:
     """Online-softmax partials of q against a read-only key/value buffer.
     ``k_len`` masks columns >= k_len (a [B] tensor gives every row its own
     length); ``mask_fn(rows, cols) -> bool`` adds extra masking. Blocks
     past a host-known ``k_len`` are skipped; with a device ``k_len`` every
     block runs masked (no host sync). An int8 buffer passes its scales and
-    is dequantized block by block."""
+    is dequantized block by block. ``window``: the buffer is a
+    sliding-window layer's ring and ``k_len`` the sequence length
+    (``window_valid``)."""
     t = q.shape[2]
     hkv, s = k.shape[1], k.shape[2]
     if torch.is_tensor(k_len) and k_len.dim() == 1:
@@ -114,7 +124,9 @@ def attention_partials(q, k, v, *, k_len=None, mask_fn=None,
         cols = torch.arange(start, stop, device=q.device)[None, :]
         valid = torch.ones((t, stop - start), dtype=torch.bool,
                            device=q.device)
-        if k_len is not None:
+        if window:
+            valid = valid & window_valid(rows, cols, k_len, s, window)
+        elif k_len is not None:
             valid = valid & (cols < k_len)
         if mask_fn is not None:
             valid = valid & mask_fn(rows, cols)
@@ -189,16 +201,19 @@ def finalize(p: Partials, out_dtype) -> torch.Tensor:
 
 def append_attention(q, k_cache, v_cache, k_new, v_new, *, k_len,
                      cache_mask_fn=None, new_mask=None, block: int = 2048,
-                     k_scale=None, v_scale=None) -> torch.Tensor:
+                     k_scale=None, v_scale=None,
+                     window: int = 0) -> torch.Tensor:
     """Attention of T new tokens against [valid cache prefix] +
     [themselves]. The cache is read-only here; the caller commits
-    (k_new, v_new) afterwards. The new tokens are never quantized."""
+    (k_new, v_new) afterwards. The new tokens are never quantized.
+    ``window``: the cache is a sliding-window layer's ring (module
+    docstring)."""
     t, tn = q.shape[2], k_new.shape[2]
     if new_mask is None:
         new_mask = causal_mask(t, tn, 1, q.device)
     pc = attention_partials(q, k_cache, v_cache, k_len=k_len,
                             mask_fn=cache_mask_fn, block=block,
-                            k_scale=k_scale, v_scale=v_scale)
+                            k_scale=k_scale, v_scale=v_scale, window=window)
     pn = new_block_partials(q, k_new, v_new, new_mask)
     return finalize(merge_partials(pc, pn), q.dtype)
 
@@ -206,22 +221,26 @@ def append_attention(q, k_cache, v_cache, k_new, v_new, *, k_len,
 def append_attention_auto(q, k_cache, v_cache, k_new, v_new, *, k_len,
                           cache_mask_fn=None, new_mask=None,
                           block: int = 2048, k_scale=None,
-                          v_scale=None) -> torch.Tensor:
+                          v_scale=None, window: int = 0) -> torch.Tensor:
     """Dispatch: a CUDA tensor with no extra cache mask goes to the
     flash-decode kernel, the int8 one when the cache has scales (each
     raises on what it does not take); anything else runs
     ``append_attention``. k/v cache are one layer [B,Hkv,S,D], scales
-    [B,Hkv,S]."""
+    [B,Hkv,S]. ``window``: a sliding-window layer's ring (bf16 only)."""
     if q.device.type == "cuda" and cache_mask_fn is None:
         if k_scale is not None:
+            if window:
+                raise NotImplementedError("no int8 sliding-window kernel")
             return append_attention_kernel_int8(
                 q, k_cache, v_cache, k_new, v_new, k_len=k_len,
                 new_mask=new_mask, k_scale=k_scale, v_scale=v_scale)
         return append_attention_kernel(q, k_cache, v_cache, k_new, v_new,
-                                       k_len=k_len, new_mask=new_mask)
+                                       k_len=k_len, new_mask=new_mask,
+                                       window=window)
     return append_attention(q, k_cache, v_cache, k_new, v_new, k_len=k_len,
                             cache_mask_fn=cache_mask_fn, new_mask=new_mask,
-                            block=block, k_scale=k_scale, v_scale=v_scale)
+                            block=block, k_scale=k_scale, v_scale=v_scale,
+                            window=window)
 
 
 def append_attention_rows(q, k_cache, v_cache, k_new, v_new, *, k_len,

@@ -49,6 +49,15 @@ wide path, whose CTAs take a q tile of 64 or 128 query rows on Hopper's
 warpgroup products and whose splits fill whole waves (``wide_nsplit``);
 both plans read the card's SM count and the built kernel's occupancy.
 
+A sliding-window layer's cache is a ring (``ops/attention.py``): with
+``window`` W > 0, ``k``/``v`` hold S = R ring slots, ``k_len`` is the
+sequence length L, and query row r (token t = r mod T of the T new
+tokens) sees slot s iff its age (L - 1 - s) mod R is at most W - 2 - t
+and the slot holds a position (s < L). ``flash_decode_window`` takes it
+through its own C entry point (``tf_flash_decode_window_bf16``), whose
+tile loops are separate template instances: the full layers' launches
+run code with no window test in it.
+
 The Pallas kernel's TPU-only machinery does not carry over: its 128-lane
 pad of the new block, the VMEM-driven block choice and the 512/2048 cache
 alignment gate. ``k_len`` stays on the device and is read by the kernel.
@@ -81,16 +90,32 @@ def _scale(d: int) -> float:
     return float(np.float32(1.0 / math.sqrt(d)))
 
 
-def flash_decode_append_plain(q, k, v, k_new, v_new, k_len, new_mask):
+def window_valid(rows, cols, k_len, slots: int, window: int):
+    """Which ring slots ``cols`` query tokens ``rows`` see (module
+    docstring): the slot holds a cached position (below ``k_len``) whose
+    age ``(k_len - 1 - s) mod slots`` is at most ``window - 2 - row``."""
+    age = torch.remainder(k_len - 1 - cols, slots)
+    return (cols < k_len) & (age <= window - 2 - rows)
+
+
+def flash_decode_append_plain(q, k, v, k_new, v_new, k_len, new_mask,
+                              window: int = 0):
     """Plain PyTorch version of the kernel (same layout contract):
     q [Hkv, GT, D]; k/v [Hkv, S, D]; k_new/v_new [Hkv, Tn, D];
-    new_mask [GT, Tn] bool (True = attend); k_len int or 0-d int tensor.
-    -> [Hkv, GT, D] fp32."""
+    new_mask [GT, Tn] bool (True = attend); k_len int or 0-d int tensor;
+    ``window``: k/v are a sliding-window layer's ring. -> [Hkv, GT, D]
+    fp32."""
     d = q.shape[-1]
     qs = (q.float() * _scale(d)).to(q.dtype).float()
     cols = torch.arange(k.shape[1], device=q.device)
     sc = torch.einsum("hgd,hsd->hgs", qs, k.float())
-    sc = torch.where(cols < k_len, sc, _NEG_INF)
+    if window:
+        rows = torch.remainder(torch.arange(q.shape[1], device=q.device),
+                               k_new.shape[1])[:, None]
+        valid = window_valid(rows, cols[None, :], k_len, k.shape[1], window)
+    else:
+        valid = cols < k_len
+    sc = torch.where(valid, sc, _NEG_INF)
     sn = torch.einsum("hgd,hnd->hgn", qs, k_new.float())
     sn = sn + torch.where(new_mask, 0.0, _NEG_INF)
     m = torch.maximum(sc.amax(-1, keepdim=True), sn.amax(-1, keepdim=True))
@@ -381,10 +406,12 @@ def _aligned16(x):
     return x
 
 
-def _launch(fn, q, k, v, k_new, v_new, k_len, new_mask, scales=()):
+def _launch(fn, q, k, v, k_new, v_new, k_len, new_mask, scales=(),
+            window=()):
     """Allocate the outputs and scratch and launch one entry point of
     ``csrc/flash_decode.cu``; ``scales`` are the int8 entry's extra
-    (pointer, head stride) arguments."""
+    (pointer, head stride) arguments, ``window`` the window entry's
+    (window, tokens a group)."""
     hkv, gt, d = q.shape
     if gt > DECODE_ROWS:
         k_new, v_new = _aligned16(k_new), _aligned16(v_new)
@@ -403,7 +430,7 @@ def _launch(fn, q, k, v, k_new, v_new, k_len, new_mask, scales=()):
              new_mask.data_ptr(), k_len.data_ptr(),
              m_part.data_ptr(), l_part.data_ptr(), acc_part.data_ptr(),
              out.data_ptr(), hkv, gt, tn, s, d, nsplit, _scale(d),
-             _stream(q.device))
+             *window, _stream(q.device))
     _build.check(err, "flash_decode kernel launch")
     return out
 
@@ -432,6 +459,31 @@ def flash_decode_append(q, k, v, k_new, v_new, k_len, new_mask):
 
 
 flash_decode_append.launches = 0
+
+
+def flash_decode_window(q, k, v, k_new, v_new, k_len, new_mask,
+                        window: int):
+    """``flash_decode_append`` over a sliding-window layer's ring (module
+    docstring): k/v [Hkv, R, D] the ring, ``k_len`` the sequence length,
+    the T query tokens the Tn = T new ones. CUDA tensors launch the window
+    kernel (or raise); CPU tensors take the plain version.
+    ``flash_decode_window.launches`` counts kernel launches."""
+    if q.device.type == "cpu":
+        return flash_decode_append_plain(q, k, v, k_new, v_new, k_len,
+                                         new_mask, window)
+    k_len = _device_k_len(k_len, q)
+    _check_cuda_args(q, k, v, k_new, v_new, k_len, new_mask, torch.bfloat16)
+    if window < 2 or q.shape[1] % k_new.shape[1]:
+        raise ValueError(f"a window of {window} over {q.shape[1]} query "
+                         f"rows and {k_new.shape[1]} new tokens")
+    out = _launch(_build.lib(_SOURCE).tf_flash_decode_window_bf16, q, k, v,
+                  k_new, v_new, k_len, new_mask,
+                  window=(window, k_new.shape[1]))
+    flash_decode_window.launches += 1
+    return out
+
+
+flash_decode_window.launches = 0
 
 
 def flash_decode_append_int8(q, k, v, k_new, v_new, k_len, new_mask,
@@ -720,14 +772,19 @@ def _kernel_layout(q, k_new, new_mask):
 
 
 def append_attention_kernel(q, k_cache, v_cache, k_new, v_new, *, k_len,
-                            new_mask=None):
+                            new_mask=None, window: int = 0):
     """Counterpart of ``append_attention_pallas`` (B = 1, no cache mask):
     q [1, Hq, T, D]; k/v cache [1, Hkv, S, D] (one layer, a view is fine);
-    k_new/v_new [1, Hkv, Tn, D]; new_mask [T, Tn] bool or None (causal).
+    k_new/v_new [1, Hkv, Tn, D]; new_mask [T, Tn] bool or None (causal);
+    ``window``: the cache is a sliding-window layer's ring.
     -> [1, Hq, T, D] in q's dtype."""
     qh, nmask = _kernel_layout(q, k_new, new_mask)
-    out = flash_decode_append(qh, k_cache[0], v_cache[0], k_new[0],
-                              v_new[0], k_len, nmask)
+    if window:
+        out = flash_decode_window(qh, k_cache[0], v_cache[0], k_new[0],
+                                  v_new[0], k_len, nmask, window)
+    else:
+        out = flash_decode_append(qh, k_cache[0], v_cache[0], k_new[0],
+                                  v_new[0], k_len, nmask)
     return out.reshape(q.shape).to(q.dtype)
 
 

@@ -103,6 +103,19 @@ def span(name: str, rid=None):
     return NULL if tr is None else Span(tr, name, rid)
 
 
+def device_region(name: str, device):
+    """A region of the current trace around device work inside a forward
+    (the layer kinds' ``moe`` and ``window_attn``), stamped into a graph
+    under capture; ``NULL`` with no trace current."""
+    tr = _CURRENT
+    if tr is None:
+        return NULL
+    device = torch.device(device)
+    capturing = device.type == "cuda" \
+        and torch.cuda.is_current_stream_capturing()
+    return tr.region(name, device, not capturing)
+
+
 def note(key: str, value) -> None:
     """Attach ``key=value`` to the current trace's innermost open span."""
     tr = _CURRENT
@@ -600,11 +613,18 @@ def _slots_restored(kv, n: int, offset: int = 0):
     planes = [p for p in (kv.k, kv.v, kv.k_scale, kv.v_scale)
               if p is not None]
     saved = [p[:, :, :, lo:hi].clone() for p in planes]
+    rings = [p for p in (kv.ring_k, kv.ring_v) if p is not None]
+    if rings:       # a sliding layer writes its ring at (L + j) mod R
+        idx = torch.remainder(torch.arange(s0, s0 + n), kv.ring_slots).to(
+            rings[0].device)
+        saved_ring = [p.index_select(3, idx) for p in rings]
     try:
         yield
     finally:
         for p, x in zip(planes, saved):
             p[:, :, :, lo:hi] = x
+        for p, x in zip(rings, saved_ring if rings else ()):
+            p.index_copy_(3, idx, x)
 
 
 def measure_phase_times(engine, state, iters: int = 20) -> Dict[str, float]:
@@ -623,13 +643,15 @@ def measure_phase_times(engine, state, iters: int = 20) -> Dict[str, float]:
     dev = engine.device
     gamma = sp.gamma
     kv = state.kv
-    ids = {t: torch.zeros((1, t), dtype=torch.int64, device=dev)
+    # distinct tokens: an expert layer routes each to experts of its own,
+    # as real tokens are routed (identical ones would share theirs)
+    ids = {t: torch.arange(1, t + 1, device=dev)[None]
            for t in (1, gamma + 1, gamma + 2)}
     out: Dict[str, float] = {}
 
-    def phase(name, region, inputs, cache):
+    def phase(name, region, inputs, *caches):
         return lambda: engine.graphs.run("phase " + name, region, inputs,
-                                         caches=graphs_mod.planes(cache))
+                                         caches=graphs_mod.planes(*caches))
 
     def verify(t):
         return phase(f"verify {t}", lambda x, n: llama.forward_append(
@@ -648,8 +670,8 @@ def measure_phase_times(engine, state, iters: int = 20) -> Dict[str, float]:
     out["middle_step"] = _time_calls(phase(
         "middle", lambda x, n: llama.forward_spec(
             cfg, engine.t_params, x, state.rkv, n, sp.budget, commit=False,
-            act_quant=sp.mid_act_quant, mesh=engine.mesh)[:1],
-        (ids[gamma + 1], kv.seq_len), state.rkv), dev, iters)
+            act_quant=sp.mid_act_quant, mesh=engine.mesh, ring=kv)[:1],
+        (ids[gamma + 1], kv.seq_len), state.rkv, kv), dev, iters)
     if engine.draft_cfg is not None:
         out["draft_step"] = _time_calls(phase(
             "draft", lambda x: llama.draft_forward_spec(

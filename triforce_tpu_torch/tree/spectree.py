@@ -50,7 +50,7 @@ import torch
 from .. import graphs as graphs_mod
 from ..cache import (KVCache, RetrievalCache, gather_kv_incremental, init_kv,
                      init_tree_retrieval, retrieval_tail_refresh, write_at)
-from ..config import ModelConfig, SpecConfig, resolve_device
+from ..config import ModelConfig, SpecConfig, refuse_hybrid, resolve_device
 from ..engine import _draws, _row, append_graphed, dense_weights, \
     prefill_chunks
 from ..models import llama
@@ -155,6 +155,7 @@ class TreeEngine:
                  prefill_chunk: int = 128, kv_quant: bool = False,
                  weight_quant: bool = False, ssl: int = 0, mesh=None,
                  shard_seq: bool = False, device=None, graphs=None):
+        refuse_hybrid(cfg, "TreeEngine")
         if prefill % chunk_size or budget % chunk_size:
             raise ValueError("prefill and budget must be multiples of "
                              "chunk_size")
